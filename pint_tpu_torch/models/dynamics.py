@@ -1,0 +1,232 @@
+"""Quantized dynamics models (PyTorch port of ``pint_tpu/models/dynamics.py``).
+
+Ported here: the packed control plan (:func:`pack_controls`,
+:func:`unpack_controls`), the quadratic-trig twins, and :class:`Unicycle`
+with its fixed-point step, its float32 twin (``rollout_f32``,
+``linearize_f32``) and its float64 numpy reference.  The double integrator
+and the other models are not ported yet (ROADMAP queue 1).
+
+Controls are int8 lanes packed four to a 32-bit word
+(``PackedLayout(8, 8, 8, 8)``); words live in ``torch.int32`` containers
+holding the uint32 bits (see :mod:`pint_tpu_torch.ops.word`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.layout import PackedLayout
+from pint_tpu_torch.ops import word as W
+
+CONTROL_LAYOUT = PackedLayout(8, 8, 8, 8)  # 4 int8 control lanes per word
+
+__all__ = ["CONTROL_LAYOUT", "Unicycle", "pack_controls", "unpack_controls"]
+
+
+def pack_controls(
+    controls: torch.Tensor, layout: PackedLayout = CONTROL_LAYOUT
+) -> torch.Tensor:
+    """(..., T) int control lanes -> (..., T/k) packed words (k lanes a
+    word); lane k of word j holds control step k_lanes*j + k."""
+    k = layout.num_lanes
+    t = controls.shape[-1]
+    if t % k:
+        raise ValueError(f"control horizon {t} must be a multiple of {k} lanes")
+    lanes = controls.reshape(*controls.shape[:-1], t // k, k)
+    return W.pack(layout, lanes.to(torch.int32))
+
+
+def unpack_controls(
+    words: torch.Tensor, layout: PackedLayout = CONTROL_LAYOUT
+) -> torch.Tensor:
+    """(..., T/k) packed words -> (..., T) sign-extended int32 lanes."""
+    lanes = W.unpack_signed(layout, words).to(torch.int32)
+    return lanes.reshape(*words.shape[:-1], words.shape[-1] * layout.num_lanes)
+
+
+# -- quadratic trig (angles in turns) ---------------------------------------
+
+
+def _sin_turns_q14(theta_q16: torch.Tensor) -> torch.Tensor:
+    """sin(2*pi*theta), theta int32 Q16 turns -> int32 Q14 (the parabola of
+    ``pint_tpu``'s ``_sin_turns_q14``)."""
+    t = theta_q16 & 0xFFFF
+    half = t & 0x7FFF
+    val = (half * (0x8000 - half)) >> 14
+    return torch.where(((t >> 15) & 1) == 1, -val, val)
+
+
+def _sin_turns_f64(theta_turns: np.ndarray) -> np.ndarray:
+    """float64 twin of :func:`_sin_turns_q14` (same parabola)."""
+    t = np.mod(theta_turns, 1.0)
+    half = np.mod(t, 0.5)
+    val = 16.0 * half * (0.5 - half)
+    return np.where(t >= 0.5, -val, val)
+
+
+def _sin_turns_f32(theta_turns: torch.Tensor) -> torch.Tensor:
+    """float32 twin of the quadratic sine.  ``torch.remainder`` is floor-mod
+    like ``jnp.mod``; ``torch.fmod`` would not be."""
+    t = torch.remainder(theta_turns, 1.0)
+    half = torch.remainder(t, 0.5)
+    val = 16.0 * half * (0.5 - half)
+    return torch.where(t >= 0.5, -val, val)
+
+
+def _dsin_turns_f32(theta_turns: torch.Tensor) -> torch.Tensor:
+    """d/dtheta of :func:`_sin_turns_f32` (piecewise linear)."""
+    t = torch.remainder(theta_turns, 1.0)
+    half = torch.remainder(t, 0.5)
+    dval = 16.0 * (0.5 - 2.0 * half)
+    return torch.where(t >= 0.5, -dval, dval)
+
+
+@dataclasses.dataclass(frozen=True)
+class Unicycle:
+    """Planar unicycle with quadratic trig (same discrete map as
+    ``pint_tpu.models.Unicycle``).
+
+    State (x, y, theta): x, y int32 Q``frac_bits``; theta int32 Q16 turns.
+    Controls per step: (v_lane, w_lane) int8.  dt = 2**-dt_shift::
+
+        x' = x + v*cos(theta)*dt,  y' = y + v*sin(theta)*dt,  theta' = theta + w*dt
+    """
+
+    dt_shift: int = 5
+    frac_bits: int = 16
+    v_shift: int = 8
+    w_shift: int = 6
+
+    def __post_init__(self):
+        if not (0 <= self.v_shift <= 10):
+            raise ValueError(
+                f"v_shift={self.v_shift}: (lane<<v_shift>>2)*Q14 must fit int32"
+            )
+        if not (0 <= self.w_shift <= 23):
+            raise ValueError(f"w_shift={self.w_shift} out of range")
+        if not (1 <= self.dt_shift <= 16):
+            raise ValueError(f"dt_shift={self.dt_shift} out of range")
+
+    @property
+    def dt(self) -> float:
+        return 2.0 ** (-self.dt_shift)
+
+    @property
+    def v_scale(self) -> float:
+        return 2.0 ** (self.v_shift - self.frac_bits)
+
+    @property
+    def w_scale(self) -> float:
+        return 2.0 ** (self.w_shift - self.frac_bits)
+
+    @property
+    def lane_scales(self) -> np.ndarray:
+        """(2,) physical units per int8 lane for (v, w)."""
+        return np.array([self.v_scale, self.w_scale])
+
+    # -- fixed point ----------------------------------------------------------
+
+    def step(self, state, v_lane, w_lane) -> torch.Tensor:
+        """One fixed-point step: state (..., 3) int32, lanes (...) int32."""
+        x, y, th = state[..., 0], state[..., 1], state[..., 2]
+        v_fp = v_lane << self.v_shift
+        cos_q14 = _sin_turns_q14(th + (1 << 14))
+        sin_q14 = _sin_turns_q14(th)
+        vx = ((v_fp >> 2) * cos_q14) >> 12
+        vy = ((v_fp >> 2) * sin_q14) >> 12
+        x_next = x + (vx >> self.dt_shift)
+        y_next = y + (vy >> self.dt_shift)
+        th_next = th + ((w_lane << self.w_shift) >> self.dt_shift)
+        return torch.stack([x_next, y_next, th_next], dim=-1)
+
+    def rollout(self, state0, controls) -> torch.Tensor:
+        """controls (..., T, 2) int32 lanes -> states (..., T+1, 3)."""
+        states = [state0]
+        for k in range(controls.shape[-2]):
+            u = controls[..., k, :]
+            states.append(self.step(states[-1], u[..., 0], u[..., 1]))
+        return torch.stack(states, dim=-2)
+
+    def rollout_packed(self, state0, control_words) -> torch.Tensor:
+        """control_words (..., T/2): two (v, w) pairs a word."""
+        lanes = unpack_controls(control_words)
+        return self.rollout(
+            state0, lanes.reshape(*lanes.shape[:-1], lanes.shape[-1] // 2, 2)
+        )
+
+    # -- float32 twin -----------------------------------------------------------
+
+    def rollout_f32(self, state0_f, controls_f) -> torch.Tensor:
+        """float32 rollout of the same discrete map.  state0_f (..., 3)
+        [x, y, theta-in-turns], controls_f (..., T, 2) physical units ->
+        (..., T+1, 3)."""
+        dt = float(np.float32(self.dt))
+        s = state0_f.to(torch.float32)
+        u = controls_f.to(torch.float32)
+        x, y, th = s[..., 0], s[..., 1], s[..., 2]
+        out = [s]
+        for k in range(u.shape[-2]):
+            v, w = u[..., k, 0], u[..., k, 1]
+            x = x + v * _sin_turns_f32(th + 0.25) * dt
+            y = y + v * _sin_turns_f32(th) * dt
+            th = th + w * dt
+            out.append(torch.stack([x, y, th], dim=-1))
+        return torch.stack(out, dim=-2)
+
+    def linearize_f32(self, states_f, controls_f):
+        """Analytic Jacobians of the f32 map: states_f (..., 3), controls_f
+        (..., 2) -> (A (..., 3, 3), B (..., 3, 2))."""
+        th = states_f[..., 2]
+        v = controls_f[..., 0]
+        dt = float(np.float32(self.dt))
+        cos_q = _sin_turns_f32(th + 0.25)
+        sin_q = _sin_turns_f32(th)
+        dcos = _dsin_turns_f32(th + 0.25)
+        dsin = _dsin_turns_f32(th)
+        z = torch.zeros_like(th)
+        one = torch.ones_like(th)
+        A = torch.stack(
+            [
+                torch.stack([one, z, v * dcos * dt], -1),
+                torch.stack([z, one, v * dsin * dt], -1),
+                torch.stack([z, z, one], -1),
+            ],
+            -2,
+        )
+        B = torch.stack(
+            [
+                torch.stack([cos_q * dt, z], -1),
+                torch.stack([sin_q * dt, z], -1),
+                torch.stack([z, torch.full_like(th, dt)], -1),
+            ],
+            -2,
+        )
+        return A, B
+
+    # -- float64 reference (numpy) ----------------------------------------------
+
+    def reference_rollout(
+        self, state0_f: np.ndarray, controls_f: np.ndarray
+    ) -> np.ndarray:
+        """float64 rollout with the same quadratic trig; controls_f
+        (..., T, 2) physical units; theta in turns."""
+        dt = self.dt
+        state0_f = np.asarray(state0_f, dtype=np.float64)
+        controls_f = np.asarray(controls_f, dtype=np.float64)
+        T = controls_f.shape[-2]
+        out = np.empty(state0_f.shape[:-1] + (T + 1, 3), dtype=np.float64)
+        out[..., 0, :] = state0_f
+        x = state0_f[..., 0].copy()
+        y = state0_f[..., 1].copy()
+        th = state0_f[..., 2].copy()
+        for k in range(T):
+            v = controls_f[..., k, 0]
+            w = controls_f[..., k, 1]
+            x = x + v * _sin_turns_f64(th + 0.25) * dt
+            y = y + v * _sin_turns_f64(th) * dt
+            th = th + w * dt
+            out[..., k + 1, 0], out[..., k + 1, 1], out[..., k + 1, 2] = x, y, th
+        return out

@@ -1,0 +1,320 @@
+"""Device-resident quantized SQP: the nonlinear-MPC iteration on one device.
+
+PyTorch port of ``pint_tpu/mpc/device_sqp.py`` (``DeviceSQP``), default path
+only.  Each SQP iteration, for a batch of problems at once:
+
+* nominal rollout + linearization with the model's float32 twins
+  (``rollout_f32``, ``linearize_f32``);
+* condensation: the unrolled propagator recursion, then the symmetric
+  square contraction ``Ht = W^T W`` with ``W = L^T B-stack`` and
+  ``Q = L L^T`` (``reduce="sym"``), keeping the Hessian batch-last
+  (Tm, Tm, B);
+* Lipschitz estimate + int8 quantization in one pass (K3,
+  :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`), then the int32
+  step rationals and linear term;
+* the fixed-point PGD inner with error feedback (K4,
+  :func:`~pint_tpu_torch.mpc.fused_alm.pgd_fused_words_pre`).
+
+On a CUDA device K3 and K4 are the hand-written kernels; on the CPU their
+plain PyTorch versions.  ``use_kernels=False`` runs the plain versions on
+any device: it is the reference the kernels are held to on the card.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
+``propagate="scan"`` and ``"allpairs"``, ``reduce`` other than ``"sym"``,
+``lipq=False`` (the XLA-form Lipschitz and quantize phases) and
+``sharded_solve_words``.
+
+The f32 contractions must run in full f32: on a CUDA device the solver
+refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.models.dynamics import Unicycle, pack_controls, unpack_controls
+from pint_tpu_torch.mpc.condense_fused import lipq_fused, lipq_plain, true_div
+from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_hqt_plain
+from pint_tpu_torch.ops import kernels as K
+
+__all__ = ["DeviceSQP"]
+
+_TODO = "not ported yet (ROADMAP.md queue 1, slice 3 remainder)"
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Round-half-even f32 -> int32, saturating like XLA's conversion
+    (torch's own cast wraps out-of-range values)."""
+    return torch.clamp(torch.round(x).to(torch.float64), -(2.0**31), 2.0**31 - 1).to(
+        torch.int32
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSQP:
+    """SQP trajectory optimizer on packed int8 plans, on one device.
+
+    Same problem definition as ``pint_tpu``'s ``DeviceSQP``: symmetric lane
+    box, cost sum (x_k - x_ref)^T Q (x_k - x_ref) + u^T R u with terminal Qf
+    (``qf_scale * Q`` unless ``Qf`` is given).  ``horizon * n_ctrl`` must be
+    a multiple of 4.  Q must be PSD (``reduce="sym"``); that is checked at
+    construction."""
+
+    model: object = dataclasses.field(default_factory=Unicycle)
+    horizon: int = 48
+    Q: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.diag([1.0, 1.0, 0.02])
+    )
+    R: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.diag([0.02, 0.02])
+    )
+    qf_scale: float = 20.0
+    Qf: object = None
+    x_ref: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
+    sqp_iters: int = 6
+    pgd_iters: int = 40
+    g_shift: int = 12
+    power_iters: int = 16
+    propagate: str = "auto"
+    reduce: str = "sym"
+    lipq: "bool | None" = None
+    device: object = "cpu"
+    use_kernels: bool = True
+
+    def __post_init__(self):
+        if self.propagate in ("scan", "allpairs"):
+            raise NotImplementedError(f"propagate={self.propagate!r}: {_TODO}")
+        if self.propagate not in ("auto", "unroll"):
+            raise ValueError(
+                f"propagate must be 'auto' or 'unroll', got {self.propagate!r}"
+            )
+        if self.reduce != "sym":
+            raise NotImplementedError(f"reduce={self.reduce!r}: {_TODO}")
+        if self.lipq is False:
+            raise NotImplementedError(f"lipq=False: {_TODO}")
+        if self.n_dec % 4:
+            raise ValueError(
+                f"horizon*n_ctrl = {self.n_dec} must be a multiple of 4 "
+                "(int8 lanes pack 4-per-word)"
+            )
+        n = np.asarray(self.Q).shape[0]
+        if np.asarray(self.Q).shape != (n, n):
+            raise ValueError(f"Q must be square, got {np.asarray(self.Q).shape}")
+        if np.asarray(self.R).shape != (self.n_ctrl, self.n_ctrl):
+            raise ValueError(
+                f"R has shape {np.asarray(self.R).shape}; the model has "
+                f"{self.n_ctrl} control channel(s)"
+            )
+        object.__setattr__(self, "device", K.resolve_device(self.device))
+        self._Q_sqrt  # validate Q (PSD) now, not at the first solve
+
+    # -- geometry -------------------------------------------------------------
+
+    @functools.cached_property
+    def _lane_scales(self) -> np.ndarray:
+        return np.asarray(self.model.lane_scales, np.float64)
+
+    @property
+    def n_ctrl(self) -> int:
+        return len(self._lane_scales)
+
+    @property
+    def n_dec(self) -> int:
+        return self.n_ctrl * self.horizon
+
+    @functools.cached_property
+    def Qf_matrix(self) -> np.ndarray:
+        if self.Qf is not None:
+            return np.asarray(self.Qf, float)
+        return self.qf_scale * np.asarray(self.Q, float)
+
+    def init_words(self, batch: int) -> torch.Tensor:
+        return torch.zeros(
+            (batch, self.n_dec // 4), dtype=torch.int32, device=self.device
+        )
+
+    @functools.cached_property
+    def _Q_sqrt(self) -> np.ndarray:
+        """PSD square root L of Q (Q = L L^T), via eigh so semidefinite Q
+        works; raises for an indefinite Q."""
+        Qn = np.asarray(self.Q, np.float64)
+        w, V = np.linalg.eigh((Qn + Qn.T) / 2.0)
+        if w.min() < -1e-9 * max(1.0, w.max()):
+            raise ValueError(
+                f"reduce='sym' needs Q PSD; eigenvalues {w} (an indefinite "
+                "Q needs reduce='einsum', not ported yet)"
+            )
+        return V * np.sqrt(np.clip(w, 0.0, None))
+
+    @functools.cached_property
+    def _consts(self):
+        """Qf - Q, R_kron, x_ref, L (Q = L L^T) and the lane scales as f32
+        tensors on the device."""
+        T = self.horizon
+        s = self._lane_scales
+        R_lane = s[:, None] * np.asarray(self.R) * s[None, :]
+        Q = np.asarray(self.Q, np.float64)
+        x_ref = np.broadcast_to(np.asarray(self.x_ref, np.float64), (T, Q.shape[0]))
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        return dict(
+            dQ=f32(self.Qf_matrix - Q),
+            R_kron=f32(np.kron(np.eye(T), R_lane)),
+            x_ref=f32(x_ref),
+            L=f32(self._Q_sqrt),
+            s=f32(s),
+        )
+
+    # -- condensation -----------------------------------------------------------
+
+    def _linearize_phase(self, x0_f, lanes):
+        """f32 rollout + linearization around the lane plan.  Returns
+        (A_seq (B,T,n,n), B_lane (B,T,n,m) lane-scaled, c_seq (B,T,n))."""
+        T, m = self.horizon, self.n_ctrl
+        s = self._consts["s"]
+        u_phys = lanes.reshape(-1, T, m).to(torch.float32) * s
+        traj = self.model.rollout_f32(x0_f, u_phys)
+        n = traj.shape[-1]
+        if np.asarray(self.Q).shape != (n, n):
+            raise ValueError(
+                f"Q has shape {np.asarray(self.Q).shape}; the model's state "
+                f"dim is {n}"
+            )
+        A_seq, B_seq = self.model.linearize_f32(traj[:, :-1], u_phys)
+        c_seq = (
+            traj[:, 1:]
+            - (A_seq * traj[:, :-1, None, :]).sum(-1)
+            - (B_seq * u_phys[:, :, None, :]).sum(-1)
+        )
+        return A_seq, B_seq * s, c_seq
+
+    def _propagate_unrolled(self, A_seq, B_lane, c_seq):
+        """The propagator recursion, unrolled over the horizon, batch first:
+        P_k = A_k P_{k-1}, S_k = A_k S_{k-1} + [0..B_k..0], c_k = A_k
+        c_{k-1} + c_k.  Returns (Abar (B,T,n,n), Bbar (B,T,n,Tm),
+        Cbar (B,T,n))."""
+        T, m = self.horizon, self.n_ctrl
+        Bn, _, n, _ = A_seq.shape
+        dev = A_seq.device
+        P = torch.eye(n, dtype=torch.float32, device=dev).expand(Bn, n, n)
+        S = torch.zeros((Bn, n, self.n_dec), dtype=torch.float32, device=dev)
+        c = torch.zeros((Bn, n), dtype=torch.float32, device=dev)
+        Ps, Ss, cs = [], [], []
+        for k in range(T):
+            Ak = A_seq[:, k]
+            P = (Ak[:, :, :, None] * P[:, None, :, :]).sum(2)
+            S = (Ak[:, :, :, None] * S[:, None, :, :]).sum(2)
+            S[:, :, k * m : (k + 1) * m] += B_lane[:, k]
+            c = (Ak * c[:, None, :]).sum(-1) + c_seq[:, k]
+            Ps.append(P)
+            Ss.append(S)
+            cs.append(c)
+        return torch.stack(Ps, 1), torch.stack(Ss, 1), torch.stack(cs, 1)
+
+    def _reduce_sym(self, Abar, Bbar, Cbar, x0_f):
+        """``reduce="sym"``: Ht = W^T W + BQT^T B_T + R_kron with
+        W = L^T Bbar (the terminal ``Qf - Q`` term, not necessarily PSD,
+        stays two-operand); g = G x0 + g_ref.  Returns (Ht (Tm, Tm, B)
+        batch-last, g (B, Tm))."""
+        c = self._consts
+        T, Tm = self.horizon, self.n_dec
+        Bn, _, n, _ = Bbar.shape
+        L = c["L"]
+        Cx = Cbar - c["x_ref"]                                   # (B,T,n)
+        W = torch.einsum("btin,il->btln", Bbar, L)               # (B,T,n,Tm)
+        Wf = W.reshape(Bn, T * n, Tm)
+        BT = Bbar[:, T - 1]                                      # (B,n,Tm)
+        BQT = torch.einsum("bin,ij->bjn", BT, c["dQ"])           # (B,n,Tm)
+        Hb = torch.bmm(Wf.transpose(1, 2), Wf)
+        Hb = Hb + torch.bmm(BQT.transpose(1, 2), BT) + c["R_kron"]
+        LA = torch.einsum("btjq,jl->btlq", Abar, L)              # (B,T,n,n)
+        LCx = torch.einsum("btj,jl->btl", Cx, L)                 # (B,T,n)
+        G = torch.einsum("btln,btlq->bnq", W, LA)
+        G = G + torch.einsum("bjn,bjq->bnq", BQT, Abar[:, T - 1])
+        g_ref = torch.einsum("btln,btl->bn", W, LCx)
+        g_ref = g_ref + torch.einsum("bjn,bj->bn", BQT, Cx[:, T - 1])
+        g = (G * x0_f[:, None, :]).sum(-1) + g_ref
+        return Hb.permute(1, 2, 0).contiguous(), g
+
+    def _condense_ht(self, x0_f, lanes):
+        """f32 linearize + condense: (Ht (Tm, Tm, B), g (B, Tm))."""
+        A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
+        Abar, Bbar, Cbar = self._propagate_unrolled(A_seq, B_lane, c_seq)
+        return self._reduce_sym(Abar, Bbar, Cbar, x0_f)
+
+    def _g_pre_from(self, g, alpha):
+        """int32 pre-shift linear term from f32 g (B, Tm) and per-problem
+        step alpha, saturating non-finite values like the reference."""
+        gs = torch.nan_to_num(
+            g * (alpha * float(2.0**self.g_shift))[:, None],
+            nan=0.0, posinf=2.0**31 - 1, neginf=-(2.0**31),
+        )
+        return _f32_to_i32(gs)
+
+    def _step_rationals(self, h_scale):
+        """int32 rational num / 2**den ~ h_scale * 2**g_shift."""
+        val = h_scale * float(2.0**self.g_shift)
+        num_max = float(np.float32((2**31 - 1) // (127 * 127 * self.n_dec)))
+        hs_den = torch.clamp(torch.floor(torch.log2(true_div(num_max, val))), 0, 31)
+        hs_num = _f32_to_i32(val * torch.exp2(hs_den))
+        return hs_num, hs_den.to(torch.int32)
+
+    def _condense_lipq(self, x0_f, lanes):
+        """Condense, then K3: (hqt (Tm,Tm,B) int8, g_pre (B,Tm) int32,
+        hs_num, hs_den (B,) int32)."""
+        Ht, g = self._condense_ht(x0_f, lanes)
+        if self.use_kernels:
+            hqt, lip, h_max = lipq_fused(Ht, power_iters=self.power_iters)
+        else:
+            hqt, lip, h_max = lipq_plain(Ht, power_iters=self.power_iters)
+        alpha = true_div(1.0, lip)
+        h_scale = true_div(alpha * h_max, 127.0)
+        g_pre = self._g_pre_from(g, alpha)
+        hs_num, hs_den = self._step_rationals(h_scale)
+        return hqt, g_pre, hs_num, hs_den
+
+    def _run_inner(self, words, x0_f, lanes):
+        """One SQP iteration: condense + K3, then the K4 inner."""
+        hqt, g_pre, hs_num, hs_den = self._condense_lipq(x0_f, lanes)
+        kw = dict(iters=self.pgd_iters, g_shift=self.g_shift)
+        if self.use_kernels:
+            return pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+        out = pgd_hqt_plain(unpack_controls(words), g_pre, hqt, hs_num, hs_den, **kw)
+        return pack_controls(out)
+
+    # -- public API -------------------------------------------------------------
+
+    def solve_words(self, u_words: torch.Tensor, x0_f) -> torch.Tensor:
+        """``sqp_iters`` SQP iterations.  u_words (B, Tm/4) int32 packed
+        plan (warm start); x0_f (B, n) physical states."""
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "DeviceSQP needs full-f32 GEMMs: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False"
+            )
+        x0_f = torch.as_tensor(x0_f, dtype=torch.float32, device=self.device)
+        words = u_words
+        for _ in range(self.sqp_iters):
+            lanes = unpack_controls(words)[:, : self.n_dec]
+            words = self._run_inner(words, x0_f, lanes)
+        return words
+
+    def solve(self, x0_f: np.ndarray):
+        """Cold-start convenience: returns (words, physical plans (B, T, m)
+        numpy)."""
+        x0_f = np.atleast_2d(np.asarray(x0_f, np.float64))
+        words = self.solve_words(
+            self.init_words(x0_f.shape[0]), x0_f.astype(np.float32)
+        )
+        lanes = unpack_controls(words)[:, : self.n_dec].cpu().numpy()
+        plans = lanes.reshape(-1, self.horizon, self.n_ctrl) * self._lane_scales
+        return words, plans
+
+    def sharded_solve_words(self, *args, **kwargs):
+        raise NotImplementedError(f"sharded_solve_words: {_TODO}")

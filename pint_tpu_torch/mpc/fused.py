@@ -1,0 +1,129 @@
+"""Fused PGD solver: the whole iteration loop in one kernel (K2).
+
+PyTorch port of ``pint_tpu/mpc/fused.py:51-134, 234-307``.  :func:`fused_pgd`
+runs the CUDA kernel ``csrc/fused_pgd.cu`` for CUDA tensors and
+:func:`fused_pgd_plain`, the plain PyTorch version of the same lane-space
+loop, for CPU tensors.  Words are unpacked once before the loop and packed
+once after it.
+
+Exactness: for in-range int8 lanes ``max_signed(add_signed_saturate(u, d),
+-127)`` equals ``clip(u + d, -127, 127)``, so the lane-space loop is
+bit-identical to the word-space
+:class:`pint_tpu_torch.mpc.solver.FixedPointPGD`; with ``momentum`` it is
+the Nesterov-style extrapolation of ``pint_tpu``'s ``FusedPGD(momentum=True)``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+from pint_tpu_torch.mpc.condensed import QuantizedQP
+from pint_tpu_torch.ops import kernels as K
+
+__all__ = ["FusedPGD", "fused_pgd", "fused_pgd_plain"]
+
+
+def fused_pgd_plain(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
+                    momentum=False, beta_num=0, beta_den=8):
+    """Plain PyTorch version of :func:`fused_pgd` (any device).  The int8
+    matvec runs as an exact float64 product, free of TF32."""
+    hqT = hq.to(torch.float64).T
+    half = 1 << (g_shift - 1)
+    x, xp = lanes, lanes
+    for _ in range(iters):
+        y = x
+        if momentum:
+            y = torch.clamp(x + ((beta_num * (x - xp)) >> beta_den), -127, 127)
+        acc = (y.to(torch.float64) @ hqT).to(torch.int32)
+        pre = (acc * hs_num) >> hs_den
+        delta = torch.clamp((-(pre + g) + half) >> g_shift, -128, 127)
+        x, xp = torch.clamp(y + delta, -127, 127), x
+    return x
+
+
+def fused_pgd(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
+              momentum=False, beta_num=0, beta_den=8):
+    """``iters`` lane-space PGD steps with one shared int8 Hessian.
+
+    lanes, g (B, Tp) int32 (lanes in [-128, 127]); hq (Tp, Tp) int8.
+    Returns the final lanes (B, Tp) int32.  Kernel for CUDA tensors, plain
+    version for CPU tensors."""
+    B, Tp = g.shape
+    if lanes.shape != (B, Tp) or hq.shape != (Tp, Tp):
+        raise ValueError(
+            f"fused_pgd: lanes {tuple(lanes.shape)}, g {(B, Tp)}, "
+            f"hq {tuple(hq.shape)} do not agree"
+        )
+    if lanes.dtype != torch.int32 or g.dtype != torch.int32 or hq.dtype != torch.int8:
+        raise ValueError("fused_pgd: lanes and g must be int32, hq int8")
+    kw = dict(hs_num=hs_num, hs_den=hs_den, g_shift=g_shift, iters=iters,
+              momentum=momentum, beta_num=beta_num, beta_den=beta_den)
+    if lanes.device.type == "cpu":
+        return fused_pgd_plain(lanes, g, hq, **kw)
+    K.require_cuda("fused_pgd", lanes, g, hq)
+    if Tp % 4 or Tp > 256:
+        raise ValueError(f"fused_pgd: Tp={Tp} must be a multiple of 4, <= 256")
+    out = torch.empty_like(lanes)
+    with torch.cuda.device(lanes.device):
+        err = K.library().pint_fused_pgd(
+            lanes.data_ptr(), g.data_ptr(), hq.data_ptr(), out.data_ptr(),
+            B, Tp, iters, hs_num, hs_den, g_shift, int(momentum), beta_num,
+            beta_den, K.stream_of(lanes),
+        )
+    K.check(err, "fused_pgd")
+    K.count_launch("fused_pgd")
+    return out
+
+
+class FusedPGD:
+    """Whole-loop PGD solver over K2, bit-identical to
+    :class:`~pint_tpu_torch.mpc.solver.FixedPointPGD` (``momentum=False``).
+
+    ``momentum`` runs the Nesterov-style extrapolation with
+    ``beta = beta_num / 2**beta_den`` from the QP's condition number, as
+    ``pint_tpu``'s ``FusedPGD`` does."""
+
+    def __init__(self, qqp: QuantizedQP, iters: int = 40,
+                 momentum: bool = False, beta_den: int = 8, device="cpu"):
+        self.qqp = qqp
+        self.iters = iters
+        self.momentum = momentum
+        self.beta_den = beta_den
+        self.device = K.resolve_device(device)
+        self._hq = torch.as_tensor(np.asarray(qqp.Hq, np.int8), device=self.device)
+
+    @functools.cached_property
+    def beta_num(self) -> int:
+        eig = np.linalg.eigvalsh(self.qqp.qp.H)
+        kappa = float(eig.max() / max(eig.min(), 1e-12))
+        rk = np.sqrt(kappa)
+        return int(round((rk - 1.0) / (rk + 1.0) * (1 << self.beta_den)))
+
+    def init_words(self, batch: int) -> torch.Tensor:
+        return torch.zeros(
+            (batch, self.qqp.padded // 4), dtype=torch.int32, device=self.device
+        )
+
+    def solve_words(self, u_words: torch.Tensor, g_pre: torch.Tensor):
+        q = self.qqp
+        lanes = fused_pgd(
+            unpack_controls(u_words), g_pre, self._hq,
+            hs_num=q.hs_num, hs_den=q.hs_den, g_shift=q.g_shift,
+            iters=self.iters, momentum=self.momentum,
+            beta_num=self.beta_num if self.momentum else 0,
+            beta_den=self.beta_den,
+        )
+        return pack_controls(lanes)
+
+    def solve(self, x0_phys: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        g_pre = torch.as_tensor(
+            self.qqp.g_lane_fixed(np.atleast_2d(x0_phys)), device=self.device
+        )
+        words = self.solve_words(self.init_words(g_pre.shape[0]), g_pre)
+        lanes = unpack_controls(words)[:, : self.qqp.horizon]
+        return words, lanes.to(torch.float32) * float(np.float32(self.qqp.u_scale))

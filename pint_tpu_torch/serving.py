@@ -1,0 +1,216 @@
+"""Serving layer: persistent, warm-started MPC services (port of
+``pint_tpu/serving.py:52-264``).
+
+A long-lived service object owns the solver and the warm-start state (packed
+control words per row of the client batch), accepts numpy state batches
+per tick and returns physical controls.  Every response is validated --
+states finite, controls inside the box -- and a failed row gets its warm
+state reset instead of poisoning later ticks.
+
+Route selection follows the device: on a CUDA device the LTI service runs
+the K2 kernel (:class:`~pint_tpu_torch.mpc.fused.FusedPGD`) and computes the
+linear term on the device; on the CPU it runs the word-space
+:class:`~pint_tpu_torch.mpc.solver.FixedPointPGD` with the float64 host
+linear term.  ``ConstrainedRTIService`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+from pint_tpu_torch.mpc.condensed import QuantizedQP
+from pint_tpu_torch.mpc.fused import FusedPGD
+from pint_tpu_torch.mpc.solver import FixedPointPGD
+from pint_tpu_torch.ops import kernels as K
+
+__all__ = ["MPCService", "RTIService", "ServiceStats", "LTI_BUDGET_S",
+           "RTI_BUDGET_S"]
+
+LTI_BUDGET_S = 0.010
+"""Real-time budget (SLO) of the LTI endpoint (:class:`MPCService`): a
+100 Hz control loop."""
+
+RTI_BUDGET_S = 0.020
+"""Real-time budget (SLO) of the nonlinear RTI endpoint
+(:class:`RTIService`): a 50 Hz control loop."""
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    """Per-service counters.  ``deadline_misses`` counts ticks whose
+    end-to-end ``solve()`` latency exceeded ``deadline_s``; a miss is an
+    SLO violation, not an error."""
+
+    ticks: int = 0
+    resets: int = 0
+    last_latency_s: float = 0.0
+    deadline_misses: int = 0
+
+    def record_latency(self, seconds: float, deadline_s) -> None:
+        self.last_latency_s = seconds
+        self.ticks += 1
+        if deadline_s is not None and seconds > deadline_s:
+            self.deadline_misses += 1
+
+
+def _shift_plan(lanes: torch.Tensor, m: int, n_dec: int) -> torch.Tensor:
+    """Warm start for the next tick: the plan moved one step (m lanes)
+    earlier, zeros after, packed."""
+    shifted = torch.cat(
+        [lanes[:, m:n_dec], torch.zeros_like(lanes[:, :m]), lanes[:, n_dec:]],
+        dim=-1,
+    )
+    return pack_controls(shifted)
+
+
+class MPCService:
+    """Warm-started batched LTI MPC serving endpoint."""
+
+    def __init__(
+        self,
+        qqp: QuantizedQP,
+        batch: int,
+        iters_per_tick: int = 15,
+        use_fused: Optional[bool] = None,
+        inputs_per_step: int = 1,
+        g_on_device: Optional[bool] = None,
+        deadline_s: Optional[float] = LTI_BUDGET_S,
+        device="cpu",
+    ):
+        """``use_fused`` and ``g_on_device`` default to "a CUDA device was
+        asked for".  ``g_on_device`` computes the fixed-point linear term
+        from the states in f32 on the device instead of
+        ``QuantizedQP.g_lane_fixed``'s float64 numpy on the host (a
+        self-consistent sibling: f32 can move int32 rounding ties)."""
+        self.device = K.resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        self.qqp = qqp
+        self.batch = batch
+        self.m = inputs_per_step
+        self.deadline_s = deadline_s
+        self.g_on_device = on_cuda if g_on_device is None else g_on_device
+        use_fused = on_cuda if use_fused is None else use_fused
+        solver_cls = FusedPGD if use_fused else FixedPointPGD
+        self._solver = solver_cls(qqp, iters=iters_per_tick, device=self.device)
+        self._zero = self._solver.init_words(batch)
+        self._warm = self._zero
+        self.stats = ServiceStats()
+        self._GT = torch.as_tensor(
+            np.asarray(qqp.qp.G, np.float32).T.copy(), device=self.device
+        )
+        self._g_ref = torch.as_tensor(
+            np.asarray(qqp.qp.g_ref, np.float32), device=self.device
+        )
+
+    def _tick(self, words, g_pre):
+        """Solve from the warm words; returns (words, next warm words,
+        lanes (B, T))."""
+        words = self._solver.solve_words(words, g_pre)
+        all_lanes = unpack_controls(words)
+        warm = _shift_plan(all_lanes, self.m, all_lanes.shape[-1])
+        return words, warm, all_lanes[:, : self.qqp.horizon]
+
+    def _g_from_states(self, x0_f: torch.Tensor) -> torch.Tensor:
+        """Device-side linear term with ``g_lane_fixed``'s non-finite
+        guards, in f32."""
+        g = (x0_f[:, :, None] * self._GT[None]).sum(1) + self._g_ref
+        g = torch.nan_to_num(
+            g * float(np.float32(self.qqp.Gq_scale)), nan=0.0,
+            posinf=2.0**31 - 1, neginf=-(2.0**31),
+        )
+        gq = torch.clamp(torch.round(g).to(torch.float64), -(2.0**31),
+                         2.0**31 - 1).to(torch.int32)
+        pad = self.qqp.padded - self.qqp.horizon
+        return torch.nn.functional.pad(gq, (0, pad)) if pad else gq
+
+    def tick_from_states(self, words, x0_f):
+        return self._tick(words, self._g_from_states(x0_f))
+
+    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
+        """One service tick: (batch, n) states -> (batch, T) physical
+        controls.  Validates and self-heals the warm state."""
+        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
+        if x0.shape[0] != self.batch:
+            raise ValueError(
+                f"service built for batch {self.batch}, got {x0.shape[0]}"
+            )
+        t0 = time.perf_counter()
+        if self.g_on_device:
+            x0_t = torch.as_tensor(x0.astype(np.float32), device=self.device)
+            _, warm, lanes = self.tick_from_states(self._warm, x0_t)
+        else:
+            g_pre = torch.as_tensor(self.qqp.g_lane_fixed(x0), device=self.device)
+            _, warm, lanes = self._tick(self._warm, g_pre)
+        lanes_np = lanes.cpu().numpy()
+        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+
+        bad = ~np.isfinite(x0).all(axis=-1)
+        bad |= np.abs(lanes_np).max(axis=-1) > 127
+        if bad.any():
+            self.stats.resets += int(bad.sum())
+            keep = torch.as_tensor(~bad, device=self.device)[:, None]
+            warm = torch.where(keep, warm, self._zero)
+            lanes_np = np.where(bad[:, None], 0, lanes_np)
+        self._warm = warm
+        return lanes_np.astype(np.float64) * self.qqp.u_scale
+
+    def reset(self) -> None:
+        self._warm = self._zero
+
+
+class RTIService:
+    """Persistent nonlinear MPC endpoint: warm-started real-time iterations
+    of :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP` per tick.  Each
+    tick takes physical states, returns the first control of every
+    re-optimized plan, and shifts the plans one step.  Non-finite input
+    rows get their warm plan reset and a zero control back."""
+
+    def __init__(self, sqp, batch: int,
+                 deadline_s: Optional[float] = RTI_BUDGET_S):
+        """``sqp``: a configured DeviceSQP (its device is the service's);
+        set its ``sqp_iters`` to the per-tick count (1 for classic RTI)."""
+        self.sqp = sqp
+        self.batch = batch
+        self.deadline_s = deadline_s
+        self.m = sqp.n_ctrl
+        self._zero = sqp.init_words(batch)
+        self._warm = self._zero
+        self.stats = ServiceStats()
+
+    def _tick(self, words, x0_f):
+        """Returns (next warm words, first controls (B, m) int32 lanes)."""
+        words = self.sqp.solve_words(words, x0_f)
+        lanes = unpack_controls(words)
+        return _shift_plan(lanes, self.m, self.sqp.n_dec), lanes[:, : self.m]
+
+    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
+        """One tick: (batch, n) physical states -> (batch, m) physical first
+        controls."""
+        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
+        if x0.shape[0] != self.batch:
+            raise ValueError(
+                f"service built for batch {self.batch}, got {x0.shape[0]}"
+            )
+        t0 = time.perf_counter()
+        x0_t = torch.as_tensor(x0.astype(np.float32), device=self.sqp.device)
+        warm, u0 = self._tick(self._warm, x0_t)
+        u0_np = u0.cpu().numpy()
+        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+
+        bad = ~np.isfinite(x0).all(axis=-1)
+        if bad.any():
+            self.stats.resets += int(bad.sum())
+            keep = torch.as_tensor(~bad, device=self.sqp.device)[:, None]
+            warm = torch.where(keep, warm, self._zero)
+            u0_np = np.where(bad[:, None], 0, u0_np)
+        self._warm = warm
+        return u0_np.astype(np.float64) * np.asarray(self.sqp._lane_scales)
+
+    def reset(self) -> None:
+        self._warm = self._zero

@@ -1,0 +1,222 @@
+"""Port parity: DeviceSQP and its two kernels' modules (K3 lipq, K4 PGD
+inner) against pint_tpu's, at horizon 32 (Tm = 64), small batches.
+
+JAX's Pallas kernels run in interpret mode, as tests/test_fused_alm.py and
+tests/test_condense_fused.py run them.  Tolerances:
+* K4 inner given identical operands: bit-identical, against both JAX's
+  ``pgd_fused_words_pre`` and the word-space ``_pgd_batched_h``;
+* K3 on one shared ``Ht``: ``hqt`` and ``h_max`` bit-identical, ``lip``
+  rtol 1e-5 (the norms are reduced in another order);
+* the f32 condensation ``Ht``, ``g``: rtol 1e-5, atol 1e-4, the bound of
+  tests/test_device_sqp.py's cross-path checks;
+* full solves: cost parity, rtol 0.01, atol 1e-4 (tests/test_device_sqp.py),
+  since last-ulp f32 differences can move an int8 rounding tie.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pint_tpu.models.dynamics import pack_controls as j_pack
+from pint_tpu.mpc import DeviceSQP as JDeviceSQP
+from pint_tpu.mpc import QuantizedSQP
+from pint_tpu.mpc.condense_fused import lipq_fused as j_lipq
+from pint_tpu.mpc.fused_alm import pgd_fused_words_pre as j_pgd_pre
+from pint_tpu.mpc.ltv import _pgd_batched_h as j_pgd_batched_h
+from pint_tpu_torch.convert import device_sqp_config, words_from_numpy, words_to_numpy
+from pint_tpu_torch.mpc import (
+    DeviceSQP,
+    lipq_fused,
+    lipq_plain,
+    pgd_fused_words,
+    pgd_fused_words_pre,
+    pgd_hqt,
+)
+from pint_tpu_torch.mpc.ltv import _pgd_batched_h, true_cost
+
+KW = dict(
+    horizon=32, sqp_iters=4, pgd_iters=30,
+    Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
+    qf_scale=60.0, x_ref=np.array([0.2, 0.1, 0.0]),
+)
+
+
+def _x0(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+                     rng.uniform(0, 1, B)], -1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    ref = JDeviceSQP(propagate="unroll", **KW)
+    return ref, device_sqp_config(ref)
+
+
+@pytest.fixture(scope="module")
+def operands(pair):
+    """One real condensation's quantized operands (JAX, XLA epilogue) and a
+    warm plan with -128 lanes."""
+    ref, _ = pair
+    B = 8
+    rng = np.random.default_rng(21)
+    x0 = _x0(B, 22)
+    lanes = rng.integers(-128, 128, (B, ref.n_dec), dtype=np.int32)
+    Hq, g_pre, hs_num, hs_den = jax.jit(ref._condense_dev)(
+        jnp.asarray(x0), jnp.asarray(lanes))
+    words = np.asarray(j_pack(jnp.asarray(lanes)))
+    return dict(
+        words=words, Hq=np.asarray(Hq), g_pre=np.asarray(g_pre),
+        hs_num=np.asarray(hs_num), hs_den=np.asarray(hs_den),
+        hqt=np.ascontiguousarray(np.transpose(np.asarray(Hq), (2, 1, 0))),
+    )
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_pgd_inner_bit_identical(pair, operands):
+    ref, _ = pair
+    o = operands
+    kw = dict(iters=ref.pgd_iters, g_shift=ref.g_shift)
+    expect = np.asarray(j_pgd_pre(
+        jnp.asarray(o["words"]), jnp.asarray(o["g_pre"]), jnp.asarray(o["hqt"]),
+        jnp.asarray(o["hs_num"]), jnp.asarray(o["hs_den"]), interpret=True, **kw))
+    expect_words = np.asarray(j_pgd_batched_h(
+        jnp.asarray(o["words"]), jnp.asarray(o["g_pre"]), jnp.asarray(o["Hq"]),
+        jnp.asarray(o["hs_num"]), jnp.asarray(o["hs_den"]), **kw))
+    np.testing.assert_array_equal(expect, expect_words)
+    w = words_from_numpy(o["words"])
+    args = (_t(o["g_pre"]), _t(o["hqt"]), _t(o["hs_num"]), _t(o["hs_den"]))
+    np.testing.assert_array_equal(
+        words_to_numpy(pgd_fused_words_pre(w, *args, **kw)), expect)
+    np.testing.assert_array_equal(
+        words_to_numpy(pgd_fused_words(w, _t(o["g_pre"]), _t(o["Hq"]),
+                                       *args[2:], **kw)), expect)
+    np.testing.assert_array_equal(
+        words_to_numpy(_pgd_batched_h(w, _t(o["g_pre"]), _t(o["Hq"]),
+                                      *args[2:], **kw)), expect)
+
+
+def test_pgd_hqt_rejects_bad_operands(operands):
+    o = operands
+    with pytest.raises(ValueError, match="int8"):
+        pgd_hqt(torch.zeros((8, 64), dtype=torch.int32), _t(o["g_pre"]),
+                _t(o["hqt"]).to(torch.int32), _t(o["hs_num"]), _t(o["hs_den"]),
+                iters=1, g_shift=12)
+
+
+@pytest.fixture(scope="module")
+def shared_ht(pair):
+    ref, _ = pair
+    rng = np.random.default_rng(31)
+    B = 6
+    lanes = rng.integers(-100, 100, (B, ref.n_dec), dtype=np.int32)
+    Ht, g = jax.jit(ref._condense_ht)(jnp.asarray(_x0(B, 32)), jnp.asarray(lanes))
+    return np.asarray(Ht)
+
+
+def test_lipq_matches_jax_kernel(pair, shared_ht):
+    ref, _ = pair
+    hqt_j, lip_j, hmax_j = j_lipq(
+        jnp.asarray(shared_ht), power_iters=ref.power_iters, block=8,
+        interpret=True)
+    hqt, lip, hmax = lipq_fused(_t(shared_ht), power_iters=ref.power_iters)
+    assert hqt.dtype == torch.int8 and hqt.shape == shared_ht.shape
+    np.testing.assert_array_equal(hmax.numpy(), np.asarray(hmax_j))
+    np.testing.assert_array_equal(hqt.numpy(), np.asarray(hqt_j))
+    np.testing.assert_allclose(lip.numpy(), np.asarray(lip_j), rtol=1e-5)
+
+
+def test_lipq_rounds_half_to_even():
+    """Exact .5 ties (h_max = 127, so the scale is exactly 1) round half to
+    even, as jnp.round does in the reference kernel."""
+    vals = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, 127.0], np.float32)
+    Ht = np.stack([np.resize(vals, (4, 4)), np.resize(-vals[::-1], (4, 4))], -1)
+    hqt_j, _, hmax_j = j_lipq(jnp.asarray(Ht), power_iters=2, block=2,
+                              interpret=True)
+    hqt, _, hmax = lipq_fused(_t(Ht), power_iters=2)
+    np.testing.assert_array_equal(hmax.numpy(), np.asarray(hmax_j))
+    np.testing.assert_array_equal(hqt.numpy(), np.asarray(hqt_j))
+    assert sorted(set(hqt.numpy().ravel().tolist())) == [-127, -126, -2, 0, 2, 126, 127]
+
+
+def test_lipq_plain_is_the_cpu_route(pair, shared_ht):
+    ref, _ = pair
+    a = lipq_fused(_t(shared_ht), power_iters=ref.power_iters)
+    b = lipq_plain(_t(shared_ht), power_iters=ref.power_iters)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_condensation_matches(pair):
+    ref, port = pair
+    rng = np.random.default_rng(41)
+    B = 8
+    x0 = _x0(B, 42)
+    lanes = rng.integers(-127, 128, (B, ref.n_dec), dtype=np.int32)
+    Ht_j, g_j = jax.jit(ref._condense_ht)(jnp.asarray(x0), jnp.asarray(lanes))
+    Ht, g = port._condense_ht(_t(x0), _t(lanes))
+    assert Ht.shape == (ref.n_dec, ref.n_dec, B)
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Ht_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=1e-5, atol=1e-4)
+
+
+def test_full_solve_cost_parity(pair):
+    ref, port = pair
+    x0 = np.concatenate(
+        [np.array([[0.0, 0.0, 0.0], [-0.1, 0.05, 0.1], [0.05, -0.1, 0.9]]),
+         _x0(5, 51)])
+    host = QuantizedSQP(**KW)
+    w_ref, _ = ref.solve(x0)
+    w, plans = port.solve(x0)
+    assert plans.shape == (8, 32, 2) and np.isfinite(plans).all()
+    lanes = host.lanes(jnp.asarray(words_to_numpy(w)))
+    cost = host.true_cost(x0, lanes)
+    cost_ref = host.true_cost(x0, host.lanes(w_ref))
+    np.testing.assert_allclose(cost, cost_ref, rtol=0.01, atol=1e-4)
+    # the port's numpy cost helper is the reference's objective
+    np.testing.assert_allclose(true_cost(port, x0, lanes), cost, rtol=1e-12)
+
+
+def test_solve_deterministic_and_plain_route_equal(pair):
+    _, port = pair
+    x0 = _x0(4, 61)
+    w1, _ = port.solve(x0)
+    w2, _ = port.solve(x0)
+    np.testing.assert_array_equal(w1.numpy(), w2.numpy())
+    plain = device_sqp_config(pair[0], use_kernels=False)
+    np.testing.assert_array_equal(plain.solve(x0)[0].numpy(), w1.numpy())
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(propagate="scan"), "scan"),
+    (dict(propagate="allpairs"), "allpairs"),
+    (dict(reduce="einsum"), "einsum"),
+    (dict(lipq=False), "lipq"),
+])
+def test_unported_options_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        DeviceSQP(**KW, **kw)
+
+
+def test_sharded_solve_not_ported(pair):
+    with pytest.raises(NotImplementedError):
+        pair[1].sharded_solve_words(None)
+
+
+def test_indefinite_q_rejected_at_construction():
+    with pytest.raises(ValueError, match="PSD"):
+        DeviceSQP(horizon=8, Q=np.diag([1.0, -1.0, 0.1]))
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the request is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceSQP(**KW, device="cuda")
+

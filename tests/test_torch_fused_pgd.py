@@ -1,0 +1,124 @@
+"""Port parity: the LTI box-QP PGD solvers (word-space FixedPointPGD and
+the K2 FusedPGD) against pint_tpu's, at T = 50, batch 16.
+
+JAX's FusedPGD runs its Pallas kernel in interpret mode, as
+tests/test_fused.py runs it.  Tolerance: bit-identical packed words."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pint_tpu.models.dynamics import pack_controls as j_pack
+from pint_tpu.mpc import FixedPointPGD as JFixed
+from pint_tpu.mpc import condense_double_integrator as j_condense
+from pint_tpu.mpc import quantize as j_quantize
+from pint_tpu.mpc.fused import FusedPGD as JFused
+from pint_tpu_torch.convert import (
+    quantized_qp_from_arrays,
+    words_from_numpy,
+    words_to_numpy,
+)
+from pint_tpu_torch.mpc import FixedPointPGD, FusedPGD, fused_pgd
+
+BATCH = 16
+
+
+@pytest.fixture(scope="module")
+def qqps():
+    ref = j_quantize(j_condense(T=50))
+    return ref, quantized_qp_from_arrays(ref)
+
+
+@pytest.fixture(scope="module")
+def problem(qqps):
+    ref, _ = qqps
+    rng = np.random.default_rng(11)
+    x0 = np.stack([rng.uniform(-3, 3, BATCH), rng.uniform(-1, 1, BATCH)], -1)
+    g = ref.g_lane_fixed(x0)
+    # a warm start that exercises -128 lanes and the saturating update
+    warm = rng.integers(-128, 128, (BATCH, ref.padded), dtype=np.int32)
+    warm_words = np.asarray(j_pack(jnp.asarray(warm)))
+    return x0, g, warm_words
+
+
+def test_quantized_qp_copied(qqps):
+    ref, port = qqps
+    np.testing.assert_array_equal(port.Hq, ref.Hq)
+    assert (port.hs_num, port.hs_den, port.padded) == (ref.hs_num, ref.hs_den, ref.padded)
+    from pint_tpu_torch.mpc import condense_double_integrator, quantize
+
+    own = quantize(condense_double_integrator(T=50))
+    np.testing.assert_array_equal(own.Hq, ref.Hq)
+    assert (own.hs_num, own.hs_den, own.Gq_scale) == (ref.hs_num, ref.hs_den, ref.Gq_scale)
+
+
+@pytest.mark.parametrize("error_feedback", [False, True])
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_fixed_point_pgd_bit_identical(qqps, problem, error_feedback, start):
+    ref, port = qqps
+    x0, g, warm_words = problem
+    u0 = (np.zeros((BATCH, ref.padded // 4), np.uint32) if start == "cold"
+          else warm_words)
+    expect = jax.jit(JFixed(ref, iters=30, error_feedback=error_feedback).solve_words)(
+        jnp.asarray(u0), jnp.asarray(g)
+    )
+    got = FixedPointPGD(port, iters=30, error_feedback=error_feedback).solve_words(
+        words_from_numpy(u0), torch.from_numpy(g)
+    )
+    np.testing.assert_array_equal(words_to_numpy(got), np.asarray(expect))
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+@pytest.mark.parametrize("iters", [15, 40])
+def test_fused_pgd_bit_identical_to_jax(qqps, problem, momentum, iters):
+    ref, port = qqps
+    x0, g, warm_words = problem
+    jf = JFused(ref, iters=iters, momentum=momentum, block_rows=8, interpret=True)
+    expect = np.asarray(jf.solve_words(jnp.asarray(warm_words), jnp.asarray(g)))
+    tf = FusedPGD(port, iters=iters, momentum=momentum)
+    assert tf.beta_num == jf._beta_num
+    got = tf.solve_words(words_from_numpy(warm_words), torch.from_numpy(g))
+    np.testing.assert_array_equal(words_to_numpy(got), expect)
+
+
+def test_fused_matches_word_solver(qqps, problem):
+    _, port = qqps
+    x0, g, _ = problem
+    fused = FusedPGD(port, iters=25)
+    words = FixedPointPGD(port, iters=25)
+    gt = torch.from_numpy(g)
+    np.testing.assert_array_equal(
+        fused.solve_words(fused.init_words(BATCH), gt).numpy(),
+        words.solve_words(words.init_words(BATCH), gt).numpy(),
+    )
+
+
+def test_solve_physical_controls_match(qqps, problem):
+    ref, port = qqps
+    x0, _, _ = problem
+    _, u_ref = JFixed(ref, iters=20).solve(x0)
+    _, u = FusedPGD(port, iters=20).solve(x0)
+    np.testing.assert_array_equal(u.numpy(), np.asarray(u_ref))
+
+
+def test_fused_pgd_rejects_bad_shapes(qqps):
+    _, port = qqps
+    hq = torch.as_tensor(port.Hq)
+    with pytest.raises(ValueError, match="do not agree"):
+        fused_pgd(torch.zeros((4, 60), dtype=torch.int32),
+                  torch.zeros((4, 64), dtype=torch.int32), hq,
+                  hs_num=1, hs_den=0, g_shift=12, iters=1)
+
+
+def test_cuda_request_without_cuda_raises(qqps):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the request is valid here")
+    _, port = qqps
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedPGD(port, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        FixedPointPGD(port, device="cuda")
+
