@@ -18,13 +18,15 @@ __all__ = ["device_sqp_config", "quantized_qp_from_arrays", "words_from_numpy",
            "words_to_numpy"]
 
 _SIGNED = {np.dtype(np.uint8): np.int8, np.dtype(np.uint16): np.int16,
-           np.dtype(np.uint32): np.int32}
+           np.dtype(np.uint32): np.int32, np.dtype(np.uint64): np.int64}
 
 
 def words_from_numpy(words: np.ndarray, device="cpu") -> torch.Tensor:
-    """Unsigned numpy words (u8/u16/u32) -> the port's signed container
-    tensor holding the same bits (a ``.view``, no value conversion)."""
-    words = np.ascontiguousarray(words)
+    """Unsigned numpy words (u8/u16/u32/u64) -> the port's signed container
+    tensor holding the same bits (a ``.view``, no value conversion).  The
+    reference's planar uint32 pair words ``(2, ...)`` become the int32 pairs
+    that :mod:`pint_tpu_torch.ops.swar`'s pair entries take."""
+    words = np.asarray(words)
     signed = _SIGNED.get(words.dtype)
     if signed is None:
         raise ValueError(f"no container for words of dtype {words.dtype}")
@@ -32,7 +34,8 @@ def words_from_numpy(words: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
-    """The port's container tensor -> unsigned numpy words, same bits."""
+    """The port's container tensor (words, or int32 pairs) -> unsigned
+    numpy words, same bits."""
     a = words.detach().cpu().numpy()
     return a.view(np.dtype(f"uint{a.dtype.itemsize * 8}"))
 

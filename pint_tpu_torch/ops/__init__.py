@@ -1,5 +1,5 @@
-"""SWAR word formulas and the kernel build/launch gate."""
+"""SWAR word formulas, their kernels, and the kernel build/launch gate."""
 
-from pint_tpu_torch.ops import kernels, word
+from pint_tpu_torch.ops import kernels, split64, swar, word
 
-__all__ = ["kernels", "word"]
+__all__ = ["kernels", "split64", "swar", "word"]

@@ -6,10 +6,11 @@ kernel for a CUDA tensor and its plain version for a CPU tensor, and for
 nothing else.  There is no fallback from one to the other.
 
 The kernels are CUDA C++ for ``sm_90a`` under ``pint_tpu_torch/csrc/``.  The
-first call that needs one compiles every ``csrc/*.cu`` with ``nvcc`` into one
-shared library with a plain C interface, under ``pint_tpu_torch/_build/``,
-named by a hash of the sources and flags, and loads it with ``ctypes``.  A
-build that fails raises with the compiler's output.
+first call that needs one compiles every ``csrc/*.cu`` with ``nvcc`` -- one
+process a source, all started together -- and links them into one shared
+library with a plain C interface, under ``pint_tpu_torch/_build/``, named by
+a hash of the sources and flags, and loads it with ``ctypes``.  A build that
+fails raises with the compiler's output.
 
 Each wrapper adds one to its launch count where it launches its kernel, so a
 caller can show that a run went through the kernels
@@ -31,6 +32,7 @@ import torch
 
 __all__ = [
     "KERNELS",
+    "SWAR_KERNELS",
     "build",
     "check",
     "count_launch",
@@ -48,11 +50,12 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
@@ -63,11 +66,23 @@ _SIGNATURES = {
     "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
     "pint_lipq": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # word_bits, pair, op, a, b, out, n, layout*, stream
+    "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
+    # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
+    # layout*, stream
+    "pint_swar_shift": [_I, _I, _I, _P, _P, _L, _P, _L, _P, _P],
+    # word_bits, pair, signed, acc, deltas, out, n, steps, layout*, stream
+    "pint_swar_sat_accum": [_I, _I, _I, _P, _P, _P, _L, _I, _P, _P],
 }
 
-KERNELS = ("fused_pgd", "pgd_hqt", "lipq")
-"""Launch-count names: K2 (``mpc/fused.py``), K4 (``mpc/fused_alm.py``) and
-K3 (``mpc/condense_fused.py``)."""
+SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",
+                "swar_binop_pair", "swar_shift_pair", "swar_sat_accum_pair")
+"""Launch-count names of ``ops/swar.py``: K1, K9 and K8 on native words,
+and K11a-c on u64 planar pairs."""
+
+KERNELS = ("fused_pgd", "pgd_hqt", "lipq") + SWAR_KERNELS
+"""Launch-count names: K2 (``mpc/fused.py``), K4 (``mpc/fused_alm.py``), K3
+(``mpc/condense_fused.py``) and the SWAR kernels."""
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -126,6 +141,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list) -> None:
+    """Run the commands all at once; raise with the output of the first
+    that fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{text}"
+            )
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the cached shared library; returns its
     path.  A library with the sources' hash is reused as it is."""
@@ -133,18 +161,16 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
+        _run(cmds)
+        so = os.path.join(tmp, out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, out)
     return out
 
 

@@ -1,24 +1,27 @@
 """Branch-free SWAR lane arithmetic on word tensors (PyTorch port).
 
-Counterpart of ``pint_tpu/ops/word.py:107-360``: pack, lane access and the
-ten add/sub/min/max formulas of the reference library (pint.hpp:758-1004)
-for 8-, 16- and 32-bit words.  Word tensors are *signed* containers
-(``torch.int8``/``int16``/``int32``) that hold the unsigned word's bits:
-torch has no add, shift or compare on uint16/uint32.  Consequences, each
-handled below:
+Counterpart of ``pint_tpu/ops/word.py``: pack, lane access, the ten
+add/sub/min/max formulas and the two runtime-amount lane shifts of the
+reference library (pint.hpp:758-1029) for 8-, 16-, 32- and 64-bit words.
+Word tensors are *signed* containers (``torch.int8``/``int16``/``int32``/
+``int64``) that hold the unsigned word's bits: torch has no add, shift or
+compare on uint16/uint32/uint64.  Consequences, each handled below:
 
 * a mask constant is passed as the two's-complement value of its bits
   (:func:`_k`);
 * ``>>`` on a signed container is arithmetic, so every logical right shift
   masks off the smeared sign bits afterwards (:func:`_shr`);
-* add, sub and ``<<`` wrap modulo 2**word_bits, as the unsigned ops do.
-
-64-bit layouts and the runtime-amount shifts (``word.py:368-462``) are not
-ported yet.
+* add, sub and ``<<`` wrap modulo 2**word_bits, as the unsigned ops do;
+* a runtime shift amount is reduced modulo 2**32 as ``pint_tpu``'s uint32
+  cast reduces it, so a negative amount zeroes the word (:func:`_amount`),
+  and no shift is ever by the word width or more (:func:`_shl_full`).
 """
 
 from __future__ import annotations
 
+import operator
+
+import numpy as np
 import torch
 
 from pint_tpu_torch.layout import PackedLayout
@@ -41,6 +44,8 @@ __all__ = [
     "max_unsigned",
     "min_signed",
     "max_signed",
+    "shift_left",
+    "shift_right_unsigned",
     "BINOP_NAMES",
 ]
 
@@ -57,17 +62,14 @@ BINOP_NAMES = (
     "max_signed",
 )
 
-_CONTAINERS = {8: torch.int8, 16: torch.int16, 32: torch.int32}
+_CONTAINERS = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
+_UNSIGNED = {torch.uint8: torch.int8, torch.uint16: torch.int16,
+             torch.uint32: torch.int32, torch.uint64: torch.int64}
 
 
 def container_dtype(layout: PackedLayout) -> torch.dtype:
     """The signed torch dtype that holds the layout's unsigned words."""
-    dt = _CONTAINERS.get(layout.word_bits)
-    if dt is None:
-        raise NotImplementedError(
-            f"{layout!r}: 64-bit words are not ported yet (ROADMAP queue 1)"
-        )
-    return dt
+    return _CONTAINERS[layout.word_bits]
 
 
 def _k(layout: PackedLayout, value: int) -> int:
@@ -84,10 +86,26 @@ def _shr(layout: PackedLayout, x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & _k(layout, (1 << (layout.word_bits - s)) - 1)
 
 
-def _as_word(layout: PackedLayout, x) -> torch.Tensor:
-    """Value conversion (wrapping) into the layout's container."""
-    x = torch.as_tensor(x)
+def _as_word(layout: PackedLayout, x, device=None) -> torch.Tensor:
+    """``x`` in the layout's container on ``device`` (default: a tensor's
+    own device, else the CPU).  Unsigned numpy or torch words of the
+    container's size keep their bits; anything else converts by value,
+    wrapping modulo 2**word_bits."""
+    if not isinstance(x, torch.Tensor):
+        if isinstance(x, (np.ndarray, np.generic)):
+            a = np.asarray(x)
+        else:  # Python values: ints up to 2**64 - 1 stay exact
+            try:
+                a = np.asarray(x, dtype=np.int64)
+            except OverflowError:
+                a = np.asarray(x, dtype=np.uint64)
+        if a.dtype.kind == "u":
+            a = a.view(f"int{a.dtype.itemsize * 8}")
+        x = torch.from_numpy(a.copy())
     dt = container_dtype(layout)
+    if _UNSIGNED.get(x.dtype) == dt:
+        x = x.view(dt)
+    x = x if device is None else x.to(device)
     return x if x.dtype == dt else x.to(dt)
 
 
@@ -318,3 +336,118 @@ def max_signed(layout: PackedLayout, a, b):
     m2 = _k(layout, layout.hi_mask)
     gt = _smear(layout, _carry_sub_vector(b ^ m2, a ^ m2) & m2)
     return _interleave(a, b, gt)
+
+
+# ---------------------------------------------------------------------------
+# lane shifts (runtime amounts, branch-free)
+# ---------------------------------------------------------------------------
+
+
+def amount_u32(amount) -> "int | torch.Tensor":
+    """A shift amount reduced modulo 2**32, as ``pint_tpu``'s
+    ``astype(uint32)`` reduces it: a Python int, or an int64 tensor of the
+    amount tensor's shape on its device.  Raises for non-integers."""
+    if isinstance(amount, torch.Tensor):
+        if amount.dtype.is_floating_point or amount.dtype.is_complex or (
+            amount.dtype == torch.bool
+        ):
+            raise TypeError(f"shift amount must be integral, got {amount.dtype}")
+        return amount.to(torch.int64) & 0xFFFFFFFF
+    if isinstance(amount, (bool, np.bool_)):
+        raise TypeError("shift amount must be integral, got bool")
+    try:
+        return operator.index(amount) & 0xFFFFFFFF
+    except TypeError:
+        raise TypeError(
+            f"shift amount must be integral, got {type(amount).__name__}"
+        ) from None
+
+
+def _amount(layout: PackedLayout, amount, word: torch.Tensor):
+    """``(amt, guard)`` as ``pint_tpu/ops/word.py:_amount`` makes them.
+
+    The amount is taken modulo 2**32 (so -1 is 2**32 - 1) in int64, where
+    the uint32 arithmetic is exact: ``guard`` is all-ones iff that value is
+    below the widest lane -- the sign bit of the uint32
+    ``max_width - a32 - 1`` (pint.hpp:1011-1013) -- and ``amt`` is it
+    clamped to ``word_bits``.  Both are 0-d tensors in the word's container
+    on the word's device."""
+    a32 = amount_u32(amount)
+    a32 = torch.as_tensor(a32, dtype=torch.int64, device=word.device)
+    sign = ((layout.max_width - a32 - 1) & 0xFFFFFFFF) >> 31
+    dt = container_dtype(layout)
+    guard = sign.to(dt) - 1
+    amt = torch.clamp(a32, max=layout.word_bits).to(dt)
+    return amt, guard
+
+
+def _wb(x: torch.Tensor) -> int:
+    return x.element_size() * 8
+
+
+def _lshr(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Logical right shift by a tensor ``s`` in [0, word_bits - 1]: the
+    arithmetic shift, then a mask of the low ``word_bits - s`` bits built
+    as ``~((MIN >> s) << 1)`` (no shift by the word width)."""
+    top = torch.full((), -(1 << (_wb(x) - 1)), dtype=x.dtype, device=x.device)
+    return (x >> s) & ~((top >> s) << 1)
+
+
+def _shl_full(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Left shift exact mod 2**w for ``k`` in [0, word_bits]: two shifts,
+    neither by the word width (what torch or C++ does there is not relied
+    on)."""
+    k1 = torch.clamp(k, max=_wb(x) - 1)
+    return (x << k1) << (k - k1)
+
+
+def _shr_full(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Logical right shift for ``k`` in [0, word_bits], in two steps."""
+    k1 = torch.clamp(k, max=_wb(x) - 1)
+    return _lshr(_lshr(x, k1), k - k1)
+
+
+def _sat_to_zero(x: torch.Tensor) -> torch.Tensor:
+    """0 if the word's sign bit is set, else x (pint.hpp:616-620): the
+    arithmetic shift smears the sign bit over the word."""
+    return ~(x >> (_wb(x) - 1)) & x
+
+
+def shift_left(layout: PackedLayout, word: torch.Tensor, amount) -> torch.Tensor:
+    """Per-lane left shift by a runtime amount (pint.hpp:1006-1017): clear
+    the top ``amount`` bits of every lane, then one whole-word shift; the
+    guard zeroes the word when ``amount >= max(widths)``.  ``amount`` is a
+    Python int or an integer tensor (0-d, or broadcastable to ``word``)."""
+    amt, guard = _amount(layout, amount, word)
+    lo = torch.full((), _k(layout, layout.lo_mask), dtype=word.dtype,
+                    device=word.device)
+    if layout.all_same:
+        # keep the low (B0 - amount) bits of each lane (pint.hpp:661-668)
+        keep = _shl_full(lo, _sat_to_zero(layout.widths[0] - amt)) - lo
+    else:
+        # per-width mask collection (pint.hpp:630-658)
+        keep = torch.zeros_like(amt)
+        for w, mask_w in layout.width_groups:
+            mw = torch.full_like(lo, _k(layout, mask_w))
+            keep = keep | (_shl_full(mw, _sat_to_zero(w - amt)) - mw)
+    return guard & _shl_full(keep & word, amt)
+
+
+def shift_right_unsigned(
+    layout: PackedLayout, word: torch.Tensor, amount
+) -> torch.Tensor:
+    """Per-lane logical right shift by a runtime amount (pint.hpp:1019-1029):
+    clear the bottom ``min(width, amount)`` bits of each lane, then one
+    whole-word logical shift."""
+    amt, guard = _amount(layout, amount, word)
+    lo = torch.full((), _k(layout, layout.lo_mask), dtype=word.dtype,
+                    device=word.device)
+    if layout.all_same:
+        clear = _shl_full(lo, amt) - lo                      # pint.hpp:698-705
+    else:
+        clear = torch.zeros_like(amt)                        # pint.hpp:670-695
+        for w, mask_w in layout.width_groups:
+            mw = torch.full_like(lo, _k(layout, mask_w))
+            kmin = w - _sat_to_zero(w - amt)
+            clear = clear | (_shl_full(mw, kmin) - mw)
+    return guard & _shr_full(~clear & word, amt)

@@ -139,7 +139,8 @@ def test_cuda_service_without_cuda_raises(qqps):
 
 def test_port_imports_no_jax():
     code = ("import sys, pint_tpu_torch, pint_tpu_torch.convert, "
-            "pint_tpu_torch.utils.timing; "
+            "pint_tpu_torch.utils.timing, pint_tpu_torch.utils.profiling, "
+            "pint_tpu_torch.ops.swar; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'pint_tpu' or m.startswith('pint_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

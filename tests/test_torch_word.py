@@ -24,8 +24,18 @@ LAYOUTS = [
     (5, 6, 5),           # u16, heterogeneous
     (1, 7, 8, 16),       # u32, heterogeneous (general dispatch)
     (10, 11, 11),
+    (8,) * 8,            # u64, the reference's u64 bench config
+    (20, 20, 24),        # u64, lane 1 straddles bit 32
+    (7, 7, 9, 9, 11, 12),  # u64, repeated heterogeneous widths
+    (33,),               # u64, one lane wider than 32 bits
+    (5, 59),
 ]
 N = 2048
+# amounts of the runtime shifts: in range, at and past the widest lane and
+# the word, and the values that only the uint32 reduction of pint_tpu's
+# _amount gives a meaning (negative, >= 2**31, >= 2**32)
+AMOUNTS = [0, 1, 3, 7, 12, 31, 32, 33, 63, 64, 100, -1, -8, 2**31, 2**32 + 1,
+           "max_width", "max_width-1"]
 
 
 def _words(widths, seed):
@@ -98,6 +108,38 @@ def test_slice_word_bit_identical(widths):
             np.testing.assert_array_equal(_u(got, ref.dtype), ref)
 
 
-def test_u64_layouts_not_ported():
-    with pytest.raises(NotImplementedError, match="64-bit"):
-        TW.container_dtype(TLayout(32, 32))
+def _amount(jl, amount):
+    if amount == "max_width":
+        return jl.max_width
+    if amount == "max_width-1":
+        return jl.max_width - 1
+    return amount
+
+
+@pytest.mark.parametrize("amount", AMOUNTS, ids=str)
+@pytest.mark.parametrize("op", ["shift_left", "shift_right_unsigned"])
+@pytest.mark.parametrize("widths", LAYOUTS, ids=str)
+def test_runtime_shift_bit_identical(widths, op, amount):
+    """Python-int and 0-d tensor amounts against pint_tpu with the same
+    amount as a traced int64 scalar."""
+    jl, tl, a = _words(widths, 7)
+    k = _amount(jl, amount)
+    ref = np.asarray(getattr(JW, op)(jl, jnp.asarray(a), jnp.asarray(k, jnp.int64)))
+    for amt in (k, torch.tensor(k, dtype=torch.int64)):
+        got = getattr(TW, op)(tl, _t(a), amt)
+        assert got.dtype == TW.container_dtype(tl) and got.shape == (N,)
+        np.testing.assert_array_equal(_u(got, jl.word_dtype), ref)
+
+
+@pytest.mark.parametrize("bad", [1.0, True, torch.tensor(2.0), torch.tensor(True)],
+                         ids=str)
+def test_runtime_shift_rejects_non_integer_amount(bad):
+    with pytest.raises(TypeError, match="integral"):
+        TW.shift_left(TLayout(8, 8), torch.zeros(3, dtype=torch.int16), bad)
+
+
+@pytest.mark.parametrize("widths", [(3, 5), (5, 6, 5), (8, 8, 8, 8), (20, 20, 24)],
+                         ids=str)
+def test_container_dtype_every_width(widths):
+    tl = TLayout(*widths)
+    assert TW.container_dtype(tl).itemsize * 8 == tl.word_bits
