@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SWAR substrate and serving path once on one H100.
+"""Drive the PyTorch port's SWAR substrate, serving path and state-constrained
+tier once on one H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -30,18 +31,38 @@ Phases (any failure raises and the script exits non-zero):
    on; bit-identical), K3 lipq and K4 PGD inner on one real DeviceSQP
    condensation (B = 4096, Tm = 64; K3's hqt and h_max bit-identical, lip
    rtol 1e-5; K4 bit-identical);
-6. MPCService: LTI double integrator, T = 50 (Tp = 64), batch 8192, 15 PGD
+6. K6 penalty power iteration and K5 ALM inner on one real
+   DeviceConstrainedSQP condensation at the constrained RTI configuration
+   (unicycle T = 32, F = [[0,1,0]], lo/hi = -+0.03, rho 100, 3 x 30 ALM,
+   B = 4096, Tm = 64, C = 32 rows padded to Cp = 64), each against its
+   plain version (K6's sqc, sqj, s_scale bit-identical, pen_lip and row_amp
+   rtol 1e-5 with the count of problems differing in bits; K5's words and
+   multipliers bit-identical, and against the word-space _alm_batched on
+   256 problems);
+7. the LTI constrained solve (bench_constrained: double integrator T = 50,
+   velocity corridor -+0.25, rho 50, ConstrainedPGD 12 x 60, B = 4096)
+   through ConstrainedPGD.solve on K7, and K7 against its plain version and
+   the word-space ConstrainedPGD(fused=False), bit-identical; solves/s;
+8. MPCService: LTI double integrator, T = 50 (Tp = 64), batch 8192, 15 PGD
    iterations a tick, 10 ticks;
-7. RTIService: unicycle DeviceSQP, T = 32, batch 4096, 1 SQP x 30 PGD a
+9. RTIService: unicycle DeviceSQP, T = 32, batch 4096, 1 SQP x 30 PGD a
    tick, 10 ticks;
-8. the flagship DeviceSQP solve, 4 SQP x 30 PGD, batch 4096, once through
-   the kernels and once through the plain versions, held to cost parity
-   (rtol 0.01, atol 1e-4).
+10. ConstrainedRTIService at phase 6's configuration, 1 SQP x (3 x 30 ALM)
+    a tick, 10 ticks: controls finite and in the box, K3, K6 and K5 once a
+    tick, tick p50/p99 and deadline misses against CRTI_BUDGET_S;
+11. the flagship DeviceSQP solve, 4 SQP x 30 PGD, batch 4096, once through
+    the kernels and once through the plain versions, held to cost parity
+    (rtol 0.01, atol 1e-4);
+12. the constrained flagship, DeviceConstrainedSQP 4 SQP x (3 x 30 ALM) at
+    phase 6's configuration, kernels against plain versions: cost parity
+    (rtol 0.01, atol 1e-4), violation parity (atol 5e-3), mean cost below
+    the cold plan's.
 
 Launch counts are set to 0 before each main path and read after it: the
-PackedArray flow must launch every SWAR kernel, phases 6-7 every serving
-kernel.  The line before the last is the kernels' JSON record; the last
-line is ``{"ok": true, "device": {...}}``.  Inputs are made from fixed seeds.
+PackedArray flow must launch every SWAR kernel, the LTI constrained solve
+K7, and phases 8-10 every serving kernel.  The line before the last is the
+kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Inputs are made from fixed seeds.
 """
 
 import json
@@ -68,6 +89,12 @@ SQP_KW = dict(
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
     qf_scale=60.0, x_ref=np.array([0.2, 0.1, 0.0]),
 )
+
+
+CON_BATCH = 4096
+CON_SQP_KW = dict(horizon=32, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]))
+CON_KW = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=3)
+LTI_CON_T, LTI_CON_OUTER, LTI_CON_INNERS = 50, 12, 60
 
 
 def say(*parts):
@@ -386,6 +413,151 @@ def rti_states(rng, b):
                      rng.uniform(0, 1, b)], axis=-1)
 
 
+def con_states(rng, b):
+    return np.stack([rng.uniform(-0.2, 0.2, b), rng.uniform(-0.2, 0.2, b),
+                     rng.uniform(-np.pi, np.pi, b)], axis=-1)
+
+
+def make_csqp(P, sqp_iters, **dev_kw):
+    return P.DeviceConstrainedSQP(
+        P.DeviceSQP(sqp_iters=sqp_iters, device=DEVICE, **CON_SQP_KW, **dev_kw),
+        **CON_KW)
+
+
+def rel_err(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def phase_k6_k5(torch, P, timing):
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
+    from pint_tpu_torch.models.dynamics import pack_controls
+
+    csqp = make_csqp(P, 1)
+    d = csqp.dev
+    B = CON_BATCH
+    rng = np.random.default_rng(3)
+    x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32),
+                            device=DEVICE)
+    A, Bl, c = d._linearize_phase(x0, lanes)
+    S_t = csqp._stack_constraints(*d._propagate_unrolled(A, Bl, c))[0]
+    it = d.power_iters
+    got = pen_fused(S_t, power_iters=it)
+    ref = pen_plain(S_t, power_iters=it)
+    torch.cuda.synchronize()
+    for name, i in (("sqc", 0), ("sqj", 1), ("s_scale", 3)):
+        if not torch.equal(got[i], ref[i]):
+            raise AssertionError(f"K6: {int((got[i] != ref[i]).sum())} {name} "
+                                 "entries differ from the plain version")
+    errs = {name: rel_err(got[i], ref[i]) for name, i in (("pen_lip", 2),
+                                                                   ("row_amp", 4))}
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"K6: relative errors {errs} > 1e-5")
+    differ = {name: int((got[i] != ref[i]).sum()) for name, i in (("pen_lip", 2),
+                                                                   ("row_amp", 4))}
+    k6_err = max(float((got[i] - ref[i]).abs().max()) for i in (2, 4))
+    k6_ms = median(timing.cuda_ms(lambda: pen_fused(S_t, power_iters=it)))
+    k6_pms = median(timing.cuda_ms(lambda: pen_plain(S_t, power_iters=it), reps=3))
+    say(f"K6 pen C={csqp.n_rows} Tm={d.n_dec} B={B}: sqc, sqj, s_scale bit-identical; "
+        f"rel err {errs}, problems differing in bits {differ}; kernel {k6_ms:.4f} ms, "
+        f"plain {k6_pms:.4f} ms")
+
+    o, _ = csqp._condense_constrained_dev(x0, lanes)
+    lam = torch.as_tensor(rng.integers(0, 500, (B, csqp.padded_rows), dtype=np.int32),
+                          device=DEVICE)
+    sc = torch.stack([o[k] for k in RATIONALS])
+    args = (lanes, o["g_pre"], o["hqt"], o["sqj"], o["sqc"], o["c_off"],
+            o["lo_pre"], o["hi_pre"], lam, sc)
+    kw = dict(outer=csqp.alm_outer, inners=d.pgd_iters, g_shift=d.g_shift,
+              y_shift=_Y_SHIFT)
+    out = alm_hqt(*args, **kw)
+    ref = alm_hqt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in (("words", out[0], ref[0]), ("lam", out[1], ref[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K5: {int((a != b).any(-1).sum())} problems' "
+                                 f"{name} differ from the plain version")
+    n = 256
+    rest = [o[k][:n] for k in ("cs_num", "cs_den", "c_off", "lo_pre", "hi_pre",
+                               "eh_num", "eh_den", "el_num", "el_den")]
+    w_x, l_x = _alm_batched(
+        pack_controls(lanes[:n]), o["g_pre"][:n], o["hqt"][..., :n].permute(2, 1, 0),
+        o["hs_num"][:n], o["hs_den"][:n], o["sqc"][..., :n].permute(2, 0, 1),
+        *rest, lam[:n], **kw)
+    same(torch, "K5 against _alm_batched (words)", pack_controls(out[0][:n]), w_x)
+    same(torch, "K5 against _alm_batched (lam)", out[1][:n], l_x)
+    k5_ms = median(timing.cuda_ms(lambda: alm_hqt(*args, **kw)))
+    k5_pms = median(timing.cuda_ms(lambda: alm_hqt_plain(*args, **kw), reps=3))
+    say(f"K5 alm Tp={d.n_dec} Cp={csqp.padded_rows} B={B} {csqp.alm_outer}x{d.pgd_iters}: "
+        f"words and lam bit-identical to the plain version, and to _alm_batched on "
+        f"{n} problems; kernel {k5_ms:.4f} ms, plain {k5_pms:.4f} ms")
+    return (dict(max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_pms, bits_differ=differ),
+            dict(max_abs_err=0.0, ms=k5_ms, plain_ms=k5_pms))
+
+
+def phase_k7(torch, P, K, timing):
+    """The LTI constrained solve through K7 (its main path: counts set to 0
+    before ConstrainedPGD.solve and read after), then K7 against its plain
+    version and the word-space solver."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc import alm_shared, alm_shared_plain
+
+    T, dt, B = LTI_CON_T, 1.0 / 32.0, CON_BATCH
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    q = P.quantize_constrained(P.constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0)
+    kw = dict(outer=LTI_CON_OUTER, inners=LTI_CON_INNERS, device=DEVICE)
+    kern = P.ConstrainedPGD(q, **kw)
+    word = P.ConstrainedPGD(q, fused=False, **kw)
+    rng = np.random.default_rng(4)
+    x0 = np.stack([rng.uniform(-1.5, 1.5, B), rng.uniform(-0.2, 0.2, B)], -1)
+
+    K.reset_launch_counts()                     # LTI constrained path starts
+    words, U, lam = kern.solve(x0)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["alm_shared"]  # and ends here
+    if launches < 1:
+        raise AssertionError("kernel alm_shared never launched on ConstrainedPGD.solve")
+    U = U.cpu().numpy()
+    if U.shape != (B, T) or not np.isfinite(U).all() or np.abs(U).max() > 1.0 + 1e-6:
+        raise AssertionError("ConstrainedPGD: controls not finite, bad shape or "
+                             "outside the box")
+    g = torch.as_tensor(q.qqp.g_lane_fixed(x0), device=DEVICE)
+    co = torch.as_tensor(q.c_off_pre(x0), device=DEVICE)
+    u0 = kern.init_words(B)
+    w_x, l_x = word.solve_words(u0, g, co)
+    same(torch, "K7 ConstrainedPGD words vs fused=False", words, w_x)
+    same(torch, "K7 ConstrainedPGD lam vs fused=False", lam, l_x)
+    o = kern._ops
+    args = (unpack_controls(u0), g, co, torch.zeros_like(co), o["Hq"], o["Sq"],
+            o["lo"], o["hi"])
+    akw = dict(outer=LTI_CON_OUTER, inners=LTI_CON_INNERS, g_shift=q.qqp.g_shift,
+               y_shift=q.y_shift, **kern._rationals)
+    got = alm_shared(*args, **akw)
+    ref = alm_shared_plain(*args, **akw)
+    same(torch, "K7 lanes vs alm_shared_plain", got[0], ref[0])
+    same(torch, "K7 lam vs alm_shared_plain", got[1], ref[1])
+    ms = median(timing.cuda_ms(lambda: alm_shared(*args, **akw)))
+    pms = median(timing.cuda_ms(lambda: alm_shared_plain(*args, **akw), reps=2,
+                                warmup=1))
+    solve_ms = median(timing.host_ms(lambda: kern.solve_words(u0, g, co), reps=5))
+    word_ms = median(timing.host_ms(lambda: word.solve_words(u0, g, co), reps=2))
+    rec = dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=pms,
+               solves_per_s=B / (solve_ms / 1e3), word_solves_per_s=B / (word_ms / 1e3))
+    say(f"K7 ConstrainedPGD T={T} Tp={q.qqp.padded} Cp={q.padded_rows} B={B} "
+        f"{LTI_CON_OUTER}x{LTI_CON_INNERS}: solve() through K7 (+{launches}), words and "
+        f"lam bit-identical to fused=False and to the plain version; kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms; {rec['solves_per_s']:.1f} solves/s through K7, "
+        f"{rec['word_solves_per_s']:.1f} word-space")
+    return rec
+
+
 def phase_k2(torch, P, timing):
     from pint_tpu_torch.mpc import FusedPGD, fused_pgd, fused_pgd_plain
 
@@ -531,6 +703,78 @@ def phase_rti(torch, P, K):
     return rec
 
 
+def phase_crti(torch, P, K):
+    csqp = make_csqp(P, 1)
+    svc = P.ConstrainedRTIService(csqp, batch=CON_BATCH)
+    x0 = con_states(np.random.default_rng(0), CON_BATCH)
+    box = 127 * np.asarray(csqp.dev.model.lane_scales) + 1e-12
+    before = K.launch_counts()
+    lat = []
+    for _ in range(TICKS):
+        u = svc.solve(x0)
+        lat.append(svc.stats.last_latency_s * 1e3)
+        if u.shape != (CON_BATCH, 2) or not np.isfinite(u).all():
+            raise AssertionError("ConstrainedRTIService: controls not finite / bad shape")
+        if (np.abs(u) > box).any():
+            raise AssertionError("ConstrainedRTIService: controls outside the box")
+    after = K.launch_counts()
+    for k in ("lipq", "pen", "alm"):
+        if after[k] - before[k] != TICKS:
+            raise AssertionError(f"ConstrainedRTIService: {k} +{after[k] - before[k]}")
+    if int(svc._warm_lam.abs().max()) == 0:
+        raise AssertionError("ConstrainedRTIService: the corridor never bound")
+    rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
+               deadline_misses=svc.stats.deadline_misses,
+               budget_ms=P.serving.CRTI_BUDGET_S * 1e3)
+    say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; K3, "
+        f"K6, K5 +{TICKS} each; tick p50 {rec['p50_ms']:.3f} ms, p99 "
+        f"{rec['p99_ms']:.3f} ms; {rec['deadline_misses']} of {TICKS} over the "
+        f"{rec['budget_ms']:.0f} ms budget")
+    return rec
+
+
+def phase_con_flagship(torch, P, timing):
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc.ltv import true_cost
+
+    kern, plain = make_csqp(P, 4), make_csqp(P, 4, use_kernels=False)
+    x0 = con_states(np.random.default_rng(0), CON_BATCH).astype(np.float32)
+    x0_t = torch.as_tensor(x0, device=DEVICE)
+    u0 = kern.init_words(CON_BATCH)
+    out = {}
+    for name, csqp in (("kernels", kern), ("plain", plain)):
+        words, lam = csqp.solve_words(u0, x0_t)
+        lanes = unpack_controls(words)[:, : csqp.dev.n_dec].cpu().numpy()
+        out[name] = (words, lam, true_cost(csqp.dev, x0, lanes),
+                     csqp.violation(x0, lanes))
+        ms = median(timing.host_ms(lambda: csqp.solve_words(u0, x0_t), reps=3))
+        out[name + "_ms"] = ms
+    (wk, lk, ck, vk), (wp, lp, cp, vp) = out["kernels"], out["plain"]
+    cold = true_cost(kern.dev, x0, np.zeros((CON_BATCH, kern.dev.n_dec), np.int32))
+    if not (np.isfinite(ck).all() and ck.mean() < cold.mean()):
+        raise AssertionError("constrained flagship: costs not finite or no better "
+                             "than cold")
+    np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(vk, vp, atol=5e-3)
+    differ = int(((wk != wp).any(-1) | (lk != lp).any(-1)).sum().item())
+    rec = dict(
+        solves_per_s=CON_BATCH / (out["kernels_ms"] / 1e3), ms=out["kernels_ms"],
+        plain_solves_per_s=CON_BATCH / (out["plain_ms"] / 1e3),
+        plain_ms=out["plain_ms"],
+        max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
+        max_violation_diff=float(np.abs(vk - vp).max()),
+        problems_differing=differ, mean_cost=float(ck.mean()),
+        mean_cold_cost=float(cold.mean()), mean_violation=float(vk.mean()),
+    )
+    say(f"constrained flagship DeviceConstrainedSQP B={CON_BATCH} T=32 4x(3x30): cost "
+        f"parity (max rel diff {rec['max_rel_cost_diff']:.3e}), violation parity (max "
+        f"diff {rec['max_violation_diff']:.3e}), {differ} problems differ in bits; "
+        f"mean cost {rec['mean_cost']:.4f} vs cold {rec['mean_cold_cost']:.4f}; "
+        f"kernels {rec['solves_per_s']:.1f} solves/s ({rec['ms']:.3f} ms), plain "
+        f"{rec['plain_solves_per_s']:.1f} solves/s")
+    return rec
+
+
 def phase_flagship(torch, P, timing):
     from pint_tpu_torch.models.dynamics import unpack_controls
     from pint_tpu_torch.mpc.ltv import true_cost
@@ -587,13 +831,17 @@ def main():
     headline, swar_times = phase_headline(torch, P)
     k2 = phase_k2(torch, P, timing)
     k3, k4 = phase_k3_k4(torch, P, timing)
+    k6, k5 = phase_k6_k5(torch, P, timing)
+    k7 = phase_k7(torch, P, K, timing)
     mpc = phase_mpc(torch, P, K)
     rti = phase_rti(torch, P, K)
+    crti = phase_crti(torch, P, K)
     counts = K.launch_counts()                  # serving path ends here
-    for name in ("fused_pgd", "pgd_hqt", "lipq"):
+    for name in ("fused_pgd", "pgd_hqt", "lipq", "pen", "alm"):
         if counts[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the serving path")
     flagship = phase_flagship(torch, P, timing)
+    con_flagship = phase_con_flagship(torch, P, timing)
 
     replaces = {
         "swar_binop": ("K1", "pint_tpu/ops/pallas.py:148"),
@@ -624,9 +872,20 @@ def main():
              source="pint_tpu_torch/csrc/pgd_hqt.cu",
              replaces="pint_tpu/mpc/fused_alm.py:402",
              launches=counts["pgd_hqt"], **k4),
+        dict(name="pen (K6)", route="cuda", source="pint_tpu_torch/csrc/pen.cu",
+             replaces="pint_tpu/mpc/condense_fused.py:198", launches=counts["pen"],
+             max_abs_err=k6["max_abs_err"], ms=k6["ms"], plain_ms=k6["plain_ms"]),
+        dict(name="alm (K5)", route="cuda", source="pint_tpu_torch/csrc/alm.cu",
+             replaces="pint_tpu/mpc/fused_alm.py:335", launches=counts["alm"], **k5),
+        dict(name="alm_shared (K7)", route="cuda", source="pint_tpu_torch/csrc/alm.cu",
+             replaces="pint_tpu/mpc/fused_alm.py:176", launches=k7["launches"],
+             max_abs_err=k7["max_abs_err"], ms=k7["ms"], plain_ms=k7["plain_ms"]),
     ]
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
+    say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
+                    "flagship": flagship, "constrained_flagship": con_flagship,
+                    "lti_constrained": k7}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

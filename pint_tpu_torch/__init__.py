@@ -4,10 +4,13 @@ The JAX package ``pint_tpu`` stays beside it as the reference.  This package
 imports torch and numpy and never jax (nor ``pint_tpu``).  Ported so far:
 the SWAR substrate (``PackedArray`` and its free functions, 8- to 64-bit
 words, runtime shifts), the unicycle model, the LTI box-QP PGD solvers, the
-on-device SQP (default path) and the two serving endpoints, with
-hand-written CUDA kernels for the SWAR binops, shifts and saturating
-accumulate (K1, K9, K8, K11a-c), FusedPGD (K2), lipq (K3) and the
-per-problem PGD inner (K4).  ROADMAP.md lists what is still to port.
+on-device SQP (default path), the state-constrained tier (the LTI
+``ConstrainedPGD`` and the on-device ``DeviceConstrainedSQP``) and the three
+serving endpoints, with hand-written CUDA kernels for the SWAR binops,
+shifts and saturating accumulate (K1, K9, K8, K11a-c), FusedPGD (K2), lipq
+(K3), the per-problem PGD inner (K4), the per-problem and shared-operand
+ALM inners (K5, K7) and the penalty power iteration (K6).  ROADMAP.md lists
+what is still to port.
 """
 
 from pint_tpu_torch import convert
@@ -15,13 +18,17 @@ from pint_tpu_torch.layout import PackedLayout, word_bits_for
 from pint_tpu_torch.models import CONTROL_LAYOUT, Unicycle, pack_controls, unpack_controls
 from pint_tpu_torch.mpc import (
     CondensedQP,
+    ConstrainedPGD,
+    DeviceConstrainedSQP,
     DeviceSQP,
     FixedPointPGD,
     FusedPGD,
     QuantizedQP,
     condense_double_integrator,
     condense_lti,
+    constrain_states,
     quantize,
+    quantize_constrained,
 )
 from pint_tpu_torch.packed import (
     PackedArray,
@@ -41,7 +48,12 @@ from pint_tpu_torch.packed import (
     sub_unsigned_saturate,
     sub_wrap,
 )
-from pint_tpu_torch.serving import MPCService, RTIService, ServiceStats
+from pint_tpu_torch.serving import (
+    ConstrainedRTIService,
+    MPCService,
+    RTIService,
+    ServiceStats,
+)
 
 __all__ = [
     "PackedLayout",
@@ -64,6 +76,9 @@ __all__ = [
     "slice_lanes",
     "CONTROL_LAYOUT",
     "CondensedQP",
+    "ConstrainedPGD",
+    "ConstrainedRTIService",
+    "DeviceConstrainedSQP",
     "DeviceSQP",
     "FixedPointPGD",
     "FusedPGD",
@@ -74,8 +89,10 @@ __all__ = [
     "Unicycle",
     "condense_double_integrator",
     "condense_lti",
+    "constrain_states",
     "convert",
     "pack_controls",
     "quantize",
+    "quantize_constrained",
     "unpack_controls",
 ]

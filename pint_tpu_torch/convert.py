@@ -7,15 +7,23 @@ to give both packages the same problem and the same warm words.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from pint_tpu_torch.models.dynamics import Unicycle
 from pint_tpu_torch.mpc.condensed import CondensedQP, QuantizedQP
+from pint_tpu_torch.mpc.constrained import (
+    QuantizedConstrainedQP,
+    StateConstrainedQP,
+)
+from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
 
-__all__ = ["device_sqp_config", "quantized_qp_from_arrays", "words_from_numpy",
-           "words_to_numpy"]
+__all__ = ["device_constrained_config", "device_sqp_config",
+           "quantized_constrained_qp_from_arrays", "quantized_qp_from_arrays",
+           "words_from_numpy", "words_to_numpy"]
 
 _SIGNED = {np.dtype(np.uint8): np.int8, np.dtype(np.uint16): np.int16,
            np.dtype(np.uint32): np.int32, np.dtype(np.uint64): np.int64}
@@ -40,16 +48,18 @@ def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     return a.view(np.dtype(f"uint{a.dtype.itemsize * 8}"))
 
 
+def _condensed_qp_from_arrays(ref) -> CondensedQP:
+    return CondensedQP(
+        H=np.asarray(ref.H), G=np.asarray(ref.G), g_ref=np.asarray(ref.g_ref),
+        u_max=float(ref.u_max), lipschitz=float(ref.lipschitz),
+    )
+
+
 def quantized_qp_from_arrays(ref) -> QuantizedQP:
     """The port's :class:`QuantizedQP` from a reference ``QuantizedQP``'s
     numpy fields (``ref.qp.H`` ... ``ref.hs_den``)."""
-    qp = CondensedQP(
-        H=np.asarray(ref.qp.H), G=np.asarray(ref.qp.G),
-        g_ref=np.asarray(ref.qp.g_ref), u_max=float(ref.qp.u_max),
-        lipschitz=float(ref.qp.lipschitz),
-    )
     return QuantizedQP(
-        qp=qp, Hq=np.asarray(ref.Hq, np.int8), h_scale=float(ref.h_scale),
+        qp=_condensed_qp_from_arrays(ref.qp), Hq=np.asarray(ref.Hq, np.int8), h_scale=float(ref.h_scale),
         g_shift=int(ref.g_shift), Gq_scale=float(ref.Gq_scale),
         u_scale=float(ref.u_scale), horizon=int(ref.horizon),
         padded=int(ref.padded), hs_num=int(ref.hs_num), hs_den=int(ref.hs_den),
@@ -78,3 +88,43 @@ def device_sqp_config(ref, **overrides) -> DeviceSQP:
     )
     kw.update(overrides)
     return DeviceSQP(**kw)
+
+
+def quantized_constrained_qp_from_arrays(ref) -> QuantizedConstrainedQP:
+    """The port's :class:`QuantizedConstrainedQP` from a reference one's
+    numpy fields (``qqp`` through :func:`quantized_qp_from_arrays`)."""
+    sc = ref.scqp
+    scqp = StateConstrainedQP(
+        qp=_condensed_qp_from_arrays(sc.qp), S=np.asarray(sc.S), P=np.asarray(sc.P), r=np.asarray(sc.r),
+        lo=np.asarray(sc.lo), hi=np.asarray(sc.hi),
+        penalty_lipschitz=float(sc.penalty_lipschitz),
+    )
+    ints = ("cs_num", "cs_den", "eh_num", "eh_den", "el_num", "el_den",
+            "y_shift", "n_rows", "padded_rows")
+    return QuantizedConstrainedQP(
+        scqp=scqp, qqp=quantized_qp_from_arrays(ref.qqp), rho=float(ref.rho),
+        Sq=np.asarray(ref.Sq, np.int8), s_scale=float(ref.s_scale),
+        c_unit=float(ref.c_unit), lo_pre=np.asarray(ref.lo_pre, np.int32),
+        hi_pre=np.asarray(ref.hi_pre, np.int32),
+        **{k: int(getattr(ref, k)) for k in ints},
+    )
+
+
+def device_constrained_config(ref, **overrides) -> DeviceConstrainedSQP:
+    """The port's :class:`DeviceConstrainedSQP` with a reference one's
+    fields; ``dev`` through :func:`device_sqp_config`.  The reference's
+    TPU-only ``fused_block`` and ``lipq_block`` are dropped.
+    ``overrides`` sets fields of either: the constrained solver's own
+    (``fused``, ``rho``, ...) and the rest on ``dev`` (``device``,
+    ``use_kernels``, ...)."""
+    own = {f.name for f in dataclasses.fields(DeviceConstrainedSQP)}
+    dev_kw = {k: v for k, v in overrides.items() if k not in own}
+    kw = dict(
+        dev=device_sqp_config(ref.dev, **dev_kw),
+        F=np.asarray(ref.F, float), lo=np.asarray(ref.lo, float),
+        hi=np.asarray(ref.hi, float), rho=float(ref.rho),
+        alm_outer=int(ref.alm_outer), row_pad=int(ref.row_pad),
+        fused=ref.fused, lipq=ref.lipq,
+    )
+    kw.update({k: v for k, v in overrides.items() if k in own})
+    return DeviceConstrainedSQP(**kw)

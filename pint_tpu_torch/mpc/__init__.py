@@ -1,6 +1,11 @@
 """Fixed-point MPC: condensation, PGD solvers and the on-device SQP."""
 
-from pint_tpu_torch.mpc.condense_fused import lipq_fused, lipq_plain
+from pint_tpu_torch.mpc.condense_fused import (
+    lipq_fused,
+    lipq_plain,
+    pen_fused,
+    pen_plain,
+)
 from pint_tpu_torch.mpc.condensed import (
     CondensedQP,
     QuantizedQP,
@@ -8,9 +13,24 @@ from pint_tpu_torch.mpc.condensed import (
     condense_lti,
     quantize,
 )
+from pint_tpu_torch.mpc.constrained import (
+    ConstrainedPGD,
+    QuantizedConstrainedQP,
+    StateConstrainedQP,
+    constrain_states,
+    quantize_constrained,
+)
+from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
 from pint_tpu_torch.mpc.fused import FusedPGD, fused_pgd, fused_pgd_plain
 from pint_tpu_torch.mpc.fused_alm import (
+    alm_fused_words,
+    alm_fused_words_pre,
+    alm_hqt,
+    alm_hqt_plain,
+    alm_shared,
+    alm_shared_fused_words,
+    alm_shared_plain,
     pgd_fused_words,
     pgd_fused_words_pre,
     pgd_hqt,
@@ -20,19 +40,34 @@ from pint_tpu_torch.mpc.solver import FixedPointPGD
 
 __all__ = [
     "CondensedQP",
+    "ConstrainedPGD",
+    "DeviceConstrainedSQP",
     "DeviceSQP",
     "FixedPointPGD",
     "FusedPGD",
+    "QuantizedConstrainedQP",
     "QuantizedQP",
+    "StateConstrainedQP",
+    "alm_fused_words",
+    "alm_fused_words_pre",
+    "alm_hqt",
+    "alm_hqt_plain",
+    "alm_shared",
+    "alm_shared_fused_words",
+    "alm_shared_plain",
     "condense_double_integrator",
     "condense_lti",
+    "constrain_states",
     "fused_pgd",
     "fused_pgd_plain",
     "lipq_fused",
     "lipq_plain",
+    "pen_fused",
+    "pen_plain",
     "pgd_fused_words",
     "pgd_fused_words_pre",
     "pgd_hqt",
     "pgd_hqt_plain",
     "quantize",
+    "quantize_constrained",
 ]

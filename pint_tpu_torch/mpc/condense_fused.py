@@ -1,16 +1,18 @@
-"""Lipschitz estimate + int8 quantization of the condensed Hessian (K3).
+"""The condensation epilogues: power iteration + int8 quantization (K3, K6).
 
-PyTorch port of ``pint_tpu/mpc/condense_fused.py:132`` (``lipq_fused``).
-:func:`lipq_fused` runs the CUDA kernel ``csrc/lipq.cu`` for a CUDA tensor
-and :func:`lipq_plain`, the plain PyTorch version of the same function, for
-a CPU tensor.  The penalty kernel ``pen_fused`` (K6) is not ported yet.
+PyTorch port of ``pint_tpu/mpc/condense_fused.py``: ``lipq_fused`` (K3, the
+condensed Hessian; CUDA kernel ``csrc/lipq.cu``, plain version
+:func:`lipq_plain`) and ``pen_fused`` (K6, the state-constraint rows; CUDA
+kernel ``csrc/pen.cu``, plain version :func:`pen_plain`).  Each runs its
+kernel for a CUDA tensor and its plain version for a CPU tensor.
 
-Contract (the kernel against :func:`lipq_plain` on the same ``Ht``):
-``hqt`` and ``h_max`` bit-identical, ``lip`` to f32 roundoff at least.  Both
-accumulate ``w = H^T v`` over k in order, rounding each product and each
-sum, and the plain version reduces the norms in the kernel's order
-(:func:`_warp_order_sum`), so on the card ``lip`` comes out bit-identical
-too.  Against JAX (whose reductions XLA orders) ``lip`` agrees to roundoff.
+Contract (each kernel against its plain version on the same input): the
+int8 outputs, ``h_max`` and ``s_scale`` bit-identical, ``lip``, ``pen_lip``
+and ``row_amp`` to f32 roundoff at least.  The kernels round every product
+and sum (no FMA) and add in a fixed order, and the plain versions add in
+that same order (:func:`_warp_order_sum`, :func:`_seq_sum`), so on the card
+they come out bit-identical too.  Against JAX (whose reductions XLA orders)
+the f32 reductions agree to roundoff.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["lipq_fused", "lipq_plain", "quantize_hqt", "true_div"]
+__all__ = ["lipq_fused", "lipq_plain", "pen_fused", "pen_plain", "quantize_hqt",
+           "true_div"]
 
 
 def true_div(a, b):
@@ -125,3 +128,93 @@ def lipq_fused(
     K.check(err, "lipq_fused")
     K.count_launch("lipq")
     return hqt, lip, h_max
+
+
+INV_127 = float(np.float32(1.0 / 127.0))
+"""The f32 reciprocal of 127.  XLA compiles ``x / 127.0`` as ``x *
+INV_127`` (a division by a constant becomes a multiply by its reciprocal),
+so the reference's ``max|S| / 127`` is this product."""
+
+
+def _seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of ``x`` along ``dim`` added in index order, one rounding a term
+    (the order of one kernel thread's loop)."""
+    parts = x.unbind(dim)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def pen_plain(
+    S_t: torch.Tensor, *, power_iters: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`pen_fused` (any device), adding in
+    the kernel's order: ``S v`` over j and ``S^T w`` over c in index order,
+    the norms in the warp's order (:func:`_warp_order_sum`), the row sums
+    of ``row_amp`` over j in index order."""
+    C, Tm, B = S_t.shape
+    v = torch.full(
+        (Tm, B), float(np.float32(1.0 / np.sqrt(Tm))),
+        dtype=torch.float32, device=S_t.device,
+    )
+
+    def ssv(v):                                        # (Tm, B) -> (C, B)
+        return _seq_sum(S_t * v[None], 1)
+
+    def stw(w):                                        # (C, B) -> (Tm, B)
+        return _seq_sum(S_t * w[:, None], 0)
+
+    for _ in range(power_iters):
+        u = stw(ssv(v))
+        v = u / (torch.sqrt(_warp_order_sum(u * u)) + 1e-30)
+    lip = _warp_order_sum(v * stw(ssv(v)))[0] * 1.05
+    a = torch.abs(S_t)
+    sm = torch.amax(a, dim=(0, 1))
+    ra = torch.amax(_seq_sum(a, 1), dim=0)
+    sqc = quantize_hqt(S_t, sm)
+    return (sqc, sqc.transpose(0, 1).contiguous(), lip, sm * INV_127,
+            127.0 * ra)
+
+
+def pen_fused(
+    S_t: torch.Tensor, *, power_iters: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Penalty power iteration + int8 constraint-row quantization of the
+    batch-last constraint stack ``S_t`` (C, Tm, B) f32.
+
+    Returns ``(sqc (C, Tm, B) int8, sqj (Tm, C, B) int8, pen_lip (B,) f32,
+    s_scale (B,) f32, row_amp (B,) f32)``: ``sqc[c, j, b] =
+    clip(round(S_t[c, j, b] * 127 / max|S_t[..., b]|))`` in both
+    orientations :func:`~pint_tpu_torch.mpc.fused_alm.alm_hqt` consumes,
+    ``pen_lip ~ 1.05 * lambda_max(S S^T)``, ``s_scale = max|S| * INV_127``
+    (the reference's ``max|S| / 127`` as XLA compiles it) and
+    ``row_amp = 127 * max_c sum_j |S|``.  Kernel for a CUDA tensor, plain
+    version for a CPU tensor."""
+    if S_t.dim() != 3:
+        raise ValueError(f"S_t must be (C, Tm, B), got {tuple(S_t.shape)}")
+    if S_t.dtype != torch.float32:
+        raise ValueError(f"S_t must be float32, got {S_t.dtype}")
+    if S_t.device.type == "cpu":
+        return pen_plain(S_t, power_iters=power_iters)
+    K.require_cuda("pen_fused", S_t)
+    C, Tm, B = S_t.shape
+    if C > 256 or Tm > 256 or (C * (Tm + 1) + Tm + C + 1) * 4 > 232448:
+        raise ValueError(
+            f"pen_fused: C={C}, Tm={Tm}: one f32 slab must fit in shared "
+            "memory and C, Tm <= 256 (a streaming kernel is later work)"
+        )
+    dev = S_t.device
+    sqc = torch.empty((C, Tm, B), dtype=torch.int8, device=dev)
+    sqj = torch.empty((Tm, C, B), dtype=torch.int8, device=dev)
+    lip, s_scale, row_amp = (
+        torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        err = K.library().pint_pen(
+            S_t.data_ptr(), sqc.data_ptr(), sqj.data_ptr(), lip.data_ptr(),
+            s_scale.data_ptr(), row_amp.data_ptr(), B, C, Tm, power_iters,
+            K.stream_of(S_t),
+        )
+    K.check(err, "pen_fused")
+    K.count_launch("pen")
+    return sqc, sqj, lip, s_scale, row_amp

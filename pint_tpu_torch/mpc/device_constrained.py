@@ -1,0 +1,341 @@
+"""Device-resident state-constrained SQP: nonlinear MPC with hard
+``lo <= F x_k <= hi`` on one device.
+
+PyTorch port of ``pint_tpu/mpc/device_constrained.py``
+(``DeviceConstrainedSQP``), default path.  Each SQP iteration, for a batch
+of problems at once:
+
+* the condensation of :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP`
+  (f32 rollout + linearization, the unrolled propagator recursion, the
+  ``reduce="sym"`` contraction);
+* constraint-row stacking S = F Bbar, P = F Abar, r = F Cbar from the same
+  propagator stacks, batch-last;
+* K3 (:func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) on the
+  Hessian and K6 (:func:`~pint_tpu_torch.mpc.condense_fused.pen_fused`) on
+  the constraint rows: power iterations and int8 quantization in both
+  kernel orientations;
+* the int32 rationals, bounds and offsets in c-pre units, and the
+  multiplier rescale across relinearizations (lam lives in c-pre units
+  whose per-problem scale moves with the trajectory);
+* ``alm_outer x pgd_iters`` integer ALM iterations as the K5 kernel
+  (:func:`~pint_tpu_torch.mpc.fused_alm.alm_fused_words_pre`).
+
+The device and ``use_kernels`` are ``dev``'s: on a CUDA device K3, K6 and
+K5 are the hand-written kernels, on the CPU their plain versions, and
+``use_kernels=False`` runs the plain versions on any device (the reference
+the kernels are held to on the card).  ``fused=False`` runs the word-space
+``_alm_batched`` inner instead of the lane-space one (bit-identical).
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
+``lipq=False`` (the XLA-form ``_pen_lipschitz`` and quantize branch) and
+``sharded_solve_words``; ``dev``'s own unported options raise in
+:class:`DeviceSQP`.  ``propagate="auto"`` runs the unrolled propagation,
+the only form ported (the reference's T < 40 scan crossover is a TPU
+measurement).
+
+The f32 contractions must run in full f32: on a CUDA device the solver
+refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+from pint_tpu_torch.mpc.condense_fused import (
+    INV_127,
+    lipq_fused,
+    lipq_plain,
+    pen_fused,
+    pen_plain,
+    true_div,
+)
+from pint_tpu_torch.mpc.constrained import RATIONALS, _C_BITS, _CX0_CAP, _LAM_CAP
+from pint_tpu_torch.mpc.device_sqp import DeviceSQP, _f32_to_i32
+from pint_tpu_torch.mpc.fused_alm import alm_fused_words_pre, alm_hqt_plain
+from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
+
+__all__ = ["DeviceConstrainedSQP"]
+
+_TODO = "not ported yet (ROADMAP.md queue 1)"
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as XLA converts: round half to even, saturate, NaN to
+    0 (so a non-finite problem's shift amounts stay in range)."""
+    return _f32_to_i32(torch.nan_to_num(x, nan=0.0))
+
+
+def _rational_traced(val: torch.Tensor, acc_max: int, budget: int):
+    """int32 rational num/2**den ~ val (B,) (the on-device form of
+    ``sqp_constrained._rational_vec``; no validation raises -- degenerate
+    scales are the caller's documented precondition, as in the
+    reference)."""
+    num_max = float(np.float32(budget // acc_max))
+    den = torch.clamp(torch.floor(torch.log2(true_div(num_max, val))), 0, 31)
+    den = _to_i32(den)
+    num = _to_i32(val * torch.exp2(den.to(torch.float32)))
+    return num, den
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceConstrainedSQP:
+    """On-device SQP with hard per-step state constraints on packed plans.
+
+    ``dev`` carries the model/cost geometry, the device and ``use_kernels``
+    (:class:`DeviceSQP`; its ``sqp_iters``/``pgd_iters`` mean SQP outers /
+    ALM inner PGD steps here); ``F`` is (Cs, n) over physical states,
+    ``lo``/``hi`` scalar or (Cs,), enforced at every step k = 1..T of the
+    linearized trajectory."""
+
+    dev: DeviceSQP = dataclasses.field(default_factory=DeviceSQP)
+    F: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([[0.0, 1.0, 0.0]])
+    )
+    lo: "float | np.ndarray" = -1.0
+    hi: "float | np.ndarray" = 1.0
+    rho: float = 50.0
+    alm_outer: int = 3
+    row_pad: int = 64
+    fused: Optional[bool] = None
+    lipq: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.lipq is False:
+            raise NotImplementedError(f"lipq=False: {_TODO}")
+        self._bounds  # validate lo < hi now, not at the first solve
+
+    @property
+    def device(self) -> torch.device:
+        return self.dev.device
+
+    @functools.cached_property
+    def _F(self) -> np.ndarray:
+        return np.atleast_2d(np.asarray(self.F, float))
+
+    @functools.cached_property
+    def _bounds(self) -> Tuple[np.ndarray, np.ndarray]:
+        Cs = self._F.shape[0]
+        lo = np.broadcast_to(np.asarray(self.lo, float), (Cs,))
+        hi = np.broadcast_to(np.asarray(self.hi, float), (Cs,))
+        if np.any(lo >= hi):
+            raise ValueError("state constraint lo must be < hi per row")
+        T = self.dev.horizon
+        return np.tile(lo, T), np.tile(hi, T)
+
+    @property
+    def n_rows(self) -> int:
+        return self._F.shape[0] * self.dev.horizon
+
+    @functools.cached_property
+    def padded_rows(self) -> int:
+        return -(-self.n_rows // self.row_pad) * self.row_pad
+
+    def init_words(self, batch: int) -> torch.Tensor:
+        return self.dev.init_words(batch)
+
+    def init_lam(self, batch: int) -> torch.Tensor:
+        return torch.zeros(
+            (batch, self.padded_rows), dtype=torch.int32, device=self.device
+        )
+
+    @functools.cached_property
+    def _consts(self) -> dict:
+        """F, the padded bounds in physical units and b_amp, on the
+        device."""
+        lo_r, hi_r = self._bounds
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        return dict(F=f32(self._F), lo=f32(lo_r), hi=f32(hi_r),
+                    b_amp=float(np.float32(max(np.abs(lo_r).max(),
+                                               np.abs(hi_r).max()))))
+
+    # -- condensation + constraint stacking -------------------------------------
+
+    def _stack_constraints(self, Abar, Bbar, Cbar):
+        """Constraint stacks from the batch-first propagators Abar
+        (B,T,n,n), Bbar (B,T,n,Tm), Cbar (B,T,n): row k*Cs+c is constraint
+        c at step k+1.  Returns S_t (C,Tm,B) contiguous (K6's input), P_t
+        (C,n,B) and r_t (C,B), batch-last as in the reference."""
+        Tm, C = self.dev.n_dec, self.n_rows
+        Fj = self._consts["F"]                                    # (Cs, n)
+        S_t = torch.einsum("ci,bkit->kctb", Fj, Bbar).reshape(C, Tm, -1)
+        P_t = torch.einsum("ci,bkir->kcrb", Fj, Abar)
+        P_t = P_t.reshape(C, Abar.shape[2], -1)
+        r_t = torch.einsum("ci,bki->kcb", Fj, Cbar).reshape(C, -1)
+        return S_t.contiguous(), P_t, r_t
+
+    def _condense_constrained_dev(self, x0_f, lanes):
+        """Per-iteration prep: linearize, condense, stack, K3 + K6, the
+        rationals, bounds and offsets.  Returns (ops dict, c_unit (B,)
+        f32); ops carries the batch-last kernel-orientation int8 matrices
+        ``hqt``/``sqj``/``sqc`` (constraint rows zero-padded to Cp)."""
+        d = self.dev
+        Tp = d.n_dec
+        C, Cp = self.n_rows, self.padded_rows
+        c = self._consts
+
+        A_seq, B_lane, c_seq = d._linearize_phase(x0_f, lanes)
+        Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
+        Ht, g = d._reduce_sym(Abar, Bbar, Cbar, x0_f)
+        S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
+        if d.use_kernels:
+            hqt, lip, h_max = lipq_fused(Ht, power_iters=d.power_iters)
+            sqc, sqj, pen_lip, s_scale, row_amp = pen_fused(
+                S_t, power_iters=d.power_iters)
+        else:
+            hqt, lip, h_max = lipq_plain(Ht, power_iters=d.power_iters)
+            sqc, sqj, pen_lip, s_scale, row_amp = pen_plain(
+                S_t, power_iters=d.power_iters)
+        lip_total = lip + float(np.float32(self.rho)) * pen_lip
+        alpha = true_div(1.0, lip_total)                          # (B,)
+        g_pre = d._g_pre_from(g, alpha)
+        # the reference's alpha * h_max / 127.0, as XLA compiles it
+        hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
+        if Cp > C:
+            sqc = torch.nn.functional.pad(sqc, (0, 0, 0, 0, 0, Cp - C))
+            sqj = torch.nn.functional.pad(sqj, (0, 0, 0, Cp - C))
+
+        c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))
+        cs_num, cs_den = _rational_traced(
+            true_div(s_scale, c_unit), 127 * 127 * Tp, 2**31 - 1)
+        base = (
+            float(np.float32(self.rho)) * s_scale * float(1 << _Y_SHIFT)
+            * c_unit * alpha
+        ) * float(1 << d.g_shift)
+        eh_num, eh_den = _rational_traced(base * 128.0, 64 * 127 * Cp, 2**30 - 1)
+        el_num, el_den = _rational_traced(base, 127 * 127 * Cp, 2**30 - 1)
+
+        sent = 1 << 30
+
+        def bound(b_phys, fill):
+            rows = torch.clamp(torch.round(true_div(b_phys[None, :], c_unit[:, None])),
+                               -sent, sent)
+            return torch.nn.functional.pad(_to_i32(rows), (0, Cp - C), value=fill)
+
+        # constant offset rows: c_off = (x0 . P + r) / c_unit
+        off = torch.einsum("bn,cnb->bc", x0_f, P_t) + r_t.T
+        off = torch.nan_to_num(true_div(off, c_unit[:, None]), nan=0.0,
+                               posinf=_CX0_CAP, neginf=-_CX0_CAP)
+        c_off = _to_i32(torch.clamp(torch.round(off), -_CX0_CAP, _CX0_CAP))
+        ops = dict(
+            g_pre=g_pre, hqt=hqt, hs_num=hs_num, hs_den=hs_den, sqj=sqj,
+            sqc=sqc, cs_num=cs_num, cs_den=cs_den,
+            c_off=torch.nn.functional.pad(c_off, (0, Cp - C)),
+            lo_pre=bound(c["lo"], -sent), hi_pre=bound(c["hi"], sent),
+            eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den,
+        )
+        return ops, c_unit
+
+    def _run_inner(self, words, ops, lam):
+        """The ALM inner on the quantized operands: K5 (its plain version
+        with ``use_kernels=False``), or the word-space ``_alm_batched``
+        with ``fused=False`` -- bit-identical given the same operands."""
+        d = self.dev
+        kw = dict(outer=self.alm_outer, inners=d.pgd_iters,
+                  g_shift=d.g_shift, y_shift=_Y_SHIFT)
+        rest = [ops[k] for k in ("cs_num", "cs_den", "c_off", "lo_pre",
+                                 "hi_pre", "eh_num", "eh_den", "el_num",
+                                 "el_den")]
+        if self.fused is False:
+            return _alm_batched(
+                words, ops["g_pre"], ops["hqt"].permute(2, 1, 0), ops["hs_num"],
+                ops["hs_den"], ops["sqc"].permute(2, 0, 1), *rest, lam, **kw)
+        if d.use_kernels:
+            return alm_fused_words_pre(
+                words, ops["g_pre"], ops["hqt"], ops["hs_num"], ops["hs_den"],
+                ops["sqj"], ops["sqc"], *rest, lam, **kw)
+        sc = torch.stack([ops[k] for k in RATIONALS])
+        lanes, lam = alm_hqt_plain(
+            unpack_controls(words), ops["g_pre"], ops["hqt"], ops["sqj"],
+            ops["sqc"], ops["c_off"], ops["lo_pre"], ops["hi_pre"], lam, sc,
+            **kw)
+        return pack_controls(lanes), lam
+
+    # -- public API --------------------------------------------------------------
+
+    def solve_words(
+        self,
+        u_words: torch.Tensor,
+        x0_f,
+        lam: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``dev.sqp_iters`` constrained SQP iterations.
+
+        x0_f (B, n) float32 physical states; u_words (B, Tm/4) int32 packed
+        plan (warm start); lam (B, padded_rows) int32 multipliers (zeros
+        when omitted).  Returns (words, lam) -- pass both back in for
+        warm-started receding-horizon use."""
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "DeviceConstrainedSQP needs full-f32 GEMMs: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False"
+            )
+        x0_f = torch.as_tensor(x0_f, dtype=torch.float32, device=self.device)
+        B = x0_f.shape[0]
+        if self._F.shape[1] != x0_f.shape[-1]:
+            raise ValueError(
+                f"F has {self._F.shape[1]} columns, state dim is {x0_f.shape[-1]}"
+            )
+        if u_words.shape[0] != B:
+            raise ValueError(f"u_words batch {u_words.shape[0]} != x0 batch {B}")
+        if lam is None:
+            lam = self.init_lam(B)
+        elif tuple(lam.shape) != (B, self.padded_rows):
+            raise ValueError(
+                f"lam shape {tuple(lam.shape)} != ({B}, {self.padded_rows})"
+            )
+        cap = float(_LAM_CAP)
+        words, prev_cu = u_words, None
+        for _ in range(self.dev.sqp_iters):
+            lanes = unpack_controls(words)[:, : self.dev.n_dec]
+            ops, c_unit = self._condense_constrained_dev(x0_f, lanes)
+            if prev_cu is None:
+                lam = torch.clamp(lam, -int(_LAM_CAP), int(_LAM_CAP))
+            else:
+                # keep the physical value lam_pre * c_unit across the
+                # relinearization's new per-problem c_unit
+                scale = true_div(prev_cu, c_unit)
+                lam = _to_i32(torch.clamp(
+                    torch.round(lam.to(torch.float32) * scale[:, None]), -cap, cap))
+            words, lam = self._run_inner(words, ops, lam)
+            prev_cu = c_unit
+        return words, lam
+
+    def solve(self, x0_f: np.ndarray):
+        """Cold-start convenience: returns (words, lam, physical plans
+        (B, T, m) numpy)."""
+        x0_f = np.atleast_2d(np.asarray(x0_f, np.float32))
+        d = self.dev
+        words, lam = self.solve_words(self.init_words(x0_f.shape[0]), x0_f)
+        lanes = unpack_controls(words)[:, : d.n_dec].cpu().numpy()
+        plans = lanes.reshape(-1, d.horizon, d.n_ctrl) * d._lane_scales
+        return words, lam, plans
+
+    def sharded_solve_words(self, *args, **kwargs):
+        raise NotImplementedError(f"sharded_solve_words: {_TODO}")
+
+    def violation(self, x0_f: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+        """Max true-trajectory (f32 rollout) constraint violation per
+        problem, on the host."""
+        d = self.dev
+        u_phys = torch.as_tensor(
+            np.asarray(lanes).reshape(-1, d.horizon, d.n_ctrl) * d._lane_scales,
+            dtype=torch.float32,
+        )
+        x0 = torch.as_tensor(np.atleast_2d(np.asarray(x0_f)), dtype=torch.float32)
+        traj = d.model.rollout_f32(x0, u_phys)
+        c = np.einsum("ci,bki->bkc", self._F, traj[:, 1:].numpy())
+        Cs = self._F.shape[0]
+        lo = self._bounds[0].reshape(-1, Cs)[0]
+        hi = self._bounds[1].reshape(-1, Cs)[0]
+        return np.maximum(
+            np.maximum(c - hi, 0), np.maximum(lo - c, 0)
+        ).max(axis=(1, 2))

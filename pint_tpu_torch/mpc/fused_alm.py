@@ -1,15 +1,29 @@
-"""Per-problem-Hessian PGD inner of DeviceSQP (K4).
+"""The whole-loop integer kernels of the MPC inners (K4, K5, K7).
 
-PyTorch port of ``pint_tpu/mpc/fused_alm.py:494-606``
-(``pgd_fused_words_pre`` and ``pgd_fused_words``).  :func:`pgd_hqt` runs the
-CUDA kernel ``csrc/pgd_hqt.cu`` for CUDA tensors and :func:`pgd_hqt_plain`,
-the plain PyTorch version of the same lane-space loop, for CPU tensors.  The
-ALM kernels (K5, K7) and the tp column matvec (K10) are not ported yet.
+PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
+
+* K4, the per-problem-Hessian PGD inner of DeviceSQP
+  (``pgd_fused_words_pre``, ``pgd_fused_words``): :func:`pgd_hqt`, CUDA
+  kernel ``csrc/pgd_hqt.cu``, plain version :func:`pgd_hqt_plain`;
+* K5, the per-problem ALM inner of DeviceConstrainedSQP
+  (``alm_fused_words_pre``, ``alm_fused_words``): :func:`alm_hqt`, CUDA
+  kernel ``csrc/alm.cu`` (``alm_kernel``), plain version
+  :func:`alm_hqt_plain`;
+* K7, the shared-operand ALM of the LTI ConstrainedPGD
+  (``alm_shared_fused_words``): :func:`alm_shared`, CUDA kernel
+  ``csrc/alm.cu`` (``alm_shared_kernel``), plain version
+  :func:`alm_shared_plain`.
+
+Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
+tensors.  The tp column matvec (K10) is not ported yet.
 
 Exactness: for in-range int8 lanes ``max_signed(add_signed_saturate(u, d),
--127)`` equals ``clip(u + d, -127, 127)`` in lane space, so both routes are
-bit-identical to the word-space :func:`pint_tpu_torch.mpc.ltv._pgd_batched_h`
-given the same operands.
+-127)`` equals ``clip(u + d, -127, 127)`` in lane space, so every route is
+bit-identical to its word-space reference given the same operands
+(:func:`pint_tpu_torch.mpc.ltv._pgd_batched_h`,
+:func:`pint_tpu_torch.mpc.sqp_constrained._alm_batched`,
+``ConstrainedPGD(fused=False)``).  The plain versions run the int8 matvecs
+as float64 products, exact here (|acc| <= 128 * 127 * 256) and free of TF32.
 """
 
 from __future__ import annotations
@@ -17,10 +31,12 @@ from __future__ import annotations
 import torch
 
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+from pint_tpu_torch.mpc.constrained import RATIONALS, _alm_loop, _f64_mv, _lane_space
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["pgd_fused_words", "pgd_fused_words_pre", "pgd_hqt", "pgd_hqt_plain"]
-
+__all__ = ["alm_fused_words", "alm_fused_words_pre", "alm_hqt", "alm_hqt_plain",
+           "alm_shared", "alm_shared_fused_words", "alm_shared_plain",
+           "pgd_fused_words", "pgd_fused_words_pre", "pgd_hqt", "pgd_hqt_plain"]
 
 def pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """Plain PyTorch version of :func:`pgd_hqt` (any device).
@@ -97,4 +113,199 @@ def pgd_fused_words(u_words, g_pre, Hq, hs_num, hs_den, *, iters, g_shift):
     hqt = Hq.permute(2, 1, 0).contiguous()
     return pgd_fused_words_pre(
         u_words, g_pre, hqt, hs_num, hs_den, iters=iters, g_shift=g_shift
+    )
+
+
+# -- the ALM kernels (K5, K7) --------------------------------------------------
+
+
+def _check(name, specs):
+    """Raise unless each (what, tensor, shape, dtype) matches."""
+    for what, t, shape, dt in specs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {what} is {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.dtype != dt:
+            raise ValueError(f"{name}: {what} must be {dt}, got {t.dtype}")
+
+
+def _check_geometry(name, Tp, Cp):
+    """The kernels' limits: dp4a words, at most 8 lanes a thread.  At
+    Tp = Cp = 256 one K5 problem stages 200,448 bytes, so every accepted
+    shape fits the 232,448 bytes of shared memory a block may use."""
+    if Tp % 4 or Cp % 4 or not 0 < Tp <= 256 or not 0 < Cp <= 256:
+        raise ValueError(
+            f"{name}: Tp={Tp}, Cp={Cp} must be multiples of 4 in [4, 256]")
+
+
+def alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *,
+                     hs_num, hs_den, cs_num, cs_den, eh_num, eh_den, el_num,
+                     el_den, outer, inners, g_shift, y_shift):
+    """Plain PyTorch version of :func:`alm_shared` (any device): the
+    lane-space loop of ``pint_tpu``'s ``_shared_kernel_factory``."""
+    hqT, sd = hq.to(torch.float64).T, sq.to(torch.float64)
+    rat = dict(hs_num=hs_num, hs_den=hs_den, cs_num=cs_num, cs_den=cs_den,
+               eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den)
+    return _alm_loop(
+        lanes, g_pre, c_off, lam,
+        hmv=lambda u: _f64_mv(u, hqT), smv=lambda u: _f64_mv(u, sd.T),
+        stmv=lambda y: _f64_mv(y, sd), rat=rat, lo=lo_pre, hi=hi_pre,
+        outer=outer, inners=inners, g_shift=g_shift, y_shift=y_shift,
+        space=_lane_space(),
+    )
+
+
+def alm_shared(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *, hs_num,
+               hs_den, cs_num, cs_den, eh_num, eh_den, el_num, el_den, outer,
+               inners, g_shift, y_shift):
+    """``outer`` x ``inners`` ALM iterations with one Hessian and one
+    constraint matrix shared by every problem.
+
+    lanes, g_pre (B, Tp) int32 (lanes in [-128, 127]); c_off, lam (B, Cp)
+    int32; hq (Tp, Tp) int8; sq (Cp, Tp) int8; lo_pre, hi_pre (Cp,) int32;
+    the rationals are ints.  Returns (lanes (B, Tp), lam (B, Cp)) int32.
+    Kernel for CUDA tensors, plain version for CPU tensors."""
+    B, Tp = g_pre.shape
+    Cp = c_off.shape[-1]
+    i32 = torch.int32
+    _check("alm_shared", [
+        ("lanes", lanes, (B, Tp), i32), ("g_pre", g_pre, (B, Tp), i32),
+        ("c_off", c_off, (B, Cp), i32), ("lam", lam, (B, Cp), i32),
+        ("hq", hq, (Tp, Tp), torch.int8), ("sq", sq, (Cp, Tp), torch.int8),
+        ("lo_pre", lo_pre, (Cp,), i32), ("hi_pre", hi_pre, (Cp,), i32),
+    ])
+    kw = dict(hs_num=hs_num, hs_den=hs_den, cs_num=cs_num, cs_den=cs_den,
+              eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den,
+              outer=outer, inners=inners, g_shift=g_shift, y_shift=y_shift)
+    if lanes.device.type == "cpu":
+        return alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre,
+                                hi_pre, **kw)
+    K.require_cuda("alm_shared", lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre)
+    _check_geometry("alm_shared", Tp, Cp)
+    out_lanes = torch.empty_like(lanes)
+    out_lam = torch.empty_like(lam)
+    with torch.cuda.device(lanes.device):
+        err = K.library().pint_alm_shared(
+            lanes.data_ptr(), g_pre.data_ptr(), c_off.data_ptr(),
+            lam.data_ptr(), hq.data_ptr(), sq.data_ptr(), lo_pre.data_ptr(),
+            hi_pre.data_ptr(), out_lanes.data_ptr(), out_lam.data_ptr(),
+            B, Tp, Cp, outer, inners, g_shift, y_shift,
+            *(int(kw[k]) for k in RATIONALS), K.stream_of(lanes),
+        )
+    K.check(err, "alm_shared")
+    K.count_launch("alm_shared")
+    return out_lanes, out_lam
+
+
+def alm_shared_fused_words(u_words, g_pre, c_off, lam0, *, Hq, Sq, lo_pre,
+                           hi_pre, hs_num, hs_den, cs_num, cs_den, eh_num,
+                           eh_den, el_num, el_den, outer, inners, g_shift,
+                           y_shift):
+    """Words in, words out (``pint_tpu``'s ``alm_shared_fused_words``):
+    u_words (B, Tp/4) int32 words; ``Hq``, ``Sq``, ``lo_pre``, ``hi_pre``
+    numpy arrays or tensors.  Returns (words, lam)."""
+    def on(a, dt):
+        return torch.as_tensor(a, device=u_words.device).to(dt).contiguous()
+
+    lanes, lam = alm_shared(
+        unpack_controls(u_words), g_pre, c_off, lam0,
+        on(Hq, torch.int8), on(Sq, torch.int8),
+        on(lo_pre, torch.int32), on(hi_pre, torch.int32),
+        hs_num=hs_num, hs_den=hs_den, cs_num=cs_num, cs_den=cs_den,
+        eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den,
+        outer=outer, inners=inners, g_shift=g_shift, y_shift=y_shift,
+    )
+    return pack_controls(lanes), lam
+
+
+def alm_hqt_plain(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc,
+                  *, outer, inners, g_shift, y_shift):
+    """Plain PyTorch version of :func:`alm_hqt` (any device): the
+    lane-space loop of ``pint_tpu``'s ``_kernel_factory``.  ``sqj`` is the
+    kernel's second orientation of ``sqc`` and is not read here."""
+    Hd = hqt.permute(2, 1, 0).to(torch.float64)        # (B, j, k)
+    Sd = sqc.permute(2, 0, 1).to(torch.float64)        # (B, c, j)
+
+    def bmv(m, v):
+        return torch.bmm(m, v.to(torch.float64)[:, :, None])[..., 0].to(torch.int32)
+
+    return _alm_loop(
+        lanes, g_pre, c_off, lam,
+        hmv=lambda u: bmv(Hd, u), smv=lambda u: bmv(Sd, u),
+        stmv=lambda y: bmv(Sd.transpose(1, 2), y),
+        rat={k: sc[i][:, None] for i, k in enumerate(RATIONALS)},
+        lo=lo_pre, hi=hi_pre, outer=outer, inners=inners, g_shift=g_shift,
+        y_shift=y_shift, space=_lane_space(),
+    )
+
+
+def alm_hqt(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc, *,
+            outer, inners, g_shift, y_shift):
+    """``outer`` x ``inners`` ALM iterations with per-problem int8
+    Hessians, constraint rows and rationals.
+
+    lanes, g_pre (B, Tp) int32 (lanes in [-128, 127]); hqt (Tp, Tp, B)
+    int8 with ``hqt[k, j, b] = Hq_b[j, k]``; sqj (Tp, Cp, B) and sqc
+    (Cp, Tp, B) int8, both ``Sq_b[c, j]``; c_off, lo_pre, hi_pre, lam
+    (B, Cp) int32; sc (8, B) int32, the rationals in
+    :data:`~pint_tpu_torch.mpc.constrained.RATIONALS` order.  Returns
+    (lanes (B, Tp), lam (B, Cp)) int32.  Kernel for CUDA tensors, plain
+    version for CPU tensors."""
+    B, Tp = g_pre.shape
+    Cp = c_off.shape[-1]
+    i32, i8 = torch.int32, torch.int8
+    _check("alm_hqt", [
+        ("lanes", lanes, (B, Tp), i32), ("g_pre", g_pre, (B, Tp), i32),
+        ("hqt", hqt, (Tp, Tp, B), i8), ("sqj", sqj, (Tp, Cp, B), i8),
+        ("sqc", sqc, (Cp, Tp, B), i8), ("c_off", c_off, (B, Cp), i32),
+        ("lo_pre", lo_pre, (B, Cp), i32), ("hi_pre", hi_pre, (B, Cp), i32),
+        ("lam", lam, (B, Cp), i32), ("sc", sc, (8, B), i32),
+    ])
+    kw = dict(outer=outer, inners=inners, g_shift=g_shift, y_shift=y_shift)
+    if lanes.device.type == "cpu":
+        return alm_hqt_plain(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre,
+                             hi_pre, lam, sc, **kw)
+    ops = (lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc)
+    K.require_cuda("alm_hqt", *ops)
+    _check_geometry("alm_hqt", Tp, Cp)
+    out_lanes = torch.empty_like(lanes)
+    out_lam = torch.empty_like(lam)
+    with torch.cuda.device(lanes.device):
+        err = K.library().pint_alm(
+            *(t.data_ptr() for t in ops), out_lanes.data_ptr(),
+            out_lam.data_ptr(), B, Tp, Cp, outer, inners, g_shift, y_shift,
+            K.stream_of(lanes),
+        )
+    K.check(err, "alm_hqt")
+    K.count_launch("alm")
+    return out_lanes, out_lam
+
+
+def alm_fused_words_pre(u_words, g_pre, hqt, hs_num, hs_den, sqj, sqc, cs_num,
+                        cs_den, c_off, lo_pre, hi_pre, eh_num, eh_den, el_num,
+                        el_den, lam0, *, outer, inners, g_shift, y_shift):
+    """Words in, words out, int8 matrices already batch-last in the
+    kernel orientations (``hqt`` from :func:`~pint_tpu_torch.mpc.
+    condense_fused.lipq_fused`, ``sqj``/``sqc`` from ``pen_fused``); the
+    rationals are (B,) int32.  Returns (words, lam)."""
+    sc = torch.stack([hs_num, hs_den, cs_num, cs_den,
+                      eh_num, eh_den, el_num, el_den])
+    lanes, lam = alm_hqt(
+        unpack_controls(u_words), g_pre, hqt, sqj, sqc, c_off, lo_pre,
+        hi_pre, lam0, sc, outer=outer, inners=inners, g_shift=g_shift,
+        y_shift=y_shift,
+    )
+    return pack_controls(lanes), lam
+
+
+def alm_fused_words(u_words, g_pre, Hq, hs_num, hs_den, Sq, cs_num, cs_den,
+                    c_off, lo_pre, hi_pre, eh_num, eh_den, el_num, el_den,
+                    lam0, *, outer, inners, g_shift, y_shift):
+    """:func:`alm_fused_words_pre` from batch-first Hq (B, Tp, Tp) and Sq
+    (B, Cp, Tp): one int8 transpose to each kernel orientation."""
+    return alm_fused_words_pre(
+        u_words, g_pre, Hq.permute(2, 1, 0).contiguous(), hs_num, hs_den,
+        Sq.permute(2, 1, 0).contiguous(), Sq.permute(1, 2, 0).contiguous(),
+        cs_num, cs_den, c_off, lo_pre, hi_pre, eh_num, eh_den, el_num,
+        el_den, lam0, outer=outer, inners=inners, g_shift=g_shift,
+        y_shift=y_shift,
     )

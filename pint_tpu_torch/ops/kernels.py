@@ -66,6 +66,15 @@ _SIGNATURES = {
     "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
     "pint_lipq": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # st, sqc, sqj, lip, s_scale, row_amp, B, C, Tm, power_iters, stream
+    "pint_pen": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lanes, g, hqt, sqj, sqc, c_off, lo, hi, lam, sc, out_lanes, out_lam,
+    # B, Tp, Cp, outer, inners, g_shift, y_shift, stream
+    "pint_alm": [_P] * 12 + [_I] * 7 + [_P],
+    # lanes, g, c_off, lam, hq, sq, lo, hi, out_lanes, out_lam, B, Tp, Cp,
+    # outer, inners, g_shift, y_shift, hs_num, hs_den, cs_num, cs_den,
+    # eh_num, eh_den, el_num, el_den, stream
+    "pint_alm_shared": [_P] * 10 + [_I] * 15 + [_P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -80,9 +89,10 @@ SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",
 """Launch-count names of ``ops/swar.py``: K1, K9 and K8 on native words,
 and K11a-c on u64 planar pairs."""
 
-KERNELS = ("fused_pgd", "pgd_hqt", "lipq") + SWAR_KERNELS
-"""Launch-count names: K2 (``mpc/fused.py``), K4 (``mpc/fused_alm.py``), K3
-(``mpc/condense_fused.py``) and the SWAR kernels."""
+KERNELS = ("fused_pgd", "pgd_hqt", "lipq", "alm", "alm_shared", "pen") + SWAR_KERNELS
+"""Launch-count names: K2 (``mpc/fused.py``), K4, K5 and K7
+(``mpc/fused_alm.py``), K3 and K6 (``mpc/condense_fused.py``) and the SWAR
+kernels."""
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lib = None

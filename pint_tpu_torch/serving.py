@@ -1,5 +1,5 @@
 """Serving layer: persistent, warm-started MPC services (port of
-``pint_tpu/serving.py:52-264``).
+``pint_tpu/serving.py``).
 
 A long-lived service object owns the solver and the warm-start state (packed
 control words per row of the client batch), accepts numpy state batches
@@ -11,7 +11,8 @@ Route selection follows the device: on a CUDA device the LTI service runs
 the K2 kernel (:class:`~pint_tpu_torch.mpc.fused.FusedPGD`) and computes the
 linear term on the device; on the CPU it runs the word-space
 :class:`~pint_tpu_torch.mpc.solver.FixedPointPGD` with the float64 host
-linear term.  ``ConstrainedRTIService`` is not ported yet.
+linear term.  The nonlinear services (:class:`RTIService`,
+:class:`ConstrainedRTIService`) run their solver on its own device.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from pint_tpu_torch.mpc.fused import FusedPGD
 from pint_tpu_torch.mpc.solver import FixedPointPGD
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["MPCService", "RTIService", "ServiceStats", "LTI_BUDGET_S",
-           "RTI_BUDGET_S"]
+__all__ = ["ConstrainedRTIService", "MPCService", "RTIService", "ServiceStats",
+           "CRTI_BUDGET_S", "LTI_BUDGET_S", "RTI_BUDGET_S"]
 
 LTI_BUDGET_S = 0.010
 """Real-time budget (SLO) of the LTI endpoint (:class:`MPCService`): a
@@ -39,6 +40,10 @@ LTI_BUDGET_S = 0.010
 RTI_BUDGET_S = 0.020
 """Real-time budget (SLO) of the nonlinear RTI endpoint
 (:class:`RTIService`): a 50 Hz control loop."""
+
+CRTI_BUDGET_S = 0.020
+"""Real-time budget (SLO) of the state-constrained RTI endpoint
+(:class:`ConstrainedRTIService`): a 50 Hz control loop."""
 
 
 @dataclasses.dataclass
@@ -214,3 +219,76 @@ class RTIService:
 
     def reset(self) -> None:
         self._warm = self._zero
+
+
+def _shift_lam(lam: torch.Tensor, Cs: int, C: int) -> torch.Tensor:
+    """Warm multipliers for the next tick: rows are time-major (row k*Cs+c
+    is step k+1's constraint c), so drop the first step's Cs rows, append
+    Cs zero rows for the new last step, and keep the inert padding rows."""
+    return torch.cat([lam[:, Cs:C], torch.zeros_like(lam[:, :Cs]), lam[:, C:]],
+                     dim=-1)
+
+
+class ConstrainedRTIService:
+    """Persistent state-constrained nonlinear MPC endpoint: warm-started
+    real-time iterations of
+    :class:`~pint_tpu_torch.mpc.device_constrained.DeviceConstrainedSQP`
+    per tick.
+
+    The warm state is the packed plan and the int32 multiplier plane; each
+    tick shifts the plan by ``m`` lanes and the multipliers by one
+    constraint-row block.  Non-finite input rows get plan and multipliers
+    reset and a zero control back."""
+
+    def __init__(self, csqp, batch: int,
+                 deadline_s: Optional[float] = CRTI_BUDGET_S):
+        """``csqp``: a configured DeviceConstrainedSQP (its device is the
+        service's); set its ``dev.sqp_iters`` to the per-tick RTI count (1
+        for classic RTI)."""
+        self.csqp = csqp
+        self.batch = batch
+        self.deadline_s = deadline_s
+        self.m = csqp.dev.n_ctrl
+        self._zero = csqp.init_words(batch)
+        self._zero_lam = csqp.init_lam(batch)
+        self._warm = self._zero
+        self._warm_lam = self._zero_lam
+        self.stats = ServiceStats()
+
+    def _tick(self, words, lam, x0_f):
+        """Returns (next warm words, next warm lam, first controls (B, m)
+        int32 lanes)."""
+        csqp = self.csqp
+        words, lam = csqp.solve_words(words, x0_f, lam)
+        lanes = unpack_controls(words)
+        warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
+        return warm, _shift_lam(lam, csqp._F.shape[0], csqp.n_rows), lanes[:, : self.m]
+
+    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
+        """One tick: (batch, n) physical states -> (batch, m) physical first
+        controls of the re-optimized constrained plans."""
+        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
+        if x0.shape[0] != self.batch:
+            raise ValueError(
+                f"service built for batch {self.batch}, got {x0.shape[0]}"
+            )
+        t0 = time.perf_counter()
+        x0_t = torch.as_tensor(x0.astype(np.float32), device=self.csqp.device)
+        warm, warm_lam, u0 = self._tick(self._warm, self._warm_lam, x0_t)
+        u0_np = u0.cpu().numpy()
+        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+
+        bad = ~np.isfinite(x0).all(axis=-1)
+        if bad.any():
+            self.stats.resets += int(bad.sum())
+            keep = torch.as_tensor(~bad, device=self.csqp.device)[:, None]
+            warm = torch.where(keep, warm, self._zero)
+            warm_lam = torch.where(keep, warm_lam, self._zero_lam)
+            u0_np = np.where(bad[:, None], 0, u0_np)
+        self._warm = warm
+        self._warm_lam = warm_lam
+        return u0_np.astype(np.float64) * np.asarray(self.csqp.dev._lane_scales)
+
+    def reset(self) -> None:
+        self._warm = self._zero
+        self._warm_lam = self._zero_lam

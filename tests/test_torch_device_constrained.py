@@ -1,0 +1,194 @@
+"""Port parity: DeviceConstrainedSQP (the state-constrained tier's whole
+solve) against pint_tpu's, on the CPU.
+
+Tolerances: the constraint stacks (f32) rtol 1e-5, atol 1e-4, the bound of
+tests/test_device_sqp.py's cross-path checks; full solves against JAX's
+``DeviceConstrainedSQP(lipq=True)`` (its Pallas kernels in interpret mode)
+held to cost parity, rtol 0.01, atol 1e-4, and violation parity, atol
+5e-3 (tests/test_condense_fused.py::test_constrained_lipq_solution_quality),
+since last-ulp f32 differences can move an int8 rounding tie.  Inside the
+port every route is bit-identical.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pint_tpu.mpc import DeviceConstrainedSQP as JDeviceConstrainedSQP
+from pint_tpu.mpc import DeviceSQP as JDeviceSQP
+from pint_tpu_torch.convert import (
+    device_constrained_config,
+    words_from_numpy,
+    words_to_numpy,
+)
+from pint_tpu_torch.models.dynamics import unpack_controls
+from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
+from pint_tpu_torch.mpc.ltv import true_cost
+
+CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0)
+SMALL = dict(horizon=8, sqp_iters=2, pgd_iters=6, x_ref=np.array([1.0, 0.0, 0.0]))
+X0 = np.array([[0.0, 0.0, np.pi / 2], [0.0, 0.0, -np.pi / 2]], np.float32)
+BIG = dict(horizon=32, sqp_iters=6, pgd_iters=40, x_ref=np.array([1.0, 0.0, 0.0]))
+
+
+def _x0(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+                     rng.uniform(-np.pi, np.pi, B)], -1).astype(np.float32)
+
+
+def _lanes(csqp, words):
+    return unpack_controls(words)[:, : csqp.dev.n_dec].cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    ref = JDeviceConstrainedSQP(JDeviceSQP(propagate="unroll", **SMALL),
+                                alm_outer=2, lipq=True, fused=False,
+                                lipq_block=8, **CON)
+    return ref, device_constrained_config(ref)
+
+
+@pytest.fixture(scope="module")
+def big():
+    return DeviceConstrainedSQP(DeviceSQP(**BIG), alm_outer=4, **CON)
+
+
+def test_config_carries_over(small_pair):
+    ref, port = small_pair
+    assert port.n_rows == ref.n_rows == 8 and port.padded_rows == 64
+    assert port.dev.horizon == 8 and port.rho == 100.0 and port.alm_outer == 2
+    assert port.fused is False and port.lipq is True
+    port2 = device_constrained_config(ref, fused=None, use_kernels=False, rho=50.0)
+    assert port2.fused is None and port2.rho == 50.0
+    assert port2.dev.use_kernels is False
+
+
+def test_stack_constraints_match(small_pair):
+    ref, port = small_pair
+    B = 7
+    rng = np.random.default_rng(3)
+    x0 = _x0(B, 4)
+    lanes = rng.integers(-100, 100, (B, port.dev.n_dec), dtype=np.int32)
+    d = ref.dev
+
+    def stack(x0_f, lanes):
+        A, Bl, c = d._linearize_phase(x0_f, lanes)
+        return ref._stack_constraints(*d._propagate_unrolled(A, Bl, c))
+
+    expect = jax.jit(stack)(jnp.asarray(x0), jnp.asarray(lanes))
+    pd = port.dev
+    A, Bl, c = pd._linearize_phase(torch.as_tensor(x0), torch.as_tensor(lanes))
+    got = port._stack_constraints(*pd._propagate_unrolled(A, Bl, c))
+    assert got[0].shape == (8, 16, B) and got[0].is_contiguous()
+    for g, e in zip(got, expect):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-5, atol=1e-4)
+
+
+def test_full_solve_cost_and_violation_parity(small_pair):
+    ref, port = small_pair
+    x0 = np.concatenate([X0, _x0(4, 5)])
+    w_j, l_j = ref.solve_words(ref.init_words(6), x0)
+    w, lam = port.solve_words(port.init_words(6), x0)
+    assert w.shape == (6, 4) and lam.shape == (6, 64)
+    lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j)))
+    lanes = _lanes(port, w)
+    np.testing.assert_allclose(true_cost(port.dev, x0, lanes),
+                               true_cost(port.dev, x0, lanes_j),
+                               rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.violation(x0, lanes),
+                               ref.violation(x0, lanes_j), atol=5e-3)
+    # the port's violation helper is the reference's on the same plans
+    np.testing.assert_allclose(port.violation(x0, lanes_j),
+                               ref.violation(x0, lanes_j), rtol=1e-6, atol=1e-7)
+
+
+def test_routes_bit_identical(small_pair):
+    """Kernel route (plain on the CPU), use_kernels=False and the
+    word-space fused=False inner give the same words and multipliers."""
+    ref, _ = small_pair
+    x0 = _x0(5, 6)
+    out = []
+    for kw in (dict(fused=None), dict(fused=None, use_kernels=False),
+               dict(fused=False)):
+        port = device_constrained_config(ref, **kw)
+        out.append(port.solve_words(port.init_words(5), x0))
+    for w, lam in out[1:]:
+        assert torch.equal(w, out[0][0]) and torch.equal(lam, out[0][1])
+
+
+def test_deterministic(big):
+    w1, l1 = big.solve_words(big.init_words(2), X0)
+    w2, l2 = big.solve_words(big.init_words(2), X0)
+    assert torch.equal(w1, w2) and torch.equal(l1, l2)
+
+
+def test_binding_constraint_binds(big):
+    """The corridor binds: the unconstrained plan overshoots it 2x, the
+    constrained one stays inside on the true rollout, with nonzero
+    multipliers (tests/test_device_constrained.py's bounds)."""
+    unc = DeviceSQP(**BIG)
+    w_u = unc.solve_words(unc.init_words(2), X0)
+    u_phys = torch.as_tensor(
+        _lanes(big, w_u).reshape(2, 32, 2) * unc._lane_scales, dtype=torch.float32)
+    swing = unc.model.rollout_f32(torch.as_tensor(X0), u_phys)[:, 1:, 1].abs().max()
+    assert float(swing) > 2 * 0.03
+    w_d, lam = big.solve_words(big.init_words(2), X0)
+    assert big.violation(X0, _lanes(big, w_d)).max() < 0.01
+    assert int(lam.abs().max()) > 0
+
+
+def test_inactive_constraint_is_inert():
+    wide = DeviceConstrainedSQP(DeviceSQP(**BIG), F=[[0.0, 1.0, 0.0]],
+                                lo=-5.0, hi=5.0, rho=100.0, alm_outer=2)
+    w, lam = wide.solve_words(wide.init_words(2), X0)
+    assert int(lam.abs().max()) == 0
+    assert wide.violation(X0, _lanes(wide, w)).max() == 0.0
+
+
+def test_warm_start_improves_or_holds(big):
+    w1, l1 = big.solve_words(big.init_words(2), X0)
+    w2, _ = big.solve_words(w1, X0, l1)
+    c1 = true_cost(big.dev, X0, _lanes(big, w1))
+    c2 = true_cost(big.dev, X0, _lanes(big, w2))
+    assert (c2 <= c1 * 1.02 + 1e-6).all(), (c1, c2)
+
+
+def test_solve_convenience(small_pair):
+    _, port = small_pair
+    words, lam, plans = port.solve(X0)
+    assert plans.shape == (2, 8, 2) and np.isfinite(plans).all()
+    np.testing.assert_array_equal(
+        words_to_numpy(words), words_to_numpy(port.solve_words(port.init_words(2), X0)[0]))
+
+
+def test_validation(small_pair):
+    _, port = small_pair
+    with pytest.raises(ValueError, match="lo must be < hi"):
+        DeviceConstrainedSQP(DeviceSQP(**SMALL), F=[[0.0, 1.0, 0.0]], lo=1.0, hi=-1.0)
+    bad = DeviceConstrainedSQP(DeviceSQP(**SMALL), F=[[0.0, 1.0]])
+    with pytest.raises(ValueError, match="columns"):
+        bad.solve_words(bad.init_words(1), X0[:1])
+    with pytest.raises(ValueError, match="batch"):
+        port.solve_words(port.init_words(3), X0)
+    with pytest.raises(ValueError, match="lam shape"):
+        port.solve_words(port.init_words(2), X0, torch.zeros((2, 8), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL), lipq=False),
+    lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL)),
+    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL)).sharded_solve_words(None),
+], ids=["lipq=False", "propagate=scan", "sharded_solve_words"])
+def test_unported_options_raise(make):
+    with pytest.raises(NotImplementedError):
+        make()
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the request is valid here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceConstrainedSQP(DeviceSQP(device="cuda", **SMALL))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K9, K8, K11a-c, K2, K3, K4) against their
-plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, K9, K8, K11a-c, K2, K3, K4, K5, K6, K7)
+against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel has
 no CPU mode).  This file imports neither jax nor pint_tpu, so it runs on a
@@ -10,8 +10,11 @@ machine without JAX; there, skip the JAX-only conftest:
 Tolerances: the SWAR kernels bit-identical on full-range random words (not
 only canonical ones); K2 and K4 bit-identical; K3 ``hqt``, ``h_max`` and ``lip``
 bit-identical (the plain version adds in the kernel's order; ``lip`` is
-also held to the contract's rtol 1e-5 first); a whole DeviceSQP solve,
-kernels against plain versions, cost parity rtol 0.01, atol 1e-4.
+also held to the contract's rtol 1e-5 first); K5 and K7 bit-identical
+(words and multipliers) to their plain versions and word-space references;
+K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
+rtol 1e-5 first); a whole DeviceSQP solve, kernels against plain versions,
+cost parity rtol 0.01, atol 1e-4.
 """
 
 import numpy as np
@@ -34,7 +37,7 @@ from pint_tpu_torch.mpc import (
 )
 from pint_tpu_torch.mpc.condense_fused import true_div
 from pint_tpu_torch.mpc.ltv import true_cost
-from pint_tpu_torch.models.dynamics import unpack_controls
+from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.ops import swar as S
 from pint_tpu_torch.ops import word as W
@@ -282,3 +285,188 @@ def test_packed_array_on_card(cuda):
         c = pt.max_signed(pt.add_signed_saturate(a, b), pt.sub_unsigned_saturate(b, a))
         out.append(pt.slice_lanes(pt.shift_right_unsigned(c, 2), 1, 3).lanes().cpu())
     assert torch.equal(out[0], out[1])
+
+
+# -- the constrained tier: K5 and K6 (csrc/alm.cu, csrc/pen.cu), K7 ------------
+
+CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0)
+
+
+def _con_x0(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+                     rng.uniform(-np.pi, np.pi, B)], -1).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=[32, 50, 8], ids=lambda h: f"T{h}")
+def con_condensed(cuda, request):
+    """One real DeviceConstrainedSQP condensation: T=32 (Tm=Cp=64, C=32),
+    T=50 (Tm=100, C=50, Cp=64), T=8 (Tm=16, C=8, Cp=64); B=37."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    csqp = DeviceConstrainedSQP(
+        DeviceSQP(horizon=request.param, sqp_iters=1, pgd_iters=30,
+                  x_ref=np.array([1.0, 0.0, 0.0]), device=cuda), **CON)
+    B = 37
+    rng = np.random.default_rng(16)
+    x0 = torch.as_tensor(_con_x0(B, 17), device=cuda)
+    lanes = torch.as_tensor(
+        rng.integers(-100, 100, (B, csqp.dev.n_dec), dtype=np.int32), device=cuda)
+    d = csqp.dev
+    A, Bl, c = d._linearize_phase(x0, lanes)
+    S_t, _, _ = csqp._stack_constraints(*d._propagate_unrolled(A, Bl, c))
+    ops, _ = csqp._condense_constrained_dev(x0, lanes)
+    return csqp, S_t, ops
+
+
+def test_k6_bit_identical(con_condensed):
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+
+    csqp, S_t, _ = con_condensed
+    got = pen_fused(S_t, power_iters=csqp.dev.power_iters)
+    ref = pen_plain(S_t, power_iters=csqp.dev.power_iters)
+    torch.cuda.synchronize()
+    for i in (2, 4):
+        np.testing.assert_allclose(got[i].cpu().numpy(), ref[i].cpu().numpy(),
+                                   rtol=1e-5)
+    for name, a, b in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_k5_bit_identical(con_condensed, warm):
+    from pint_tpu_torch.mpc import alm_fused_words_pre
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
+
+    csqp, _, o = con_condensed
+    d = csqp.dev
+    B = o["g_pre"].shape[0]
+    rng = np.random.default_rng(18)
+    if warm:
+        lanes = torch.as_tensor(rng.integers(-128, 128, (B, d.n_dec), dtype=np.int32),
+                                device="cuda")
+        lam = torch.as_tensor(rng.integers(0, 500, (B, csqp.padded_rows),
+                                           dtype=np.int32), device="cuda")
+    else:
+        lanes = torch.zeros((B, d.n_dec), dtype=torch.int32, device="cuda")
+        lam = torch.zeros((B, csqp.padded_rows), dtype=torch.int32, device="cuda")
+    sc = torch.stack([o[k] for k in RATIONALS])
+    args = (lanes, o["g_pre"], o["hqt"], o["sqj"], o["sqc"], o["c_off"],
+            o["lo_pre"], o["hi_pre"], lam, sc)
+    kw = dict(outer=3, inners=30, g_shift=d.g_shift, y_shift=_Y_SHIFT)
+    before = K.launch_counts()["alm"]
+    got = alm_hqt(*args, **kw)
+    assert K.launch_counts()["alm"] == before + 1
+    ref = alm_hqt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    words = pack_controls(lanes.clamp(-127, 127))
+    w_k, l_k = alm_fused_words_pre(
+        words, o["g_pre"], o["hqt"], o["hs_num"], o["hs_den"], o["sqj"], o["sqc"],
+        *[o[k] for k in ("cs_num", "cs_den", "c_off", "lo_pre", "hi_pre",
+                         "eh_num", "eh_den", "el_num", "el_den")], lam, **kw)
+    w_x, l_x = _alm_batched(
+        words, o["g_pre"], o["hqt"].permute(2, 1, 0), o["hs_num"], o["hs_den"],
+        o["sqc"].permute(2, 0, 1), *[o[k] for k in (
+            "cs_num", "cs_den", "c_off", "lo_pre", "hi_pre", "eh_num",
+            "eh_den", "el_num", "el_den")], lam, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(w_k, w_x) and torch.equal(l_k, l_x)
+
+
+def _lti_constrained(T, pad_to=64):
+    from pint_tpu_torch.mpc import constrain_states, quantize_constrained
+
+    dt = 1.0 / 32.0
+    qp = condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    sc = constrain_states(qp, np.broadcast_to(A, (T, 2, 2)),
+                          np.broadcast_to(Bm, (T, 2, 1)), None,
+                          F=[[0.0, 1.0]], lo=-0.25, hi=0.25)
+    return quantize_constrained(sc, rho=50.0, pad_to=pad_to)
+
+
+@pytest.mark.parametrize("B", [1, 1000])
+@pytest.mark.parametrize("T", [50, 100, 20])
+def test_k7_bit_identical(cuda, B, T):
+    """K7 against its plain version and the word-space ConstrainedPGD, cold
+    and with warm lanes and multipliers; T=100 runs Tp = Cp = 128."""
+    from pint_tpu_torch.mpc import ConstrainedPGD
+
+    q = _lti_constrained(T)
+    rng = np.random.default_rng(19)
+    x0 = np.stack([rng.uniform(-1.5, 1.5, B), rng.uniform(-0.2, 0.2, B)], -1)
+    g = torch.as_tensor(q.qqp.g_lane_fixed(x0), device=cuda)
+    co = torch.as_tensor(q.c_off_pre(x0), device=cuda)
+    kern = ConstrainedPGD(q, outer=4, inners=15, device=cuda)
+    word = ConstrainedPGD(q, outer=4, inners=15, fused=False, device=cuda)
+    lanes = torch.as_tensor(rng.integers(-127, 128, (B, q.qqp.padded), dtype=np.int32),
+                            device=cuda)
+    lam = torch.as_tensor(rng.integers(0, 300, (B, q.padded_rows), dtype=np.int32),
+                          device=cuda)
+    for u0, lam0 in ((kern.init_words(B), None), (pack_controls(lanes), lam)):
+        before = K.launch_counts()["alm_shared"]
+        w_k, l_k = kern.solve_words(u0, g, co, lam0)
+        assert K.launch_counts()["alm_shared"] == before + 1
+        w_x, l_x = word.solve_words(u0, g, co, lam0)
+        torch.cuda.synchronize()
+        assert torch.equal(w_k, w_x) and torch.equal(l_k, l_x)
+
+
+def test_constrained_kernels_reject_bad_operands(cuda, con_condensed):
+    from pint_tpu_torch.mpc import alm_shared, pen_fused
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt
+
+    _, S_t, o = con_condensed
+    lanes = torch.zeros_like(o["g_pre"])
+    lam = torch.zeros_like(o["c_off"])
+    sc = torch.stack([o[k] for k in RATIONALS])
+    kw = dict(outer=1, inners=1, g_shift=12, y_shift=12)
+    with pytest.raises(ValueError, match="contiguous"):
+        # the right shape, as a transposed (non-contiguous) view
+        sqc_view = o["sqj"].permute(1, 0, 2)
+        alm_hqt(lanes, o["g_pre"], o["hqt"], o["sqj"], sqc_view, o["c_off"],
+                o["lo_pre"], o["hi_pre"], lam, sc, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        alm_hqt(lanes, o["g_pre"], o["hqt"], o["sqj"], o["sqc"], o["c_off"],
+                o["lo_pre"], o["hi_pre"], lam, sc.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="float32"):
+        pen_fused(S_t.double(), power_iters=1)
+    with pytest.raises(ValueError, match="shared"):
+        pen_fused(torch.zeros((256, 256, 2), device=cuda), power_iters=1)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="multiples of 4"):
+        alm_shared(z((2, 260), dtype=torch.int32, device=cuda),
+                   z((2, 260), dtype=torch.int32, device=cuda),
+                   z((2, 64), dtype=torch.int32, device=cuda),
+                   z((2, 64), dtype=torch.int32, device=cuda),
+                   z((260, 260), dtype=torch.int8, device=cuda),
+                   z((64, 260), dtype=torch.int8, device=cuda),
+                   z((64,), dtype=torch.int32, device=cuda),
+                   z((64,), dtype=torch.int32, device=cuda),
+                   hs_num=1, hs_den=0, cs_num=1, cs_den=0, eh_num=1, eh_den=0,
+                   el_num=1, el_den=0, **kw)
+
+
+def test_device_constrained_kernels_cost_parity(cuda):
+    """A whole constrained solve through K3, K6 and K5 against the plain
+    versions: cost and violation parity (and, with the plain versions adding
+    in the kernels' order, the same words)."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    sqp_kw = dict(horizon=32, sqp_iters=4, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]))
+    kern = DeviceConstrainedSQP(DeviceSQP(device=cuda, **sqp_kw), **CON)
+    plain = DeviceConstrainedSQP(DeviceSQP(device=cuda, use_kernels=False, **sqp_kw),
+                                 **CON)
+    x0 = _con_x0(64, 20)
+    out = []
+    for csqp in (kern, plain):
+        w, lam = csqp.solve_words(csqp.init_words(64), torch.as_tensor(x0, device=cuda))
+        lanes = unpack_controls(w)[:, : csqp.dev.n_dec].cpu().numpy()
+        out.append((true_cost(csqp.dev, x0, lanes), csqp.violation(x0, lanes)))
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=5e-3)

@@ -166,3 +166,128 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# -- ConstrainedRTIService ------------------------------------------------------
+
+CRTI_SQP = dict(horizon=8, sqp_iters=1, pgd_iters=6, x_ref=np.array([1.0, 0.0, 0.0]))
+CRTI_CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=2)
+
+
+def _crti_states(rng, b):
+    return np.stack([rng.uniform(-0.2, 0.2, b), rng.uniform(-0.2, 0.2, b),
+                     rng.uniform(-np.pi, np.pi, b)], axis=-1)
+
+
+def _crti_pair(**kw):
+    from pint_tpu.mpc import DeviceConstrainedSQP as JDeviceConstrainedSQP
+
+    from pint_tpu_torch.convert import device_constrained_config
+
+    ref = JDeviceConstrainedSQP(JDeviceSQP(propagate="unroll", **CRTI_SQP),
+                                **CRTI_CON, **kw)
+    return ref, device_constrained_config(ref, lipq=None, fused=None)
+
+
+def test_constrained_rti_shift_equals_jax():
+    """With the solve stubbed to return its inputs, one tick of each
+    service is just the warm-state shift: the plan by m lanes, the
+    multipliers by one constraint-row block, padding rows kept."""
+    from pint_tpu.serving import ConstrainedRTIService as JConstrainedRTIService
+
+    from pint_tpu_torch import ConstrainedRTIService
+    from pint_tpu_torch.convert import words_from_numpy, words_to_numpy
+
+    ref, port = _crti_pair()
+    b = 5
+    ref.__dict__["_solve_jit"] = lambda w, x0, lam: (w, lam)
+    object.__setattr__(port, "solve_words", lambda w, x0, lam: (w, lam))
+    jsvc, tsvc = JConstrainedRTIService(ref, batch=b), ConstrainedRTIService(port, batch=b)
+    rng = np.random.default_rng(11)
+    lanes = rng.integers(-127, 128, (b, port.dev.n_dec), dtype=np.int32)
+    from pint_tpu.models.dynamics import pack_controls as j_pack
+
+    words = np.asarray(j_pack(jnp.asarray(lanes)))
+    lam = rng.integers(-500, 500, (b, port.padded_rows), dtype=np.int32)
+    lam[:, port.n_rows:] = rng.integers(1, 9, (b, port.padded_rows - port.n_rows))
+    x0 = _crti_states(rng, b).astype(np.float32)
+    jw, jl, ju = jsvc._tick(jnp.asarray(words), jnp.asarray(lam), jnp.asarray(x0))
+    tw, tl, tu = tsvc._tick(words_from_numpy(words), torch.as_tensor(lam),
+                            torch.as_tensor(x0))
+    np.testing.assert_array_equal(words_to_numpy(tw), np.asarray(jw))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tl[:, port.n_rows:].numpy(), lam[:, port.n_rows:])
+    np.testing.assert_array_equal(tl[:, port.n_rows - 1].numpy(), 0)
+
+
+def test_constrained_rti_cost_parity():
+    from pint_tpu.serving import ConstrainedRTIService as JConstrainedRTIService
+
+    from pint_tpu_torch import ConstrainedRTIService
+    from pint_tpu_torch.mpc.ltv import true_cost
+
+    ref, port = _crti_pair(lipq=True, fused=False, lipq_block=8)
+    b = 6
+    jsvc, tsvc = JConstrainedRTIService(ref, batch=b), ConstrainedRTIService(port, batch=b)
+    x0 = _crti_states(np.random.default_rng(12), b)
+    jw, jl = jsvc._warm, jsvc._warm_lam
+    tw, tl = tsvc._warm, tsvc._warm_lam
+    m = port.dev.n_ctrl
+    for _ in range(2):
+        jw, jl, ju0 = jsvc._tick(jw, jl, jnp.asarray(x0, jnp.float32))
+        tw, tl, tu0 = tsvc._tick(tw, tl, torch.as_tensor(x0, dtype=torch.float32))
+        jplan = _rti_plan(ju0, jw, j_unpack, port.dev.n_dec, m)
+        tplan = _rti_plan(tu0, tw, unpack_controls, port.dev.n_dec, m)
+        np.testing.assert_allclose(true_cost(port.dev, x0, tplan),
+                                   true_cost(port.dev, x0, jplan),
+                                   rtol=0.01, atol=1e-4)
+    u = tsvc.solve(x0)
+    assert u.shape == (b, 2) and np.isfinite(u).all()
+    assert tsvc.stats.ticks == 1 and tsvc.stats.deadline_misses <= 1
+
+
+def test_constrained_rti_resets_nonfinite_rows_only():
+    """A non-finite row gets a zero control and its plan and multipliers
+    reset; every other row is what it would have been without it."""
+    from pint_tpu_torch import ConstrainedRTIService
+
+    _, port = _crti_pair()
+    b = 4
+    rng = np.random.default_rng(13)
+    x0 = _crti_states(rng, b)
+    bad_x0 = x0.copy()
+    bad_x0[1] = [np.nan, 0.0, np.inf]
+    clean, dirty = ConstrainedRTIService(port, batch=b), ConstrainedRTIService(port, batch=b)
+    for svc in (clean, dirty):
+        svc.solve(x0)
+    assert int(dirty._warm_lam.abs().max()) > 0
+    u_clean = clean.solve(x0)
+    u_dirty = dirty.solve(bad_x0)
+    assert dirty.stats.resets == 1 and clean.stats.resets == 0
+    np.testing.assert_array_equal(u_dirty[1], 0.0)
+    np.testing.assert_array_equal(dirty._warm[1].numpy(), 0)
+    np.testing.assert_array_equal(dirty._warm_lam[1].numpy(), 0)
+    keep = [0, 2, 3]
+    np.testing.assert_array_equal(u_dirty[keep], u_clean[keep])
+    assert torch.equal(dirty._warm[keep], clean._warm[keep])
+    assert torch.equal(dirty._warm_lam[keep], clean._warm_lam[keep])
+    with pytest.raises(ValueError, match="batch"):
+        dirty.solve(x0[:2])
+    dirty.reset()
+    assert int(dirty._warm.abs().max()) == 0 and int(dirty._warm_lam.abs().max()) == 0
+
+
+def test_port_imports_no_jax_with_constrained_tier():
+    code = ("import sys, pint_tpu_torch, pint_tpu_torch.convert, "
+            "pint_tpu_torch.mpc.constrained, pint_tpu_torch.mpc.sqp_constrained, "
+            "pint_tpu_torch.mpc.device_constrained, pint_tpu_torch.mpc.fused_alm, "
+            "pint_tpu_torch.mpc.condense_fused, pint_tpu_torch.serving; "
+            "from pint_tpu_torch import ConstrainedRTIService, DeviceConstrainedSQP, "
+            "ConstrainedPGD, constrain_states, quantize_constrained; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'pint_tpu' or m.startswith('pint_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
