@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SWAR substrate, serving path and state-constrained
-tier once on one H100.
+"""Drive the PyTorch port's SWAR substrate, serving path, state-constrained
+tier and multi-device tier once on one H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -56,13 +56,38 @@ Phases (any failure raises and the script exits non-zero):
 12. the constrained flagship, DeviceConstrainedSQP 4 SQP x (3 x 30 ALM) at
     phase 6's configuration, kernels against plain versions: cost parity
     (rtol 0.01, atol 1e-4), violation parity (atol 5e-3), mean cost below
-    the cold plan's.
+    the cold plan's;
+13. K2p: FusedPGD(packed_io=True).solve at the LTI serving shape (B = 8192,
+    Tp = 64, 15 iterations) equal to packed_io=False, then K2p at 15 and 40
+    iterations bit-identical to K2 with its unpack and pack and to its plain
+    version, with CUDA-event ms of K2p, K2 alone, K2 with unpack and pack,
+    and the plain version;
+14. K10 alone on rank 0's slab of one real DeviceSQP lipq condensation and
+    one DeviceConstrainedSQP condensation (Tm = 64, Cp = 64, B = 4096) at
+    tp = 2 and 4 (K = 32 and 16 columns, rows 64 and 128), bit-identical to
+    its plain version, CUDA-event ms of both;
+15. the multi-device tier at world size 1 over NCCL (make_mesh(dp=1, tp=1)
+    on the card): DeviceSQP.sharded_solve_words (4 x 30, B = 4096) and
+    DeviceConstrainedSQP.sharded_solve_words (4 x (3 x 30)) bit-identical to
+    solve_words in words and multipliers, ShardedPGD (LTI serving, 15
+    iterations) to FixedPointPGD and FusedPGD, ShardedConstrainedPGD (phase
+    7's configuration) to ConstrainedPGD, FusedPGD.dp_sharded to
+    solve_words;
+16. a two-rank rehearsal on the one card (dp = 1, tp = 2), two processes of
+    this script (``--rehearsal-rank``): NCCL refuses two ranks on one
+    device, so gloo carries the collectives of CUDA tensors through the
+    host.  The same solves; the ranks' K3 slabs must agree (a checksum
+    all-reduced), their joined words and their multipliers must equal
+    phase 15's one-process results bit for bit, and K10 must have launched
+    on both ranks in both SQP solves.  Wall ms are the rehearsal's, not a
+    rate of the tier.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
-K7, and phases 8-10 every serving kernel.  The line before the last is the
-kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
-Inputs are made from fixed seeds.
+K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6, and
+phase 16 K10 on both ranks.  The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``.  Inputs are
+made from fixed seeds.
 """
 
 import json
@@ -627,7 +652,7 @@ def phase_k3_k4(torch, P, timing):
 
     alpha = true_div(1.0, lip)
     g_pre = sqp._g_pre_from(g, alpha)
-    hs_num, hs_den = sqp._step_rationals(true_div(alpha * hmax, 127.0))
+    _, hs_num, hs_den = sqp._lipq_rationals(alpha, hmax)
     kw = dict(iters=sqp.pgd_iters, g_shift=sqp.g_shift)
     out = pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)
     ref = pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw)
@@ -812,6 +837,346 @@ def phase_flagship(torch, P, timing):
     return rec
 
 
+def phase_k2p(torch, P, K, timing):
+    """K2p: FusedPGD(packed_io=True) at the LTI serving shape (its main
+    path: counts set to 0 before solve() and read after), then K2p against
+    K2 with its unpack and pack and against its plain version, timed."""
+    from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+    from pint_tpu_torch.mpc import fused_pgd, fused_pgd_packed, fused_pgd_packed_plain
+
+    qqp = P.quantize(P.condense_double_integrator(T=50))
+    rng = np.random.default_rng(5)
+    x0 = lti_states(rng, LTI_BATCH)
+    K.reset_launch_counts()                     # K2p's main path starts here
+    w_main, u = P.FusedPGD(qqp, iters=15, packed_io=True, device=DEVICE).solve(x0)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["fused_pgd_packed"]  # and ends here
+    if launches < 1:
+        raise AssertionError("kernel fused_pgd_packed never launched on FusedPGD.solve")
+    same(torch, "K2p FusedPGD.solve vs packed_io=False",
+         w_main, P.FusedPGD(qqp, iters=15, device=DEVICE).solve(x0)[0])
+    if not torch.isfinite(u).all():
+        raise AssertionError("FusedPGD(packed_io=True): controls not finite")
+    g = torch.as_tensor(qqp.g_lane_fixed(x0), device=DEVICE)
+    lanes = torch.as_tensor(rng.integers(-128, 128, (LTI_BATCH, qqp.padded), dtype=np.int32),
+                            device=DEVICE)
+    words = pack_controls(lanes)
+    hq = torch.as_tensor(qqp.Hq, device=DEVICE)
+    rec = {}
+    for iters in (15, 40):
+        kw = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=iters)
+
+        def k2p():
+            return fused_pgd_packed(words, g, hq, **kw)
+
+        def k2_unpack_pack():
+            return pack_controls(fused_pgd(unpack_controls(words), g, hq, **kw))
+
+        got = k2p()
+        same(torch, f"K2p iters={iters} vs K2 with unpack and pack", got, k2_unpack_pack())
+        same(torch, f"K2p iters={iters} vs its plain version", got,
+             fused_pgd_packed_plain(words, g, hq, **kw))
+        # device time of queued calls, in turns: K2p, K2, K2 + unpack/pack, K2p
+        ms = median(timing.queued_ms(k2p))
+        k2_ms = median(timing.queued_ms(lambda: fused_pgd(lanes, g, hq, **kw)))
+        k2_io_ms = median(timing.queued_ms(k2_unpack_pack))
+        ms_again = median(timing.queued_ms(k2p))
+        pms = median(timing.queued_ms(lambda: fused_pgd_packed_plain(words, g, hq, **kw),
+                                      calls=2, reps=3))
+        call_ms = median(timing.cuda_ms(k2p))
+        rec[f"iters{iters}"] = dict(max_abs_err=0.0, ms=ms, ms_again=ms_again, k2_ms=k2_ms,
+                                    k2_unpack_pack_ms=k2_io_ms, plain_ms=pms,
+                                    single_call_ms=call_ms)
+        say(f"K2p fused_pgd_packed B={LTI_BATCH} Tp={qqp.padded} iters={iters}: words "
+            f"bit-identical to K2 with unpack and pack and to the plain version; device ms "
+            f"of queued calls: K2p {ms:.4f} ({ms_again:.4f} again), K2 alone {k2_ms:.4f}, "
+            f"K2 with unpack and pack {k2_io_ms:.4f}, plain {pms:.4f}; one K2p call "
+            f"between events {call_ms:.4f} ms")
+    rec["launches"] = launches
+    return rec
+
+
+def phase_k10(torch, P, timing):
+    """K10 alone on rank 0's slab of one real DeviceSQP lipq condensation
+    and one DeviceConstrainedSQP condensation (Tm = 64, Cp = 64, B = 4096),
+    at tp = 2 and 4, against its plain version, timed."""
+    from pint_tpu_torch.mpc import pgd_matvec_cols, pgd_matvec_cols_plain
+
+    sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **SQP_KW)
+    rng = np.random.default_rng(6)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (RTI_BATCH, sqp.n_dec), dtype=np.int32),
+                            device=DEVICE)
+    x0 = torch.as_tensor(rti_states(rng, RTI_BATCH), dtype=torch.float32, device=DEVICE)
+    hqt = sqp._condense_lipq(x0, lanes)[0]
+    csqp = make_csqp(P, 1)
+    xc = torch.as_tensor(con_states(rng, CON_BATCH), dtype=torch.float32, device=DEVICE)
+    ops, _ = csqp._condense_constrained_dev(xc, lanes)
+    rec = {}
+    for tp in (2, 4):
+        k = sqp.n_dec // tp
+        lanes_r = lanes[:, :k].contiguous()
+        for name, slab in (("sqp", hqt[:k]),
+                           ("constrained", torch.cat([ops["hqt"][:k], ops["sqj"][:k]], 1))):
+            got = pgd_matvec_cols(lanes_r, slab)
+            same(torch, f"K10 tp={tp} {name}", got, pgd_matvec_cols_plain(lanes_r, slab))
+            # device time of queued calls (a K10 launch is shorter than its
+            # wrapper's host work), and one call between events
+            ms = median(timing.queued_ms(lambda: pgd_matvec_cols(lanes_r, slab)))
+            pms = median(timing.queued_ms(lambda: pgd_matvec_cols_plain(lanes_r, slab)))
+            call_ms = median(timing.cuda_ms(lambda: pgd_matvec_cols(lanes_r, slab)))
+            rows = slab.shape[1]
+            rec[f"tp{tp}_{name}"] = dict(K=k, rows=rows, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                         single_call_ms=call_ms,
+                                         GB_per_s=k * rows * RTI_BATCH / (ms / 1e3) / 1e9)
+            say(f"K10 pgd_matvec_cols tp={tp} {name} K={k} rows={rows} B={RTI_BATCH}: "
+                f"bit-identical; device ms of queued calls: kernel {ms:.4f} "
+                f"({rec[f'tp{tp}_{name}']['GB_per_s']:.1f} GB/s of slab), plain {pms:.4f}; "
+                f"one kernel call between events {call_ms:.4f} ms")
+    return rec
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tier_problems(torch, P):
+    """The four sharded solves' configurations and inputs, from fixed
+    seeds (the same in the parent and in the rehearsal's workers)."""
+    T, dt = LTI_CON_T, 1.0 / 32.0
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    rng = np.random.default_rng(9)
+    return dict(
+        dsqp=P.DeviceSQP(sqp_iters=4, device=DEVICE, **SQP_KW),
+        csqp=make_csqp(P, 4),
+        qqp=P.quantize(P.condense_double_integrator(T=50)),
+        qcqp=P.quantize_constrained(P.constrain_states(
+            qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+            F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0),
+        x_rti=torch.as_tensor(rti_states(rng, RTI_BATCH), dtype=torch.float32, device=DEVICE),
+        x_con=torch.as_tensor(con_states(rng, CON_BATCH), dtype=torch.float32, device=DEVICE),
+        x_lti=lti_states(rng, LTI_BATCH),
+        x_lti_con=np.stack([rng.uniform(-1.5, 1.5, CON_BATCH),
+                            rng.uniform(-0.2, 0.2, CON_BATCH)], -1),
+    )
+
+
+def sharded_solves(torch, P, mesh, pr):
+    """The tier's main path on ``mesh``: DeviceSQP and DeviceConstrainedSQP
+    sharded_solve_words (on this rank's shards), ShardedPGD and
+    ShardedConstrainedPGD solve(), FusedPGD.dp_sharded.  Returns global
+    results on the host and, per solve, its wall ms and its K10 launches."""
+    from pint_tpu_torch.ops import kernels as K
+    from pint_tpu_torch.parallel import ShardedConstrainedPGD, ShardedPGD
+    from pint_tpu_torch.parallel.mesh import shard, unshard
+
+    out, wall, k10 = {}, {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        before = K.launch_counts()["pgd_matvec_cols"]
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        k10[name] = K.launch_counts()["pgd_matvec_cols"] - before
+        return res
+
+    d, c = pr["dsqp"], pr["csqp"]
+    w = run("device_sqp", lambda: d.sharded_solve_words(mesh)(
+        shard(d.init_words(RTI_BATCH), mesh, ("dp", "tp")), shard(pr["x_rti"], mesh, ("dp", None))))
+    out["dsqp"] = unshard(w, mesh, ("dp", "tp")).cpu()
+    w, lam = run("device_constrained", lambda: c.sharded_solve_words(mesh)(
+        shard(c.init_words(CON_BATCH), mesh, ("dp", "tp")), shard(pr["x_con"], mesh, ("dp", None))))
+    out["dcon_words"], out["dcon_lam_local"] = unshard(w, mesh, ("dp", "tp")).cpu(), lam.cpu()
+    w, _, res = run("sharded_pgd", lambda: ShardedPGD(pr["qqp"], mesh, iters=15).solve(pr["x_lti"]))
+    out["pgd"], out["pgd_residual"] = w.cpu(), res
+    w, _, lam = run("sharded_constrained_pgd", lambda: ShardedConstrainedPGD(
+        pr["qcqp"], mesh, outer=LTI_CON_OUTER, inners=LTI_CON_INNERS).solve(pr["x_lti_con"]))
+    out["cpgd_words"], out["cpgd_lam"] = w.cpu(), lam.cpu()
+    fp = P.FusedPGD(pr["qqp"], iters=15, device=DEVICE)
+    g = torch.as_tensor(pr["qqp"].g_lane_fixed(pr["x_lti"]), device=DEVICE)
+    w = run("fused_dp_sharded", lambda: fp.dp_sharded(mesh)(
+        shard(fp.init_words(LTI_BATCH), mesh, ("dp", None)), shard(g, mesh, ("dp", None))))
+    out["fused_dp"] = unshard(w, mesh, ("dp", None)).cpu()
+    return out, wall, k10
+
+
+def phase_world1(torch, P, K, timing):
+    """The tier at world size 1 over NCCL: make_mesh(dp=1, tp=1) on the
+    card, the four sharded solves and FusedPGD.dp_sharded (the main path:
+    counts set to 0 before, read after), each bit-identical to its
+    single-device solver.  Returns the single-device results for phase 16."""
+    import torch.distributed as dist
+
+    from pint_tpu_torch.parallel import distributed as D
+    from pint_tpu_torch.parallel import make_mesh
+
+    pr = tier_problems(torch, P)
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world size 1 on {dist.get_backend()}, not nccl")
+        mesh = make_mesh(dp=1, tp=1, device=DEVICE)
+        K.reset_launch_counts()                 # the tier's main path starts here
+        got, wall, _ = sharded_solves(torch, P, mesh, pr)
+        counts = K.launch_counts()              # and ends here
+        d, c = pr["dsqp"], pr["csqp"]
+        # warm solves, sharded and single-device in turns whose order
+        # alternates (the host is shared; a tp == 1 program runs the same
+        # iteration as solve_words, so the gap is the reading's spread)
+        calls = {
+            "device_sqp": (lambda: d.sharded_solve_words(mesh)(d.init_words(RTI_BATCH),
+                                                               pr["x_rti"]),
+                           lambda: d.solve_words(d.init_words(RTI_BATCH), pr["x_rti"])),
+            "device_constrained": (lambda: c.sharded_solve_words(mesh)(c.init_words(CON_BATCH),
+                                                                       pr["x_con"]),
+                                   lambda: c.solve_words(c.init_words(CON_BATCH), pr["x_con"])),
+        }
+        turns = {k: ([], []) for k in calls}
+        for t in range(6):
+            for k, fns in calls.items():
+                for i in ((0, 1) if t % 2 == 0 else (1, 0)):
+                    turns[k][i].extend(timing.host_ms(fns[i], reps=1))
+        warm = {k: median(v[0]) for k, v in turns.items()}
+        single_ms = {k: median(v[1]) for k, v in turns.items()}
+    finally:
+        dist.destroy_process_group()
+    for name in ("lipq", "pgd_hqt", "pen", "alm", "fused_pgd"):
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} never launched on the sharded solves")
+    ref = {"dsqp": d.solve_words(d.init_words(RTI_BATCH), pr["x_rti"]).cpu()}
+    w, lam = c.solve_words(c.init_words(CON_BATCH), pr["x_con"])
+    ref["dcon_words"], ref["dcon_lam"] = w.cpu(), lam.cpu()
+    ref["pgd"] = P.FixedPointPGD(pr["qqp"], iters=15, device=DEVICE).solve(pr["x_lti"])[0].cpu()
+    fused = P.FusedPGD(pr["qqp"], iters=15, device=DEVICE)
+    ref["fused"] = fused.solve(pr["x_lti"])[0].cpu()
+    w, _, lam = P.ConstrainedPGD(pr["qcqp"], outer=LTI_CON_OUTER, inners=LTI_CON_INNERS,
+                                 device=DEVICE).solve(pr["x_lti_con"])
+    ref["cpgd_words"], ref["cpgd_lam"] = w.cpu(), lam.cpu()
+    for key, mine, theirs in (("dsqp", "dsqp", "dsqp"), ("dcon words", "dcon_words", "dcon_words"),
+                              ("dcon lam", "dcon_lam_local", "dcon_lam"),
+                              ("ShardedPGD vs FixedPointPGD", "pgd", "pgd"),
+                              ("ShardedPGD vs FusedPGD", "pgd", "fused"),
+                              ("ShardedConstrainedPGD words", "cpgd_words", "cpgd_words"),
+                              ("ShardedConstrainedPGD lam", "cpgd_lam", "cpgd_lam"),
+                              ("FusedPGD.dp_sharded", "fused_dp", "fused")):
+        if not torch.equal(got[mine], ref[theirs]):
+            raise AssertionError(f"world size 1: {key} differs from the single-device solve")
+    rec = dict(backend="nccl", first_call_ms=wall, sharded_ms=warm, single_ms=single_ms,
+               readings_ms={k: dict(sharded=v[0], single=v[1]) for k, v in turns.items()},
+               launches={k: counts[k] for k in ("lipq", "pgd_hqt", "pen", "alm", "fused_pgd")})
+    say(f"world size 1 (nccl), mesh dp=1 tp=1: DeviceSQP 4x30 and DeviceConstrainedSQP "
+        f"4x(3x30) sharded_solve_words bit-identical to solve_words (words, lam), ShardedPGD "
+        f"to FixedPointPGD and FusedPGD, ShardedConstrainedPGD to ConstrainedPGD (K7), "
+        f"dp_sharded to solve_words; first calls ms {json.dumps(wall)} (NCCL set-up "
+        f"included); warm medians of 6, in turns: sharded ms {json.dumps(warm)}, single-device ms "
+        f"{json.dumps(single_ms)}")
+    return rec, ref
+
+
+REHEARSAL_TIMEOUT_S = 300
+
+
+def rehearsal_worker(rank, port, out_dir):
+    """One rank of phase 16: gloo over CUDA tensors, mesh dp=1 tp=2 on the
+    one card.  Writes its results, its launch counts and its wall times."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        raise SystemExit("rehearsal worker: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import pint_tpu_torch as P
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.ops import kernels as K
+    from pint_tpu_torch.parallel import distributed as D
+    from pint_tpu_torch.parallel import make_mesh
+
+    K.library()                                 # built by the parent: same sources
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh(dp=1, tp=2, device=DEVICE)
+        pr = tier_problems(torch, P)
+        d = pr["dsqp"]
+        # D4 needs every tp rank to quantize identically: a checksum of one
+        # K3 slab, summed and maxed over the ranks (CPU tensors, gloo)
+        lanes0 = unpack_controls(d.init_words(RTI_BATCH))
+        hqt = d._condense_lipq(pr["x_rti"], lanes0)[0]
+        w8 = torch.arange(1, hqt.numel() + 1, device=DEVICE, dtype=torch.int64) % 1000003
+        ck = torch.tensor([float((hqt.reshape(-1).to(torch.int64) * w8).sum().item())],
+                          dtype=torch.float64)
+        ck_sum, ck_max = ck.clone(), ck.clone()
+        dist.all_reduce(ck_sum)
+        dist.all_reduce(ck_max, op=dist.ReduceOp.MAX)
+        if ck_sum.item() != 2 * ck_max.item():
+            raise AssertionError(f"rank {rank}: K3's hqt differs between the tp ranks")
+        K.reset_launch_counts()                 # the rehearsal's main path starts here
+        got, wall, k10 = sharded_solves(torch, P, mesh, pr)
+        counts = K.launch_counts()              # and ends here
+    finally:
+        dist.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz",
+             **{k: (v.numpy() if hasattr(v, "numpy") else np.asarray(v)) for k, v in got.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
+        dict(wall_ms=wall, k10=k10, counts=counts, r_tp=mesh.r_tp)))
+    print(f"rehearsal rank {rank} OK", flush=True)
+
+
+def phase_rehearsal(torch, ref):
+    """Two ranks on the one card (dp=1, tp=2; gloo carries the collectives
+    of CUDA tensors through the host, since NCCL refuses two ranks on one
+    device): the sharded solves, joined, equal the one-process results."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--rehearsal-rank", str(r), str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for r, p in enumerate(procs):
+                outs.append(p.communicate(timeout=REHEARSAL_TIMEOUT_S)[0])
+                if p.returncode or f"rehearsal rank {r} OK" not in outs[-1]:
+                    raise AssertionError(f"rehearsal rank {r} failed ({p.returncode}):\n"
+                                         f"{outs[-1][-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        res = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(2)]
+        meta = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+    for r, m in enumerate(meta):
+        for name in ("device_sqp", "device_constrained"):
+            if m["k10"][name] < 1:
+                raise AssertionError(f"rehearsal rank {r}: K10 never launched in {name}")
+    for r, o in enumerate(res):
+        for key, theirs in (("dsqp", "dsqp"), ("dcon_words", "dcon_words"),
+                            ("dcon_lam_local", "dcon_lam"), ("pgd", "pgd"),
+                            ("cpgd_words", "cpgd_words"), ("cpgd_lam", "cpgd_lam"),
+                            ("fused_dp", "fused")):
+            if not np.array_equal(o[key], ref[theirs].numpy()):
+                raise AssertionError(f"rehearsal rank {r}: {key} differs from the "
+                                     "one-process solve")
+    rec = dict(transport="gloo over CUDA tensors, 2 ranks on one card",
+               wall_ms=[m["wall_ms"] for m in meta], k10_launches=[m["k10"] for m in meta],
+               launches=sum(m["counts"]["pgd_matvec_cols"] for m in meta))
+    say(f"rehearsal dp=1 tp=2 (gloo over CUDA tensors through the host, both ranks on one "
+        f"card; not a rate of the tier): joined words and lam bit-identical to the "
+        f"one-process solves, K3 slabs equal across ranks; K10 launches per solve "
+        f"{json.dumps(rec['k10_launches'])}; wall ms per rank {json.dumps(rec['wall_ms'])}")
+    return rec
+
+
 def main():
     if not (ROOT / "pint_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: pint_tpu_torch/ is not beside this script")
@@ -842,6 +1207,10 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the serving path")
     flagship = phase_flagship(torch, P, timing)
     con_flagship = phase_con_flagship(torch, P, timing)
+    k2p = phase_k2p(torch, P, K, timing)
+    k10 = phase_k10(torch, P, timing)
+    world1, single = phase_world1(torch, P, K, timing)
+    rehearsal = phase_rehearsal(torch, single)
 
     replaces = {
         "swar_binop": ("K1", "pint_tpu/ops/pallas.py:148"),
@@ -880,15 +1249,27 @@ def main():
         dict(name="alm_shared (K7)", route="cuda", source="pint_tpu_torch/csrc/alm.cu",
              replaces="pint_tpu/mpc/fused_alm.py:176", launches=k7["launches"],
              max_abs_err=k7["max_abs_err"], ms=k7["ms"], plain_ms=k7["plain_ms"]),
+        dict(name="fused_pgd_packed (K2p)", route="cuda",
+             source="pint_tpu_torch/csrc/fused_pgd.cu",
+             replaces="pint_tpu/mpc/fused.py:136", launches=k2p["launches"],
+             max_abs_err=0.0, ms=k2p["iters15"]["ms"], plain_ms=k2p["iters15"]["plain_ms"]),
+        dict(name="pgd_matvec_cols (K10)", route="cuda",
+             source="pint_tpu_torch/csrc/matvec_cols.cu",
+             replaces="pint_tpu/mpc/fused_alm.py:429", launches=rehearsal["launches"],
+             max_abs_err=0.0, ms=k10["tp2_sqp"]["ms"], plain_ms=k10["tp2_sqp"]["plain_ms"]),
     ]
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
                     "flagship": flagship, "constrained_flagship": con_flagship,
                     "lti_constrained": k7}))
+    say(json.dumps({"k2p": k2p, "k10": k10, "world1": world1, "rehearsal": rehearsal}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rehearsal-rank"]:
+        rehearsal_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -5,15 +5,18 @@ imports torch and numpy and never jax (nor ``pint_tpu``).  Ported so far:
 the SWAR substrate (``PackedArray`` and its free functions, 8- to 64-bit
 words, runtime shifts), the unicycle model, the LTI box-QP PGD solvers, the
 on-device SQP (default path), the state-constrained tier (the LTI
-``ConstrainedPGD`` and the on-device ``DeviceConstrainedSQP``) and the three
-serving endpoints, with hand-written CUDA kernels for the SWAR binops,
-shifts and saturating accumulate (K1, K9, K8, K11a-c), FusedPGD (K2), lipq
-(K3), the per-problem PGD inner (K4), the per-problem and shared-operand
-ALM inners (K5, K7) and the penalty power iteration (K6).  ROADMAP.md lists
-what is still to port.
+``ConstrainedPGD`` and the on-device ``DeviceConstrainedSQP``), the three
+serving endpoints and the multi-device tier (:mod:`pint_tpu_torch.parallel`:
+a (dp, tp) process mesh under ``torch.distributed``, the sharded PGD and
+ALM solvers, and the sharded SQP solves), with hand-written CUDA kernels
+for the SWAR binops, shifts and saturating accumulate (K1, K9, K8,
+K11a-c), FusedPGD with lane and packed-word I/O (K2, K2p), lipq (K3), the
+per-problem PGD inner (K4), the per-problem and shared-operand ALM inners
+(K5, K7), the penalty power iteration (K6) and the tp column matvec (K10).
+ROADMAP.md lists what is still to port.
 """
 
-from pint_tpu_torch import convert
+from pint_tpu_torch import convert, parallel
 from pint_tpu_torch.layout import PackedLayout, word_bits_for
 from pint_tpu_torch.models import CONTROL_LAYOUT, Unicycle, pack_controls, unpack_controls
 from pint_tpu_torch.mpc import (
@@ -91,6 +94,7 @@ __all__ = [
     "condense_lti",
     "constrain_states",
     "convert",
+    "parallel",
     "pack_controls",
     "quantize",
     "quantize_constrained",

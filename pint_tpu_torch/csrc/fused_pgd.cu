@@ -23,16 +23,30 @@
 // the final lanes are written.  Tensor cores (s8 wgmma) are later work.
 //
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
+//
+// K2p: replaces pint_tpu/mpc/fused.py:136 (FusedPGD._kernel_packed,
+// pallas_call at :215), the same loop with packed words in and out.  The
+// SWAR control word holds lane k of word j in bits 8k..8k+7, so on this
+// little-endian card a (B, Tp/4) int32 word tensor IS the (B, Tp) int8
+// lanes in memory: K2p is K2's body instantiated on int8_t I/O.  Each thread
+// loads its lanes as sign-extended bytes (a warp reads 32 consecutive
+// bytes) and stores the final lanes as bytes, lane & 0xFF, which is the
+// packed word.  No unpack or pack pass, and a quarter of K2's lane traffic.
+// The reference's grouped lane order and permuted Hessian (fused.py:189-194)
+// work around Mosaic's lane shuffles and have no counterpart here; the
+// words are read in their natural order.  No momentum branch, as in the
+// reference's packed kernel.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 
-template <int NJ>
+// L is the lane I/O type: int (K2, unpacked lanes) or int8_t (K2p, words).
+template <int NJ, typename L>
 __global__ void __launch_bounds__(kWarps * 32)
-fused_pgd_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
-                 const int8_t* __restrict__ hq, int* __restrict__ out, int B,
+fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
+                 const int8_t* __restrict__ hq, L* __restrict__ out, int B,
                  int Tp, int iters, int hs_num, int hs_den, int g_shift,
                  int momentum, int beta_num, int beta_den) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -95,48 +109,46 @@ fused_pgd_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
 #pragma unroll
     for (int q = 0; q < NJ; ++q) {
       const int j = lane + 32 * q;
-      if (j < Tp) out[base + j] = x[q];
+      if (j < Tp) out[base + j] = (L)x[q];
     }
   }
 }
 
-template <int NJ>
-cudaError_t launch(const int* lanes, const int* g, const int8_t* hq, int* out,
+template <int NJ, typename L>
+cudaError_t launch(const L* lanes, const int* g, const int8_t* hq, L* out,
                    int B, int Tp, int iters, int hs_num, int hs_den,
                    int g_shift, int momentum, int beta_num, int beta_den,
                    cudaStream_t stream) {
   const size_t smem = (size_t)Tp * (Tp + 4) + (size_t)kWarps * Tp;
-  cudaError_t err = pint_allow_smem(fused_pgd_kernel<NJ>, smem);
+  cudaError_t err = pint_allow_smem(fused_pgd_kernel<NJ, L>, smem);
   if (err != cudaSuccess) return err;
   int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  fused_pgd_kernel<NJ><<<blocks, kWarps * 32, smem, stream>>>(
+  fused_pgd_kernel<NJ, L><<<blocks, kWarps * 32, smem, stream>>>(
       lanes, g, hq, out, B, Tp, iters, hs_num, hs_den, g_shift, momentum,
       beta_num, beta_den);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int pint_fused_pgd(const void* lanes, const void* g, const void* hq,
-                              void* out, int B, int Tp, int iters, int hs_num,
-                              int hs_den, int g_shift, int momentum,
-                              int beta_num, int beta_den, void* stream) {
+template <typename L>
+int dispatch(const void* lanes, const void* g, const void* hq, void* out,
+             int B, int Tp, int iters, int hs_num, int hs_den, int g_shift,
+             int momentum, int beta_num, int beta_den, void* stream) {
   if (B <= 0 || Tp <= 0 || Tp % 4 || Tp > 256 || iters < 0 || g_shift < 1 ||
       g_shift > 30 || hs_den < 0 || hs_den > 31 || beta_den < 0 ||
       beta_den > 30)
     return (int)cudaErrorInvalidValue;
-  const int* l = static_cast<const int*>(lanes);
+  const L* l = static_cast<const L*>(lanes);
   const int* gg = static_cast<const int*>(g);
   const int8_t* h = static_cast<const int8_t*>(hq);
-  int* o = static_cast<int*>(out);
+  L* o = static_cast<L*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch ((Tp + 31) / 32) {
 #define PINT_CASE(n)                                                        \
   case n:                                                                   \
-    err = launch<n>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift,     \
-                    momentum, beta_num, beta_den, s);                       \
+    err = launch<n, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift,  \
+                       momentum, beta_num, beta_den, s);                    \
     break;
     PINT_CASE(1) PINT_CASE(2) PINT_CASE(3) PINT_CASE(4)
     PINT_CASE(5) PINT_CASE(6) PINT_CASE(7) PINT_CASE(8)
@@ -145,6 +157,25 @@ extern "C" int pint_fused_pgd(const void* lanes, const void* g, const void* hq,
       err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" int pint_fused_pgd(const void* lanes, const void* g, const void* hq,
+                              void* out, int B, int Tp, int iters, int hs_num,
+                              int hs_den, int g_shift, int momentum,
+                              int beta_num, int beta_den, void* stream) {
+  return dispatch<int>(lanes, g, hq, out, B, Tp, iters, hs_num, hs_den,
+                       g_shift, momentum, beta_num, beta_den, stream);
+}
+
+// words, out: (B, Tp/4) packed control words, read and written as bytes
+extern "C" int pint_fused_pgd_packed(const void* words, const void* g,
+                                     const void* hq, void* out, int B, int Tp,
+                                     int iters, int hs_num, int hs_den,
+                                     int g_shift, void* stream) {
+  return dispatch<int8_t>(words, g, hq, out, B, Tp, iters, hs_num, hs_den,
+                          g_shift, 0, 0, 0, stream);
 }
 
 extern "C" const char* pint_error_string(int err) {

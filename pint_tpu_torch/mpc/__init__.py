@@ -1,5 +1,6 @@
 """Fixed-point MPC: condensation, PGD solvers and the on-device SQP."""
 
+from pint_tpu_torch.mpc.accelerated import AcceleratedPGD
 from pint_tpu_torch.mpc.condense_fused import (
     lipq_fused,
     lipq_plain,
@@ -22,7 +23,13 @@ from pint_tpu_torch.mpc.constrained import (
 )
 from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
-from pint_tpu_torch.mpc.fused import FusedPGD, fused_pgd, fused_pgd_plain
+from pint_tpu_torch.mpc.fused import (
+    FusedPGD,
+    fused_pgd,
+    fused_pgd_packed,
+    fused_pgd_packed_plain,
+    fused_pgd_plain,
+)
 from pint_tpu_torch.mpc.fused_alm import (
     alm_fused_words,
     alm_fused_words_pre,
@@ -35,10 +42,13 @@ from pint_tpu_torch.mpc.fused_alm import (
     pgd_fused_words_pre,
     pgd_hqt,
     pgd_hqt_plain,
+    pgd_matvec_cols,
+    pgd_matvec_cols_plain,
 )
 from pint_tpu_torch.mpc.solver import FixedPointPGD
 
 __all__ = [
+    "AcceleratedPGD",
     "CondensedQP",
     "ConstrainedPGD",
     "DeviceConstrainedSQP",
@@ -59,6 +69,8 @@ __all__ = [
     "condense_lti",
     "constrain_states",
     "fused_pgd",
+    "fused_pgd_packed",
+    "fused_pgd_packed_plain",
     "fused_pgd_plain",
     "lipq_fused",
     "lipq_plain",
@@ -68,6 +80,8 @@ __all__ = [
     "pgd_fused_words_pre",
     "pgd_hqt",
     "pgd_hqt_plain",
+    "pgd_matvec_cols",
+    "pgd_matvec_cols_plain",
     "quantize",
     "quantize_constrained",
 ]

@@ -358,15 +358,19 @@ def _lane_space():
 
 
 def _alm_loop(x, g_pre, c_off, lam, *, hmv, smv, stmv, rat, lo, hi, outer,
-              inners, g_shift, y_shift, space):
+              inners, g_shift, y_shift, space, hsmv=None):
     """The ALM iteration of ``pint_tpu``'s ``ConstrainedPGD.solve_words``,
-    ``_alm_batched`` and both ALM kernels, in int32 with XLA's wrapping.
+    ``_alm_batched``, their column-sharded forms and both ALM kernels, in
+    int32 with XLA's wrapping.
 
     ``hmv(lanes)`` -> (B, Tp) and ``smv(lanes)`` -> (B, Cp) are the int8
     matvecs ``Hq u`` and ``Sq u``, ``stmv(y)`` -> (B, Tp) is ``Sq^T y``;
-    ``rat`` maps the eight rational names to ints or (B, 1) int32
-    tensors; ``space`` is :func:`_word_space` or :func:`_lane_space`.
-    Returns (iterate, lam)."""
+    ``hsmv(lanes)``, when given, returns both of the inner iteration's
+    ``(Hq u, Sq u)`` at once (one launch and one all-reduce on the column
+    path), and ``smv`` then serves only the multiplier update.  ``rat``
+    maps the eight rational names to ints or (B, 1) int32 tensors;
+    ``space`` is :func:`_word_space` or :func:`_lane_space`.  Returns
+    (iterate, lam)."""
     lanes_of, advance = space
     half = 1 << (g_shift - 1)
     y_half = (1 << y_shift) >> 1
@@ -374,16 +378,20 @@ def _alm_loop(x, g_pre, c_off, lam, *, hmv, smv, stmv, rat, lo, hi, outer,
     cap = int(_LAM_CAP)
     carry = torch.zeros_like(g_pre)
     ey = torch.zeros_like(c_off)
+    if hsmv is None:
+        def hsmv(lanes):
+            return hmv(lanes), smv(lanes)
 
-    def t_of(lanes, lam):
-        c_pre = (smv(lanes) * rat["cs_num"]) >> rat["cs_den"]
+    def t_of(s_acc, lam):
+        c_pre = (s_acc * rat["cs_num"]) >> rat["cs_den"]
         return c_pre + c_off + lam
 
     for _ in range(outer):
         for _ in range(inners):
             lanes = lanes_of(x)
-            pre = (hmv(lanes) * rat["hs_num"]) >> rat["hs_den"]
-            t = t_of(lanes, lam)
+            h_acc, s_acc = hsmv(lanes)
+            pre = (h_acc * rat["hs_num"]) >> rat["hs_den"]
+            t = t_of(s_acc, lam)
             y = t - torch.clamp(t, lo, hi) + ey
             y14 = torch.clamp((y + y_half) >> y_shift, -y_cap, y_cap)
             ey = y - (y14 << y_shift)
@@ -397,7 +405,7 @@ def _alm_loop(x, g_pre, c_off, lam, *, hmv, smv, stmv, rat, lo, hi, outer,
             x = advance(x, delta)
         # multiplier update at the inner solution, from the exact int32
         # violation (no y-quantization)
-        t = t_of(lanes_of(x), lam)
+        t = t_of(smv(lanes_of(x)), lam)
         lam = torch.clamp(t - torch.clamp(t, lo, hi), -cap, cap)
     return x, lam
 

@@ -26,12 +26,15 @@ K5 are the hand-written kernels, on the CPU their plain versions, and
 the kernels are held to on the card).  ``fused=False`` runs the word-space
 ``_alm_batched`` inner instead of the lane-space one (bit-identical).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-``lipq=False`` (the XLA-form ``_pen_lipschitz`` and quantize branch) and
-``sharded_solve_words``; ``dev``'s own unported options raise in
-:class:`DeviceSQP`.  ``propagate="auto"`` runs the unrolled propagation,
-the only form ported (the reference's T < 40 scan crossover is a TPU
-measurement).
+:meth:`DeviceConstrainedSQP.sharded_solve_words` runs the same iteration on
+a (dp, tp) process mesh; with tp > 1 its ALM inner is column-sharded over
+K10.
+
+Not ported yet, raising ``NotImplementedError`` (ROADMAP queue 1):
+``lipq=False`` (the XLA-form ``_pen_lipschitz`` and quantize branch);
+``dev``'s own unported options raise in :class:`DeviceSQP`.
+``propagate="auto"`` runs the unrolled propagation, the only form ported
+(the reference's T < 40 scan crossover is a TPU measurement).
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -56,13 +59,23 @@ from pint_tpu_torch.mpc.condense_fused import (
     true_div,
 )
 from pint_tpu_torch.mpc.constrained import RATIONALS, _C_BITS, _CX0_CAP, _LAM_CAP
-from pint_tpu_torch.mpc.device_sqp import DeviceSQP, _f32_to_i32
+from pint_tpu_torch.mpc.device_sqp import DeviceSQP, _f32_to_i32, sharded_program
 from pint_tpu_torch.mpc.fused_alm import alm_fused_words_pre, alm_hqt_plain
-from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
+from pint_tpu_torch.mpc.sqp_constrained import (
+    _Y_SHIFT,
+    _alm_batched,
+    _alm_batched_cols,
+    _alm_batched_cols_hqt,
+)
 
 __all__ = ["DeviceConstrainedSQP"]
 
 _TODO = "not ported yet (ROADMAP.md queue 1)"
+
+_REST = ("cs_num", "cs_den", "c_off", "lo_pre", "hi_pre", "eh_num", "eh_den",
+         "el_num", "el_den")
+"""The ALM inners' operands after the Hessian and constraint rows, in
+their argument order."""
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -241,9 +254,7 @@ class DeviceConstrainedSQP:
         d = self.dev
         kw = dict(outer=self.alm_outer, inners=d.pgd_iters,
                   g_shift=d.g_shift, y_shift=_Y_SHIFT)
-        rest = [ops[k] for k in ("cs_num", "cs_den", "c_off", "lo_pre",
-                                 "hi_pre", "eh_num", "eh_den", "el_num",
-                                 "el_den")]
+        rest = [ops[k] for k in _REST]
         if self.fused is False:
             return _alm_batched(
                 words, ops["g_pre"], ops["hqt"].permute(2, 1, 0), ops["hs_num"],
@@ -261,24 +272,10 @@ class DeviceConstrainedSQP:
 
     # -- public API --------------------------------------------------------------
 
-    def solve_words(
-        self,
-        u_words: torch.Tensor,
-        x0_f,
-        lam: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``dev.sqp_iters`` constrained SQP iterations.
-
-        x0_f (B, n) float32 physical states; u_words (B, Tm/4) int32 packed
-        plan (warm start); lam (B, padded_rows) int32 multipliers (zeros
-        when omitted).  Returns (words, lam) -- pass both back in for
-        warm-started receding-horizon use."""
-        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "DeviceConstrainedSQP needs full-f32 GEMMs: set "
-                "torch.backends.cuda.matmul.allow_tf32 = False"
-            )
-        x0_f = torch.as_tensor(x0_f, dtype=torch.float32, device=self.device)
+    def _x0_lam(self, u_words, x0_f, lam):
+        """Validated f32 states and multipliers (zeros when ``lam`` is
+        None) for a batch of ``u_words``."""
+        x0_f = self.dev._x0(x0_f)
         B = x0_f.shape[0]
         if self._F.shape[1] != x0_f.shape[-1]:
             raise ValueError(
@@ -292,10 +289,17 @@ class DeviceConstrainedSQP:
             raise ValueError(
                 f"lam shape {tuple(lam.shape)} != ({B}, {self.padded_rows})"
             )
+        return x0_f, lam
+
+    def _iterate(self, words, x0_f, lam, gather, inner):
+        """``dev.sqp_iters`` SQP iterations: ``gather`` turns the iterate's
+        lanes into the full plan, ``inner`` (words, ops, lam) runs the ALM
+        inner; between iterations the multipliers are rescaled to the new
+        linearization's c-pre units."""
         cap = float(_LAM_CAP)
-        words, prev_cu = u_words, None
+        prev_cu = None
         for _ in range(self.dev.sqp_iters):
-            lanes = unpack_controls(words)[:, : self.dev.n_dec]
+            lanes = gather(unpack_controls(words))[:, : self.dev.n_dec]
             ops, c_unit = self._condense_constrained_dev(x0_f, lanes)
             if prev_cu is None:
                 lam = torch.clamp(lam, -int(_LAM_CAP), int(_LAM_CAP))
@@ -305,9 +309,78 @@ class DeviceConstrainedSQP:
                 scale = true_div(prev_cu, c_unit)
                 lam = _to_i32(torch.clamp(
                     torch.round(lam.to(torch.float32) * scale[:, None]), -cap, cap))
-            words, lam = self._run_inner(words, ops, lam)
+            words, lam = inner(words, ops, lam)
             prev_cu = c_unit
         return words, lam
+
+    def solve_words(
+        self,
+        u_words: torch.Tensor,
+        x0_f,
+        lam: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``dev.sqp_iters`` constrained SQP iterations.
+
+        x0_f (B, n) float32 physical states; u_words (B, Tm/4) int32 packed
+        plan (warm start); lam (B, padded_rows) int32 multipliers (zeros
+        when omitted).  Returns (words, lam) -- pass both back in for
+        warm-started receding-horizon use."""
+        x0_f, lam = self._x0_lam(u_words, x0_f, lam)
+        return self._iterate(u_words, x0_f, lam, lambda lanes: lanes, self._run_inner)
+
+    @functools.cached_property
+    def _sharded_cache(self) -> dict:
+        return {}
+
+    def sharded_solve_words(self, mesh):
+        """The dp x tp sharded constrained solve over ``mesh``: a callable
+        (u_words (B_loc, Tm/(4 tp)), x0_f (B_loc, n), lam (B_loc, Cp) or
+        None) -> (words, lam) on this rank's shards; states and multipliers
+        are tp-replicated.
+
+        **dp** shards problems.  **tp** shards the ALM inner's horizon
+        columns: each SQP iteration one exact int32 all-gather rebuilds the
+        plan, every tp rank runs the same condensation, K3 and K6, and each
+        inner iteration the rank's K10 launch over its combined gradient
+        and constraint slab feeds one exact int32 all-reduce
+        (:func:`~pint_tpu_torch.mpc.sqp_constrained._alm_batched_cols_hqt`;
+        the plain column dots :func:`~pint_tpu_torch.mpc.sqp_constrained.
+        _alm_batched_cols` with ``use_kernels=False`` or ``fused=False``).
+        The multiplier plane and its rescale are computed identically on
+        every tp rank, so ``lam`` needs no collective to stay replicated.
+        With tp == 1 each shard runs the whole-column inner as
+        :meth:`solve_words` does.  Bit-identical to :meth:`solve_words` on
+        every mesh shape; programs are memoized per mesh."""
+        d = self.dev
+
+        def cols_inner(cols, block):
+            kw = dict(outer=self.alm_outer, inners=d.pgd_iters, g_shift=d.g_shift,
+                      y_shift=_Y_SHIFT, group=mesh.tp_group, rank=mesh.r_tp,
+                      block=block)
+            kernel = d.use_kernels and self.fused is not False
+
+            def inner(words, ops, lam):
+                g_r = ops["g_pre"][:, cols].contiguous()
+                rest = [ops[k] for k in _REST]
+                if kernel:
+                    return _alm_batched_cols_hqt(
+                        words, g_r, ops["hqt"], ops["hs_num"], ops["hs_den"],
+                        ops["sqj"], *rest, lam, **kw)
+                return _alm_batched_cols(
+                    words, g_r, ops["hqt"].permute(2, 1, 0), ops["hs_num"],
+                    ops["hs_den"], ops["sqc"].permute(2, 0, 1), *rest, lam, **kw)
+
+            return inner
+
+        def make_prog(gather, inner):
+            def prog(u_words, x0_f, lam=None):
+                x0_f, lam = self._x0_lam(u_words, x0_f, lam)
+                return self._iterate(u_words, x0_f, lam, gather, inner)
+
+            return prog
+
+        return sharded_program(self._sharded_cache, mesh, d, self._run_inner,
+                               cols_inner, make_prog)
 
     def solve(self, x0_f: np.ndarray):
         """Cold-start convenience: returns (words, lam, physical plans
@@ -318,9 +391,6 @@ class DeviceConstrainedSQP:
         lanes = unpack_controls(words)[:, : d.n_dec].cpu().numpy()
         plans = lanes.reshape(-1, d.horizon, d.n_ctrl) * d._lane_scales
         return words, lam, plans
-
-    def sharded_solve_words(self, *args, **kwargs):
-        raise NotImplementedError(f"sharded_solve_words: {_TODO}")
 
     def violation(self, x0_f: np.ndarray, lanes: np.ndarray) -> np.ndarray:
         """Max true-trajectory (f32 rollout) constraint violation per

@@ -18,11 +18,12 @@ only.  Each SQP iteration, for a batch of problems at once:
 On a CUDA device K3 and K4 are the hand-written kernels; on the CPU their
 plain PyTorch versions.  ``use_kernels=False`` runs the plain versions on
 any device: it is the reference the kernels are held to on the card.
+:meth:`DeviceSQP.sharded_solve_words` runs the same iteration on a (dp, tp)
+process mesh; with tp > 1 its PGD inner is column-sharded over K10.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-``propagate="scan"`` and ``"allpairs"``, ``reduce`` other than ``"sym"``,
-``lipq=False`` (the XLA-form Lipschitz and quantize phases) and
-``sharded_solve_words``.
+``propagate="scan"`` and ``"allpairs"``, ``reduce`` other than ``"sym"``
+and ``lipq=False`` (the XLA-form Lipschitz and quantize phases).
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -37,13 +38,41 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.models.dynamics import Unicycle, pack_controls, unpack_controls
-from pint_tpu_torch.mpc.condense_fused import lipq_fused, lipq_plain, true_div
+from pint_tpu_torch.mpc.condense_fused import INV_127, lipq_fused, lipq_plain, true_div
 from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_hqt_plain
+from pint_tpu_torch.mpc.ltv import _pgd_batched_h_cols, _pgd_batched_h_cols_hqt
 from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["DeviceSQP"]
 
 _TODO = "not ported yet (ROADMAP.md queue 1, slice 3 remainder)"
+
+
+def sharded_program(cache, mesh, dev, whole_inner, cols_inner, make_prog):
+    """The scaffolding of both ``sharded_solve_words``: the program of
+    ``mesh``, memoized in ``cache``.  ``dev`` (a :class:`DeviceSQP`) gives
+    the device and the plan's width.  At tp == 1 the plan needs no gather
+    and ``whole_inner`` runs; at tp > 1 one exact int32 all-gather an SQP
+    iteration rebuilds the plan over the tp group and ``cols_inner(cols,
+    block)`` builds the column inner of this rank's columns.
+    ``make_prog(gather, inner)`` returns the callable."""
+    prog = cache.get(mesh)
+    if prog is not None:
+        return prog
+    from pint_tpu_torch.parallel.mesh import all_gather_cols, column_block
+
+    if mesh.device != dev.device:
+        raise ValueError(f"mesh on {mesh.device}, solver on {dev.device}")
+    block = column_block(dev.n_dec, mesh.tp, "horizon*n_ctrl =")
+    if mesh.tp == 1:
+        prog = make_prog(lambda lanes: lanes, whole_inner)
+    else:
+        cols = slice(mesh.r_tp * block, (mesh.r_tp + 1) * block)
+        prog = make_prog(
+            lambda lanes: all_gather_cols(lanes, mesh.tp_group, mesh.r_tp, mesh.tp),
+            cols_inner(cols, block))
+    cache[mesh] = prog
+    return prog
 
 
 def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -274,10 +303,16 @@ class DeviceSQP:
         else:
             hqt, lip, h_max = lipq_plain(Ht, power_iters=self.power_iters)
         alpha = true_div(1.0, lip)
-        h_scale = true_div(alpha * h_max, 127.0)
         g_pre = self._g_pre_from(g, alpha)
-        hs_num, hs_den = self._step_rationals(h_scale)
+        _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
         return hqt, g_pre, hs_num, hs_den
+
+    def _lipq_rationals(self, alpha, h_max):
+        """(h_scale, hs_num, hs_den) from the step alpha and K3's h_max.
+        The reference's jitted ``alpha * h_max / 127.0`` compiles to a
+        multiply by f32(1/127), so that is what runs here."""
+        h_scale = alpha * h_max * INV_127
+        return (h_scale, *self._step_rationals(h_scale))
 
     def _run_inner(self, words, x0_f, lanes):
         """One SQP iteration: condense + K3, then the K4 inner."""
@@ -290,20 +325,75 @@ class DeviceSQP:
 
     # -- public API -------------------------------------------------------------
 
+    def _x0(self, x0_f) -> torch.Tensor:
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "DeviceSQP and DeviceConstrainedSQP need full-f32 GEMMs: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False"
+            )
+        return torch.as_tensor(x0_f, dtype=torch.float32, device=self.device)
+
+    def _iterate(self, words, x0_f, gather, inner):
+        """``sqp_iters`` SQP iterations: ``gather`` turns the iterate's lanes
+        into the full plan the condensation linearizes around, ``inner``
+        (words, x0_f, lanes) runs one condensation and PGD inner."""
+        for _ in range(self.sqp_iters):
+            lanes = gather(unpack_controls(words))[:, : self.n_dec]
+            words = inner(words, x0_f, lanes)
+        return words
+
     def solve_words(self, u_words: torch.Tensor, x0_f) -> torch.Tensor:
         """``sqp_iters`` SQP iterations.  u_words (B, Tm/4) int32 packed
         plan (warm start); x0_f (B, n) physical states."""
-        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "DeviceSQP needs full-f32 GEMMs: set "
-                "torch.backends.cuda.matmul.allow_tf32 = False"
-            )
-        x0_f = torch.as_tensor(x0_f, dtype=torch.float32, device=self.device)
-        words = u_words
-        for _ in range(self.sqp_iters):
-            lanes = unpack_controls(words)[:, : self.n_dec]
-            words = self._run_inner(words, x0_f, lanes)
-        return words
+        return self._iterate(u_words, self._x0(x0_f), lambda lanes: lanes,
+                             self._run_inner)
+
+    @functools.cached_property
+    def _sharded_cache(self) -> dict:
+        return {}
+
+    def sharded_solve_words(self, mesh):
+        """The dp x tp sharded solve over ``mesh``
+        (:func:`pint_tpu_torch.parallel.make_mesh`): a callable
+        (u_words (B_loc, Tm/(4 tp)), x0_f (B_loc, n)) -> words on this
+        rank's shards -- its dp block of the batch (states tp-replicated)
+        and its tp block of the plan's words.
+
+        **dp** shards problems.  **tp** shards the PGD inner's horizon
+        columns: each SQP iteration one exact int32 all-gather rebuilds the
+        lane plan, every tp rank runs the same f32 condensation and K3 on
+        it, and the column inner adds the rank's K10 matvec to an exact
+        int32 all-reduce every iteration (:func:`~pint_tpu_torch.mpc.ltv.
+        _pgd_batched_h_cols_hqt`; the plain column dot
+        :func:`~pint_tpu_torch.mpc.ltv._pgd_batched_h_cols` with
+        ``use_kernels=False``).  With tp == 1 each shard runs
+        :meth:`solve_words`'s iteration (K3 + K4) with no collective.
+
+        Bit-identical to :meth:`solve_words` on every mesh shape as long as
+        every tp rank computes the same f32 condensation and K3
+        quantization bit for bit: the port has only the lipq path, whose
+        quantization is one kernel.  Programs are memoized per mesh."""
+
+        def cols_inner(cols, block):
+            kw = dict(iters=self.pgd_iters, g_shift=self.g_shift,
+                      group=mesh.tp_group, rank=mesh.r_tp, block=block)
+
+            def inner(words, x0_f, lanes):
+                hqt, g_pre, hs_num, hs_den = self._condense_lipq(x0_f, lanes)
+                g_r = g_pre[:, cols].contiguous()
+                if self.use_kernels:
+                    return _pgd_batched_h_cols_hqt(words, g_r, hqt, hs_num, hs_den, **kw)
+                return _pgd_batched_h_cols(words, g_r, hqt.permute(2, 1, 0), hs_num,
+                                           hs_den, **kw)
+
+            return inner
+
+        def make_prog(gather, inner):
+            return lambda u_words, x0_f: self._iterate(
+                u_words, self._x0(x0_f), gather, inner)
+
+        return sharded_program(self._sharded_cache, mesh, self, self._run_inner,
+                               cols_inner, make_prog)
 
     def solve(self, x0_f: np.ndarray):
         """Cold-start convenience: returns (words, physical plans (B, T, m)
@@ -315,6 +405,3 @@ class DeviceSQP:
         lanes = unpack_controls(words)[:, : self.n_dec].cpu().numpy()
         plans = lanes.reshape(-1, self.horizon, self.n_ctrl) * self._lane_scales
         return words, plans
-
-    def sharded_solve_words(self, *args, **kwargs):
-        raise NotImplementedError(f"sharded_solve_words: {_TODO}")

@@ -1,10 +1,15 @@
-"""Fused PGD solver: the whole iteration loop in one kernel (K2).
+"""Fused PGD solver: the whole iteration loop in one kernel (K2, K2p).
 
-PyTorch port of ``pint_tpu/mpc/fused.py:51-134, 234-307``.  :func:`fused_pgd`
-runs the CUDA kernel ``csrc/fused_pgd.cu`` for CUDA tensors and
-:func:`fused_pgd_plain`, the plain PyTorch version of the same lane-space
-loop, for CPU tensors.  Words are unpacked once before the loop and packed
-once after it.
+PyTorch port of ``pint_tpu/mpc/fused.py``.  :func:`fused_pgd` runs the CUDA
+kernel ``csrc/fused_pgd.cu`` for CUDA tensors and :func:`fused_pgd_plain`,
+the plain PyTorch version of the same lane-space loop, for CPU tensors;
+words are unpacked once before the loop and packed once after it.
+:func:`fused_pgd_packed` (K2p, ``FusedPGD(packed_io=True)``) takes and
+returns the packed words themselves: the (B, Tp/4) int32 words are the
+(B, Tp) int8 lanes in memory, so the kernel reads and writes them as bytes.
+Its plain version is :func:`fused_pgd_packed_plain`.  The reference's
+grouped lane order and permuted Hessian (a Mosaic workaround) are not
+ported: K2p's words equal ``packed_io=False``'s.
 
 Exactness: for in-range int8 lanes ``max_signed(add_signed_saturate(u, d),
 -127)`` equals ``clip(u + d, -127, 127)``, so the lane-space loop is
@@ -22,10 +27,12 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+from pint_tpu_torch.mpc.accelerated import beta_num
 from pint_tpu_torch.mpc.condensed import QuantizedQP
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["FusedPGD", "fused_pgd", "fused_pgd_plain"]
+__all__ = ["FusedPGD", "fused_pgd", "fused_pgd_packed", "fused_pgd_packed_plain",
+           "fused_pgd_plain"]
 
 
 def fused_pgd_plain(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
@@ -80,29 +87,73 @@ def fused_pgd(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
     return out
 
 
+def fused_pgd_packed_plain(words, g, hq, *, hs_num, hs_den, g_shift, iters):
+    """Plain PyTorch version of :func:`fused_pgd_packed` (any device):
+    unpack, :func:`fused_pgd_plain`, pack."""
+    lanes = fused_pgd_plain(unpack_controls(words), g, hq, hs_num=hs_num,
+                            hs_den=hs_den, g_shift=g_shift, iters=iters)
+    return pack_controls(lanes)
+
+
+def fused_pgd_packed(words, g, hq, *, hs_num, hs_den, g_shift, iters):
+    """:func:`fused_pgd` with packed-word I/O (no momentum, as the
+    reference's packed kernel).
+
+    words (B, Tp/4) int32 packed control words; g (B, Tp) int32; hq (Tp, Tp)
+    int8.  Returns the final words (B, Tp/4) int32, equal to
+    ``pack_controls(fused_pgd(unpack_controls(words), ...))``.  Kernel for
+    CUDA tensors, plain version for CPU tensors."""
+    B, Tp = g.shape
+    if words.shape != (B, Tp // 4) or Tp % 4 or hq.shape != (Tp, Tp):
+        raise ValueError(
+            f"fused_pgd_packed: words {tuple(words.shape)}, g {(B, Tp)}, "
+            f"hq {tuple(hq.shape)} do not agree"
+        )
+    if words.dtype != torch.int32 or g.dtype != torch.int32 or hq.dtype != torch.int8:
+        raise ValueError("fused_pgd_packed: words and g must be int32, hq int8")
+    kw = dict(hs_num=hs_num, hs_den=hs_den, g_shift=g_shift, iters=iters)
+    if words.device.type == "cpu":
+        return fused_pgd_packed_plain(words, g, hq, **kw)
+    K.require_cuda("fused_pgd_packed", words, g, hq)
+    if Tp > 256:
+        raise ValueError(f"fused_pgd_packed: Tp={Tp} must be <= 256")
+    out = torch.empty_like(words)
+    with torch.cuda.device(words.device):
+        err = K.library().pint_fused_pgd_packed(
+            words.data_ptr(), g.data_ptr(), hq.data_ptr(), out.data_ptr(),
+            B, Tp, iters, hs_num, hs_den, g_shift, K.stream_of(words),
+        )
+    K.check(err, "fused_pgd_packed")
+    K.count_launch("fused_pgd_packed")
+    return out
+
+
 class FusedPGD:
     """Whole-loop PGD solver over K2, bit-identical to
     :class:`~pint_tpu_torch.mpc.solver.FixedPointPGD` (``momentum=False``).
 
     ``momentum`` runs the Nesterov-style extrapolation with
     ``beta = beta_num / 2**beta_den`` from the QP's condition number, as
-    ``pint_tpu``'s ``FusedPGD`` does."""
+    ``pint_tpu``'s ``FusedPGD`` does.  ``packed_io`` runs K2p on the words
+    themselves; it has no momentum branch, and where the reference quietly
+    drops ``momentum`` with ``packed_io`` the port raises."""
 
     def __init__(self, qqp: QuantizedQP, iters: int = 40,
-                 momentum: bool = False, beta_den: int = 8, device="cpu"):
+                 momentum: bool = False, beta_den: int = 8, device="cpu",
+                 packed_io: bool = False):
+        if packed_io and momentum:
+            raise ValueError("packed_io has no momentum branch: use one or the other")
         self.qqp = qqp
         self.iters = iters
         self.momentum = momentum
         self.beta_den = beta_den
+        self.packed_io = packed_io
         self.device = K.resolve_device(device)
         self._hq = torch.as_tensor(np.asarray(qqp.Hq, np.int8), device=self.device)
 
     @functools.cached_property
     def beta_num(self) -> int:
-        eig = np.linalg.eigvalsh(self.qqp.qp.H)
-        kappa = float(eig.max() / max(eig.min(), 1e-12))
-        rk = np.sqrt(kappa)
-        return int(round((rk - 1.0) / (rk + 1.0) * (1 << self.beta_den)))
+        return beta_num(self.qqp, self.beta_den)
 
     def init_words(self, batch: int) -> torch.Tensor:
         return torch.zeros(
@@ -111,14 +162,27 @@ class FusedPGD:
 
     def solve_words(self, u_words: torch.Tensor, g_pre: torch.Tensor):
         q = self.qqp
+        kw = dict(hs_num=q.hs_num, hs_den=q.hs_den, g_shift=q.g_shift,
+                  iters=self.iters)
+        if self.packed_io:
+            return fused_pgd_packed(u_words, g_pre, self._hq, **kw)
         lanes = fused_pgd(
-            unpack_controls(u_words), g_pre, self._hq,
-            hs_num=q.hs_num, hs_den=q.hs_den, g_shift=q.g_shift,
-            iters=self.iters, momentum=self.momentum,
+            unpack_controls(u_words), g_pre, self._hq, momentum=self.momentum,
             beta_num=self.beta_num if self.momentum else 0,
-            beta_den=self.beta_den,
+            beta_den=self.beta_den, **kw,
         )
         return pack_controls(lanes)
+
+    # -- multi-device --------------------------------------------------------
+
+    def dp_sharded(self, mesh):
+        """The dp-sharded solve over ``mesh``: each rank runs its batch
+        shard (u_words (B_loc, Tp/4), g_pre (B_loc, Tp), rows cut by dp)
+        through :meth:`solve_words`; no communication, bit-identical.  For
+        tp sharding use :class:`pint_tpu_torch.parallel.ShardedPGD`."""
+        if mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, solver on {self.device}")
+        return self.solve_words
 
     def solve(self, x0_phys: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         g_pre = torch.as_tensor(

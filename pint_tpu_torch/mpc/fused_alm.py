@@ -12,10 +12,16 @@ PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
 * K7, the shared-operand ALM of the LTI ConstrainedPGD
   (``alm_shared_fused_words``): :func:`alm_shared`, CUDA kernel
   ``csrc/alm.cu`` (``alm_shared_kernel``), plain version
-  :func:`alm_shared_plain`.
+  :func:`alm_shared_plain`;
+* K10, one tp rank's column matvec, launched once an iteration by the
+  column-sharded inners with the int32 all-reduce between launches
+  (``pgd_matvec_cols``): :func:`pgd_matvec_cols`, CUDA kernel
+  ``csrc/matvec_cols.cu``, plain version :func:`pgd_matvec_cols_plain`.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
-tensors.  The tp column matvec (K10) is not ported yet.
+tensors.  The reference's VMEM gates and its TPU crossover for the column
+matvec (``matvec_viable``, ``matvec_wins``, ``_MATVEC_MIN_COLS``,
+``resolve_tp_fused``) are not ported: K10 checks its own shared-memory fit.
 
 Exactness: for in-range int8 lanes ``max_signed(add_signed_saturate(u, d),
 -127)`` equals ``clip(u + d, -127, 127)`` in lane space, so every route is
@@ -32,11 +38,14 @@ import torch
 
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc.constrained import RATIONALS, _alm_loop, _f64_mv, _lane_space
+from pint_tpu_torch.mpc.ltv import _bmv
 from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["alm_fused_words", "alm_fused_words_pre", "alm_hqt", "alm_hqt_plain",
            "alm_shared", "alm_shared_fused_words", "alm_shared_plain",
-           "pgd_fused_words", "pgd_fused_words_pre", "pgd_hqt", "pgd_hqt_plain"]
+           "pgd_fused_words", "pgd_fused_words_pre", "pgd_hqt", "pgd_hqt_plain",
+           "pgd_matvec_cols", "pgd_matvec_cols_plain"]
+
 
 def pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """Plain PyTorch version of :func:`pgd_hqt` (any device).
@@ -114,6 +123,49 @@ def pgd_fused_words(u_words, g_pre, Hq, hs_num, hs_den, *, iters, g_shift):
     return pgd_fused_words_pre(
         u_words, g_pre, hqt, hs_num, hs_den, iters=iters, g_shift=g_shift
     )
+
+
+# -- the tp column matvec (K10) ------------------------------------------------
+
+
+def pgd_matvec_cols_plain(lanes_r, hqt_r):
+    """Plain PyTorch version of :func:`pgd_matvec_cols` (any device): an
+    exact float64 product (|acc| <= 128 * 127 * K)."""
+    acc = torch.einsum("kjb,bk->bj", hqt_r.to(torch.float64), lanes_r.to(torch.float64))
+    return acc.to(torch.int32)
+
+
+def pgd_matvec_cols(lanes_r, hqt_r):
+    """This rank's columns' contribution to the full int32 gradient:
+    ``partial[b, j] = sum_k hqt_r[k, j, b] * lanes_r[b, k]``.
+
+    lanes_r (B, K) int32, this rank's iterate columns (int8 values);
+    hqt_r (K, rows, B) int8, this rank's k-slice of the batch-last slab
+    (``hqt[k, j, b] = Hq_b[j, k]``).  Returns (B, rows) int32.  Kernel for
+    CUDA tensors, plain version for CPU tensors.  The kernel stages the
+    lanes in shared memory and refuses (``RuntimeError``) a K that does not
+    fit a block (``csrc/matvec_cols.cu``)."""
+    B, Kc = lanes_r.shape
+    if hqt_r.dim() != 3 or hqt_r.shape[0] != Kc or hqt_r.shape[2] != B:
+        raise ValueError(
+            f"pgd_matvec_cols: lanes_r {tuple(lanes_r.shape)} and hqt_r "
+            f"{tuple(hqt_r.shape)} do not agree"
+        )
+    if lanes_r.dtype != torch.int32 or hqt_r.dtype != torch.int8:
+        raise ValueError("pgd_matvec_cols: lanes_r must be int32, hqt_r int8")
+    if lanes_r.device.type == "cpu":
+        return pgd_matvec_cols_plain(lanes_r, hqt_r)
+    K.require_cuda("pgd_matvec_cols", lanes_r, hqt_r)
+    rows = hqt_r.shape[1]
+    out = torch.empty((B, rows), dtype=torch.int32, device=lanes_r.device)
+    with torch.cuda.device(lanes_r.device):
+        err = K.library().pint_matvec_cols(
+            lanes_r.data_ptr(), hqt_r.data_ptr(), out.data_ptr(), B, Kc, rows,
+            K.stream_of(lanes_r),
+        )
+    K.check(err, "pgd_matvec_cols")
+    K.count_launch("pgd_matvec_cols")
+    return out
 
 
 # -- the ALM kernels (K5, K7) --------------------------------------------------
@@ -224,14 +276,10 @@ def alm_hqt_plain(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc,
     kernel's second orientation of ``sqc`` and is not read here."""
     Hd = hqt.permute(2, 1, 0).to(torch.float64)        # (B, j, k)
     Sd = sqc.permute(2, 0, 1).to(torch.float64)        # (B, c, j)
-
-    def bmv(m, v):
-        return torch.bmm(m, v.to(torch.float64)[:, :, None])[..., 0].to(torch.int32)
-
     return _alm_loop(
         lanes, g_pre, c_off, lam,
-        hmv=lambda u: bmv(Hd, u), smv=lambda u: bmv(Sd, u),
-        stmv=lambda y: bmv(Sd.transpose(1, 2), y),
+        hmv=lambda u: _bmv(Hd, u), smv=lambda u: _bmv(Sd, u),
+        stmv=lambda y: _bmv(Sd.transpose(1, 2), y),
         rat={k: sc[i][:, None] for i, k in enumerate(RATIONALS)},
         lo=lo_pre, hi=hi_pre, outer=outer, inners=inners, g_shift=g_shift,
         y_shift=y_shift, space=_lane_space(),

@@ -62,6 +62,10 @@ _SIGNATURES = {
     # lanes, g, hq, out, B, Tp, iters, hs_num, hs_den, g_shift,
     # momentum, beta_num, beta_den, stream
     "pint_fused_pgd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # words, g, hq, out, B, Tp, iters, hs_num, hs_den, g_shift, stream
+    "pint_fused_pgd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # lanes, hqt, out, B, K, rows, stream
+    "pint_matvec_cols": [_P, _P, _P, _I, _I, _I, _P],
     # lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, stream
     "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
@@ -89,8 +93,9 @@ SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",
 """Launch-count names of ``ops/swar.py``: K1, K9 and K8 on native words,
 and K11a-c on u64 planar pairs."""
 
-KERNELS = ("fused_pgd", "pgd_hqt", "lipq", "alm", "alm_shared", "pen") + SWAR_KERNELS
-"""Launch-count names: K2 (``mpc/fused.py``), K4, K5 and K7
+KERNELS = ("fused_pgd", "fused_pgd_packed", "pgd_hqt", "pgd_matvec_cols", "lipq",
+           "alm", "alm_shared", "pen") + SWAR_KERNELS
+"""Launch-count names: K2 and K2p (``mpc/fused.py``), K4, K10, K5 and K7
 (``mpc/fused_alm.py``), K3 and K6 (``mpc/condense_fused.py``) and the SWAR
 kernels."""
 

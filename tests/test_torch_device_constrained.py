@@ -180,8 +180,7 @@ def test_validation(small_pair):
 @pytest.mark.parametrize("make", [
     lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL), lipq=False),
     lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL)),
-    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL)).sharded_solve_words(None),
-], ids=["lipq=False", "propagate=scan", "sharded_solve_words"])
+], ids=["lipq=False", "propagate=scan"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):
         make()

@@ -204,9 +204,36 @@ def test_unported_options_raise(kw, match):
         DeviceSQP(**KW, **kw)
 
 
-def test_sharded_solve_not_ported(pair):
-    with pytest.raises(NotImplementedError):
-        pair[1].sharded_solve_words(None)
+def test_h_scale_and_step_rationals_bit_identical(pair):
+    """Given JAX's own ``alpha`` and ``h_max`` (from its K3 on a real
+    condensation), the port's ``h_scale``, ``hs_num`` and ``hs_den`` equal
+    the reference's jitted ``alpha * h_max / 127.0`` and step rationals bit
+    for bit.  XLA compiles that division as a multiply by f32(1/127); on
+    this seed an IEEE division differs from it in one problem."""
+    from pint_tpu_torch.mpc.condense_fused import true_div
+
+    ref, port = pair
+    rng = np.random.default_rng(2)
+    B = 16
+    x0 = np.stack([rng.uniform(-0.2, 0.2, B), rng.uniform(-0.2, 0.2, B),
+                   rng.uniform(0, 1, B)], -1).astype(np.float32)
+    lanes = rng.integers(-100, 100, (B, ref.n_dec), dtype=np.int32)
+    Ht, _ = jax.jit(ref._condense_ht)(jnp.asarray(x0), jnp.asarray(lanes))
+    _, lip, h_max = j_lipq(Ht, power_iters=ref.power_iters, block=8, interpret=True)
+
+    @jax.jit
+    def reference(lip, h_max):   # pint_tpu/mpc/device_sqp.py:797-800
+        alpha = 1.0 / lip
+        h_scale = alpha * h_max / 127.0
+        return (alpha, h_scale, *ref._step_rationals(h_scale))
+
+    alpha, *expect = (np.asarray(v) for v in reference(lip, h_max))
+    got = port._lipq_rationals(_t(alpha), _t(h_max))
+    for g, e in zip(got, expect):
+        assert g.numpy().dtype == e.dtype
+        np.testing.assert_array_equal(g.numpy(), e)
+    ieee = true_div(_t(alpha) * _t(h_max), 127.0).numpy()
+    assert (ieee != expect[0]).any()
 
 
 def test_indefinite_q_rejected_at_construction():

@@ -21,7 +21,13 @@ from pint_tpu_torch.convert import (
     words_from_numpy,
     words_to_numpy,
 )
-from pint_tpu_torch.mpc import FixedPointPGD, FusedPGD, fused_pgd
+from pint_tpu_torch.mpc import (
+    FixedPointPGD,
+    FusedPGD,
+    fused_pgd,
+    fused_pgd_packed,
+    fused_pgd_packed_plain,
+)
 
 BATCH = 16
 
@@ -82,6 +88,48 @@ def test_fused_pgd_bit_identical_to_jax(qqps, problem, momentum, iters):
     assert tf.beta_num == jf._beta_num
     got = tf.solve_words(words_from_numpy(warm_words), torch.from_numpy(g))
     np.testing.assert_array_equal(words_to_numpy(got), expect)
+
+
+@pytest.mark.parametrize("batch", [16, 128])
+@pytest.mark.parametrize("start", ["cold", "warm"])
+def test_packed_io_bit_identical_to_jax(qqps, batch, start):
+    """FusedPGD(packed_io=True) -- K2p's plain version here -- equals JAX's
+    packed kernel (interpret mode) and packed_io=False, on words that
+    exercise -128 lanes (tests/test_fused.py's batches)."""
+    ref, port = qqps
+    rng = np.random.default_rng(batch)
+    x0 = np.stack([rng.uniform(-3, 3, batch), rng.uniform(-1, 1, batch)], -1)
+    g = ref.g_lane_fixed(x0)
+    warm = rng.integers(-128, 128, (batch, ref.padded), dtype=np.int32)
+    u0 = (np.zeros((batch, ref.padded // 4), np.uint32) if start == "cold"
+          else np.asarray(j_pack(jnp.asarray(warm))))
+    jf = JFused(ref, iters=20, packed_io=True, block_rows=8, interpret=True)
+    expect = np.asarray(jf.solve_words(jnp.asarray(u0), jnp.asarray(g)))
+    packed = FusedPGD(port, iters=20, packed_io=True)
+    got = packed.solve_words(words_from_numpy(u0), torch.from_numpy(g))
+    np.testing.assert_array_equal(words_to_numpy(got), expect)
+    lanes = FusedPGD(port, iters=20).solve_words(words_from_numpy(u0), torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), lanes.numpy())
+
+
+def test_fused_pgd_packed_plain_is_the_cpu_route(qqps, problem):
+    _, port = qqps
+    _, g, warm_words = problem
+    kw = dict(hs_num=port.hs_num, hs_den=port.hs_den, g_shift=port.g_shift, iters=7)
+    args = (words_from_numpy(warm_words), torch.from_numpy(g), torch.as_tensor(port.Hq))
+    np.testing.assert_array_equal(fused_pgd_packed(*args, **kw).numpy(),
+                                  fused_pgd_packed_plain(*args, **kw).numpy())
+
+
+def test_packed_io_rejects_momentum_and_bad_shapes(qqps):
+    _, port = qqps
+    with pytest.raises(ValueError, match="momentum"):
+        FusedPGD(port, packed_io=True, momentum=True)
+    with pytest.raises(ValueError, match="do not agree"):
+        fused_pgd_packed(torch.zeros((4, 15), dtype=torch.int32),
+                         torch.zeros((4, 64), dtype=torch.int32),
+                         torch.as_tensor(port.Hq), hs_num=1, hs_den=0, g_shift=12,
+                         iters=1)
 
 
 def test_fused_matches_word_solver(qqps, problem):

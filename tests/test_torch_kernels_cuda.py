@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K9, K8, K11a-c, K2, K3, K4, K5, K6, K7)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, K9, K8, K11a-c, K2, K2p, K3, K4, K5, K6, K7,
+K10) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel has
 no CPU mode).  This file imports neither jax nor pint_tpu, so it runs on a
@@ -13,8 +13,9 @@ bit-identical (the plain version adds in the kernel's order; ``lip`` is
 also held to the contract's rtol 1e-5 first); K5 and K7 bit-identical
 (words and multipliers) to their plain versions and word-space references;
 K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
-rtol 1e-5 first); a whole DeviceSQP solve, kernels against plain versions,
-cost parity rtol 0.01, atol 1e-4.
+rtol 1e-5 first); K10 and K2p bit-identical (K2p also to K2 with its unpack
+and pack); a whole DeviceSQP solve, kernels against plain versions, cost
+parity rtol 0.01, atol 1e-4.
 """
 
 import numpy as np
@@ -470,3 +471,99 @@ def test_device_constrained_kernels_cost_parity(cuda):
         out.append((true_cost(csqp.dev, x0, lanes), csqp.violation(x0, lanes)))
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(out[0][1], out[1][1], atol=5e-3)
+
+
+# -- the multi-device tier's kernels: K10 and K2p -------------------------------
+
+
+@pytest.fixture(scope="module")
+def rti_slabs(cuda):
+    """One real DeviceSQP lipq condensation and one DeviceConstrainedSQP
+    condensation at the RTI configurations (Tm = 64, Cp = 64), B = 4096."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    B = 4096
+    rng = np.random.default_rng(20)
+    sqp = DeviceSQP(sqp_iters=1, device=cuda, **SQP_KW)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, sqp.n_dec), dtype=np.int32),
+                            device=cuda)
+    hqt = sqp._condense_lipq(torch.as_tensor(_x0(B, 21), device=cuda), lanes)[0]
+    csqp = DeviceConstrainedSQP(
+        DeviceSQP(horizon=32, sqp_iters=1, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]),
+                  device=cuda), **CON)
+    ops, _ = csqp._condense_constrained_dev(torch.as_tensor(_con_x0(B, 22), device=cuda),
+                                            lanes)
+    return hqt, ops, lanes
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("slab", ["sqp", "constrained"])
+def test_k10_bit_identical(rti_slabs, tp, slab):
+    """K10 on rank 0's slab: K = 64/tp columns, rows = Tm (DeviceSQP) or
+    Tm + Cp (the constrained combined slab)."""
+    from pint_tpu_torch.mpc import pgd_matvec_cols, pgd_matvec_cols_plain
+
+    hqt, ops, lanes = rti_slabs
+    k = 64 // tp
+    slab_r = (hqt[:k] if slab == "sqp"
+              else torch.cat([ops["hqt"][:k], ops["sqj"][:k]], dim=1))
+    lanes_r = lanes[:, :k].contiguous()
+    before = K.launch_counts()["pgd_matvec_cols"]
+    got = pgd_matvec_cols(lanes_r, slab_r)
+    assert K.launch_counts()["pgd_matvec_cols"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (4096, 64 if slab == "sqp" else 128)
+    assert torch.equal(got, pgd_matvec_cols_plain(lanes_r, slab_r))
+
+
+@pytest.mark.parametrize("B, K_, rows", [(37, 32, 64), (1, 8, 5), (4099, 16, 200)])
+def test_k10_ragged_shapes(cuda, B, K_, rows):
+    """Batches and row counts that fill no tile, full-range int8 lanes."""
+    from pint_tpu_torch.mpc import pgd_matvec_cols, pgd_matvec_cols_plain
+
+    rng = np.random.default_rng(B + K_)
+    lanes = torch.as_tensor(rng.integers(-128, 128, (B, K_), dtype=np.int32), device=cuda)
+    slab = torch.as_tensor(rng.integers(-128, 128, (K_, rows, B), dtype=np.int8),
+                           device=cuda)
+    got = pgd_matvec_cols(lanes, slab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pgd_matvec_cols_plain(lanes, slab))
+
+
+def test_k10_refuses_what_it_cannot_stage(cuda):
+    """K = 2000 columns of lanes do not fit a block's shared memory: the C
+    entry refuses them before the launch."""
+    from pint_tpu_torch.mpc import pgd_matvec_cols
+
+    before = K.launch_counts()["pgd_matvec_cols"]
+    with pytest.raises(RuntimeError, match="pgd_matvec_cols: CUDA error .*invalid argument"):
+        pgd_matvec_cols(torch.zeros((2, 2000), dtype=torch.int32, device=cuda),
+                        torch.zeros((2000, 4, 2), dtype=torch.int8, device=cuda))
+    assert K.launch_counts()["pgd_matvec_cols"] == before
+
+
+@pytest.mark.parametrize("B", [1, 100, 8192])
+@pytest.mark.parametrize("iters", [15, 40])
+def test_k2p_bit_identical(cuda, B, iters):
+    """K2p on words against K2 with its unpack and pack, and against its
+    plain version; full-range warm words, so -128 lanes occur."""
+    from pint_tpu_torch.mpc import fused_pgd_packed, fused_pgd_packed_plain
+
+    qqp = quantize(condense_double_integrator(T=50))
+    rng = np.random.default_rng(B)
+    words = torch.as_tensor(
+        rng.integers(-2**31, 2**31, (B, qqp.padded // 4), dtype=np.int64).astype(np.int32),
+        device=cuda)
+    g = torch.as_tensor(qqp.g_lane_fixed(np.stack(
+        [rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1)), device=cuda)
+    hq = torch.as_tensor(qqp.Hq, device=cuda)
+    kw = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=iters)
+    before = K.launch_counts()["fused_pgd_packed"]
+    got = fused_pgd_packed(words, g, hq, **kw)
+    assert K.launch_counts()["fused_pgd_packed"] == before + 1
+    via_k2 = pack_controls(fused_pgd(unpack_controls(words), g, hq, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, via_k2)
+    assert torch.equal(got, fused_pgd_packed_plain(words, g, hq, **kw))
+    solver = FusedPGD(qqp, iters=iters, packed_io=True, device=cuda)
+    assert torch.equal(solver.solve_words(words, g), got)
