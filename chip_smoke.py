@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 1. device check: a CUDA card of compute capability 9.0, its name and power
    limit from nvidia-smi; TF32 off;
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
-   source;
+   source; from the build's -Xptxas -v report, the registers of every K3
+   and K4 kernel (neither may spill) and any kernel that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
    accumulate) and their u64 pair forms K11a-c, each against its plain
    PyTorch version on 1Mi full-range random words and against the per-lane
@@ -29,8 +30,10 @@ Phases (any failure raises and the script exits non-zero):
    PyTorch version on the card, with CUDA-event times of both:
    K2 fused PGD (B = 8192, Tp = 64, 15 and 40 iterations, momentum off and
    on; bit-identical), K3 lipq and K4 PGD inner on one real DeviceSQP
-   condensation (B = 4096, Tm = 64; K3's hqt and h_max bit-identical, lip
-   rtol 1e-5; K4 bit-identical);
+   condensation (B = 4096, Tm = 64; K3's hqt, h_max and lip bit-identical;
+   K4's lanes entry and its words entry bit-identical to their plain
+   versions and to each other, the words entry one kernel launch with no
+   unpack or pack, torch.profiler);
 6. K6 penalty power iteration and K5 ALM inner on one real
    DeviceConstrainedSQP condensation at the constrained RTI configuration
    (unicycle T = 32, F = [[0,1,0]], lo/hi = -+0.03, rho 100, 3 x 30 ALM,
@@ -46,7 +49,8 @@ Phases (any failure raises and the script exits non-zero):
 8. MPCService: LTI double integrator, T = 50 (Tp = 64), batch 8192, 15 PGD
    iterations a tick, 10 ticks;
 9. RTIService: unicycle DeviceSQP, T = 32, batch 4096, 1 SQP x 30 PGD a
-   tick, 10 ticks;
+   tick, 10 ticks: K3 and K4 once a tick, K4 on the packed words with no
+   unpack or pack around it;
 10. ConstrainedRTIService at phase 6's configuration, 1 SQP x (3 x 30 ALM)
     a tick, 10 ticks: controls finite and in the box, K3, K6 and K5 once a
     tick, tick p50/p99 and deadline misses against CRTI_BUDGET_S;
@@ -86,11 +90,18 @@ Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6, and
 phase 16 K10 on both ranks.  The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.  Inputs are
-made from fixed seeds.
+record: for each kernel its launches, its error, one call between CUDA events
+(``ms``), calls queued behind a device sleep (``queued_ms``), the plain
+version, the bound from ``utils.profiling.kernel_cost`` at the timed shape
+over the H100's published peaks (``bound_ms``, ``bound_by``,
+``share_of_bound`` = bound over queued time) and ``library_ms`` (null: no
+single PyTorch call computes these functions; ``library`` says why).  The
+last line is ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
+seeds.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -109,6 +120,7 @@ SHIFT_AMOUNTS = (0, 1, 3, 7, 12, 100, -1)
 N_CHECK, N_ORACLE = 1 << 20, 2048
 N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
+NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu")  # K3 and K4 hold their slabs in registers
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
@@ -145,12 +157,39 @@ def phase_device(torch):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def ptxas_kernels(report):
+    """(source, kernel, registers, spill store bytes, spill load bytes) of
+    every kernel in the build's ``-Xptxas -v`` report."""
+    rows, src, fn, spill = [], None, None, (0, 0)
+    for line in report.splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif "Function properties for" in line:
+            fn, spill = line.split("Function properties for", 1)[1].strip(), (0, 0)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spill = (int(m[1]), int(m[2]))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            rows.append((src, fn, int(m[1]), *spill))
+            fn = None
+    return rows
+
+
 def phase_build(K):
     t0 = time.perf_counter()
     so = K.build()
     K.library()
     sec = time.perf_counter() - t0
-    say(f"build: {so.name} in {sec:.2f} s")
+    rows = ptxas_kernels(so.with_suffix(".ptxas.txt").read_text())
+    say(f"build: {so.name} in {sec:.2f} s; ptxas: {len(rows)} kernels")
+    shown = [r for r in rows if r[0] in NO_SPILL_SOURCES or r[3] or r[4]]
+    for src, fn, regs, st, ld in shown:
+        say(f"  ptxas {src} {fn}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    spilled = [r for r in shown if r[0] in NO_SPILL_SOURCES and (r[3] or r[4])]
+    if spilled:
+        raise AssertionError(f"ptxas: {len(spilled)} K3/K4 kernels spill registers: {spilled}")
+    return {f"{src} {fn}": dict(registers=regs, spill_stores=st, spill_loads=ld)
+            for src, fn, regs, st, ld in shown}
 
 
 def rand_words(torch, W, lay, shape, seed):
@@ -337,12 +376,15 @@ def phase_headline(torch, P):
     from pint_tpu_torch.ops.split64 import split_u64
     from pint_tpu_torch.utils.profiling import roofline_report
 
+    from pint_tpu_torch.utils import timing
+
     def timed(name, kernel, plain, *args, plain_inner=3):
-        """(kernel ms, plain ms) of a chain on ``args``, after one call of
-        each on them is held bit-identical."""
+        """(kernel ms, plain ms, kernel ms of queued calls) of a chain on
+        ``args``, after one call of each on them is held bit-identical."""
         same(torch, f"{name} at {tuple(args[0].shape)}", kernel(*args), plain(*args))
         return (chain_ms(torch, kernel, *args),
-                chain_ms(torch, plain, *args, inner=plain_inner, reps=5))
+                chain_ms(torch, plain, *args, inner=plain_inner, reps=5),
+                median(timing.queued_ms(lambda: kernel(*args))))
 
     lay = P.PackedLayout(8, 8, 8, 8)
     n = N_HEADLINE
@@ -381,7 +423,7 @@ def phase_headline(torch, P):
             f"K1 at {res['addsat_u8x4_vs_speed_of_light']:.3f} of the raw add, below "
             f"the limit {SPEED_OF_LIGHT_MIN}")
 
-    times = {"swar_binop": (k1, k1_plain)}
+    times = {"swar_binop": (k1, k1_plain, median(timing.queued_ms(lambda: add(a, b))))}
     times["swar_shift"] = timed(
         "swar_shift shift_left(3)", S.shift(lay, "shift_left"),
         lambda x, k: S.shift_plain(lay, "shift_left", x, k), a, 3, plain_inner=5)
@@ -403,14 +445,15 @@ def phase_headline(torch, P):
     same(torch, f"swar_binop u64 add_unsigned_saturate at ({N_U64},)", add64(a64, b64),
          S.binop_plain(lay64, "add_unsigned_saturate", a64, b64))
     native = chain_ms(torch, add64, a64, b64)
-    pair, pair_plain = timed(
+    pair, pair_plain, _ = timed(
         "swar_binop_pair add_unsigned_saturate", S.binop_pair(lay64, "add_unsigned_saturate"),
         lambda x, y: S.binop_plain(lay64, "add_unsigned_saturate", x, y, pair=True), pa, pb)
     lanes = N_U64 * 8
     res["addsat_u8x8_u64_native_Glanes_per_s"] = lanes / (native / 1e3) / 1e9
     res["addsat_u8x8_u64_pair_Glanes_per_s"] = lanes / (pair / 1e3) / 1e9
     res["addsat_u8x8_u64_pair_plain_Glanes_per_s"] = lanes / (pair_plain / 1e3) / 1e9
-    times["swar_binop_pair"] = (pair, pair_plain)
+    times["swar_binop_pair"] = (pair, pair_plain, median(timing.queued_ms(
+        lambda: S.binop_pair(lay64, "add_unsigned_saturate")(pa, pb))))
     times["swar_shift_pair"] = timed(
         "swar_shift_pair shift_left(3)", S.shift_pair(lay64, "shift_left"),
         lambda x, k: S.shift_plain(lay64, "shift_left", x, k, pair=True), pa, 3)
@@ -485,6 +528,7 @@ def phase_k6_k5(torch, P, timing):
                                                                    ("row_amp", 4))}
     k6_err = max(float((got[i] - ref[i]).abs().max()) for i in (2, 4))
     k6_ms = median(timing.cuda_ms(lambda: pen_fused(S_t, power_iters=it)))
+    k6_q = median(timing.queued_ms(lambda: pen_fused(S_t, power_iters=it)))
     k6_pms = median(timing.cuda_ms(lambda: pen_plain(S_t, power_iters=it), reps=3))
     say(f"K6 pen C={csqp.n_rows} Tm={d.n_dec} B={B}: sqc, sqj, s_scale bit-identical; "
         f"rel err {errs}, problems differing in bits {differ}; kernel {k6_ms:.4f} ms, "
@@ -515,12 +559,15 @@ def phase_k6_k5(torch, P, timing):
     same(torch, "K5 against _alm_batched (words)", pack_controls(out[0][:n]), w_x)
     same(torch, "K5 against _alm_batched (lam)", out[1][:n], l_x)
     k5_ms = median(timing.cuda_ms(lambda: alm_hqt(*args, **kw)))
+    k5_q = median(timing.queued_ms(lambda: alm_hqt(*args, **kw), calls=5))
     k5_pms = median(timing.cuda_ms(lambda: alm_hqt_plain(*args, **kw), reps=3))
     say(f"K5 alm Tp={d.n_dec} Cp={csqp.padded_rows} B={B} {csqp.alm_outer}x{d.pgd_iters}: "
         f"words and lam bit-identical to the plain version, and to _alm_batched on "
         f"{n} problems; kernel {k5_ms:.4f} ms, plain {k5_pms:.4f} ms")
-    return (dict(max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_pms, bits_differ=differ),
-            dict(max_abs_err=0.0, ms=k5_ms, plain_ms=k5_pms))
+    return (dict(max_abs_err=k6_err, ms=k6_ms, queued_ms=k6_q, plain_ms=k6_pms,
+                 bits_differ=differ, C=csqp.n_rows, Tm=d.n_dec, power_iters=it),
+            dict(max_abs_err=0.0, ms=k5_ms, queued_ms=k5_q, plain_ms=k5_pms,
+                 Tp=d.n_dec, Cp=csqp.padded_rows, outer=csqp.alm_outer, inners=d.pgd_iters))
 
 
 def phase_k7(torch, P, K, timing):
@@ -569,11 +616,13 @@ def phase_k7(torch, P, K, timing):
     same(torch, "K7 lanes vs alm_shared_plain", got[0], ref[0])
     same(torch, "K7 lam vs alm_shared_plain", got[1], ref[1])
     ms = median(timing.cuda_ms(lambda: alm_shared(*args, **akw)))
+    qms = median(timing.queued_ms(lambda: alm_shared(*args, **akw), calls=3))
     pms = median(timing.cuda_ms(lambda: alm_shared_plain(*args, **akw), reps=2,
                                 warmup=1))
     solve_ms = median(timing.host_ms(lambda: kern.solve_words(u0, g, co), reps=5))
     word_ms = median(timing.host_ms(lambda: word.solve_words(u0, g, co), reps=2))
-    rec = dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=pms,
+    rec = dict(launches=launches, max_abs_err=0.0, ms=ms, queued_ms=qms, plain_ms=pms,
+               Tp=q.qqp.padded, Cp=q.padded_rows,
                solves_per_s=B / (solve_ms / 1e3), word_solves_per_s=B / (word_ms / 1e3))
     say(f"K7 ConstrainedPGD T={T} Tp={q.qqp.padded} Cp={q.padded_rows} B={B} "
         f"{LTI_CON_OUTER}x{LTI_CON_INNERS}: solve() through K7 (+{launches}), words and "
@@ -594,7 +643,7 @@ def phase_k2(torch, P, timing):
         rng.integers(-128, 128, (LTI_BATCH, qqp.padded), dtype=np.int32),
         device=dev)
     hq = torch.as_tensor(qqp.Hq, device=dev)
-    beta = FusedPGD(qqp).beta_num
+    beta = FusedPGD(qqp, device=DEVICE).beta_num
     rec = {}
     for iters in (15, 40):
         for momentum in (False, True):
@@ -608,17 +657,40 @@ def phase_k2(torch, P, timing):
                 raise AssertionError(f"K2 iters={iters} momentum={momentum}: "
                                      f"max |kernel - plain| = {err}")
             ms = median(timing.cuda_ms(lambda: fused_pgd(lanes, g, hq, **kw)))
+            qms = median(timing.queued_ms(lambda: fused_pgd(lanes, g, hq, **kw)))
             pms = median(timing.cuda_ms(
                 lambda: fused_pgd_plain(lanes, g, hq, **kw), reps=5))
             key = f"iters{iters}_momentum{int(momentum)}"
-            rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+            rec[key] = dict(max_abs_err=err, ms=ms, queued_ms=qms, plain_ms=pms,
+                            Tp=qqp.padded, iters=iters)
             say(f"K2 fused_pgd B={LTI_BATCH} Tp={qqp.padded} {key}: bit-identical; "
                 f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
     return rec
 
 
-def phase_k3_k4(torch, P, timing):
-    from pint_tpu_torch.mpc import lipq_fused, lipq_plain, pgd_hqt, pgd_hqt_plain
+def device_kernels(torch, fn):
+    """(name, device µs) of each device operation that one call of ``fn``
+    runs, after a call to warm up (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.key_averages():      # device time sits on the kernels' events
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out += [(e.key, us / e.count)] * e.count
+    return out
+
+
+def phase_k3_k4(torch, P, K, timing):
+    from pint_tpu_torch.models.dynamics import pack_controls
+    from pint_tpu_torch.mpc import (lipq_fused, lipq_plain, pgd_fused_words_pre,
+                                    pgd_fused_words_pre_plain, pgd_hqt, pgd_hqt_plain)
     from pint_tpu_torch.mpc.condense_fused import true_div
 
     sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **SQP_KW)
@@ -632,43 +704,56 @@ def phase_k3_k4(torch, P, timing):
     it = sqp.power_iters
     hqt, lip, hmax = lipq_fused(Ht, power_iters=it)
     hqt_p, lip_p, hmax_p = lipq_plain(Ht, power_iters=it)
-    torch.cuda.synchronize()
-    if not torch.equal(hqt, hqt_p) or not torch.equal(hmax, hmax_p):
-        raise AssertionError(
-            f"K3: {int((hqt != hqt_p).sum())} hqt entries and "
-            f"{int((hmax != hmax_p).sum())} h_max entries differ from the "
-            "plain version")
-    lip_rel = float(((lip - lip_p).abs() / lip_p.abs()).max())
-    if not lip_rel <= 1e-5:
-        raise AssertionError(f"K3: lip max relative error {lip_rel} > 1e-5")
-    k3_err = float((lip - lip_p).abs().max())
-    lip_differ = int((lip != lip_p).sum())
+    for name, a, b in (("hqt", hqt, hqt_p), ("h_max", hmax, hmax_p), ("lip", lip, lip_p)):
+        same(torch, f"K3 {name}", a, b)
     k3_ms = median(timing.cuda_ms(lambda: lipq_fused(Ht, power_iters=it)))
+    k3_q = median(timing.queued_ms(lambda: lipq_fused(Ht, power_iters=it)))
     k3_pms = median(timing.cuda_ms(
         lambda: lipq_plain(Ht, power_iters=it), reps=5))
-    say(f"K3 lipq Tm={sqp.n_dec} B={RTI_BATCH}: hqt, h_max bit-identical, lip "
-        f"max rel err {lip_rel:.3e} ({lip_differ} of {RTI_BATCH} differ in bits); "
-        f"kernel {k3_ms:.4f} ms, plain {k3_pms:.4f} ms")
+    say(f"K3 lipq Tm={sqp.n_dec} B={RTI_BATCH}: hqt, h_max and lip bit-identical to the "
+        f"plain version; device ms of queued calls {k3_q:.4f}, one call between events "
+        f"{k3_ms:.4f}, plain {k3_pms:.4f}")
 
     alpha = true_div(1.0, lip)
     g_pre = sqp._g_pre_from(g, alpha)
     _, hs_num, hs_den = sqp._lipq_rationals(alpha, hmax)
     kw = dict(iters=sqp.pgd_iters, g_shift=sqp.g_shift)
-    out = pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)
-    ref = pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw)
-    torch.cuda.synchronize()
-    k4_err = int((out - ref).abs().max())
-    if k4_err:
-        raise AssertionError(f"K4: max |kernel - plain| = {k4_err}")
-    k4_ms = median(timing.cuda_ms(
-        lambda: pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)))
-    k4_pms = median(timing.cuda_ms(
-        lambda: pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw), reps=5))
-    say(f"K4 pgd_hqt Tp={sqp.n_dec} B={RTI_BATCH} iters={sqp.pgd_iters}: "
-        f"bit-identical; kernel {k4_ms:.4f} ms, plain {k4_pms:.4f} ms")
-    return (dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_pms,
-                 lip_differ=lip_differ),
-            dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_pms))
+    args = (g_pre, hqt, hs_num, hs_den)
+    out = pgd_hqt(lanes, *args, **kw)
+    same(torch, "K4 lanes vs pgd_hqt_plain", out, pgd_hqt_plain(lanes, *args, **kw))
+    words = pack_controls(lanes)
+    got = pgd_fused_words_pre(words, *args, **kw)
+    same(torch, "K4 words vs unpack, pgd_hqt_plain, pack", got,
+         pgd_fused_words_pre_plain(words, *args, **kw))
+    same(torch, "K4 words vs lanes", got, pack_controls(out))
+    launched = [k for k, _ in device_kernels(
+        torch, lambda: pgd_fused_words_pre(words, *args, **kw))]
+    if len(launched) != 1 or "pgd_hqt" not in launched[0]:
+        raise AssertionError(f"K4 words entry ran {launched}, not one K4 launch")
+    before = K.launch_counts()["pgd_hqt"]
+    pgd_fused_words_pre(words, *args, **kw)
+    if K.launch_counts()["pgd_hqt"] != before + 1:
+        raise AssertionError("K4 words entry did not count one pgd_hqt launch")
+    k4 = {}
+    for name, fn, plain in (
+            ("words", lambda: pgd_fused_words_pre(words, *args, **kw),
+             lambda: pgd_fused_words_pre_plain(words, *args, **kw)),
+            ("lanes", lambda: pgd_hqt(lanes, *args, **kw),
+             lambda: pgd_hqt_plain(lanes, *args, **kw))):
+        k4[name] = dict(queued_ms=median(timing.queued_ms(fn)),
+                        ms=median(timing.cuda_ms(fn)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=5)))
+    say(f"K4 pgd_hqt Tp={sqp.n_dec} B={RTI_BATCH} iters={sqp.pgd_iters}: lanes and words "
+        f"bit-identical to their plain versions and to each other; the words entry is "
+        f"one kernel ({launched[0]}); device ms of queued calls: words "
+        f"{k4['words']['queued_ms']:.4f}, lanes {k4['lanes']['queued_ms']:.4f}; one call "
+        f"between events: words {k4['words']['ms']:.4f}, lanes {k4['lanes']['ms']:.4f}; "
+        f"plain: words {k4['words']['plain_ms']:.4f}, lanes {k4['lanes']['plain_ms']:.4f}")
+    return (dict(max_abs_err=0.0, ms=k3_ms, queued_ms=k3_q, plain_ms=k3_pms,
+                 Tm=Ht.shape[0], power_iters=it),
+            dict(max_abs_err=0.0, ms=k4["words"]["ms"], queued_ms=k4["words"]["queued_ms"],
+                 plain_ms=k4["words"]["plain_ms"], lanes=k4["lanes"],
+                 kernels_a_words_call=launched, Tp=lanes.shape[1], iters=sqp.pgd_iters))
 
 
 def phase_mpc(torch, P, K):
@@ -707,24 +792,42 @@ def phase_rti(torch, P, K):
     sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **SQP_KW)
     rti = P.RTIService(sqp, batch=RTI_BATCH)
     x0 = rti_states(np.random.default_rng(0), RTI_BATCH)
+    from pint_tpu_torch.mpc import fused_alm
+
+    # the words entry around K4 must not unpack or pack: count its calls
+    wrapped = {}
+    for name in ("unpack_controls", "pack_controls"):
+        fn = getattr(fused_alm, name)
+        wrapped[name] = [fn, 0]
+
+        def counting(*a, _n=name, **k):
+            wrapped[_n][1] += 1
+            return wrapped[_n][0](*a, **k)
+        setattr(fused_alm, name, counting)
     before = K.launch_counts()
     lat = []
     box = 127 * np.asarray(sqp.model.lane_scales) + 1e-12
-    for _ in range(TICKS):
-        u = rti.solve(x0)
-        lat.append(rti.stats.last_latency_s * 1e3)
-        if u.shape != (RTI_BATCH, 2) or not np.isfinite(u).all():
-            raise AssertionError("RTIService: controls not finite / bad shape")
-        if (np.abs(u) > box).any():
-            raise AssertionError("RTIService: controls outside the box")
+    try:
+        for _ in range(TICKS):
+            u = rti.solve(x0)
+            lat.append(rti.stats.last_latency_s * 1e3)
+            if u.shape != (RTI_BATCH, 2) or not np.isfinite(u).all():
+                raise AssertionError("RTIService: controls not finite / bad shape")
+            if (np.abs(u) > box).any():
+                raise AssertionError("RTIService: controls outside the box")
+    finally:
+        for name, (fn, _) in wrapped.items():
+            setattr(fused_alm, name, fn)
     after = K.launch_counts()
     for k in ("lipq", "pgd_hqt"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"RTIService: {k} +{after[k] - before[k]}")
+    if any(n for _, n in wrapped.values()):
+        raise AssertionError(f"RTIService: unpack/pack around K4: {wrapped}")
     rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
                deadline_misses=rti.stats.deadline_misses)
     say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; K3 +{TICKS}, "
-        f"K4 +{TICKS}; tick p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms")
+        f"K4 +{TICKS} on the words, no unpack or pack around it; tick p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms")
     return rec
 
 
@@ -886,7 +989,7 @@ def phase_k2p(torch, P, K, timing):
         call_ms = median(timing.cuda_ms(k2p))
         rec[f"iters{iters}"] = dict(max_abs_err=0.0, ms=ms, ms_again=ms_again, k2_ms=k2_ms,
                                     k2_unpack_pack_ms=k2_io_ms, plain_ms=pms,
-                                    single_call_ms=call_ms)
+                                    single_call_ms=call_ms, Tp=qqp.padded, iters=iters)
         say(f"K2p fused_pgd_packed B={LTI_BATCH} Tp={qqp.padded} iters={iters}: words "
             f"bit-identical to K2 with unpack and pack and to the plain version; device ms "
             f"of queued calls: K2p {ms:.4f} ({ms_again:.4f} again), K2 alone {k2_ms:.4f}, "
@@ -1190,12 +1293,12 @@ def main():
 
     if ROOT not in Path(P.__file__).resolve().parents:
         raise SystemExit(f"chip_smoke.py: imported {P.__file__}, not this checkout")
-    phase_build(K)
+    ptxas_registers = phase_build(K)
     phase_substrate(torch, P)
     swar_launches = phase_packed_flow(torch, P, K)
     headline, swar_times = phase_headline(torch, P)
     k2 = phase_k2(torch, P, timing)
-    k3, k4 = phase_k3_k4(torch, P, timing)
+    k3, k4 = phase_k3_k4(torch, P, K, timing)
     k6, k5 = phase_k6_k5(torch, P, timing)
     k7 = phase_k7(torch, P, K, timing)
     mpc = phase_mpc(torch, P, K)
@@ -1212,58 +1315,93 @@ def main():
     world1, single = phase_world1(torch, P, K, timing)
     rehearsal = phase_rehearsal(torch, single)
 
-    replaces = {
-        "swar_binop": ("K1", "pint_tpu/ops/pallas.py:148"),
-        "swar_shift": ("K9", "pint_tpu/ops/pallas.py:306"),
-        "swar_sat_accum": ("K8", "pint_tpu/ops/pallas.py:407"),
-        "swar_binop_pair": ("K11a", "pint_tpu/ops/pallas.py:222"),
-        "swar_shift_pair": ("K11b", "pint_tpu/ops/pallas.py:341"),
-        "swar_sat_accum_pair": ("K11c", "pint_tpu/ops/pallas.py:469"),
+    from pint_tpu_torch.utils.profiling import bound_ms, kernel_cost
+
+    lay32, lay64 = P.PackedLayout(8, 8, 8, 8), P.PackedLayout(*([8] * 8))
+    swar = {   # name: (id, TPU kernel, layout, kind, words, op)
+        "swar_binop": ("K1", "pint_tpu/ops/pallas.py:148", lay32, "binop", N_HEADLINE,
+                       "add_unsigned_saturate"),
+        "swar_shift": ("K9", "pint_tpu/ops/pallas.py:306", lay32, "shift", N_HEADLINE,
+                       "shift_left"),
+        "swar_sat_accum": ("K8", "pint_tpu/ops/pallas.py:407", lay32, "sat_accum",
+                           N_HEADLINE, "unsigned"),
+        "swar_binop_pair": ("K11a", "pint_tpu/ops/pallas.py:222", lay64, "binop", N_U64,
+                            "add_unsigned_saturate"),
+        "swar_shift_pair": ("K11b", "pint_tpu/ops/pallas.py:341", lay64, "shift", N_U64,
+                            "shift_left"),
+        "swar_sat_accum_pair": ("K11c", "pint_tpu/ops/pallas.py:469", lay64, "sat_accum",
+                                N_U64, "unsigned"),
     }
-    kernels = [   # every check above is bit-identity, so the error is 0
-        dict(name=f"{name} ({kid})", route="cuda", source="pint_tpu_torch/csrc/swar.cu",
-             replaces=line, launches=swar_launches[name], max_abs_err=0.0,
-             ms=swar_times[name][0], plain_ms=swar_times[name][1])
-        for name, (kid, line) in replaces.items()
-    ]
-    k2_main = k2["iters15_momentum0"]
-    kernels += [
-        dict(name="fused_pgd (K2)", route="cuda",
-             source="pint_tpu_torch/csrc/fused_pgd.cu",
-             replaces="pint_tpu/mpc/fused.py:119", launches=counts["fused_pgd"],
-             max_abs_err=max(r["max_abs_err"] for r in k2.values()),
-             ms=k2_main["ms"], plain_ms=k2_main["plain_ms"]),
-        dict(name="lipq (K3)", route="cuda", source="pint_tpu_torch/csrc/lipq.cu",
-             replaces="pint_tpu/mpc/condense_fused.py:77",
-             launches=counts["lipq"], max_abs_err=k3["max_abs_err"],
-             ms=k3["ms"], plain_ms=k3["plain_ms"]),
-        dict(name="pgd_hqt (K4)", route="cuda",
-             source="pint_tpu_torch/csrc/pgd_hqt.cu",
-             replaces="pint_tpu/mpc/fused_alm.py:402",
-             launches=counts["pgd_hqt"], **k4),
-        dict(name="pen (K6)", route="cuda", source="pint_tpu_torch/csrc/pen.cu",
-             replaces="pint_tpu/mpc/condense_fused.py:198", launches=counts["pen"],
-             max_abs_err=k6["max_abs_err"], ms=k6["ms"], plain_ms=k6["plain_ms"]),
-        dict(name="alm (K5)", route="cuda", source="pint_tpu_torch/csrc/alm.cu",
-             replaces="pint_tpu/mpc/fused_alm.py:335", launches=counts["alm"], **k5),
-        dict(name="alm_shared (K7)", route="cuda", source="pint_tpu_torch/csrc/alm.cu",
-             replaces="pint_tpu/mpc/fused_alm.py:176", launches=k7["launches"],
-             max_abs_err=k7["max_abs_err"], ms=k7["ms"], plain_ms=k7["plain_ms"]),
-        dict(name="fused_pgd_packed (K2p)", route="cuda",
-             source="pint_tpu_torch/csrc/fused_pgd.cu",
-             replaces="pint_tpu/mpc/fused.py:136", launches=k2p["launches"],
-             max_abs_err=0.0, ms=k2p["iters15"]["ms"], plain_ms=k2p["iters15"]["plain_ms"]),
-        dict(name="pgd_matvec_cols (K10)", route="cuda",
-             source="pint_tpu_torch/csrc/matvec_cols.cu",
-             replaces="pint_tpu/mpc/fused_alm.py:429", launches=rehearsal["launches"],
-             max_abs_err=0.0, ms=k10["tp2_sqp"]["ms"], plain_ms=k10["tp2_sqp"]["plain_ms"]),
-    ]
+    no_library = {
+        "swar": "none: no PyTorch call adds, shifts or saturates packed lanes (the raw "
+                "int32 add is the headline's yardstick, not the same function)",
+        "loop": "none: no PyTorch call runs the iterated fixed-point loop",
+        "power": "none: no PyTorch call runs a power iteration with an int8 quantization",
+        "matvec": "none: PyTorch's batched products take no int8 slab with int32 lanes "
+                  "on CUDA in one call",
+    }
+    kernels = []
+
+    def entry(name, source, replaces, launches, rec, cost, library):
+        b_ms, b_by = bound_ms(cost)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"], queued_ms=rec["queued_ms"],
+            plain_ms=rec["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            share_of_bound=b_ms / rec["queued_ms"], library_ms=None,
+            library=no_library[library]))
+
+    for name, (kid, line, lay, kind, n, op) in swar.items():
+        ms, pms, qms = swar_times[name]
+        entry(f"{name} ({kid})", "pint_tpu_torch/csrc/swar.cu", line, swar_launches[name],
+              dict(max_abs_err=0.0, ms=ms, plain_ms=pms, queued_ms=qms),
+              kernel_cost("swar", layout=lay, kind=kind, n=n, op=op,
+                          steps=ACCUM_STEPS, pair=name.endswith("pair")), "swar")
+    k2_main = dict(k2["iters15_momentum0"],
+                   max_abs_err=max(r["max_abs_err"] for r in k2.values()))
+    entry("fused_pgd (K2)", "pint_tpu_torch/csrc/fused_pgd.cu", "pint_tpu/mpc/fused.py:119",
+          counts["fused_pgd"], k2_main,
+          kernel_cost("fused_pgd", B=LTI_BATCH, Tp=k2_main["Tp"], iters=k2_main["iters"]),
+          "loop")
+    entry("lipq (K3)", "pint_tpu_torch/csrc/lipq.cu", "pint_tpu/mpc/condense_fused.py:77",
+          counts["lipq"], k3, kernel_cost("lipq", B=RTI_BATCH, Tm=k3["Tm"],
+                                             power_iters=k3["power_iters"]),
+          "power")
+    entry("pgd_hqt (K4, words entry)", "pint_tpu_torch/csrc/pgd_hqt.cu",
+          "pint_tpu/mpc/fused_alm.py:402", counts["pgd_hqt"], k4,
+          kernel_cost("pgd_hqt", B=RTI_BATCH, Tp=k4["Tp"], iters=k4["iters"], words=True),
+          "loop")
+    entry("pen (K6)", "pint_tpu_torch/csrc/pen.cu", "pint_tpu/mpc/condense_fused.py:198",
+          counts["pen"], k6,
+          kernel_cost("pen", B=CON_BATCH, C=k6["C"], Tm=k6["Tm"],
+                      power_iters=k6["power_iters"]), "power")
+    entry("alm (K5)", "pint_tpu_torch/csrc/alm.cu", "pint_tpu/mpc/fused_alm.py:335",
+          counts["alm"], k5,
+          kernel_cost("alm", B=CON_BATCH, Tp=k5["Tp"], Cp=k5["Cp"], outer=k5["outer"],
+                      inners=k5["inners"]), "loop")
+    entry("alm_shared (K7)", "pint_tpu_torch/csrc/alm.cu", "pint_tpu/mpc/fused_alm.py:176",
+          k7["launches"], k7,
+          kernel_cost("alm_shared", B=CON_BATCH, Tp=k7["Tp"], Cp=k7["Cp"],
+                      outer=LTI_CON_OUTER, inners=LTI_CON_INNERS), "loop")
+    k2p_main = k2p["iters15"]
+    entry("fused_pgd_packed (K2p)", "pint_tpu_torch/csrc/fused_pgd.cu",
+          "pint_tpu/mpc/fused.py:136", k2p["launches"],
+          dict(k2p_main, ms=k2p_main["single_call_ms"], queued_ms=k2p_main["ms"]),
+          kernel_cost("fused_pgd", B=LTI_BATCH, Tp=k2p_main["Tp"], iters=k2p_main["iters"],
+                      packed=True), "loop")
+    k10_main = k10["tp2_sqp"]
+    entry("pgd_matvec_cols (K10)", "pint_tpu_torch/csrc/matvec_cols.cu",
+          "pint_tpu/mpc/fused_alm.py:429", rehearsal["launches"],
+          dict(k10_main, ms=k10_main["single_call_ms"], queued_ms=k10_main["ms"]),
+          kernel_cost("pgd_matvec_cols", B=RTI_BATCH, K=k10_main["K"],
+                      rows=k10_main["rows"]), "matvec")
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
                     "flagship": flagship, "constrained_flagship": con_flagship,
                     "lti_constrained": k7}))
     say(json.dumps({"k2p": k2p, "k10": k10, "world1": world1, "rehearsal": rehearsal}))
+    say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -20,6 +20,7 @@ from pint_tpu_torch.mpc.constrained import (
 )
 from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
+from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["device_constrained_config", "device_sqp_config",
            "quantized_constrained_qp_from_arrays", "quantized_qp_from_arrays",
@@ -29,11 +30,13 @@ _SIGNED = {np.dtype(np.uint8): np.int8, np.dtype(np.uint16): np.int16,
            np.dtype(np.uint32): np.int32, np.dtype(np.uint64): np.int64}
 
 
-def words_from_numpy(words: np.ndarray, device="cpu") -> torch.Tensor:
+def words_from_numpy(words: np.ndarray, device="cuda") -> torch.Tensor:
     """Unsigned numpy words (u8/u16/u32/u64) -> the port's signed container
     tensor holding the same bits (a ``.view``, no value conversion).  The
     reference's planar uint32 pair words ``(2, ...)`` become the int32 pairs
-    that :mod:`pint_tpu_torch.ops.swar`'s pair entries take."""
+    that :mod:`pint_tpu_torch.ops.swar`'s pair entries take.  On the card
+    unless ``device="cpu"`` is asked for; raises without a card."""
+    device = K.resolve_device(device)
     words = np.asarray(words)
     signed = _SIGNED.get(words.dtype)
     if signed is None:

@@ -57,6 +57,102 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// -- asynchronous staging (K3, K4) --------------------------------------------
+//
+// cp.async copies global memory into shared memory without passing through
+// registers.  A thread learns that its own copies have landed either by
+// cp.async.wait_group or by arriving on an mbarrier when they land
+// (cp.async.mbarrier.arrive.noinc), which lets one group of warps fill a
+// buffer that another group then waits for.  A TMA copy (one thread, one
+// box of a tensor map) counts its bytes down on an mbarrier instead.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (both addresses 16-byte aligned), or 16 zero bytes when !valid
+// (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, or 4 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on `bar` once every cp.async this thread has issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrive on `bar` and add `bytes` to the bytes its phase waits for (those of
+// the bulk copies that complete on it)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: copy the box at element coordinates (x, y, z) of the 3-D tensor map
+// `map` (a __grid_constant__ kernel parameter) to `dst`; its bytes complete
+// on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int x, int y,
+                                            int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// barrier over `threads` threads (a multiple of 32) under named barrier `id`
+// (1..15; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 }  // namespace pint
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.
@@ -69,3 +165,23 @@ static cudaError_t pint_allow_smem(K kernel, size_t bytes) {
 
 // Shared memory a block may use on sm_90 (227 KB).
 constexpr size_t kPintMaxSmem = 232448;
+
+// Blocks of `kernel` (`threads` threads, `smem` bytes) for a grid that
+// stays resident: as many as fit on every SM at once, and no more than
+// `work` items.
+template <typename K>
+static cudaError_t pint_persistent_grid(K kernel, int threads, size_t smem,
+                                        int work, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long cap = (long)per_sm * sms;
+  *grid = (int)(work < cap ? work : cap);
+  return cudaSuccess;
+}

@@ -40,6 +40,7 @@ from pint_tpu_torch.mpc.fused_alm import (
     alm_shared_plain,
     pgd_fused_words,
     pgd_fused_words_pre,
+    pgd_fused_words_pre_plain,
     pgd_hqt,
     pgd_hqt_plain,
     pgd_matvec_cols,
@@ -78,6 +79,7 @@ __all__ = [
     "pen_plain",
     "pgd_fused_words",
     "pgd_fused_words_pre",
+    "pgd_fused_words_pre_plain",
     "pgd_hqt",
     "pgd_hqt_plain",
     "pgd_matvec_cols",

@@ -43,7 +43,7 @@ class AcceleratedPGD:
     interface)."""
 
     def __init__(self, qqp: QuantizedQP, iters: int = 20, beta_den: int = 8,
-                 device="cpu"):
+                 device="cuda"):
         self.qqp = qqp
         self.iters = iters
         self.beta_den = beta_den

@@ -438,7 +438,7 @@ class ConstrainedPGD:
     outer: int = 10
     inners: int = 40
     fused: Optional[bool] = None
-    device: object = "cpu"
+    device: object = "cuda"
 
     def __post_init__(self):
         object.__setattr__(self, "device", K.resolve_device(self.device))

@@ -37,9 +37,9 @@ import functools
 import numpy as np
 import torch
 
-from pint_tpu_torch.models.dynamics import Unicycle, pack_controls, unpack_controls
+from pint_tpu_torch.models.dynamics import Unicycle, unpack_controls
 from pint_tpu_torch.mpc.condense_fused import INV_127, lipq_fused, lipq_plain, true_div
-from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_hqt_plain
+from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_fused_words_pre_plain
 from pint_tpu_torch.mpc.ltv import _pgd_batched_h_cols, _pgd_batched_h_cols_hqt
 from pint_tpu_torch.ops import kernels as K
 
@@ -111,7 +111,7 @@ class DeviceSQP:
     propagate: str = "auto"
     reduce: str = "sym"
     lipq: "bool | None" = None
-    device: object = "cpu"
+    device: object = "cuda"
     use_kernels: bool = True
 
     def __post_init__(self):
@@ -318,10 +318,8 @@ class DeviceSQP:
         """One SQP iteration: condense + K3, then the K4 inner."""
         hqt, g_pre, hs_num, hs_den = self._condense_lipq(x0_f, lanes)
         kw = dict(iters=self.pgd_iters, g_shift=self.g_shift)
-        if self.use_kernels:
-            return pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
-        out = pgd_hqt_plain(unpack_controls(words), g_pre, hqt, hs_num, hs_den, **kw)
-        return pack_controls(out)
+        inner = pgd_fused_words_pre if self.use_kernels else pgd_fused_words_pre_plain
+        return inner(words, g_pre, hqt, hs_num, hs_den, **kw)
 
     # -- public API -------------------------------------------------------------
 

@@ -139,7 +139,7 @@ class FusedPGD:
     drops ``momentum`` with ``packed_io`` the port raises."""
 
     def __init__(self, qqp: QuantizedQP, iters: int = 40,
-                 momentum: bool = False, beta_den: int = 8, device="cpu",
+                 momentum: bool = False, beta_den: int = 8, device="cuda",
                  packed_io: bool = False):
         if packed_io and momentum:
             raise ValueError("packed_io has no momentum branch: use one or the other")

@@ -2,9 +2,10 @@
 
 PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
 
-* K4, the per-problem-Hessian PGD inner of DeviceSQP
-  (``pgd_fused_words_pre``, ``pgd_fused_words``): :func:`pgd_hqt`, CUDA
-  kernel ``csrc/pgd_hqt.cu``, plain version :func:`pgd_hqt_plain`;
+* K4, the per-problem-Hessian PGD inner of DeviceSQP: :func:`pgd_hqt` on
+  int32 lanes and :func:`pgd_fused_words_pre` on the packed words (one
+  launch, no unpack or pack), CUDA kernel ``csrc/pgd_hqt.cu``, plain
+  versions :func:`pgd_hqt_plain` and :func:`pgd_fused_words_pre_plain`;
 * K5, the per-problem ALM inner of DeviceConstrainedSQP
   (``alm_fused_words_pre``, ``alm_fused_words``): :func:`alm_hqt`, CUDA
   kernel ``csrc/alm.cu`` (``alm_kernel``), plain version
@@ -43,7 +44,8 @@ from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["alm_fused_words", "alm_fused_words_pre", "alm_hqt", "alm_hqt_plain",
            "alm_shared", "alm_shared_fused_words", "alm_shared_plain",
-           "pgd_fused_words", "pgd_fused_words_pre", "pgd_hqt", "pgd_hqt_plain",
+           "pgd_fused_words", "pgd_fused_words_pre", "pgd_fused_words_pre_plain",
+           "pgd_hqt", "pgd_hqt_plain",
            "pgd_matvec_cols", "pgd_matvec_cols_plain"]
 
 
@@ -67,6 +69,41 @@ def pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     return lanes
 
 
+def _check_pgd_hqt(name, x, lanes_per, g_pre, hqt, hs_num, hs_den):
+    """Shapes and dtypes of K4's operands: ``x`` (B, Tp / lanes_per)."""
+    B, Tp = g_pre.shape
+    if x.shape != (B, Tp // lanes_per) or Tp % lanes_per or hqt.shape != (Tp, Tp, B):
+        raise ValueError(
+            f"{name}: {tuple(x.shape)}, g_pre {(B, Tp)}, hqt {tuple(hqt.shape)} "
+            "do not agree"
+        )
+    if hs_num.shape != (B,) or hs_den.shape != (B,):
+        raise ValueError(f"{name}: hs_num and hs_den must be (B,)")
+    for what, t, dt in (("lanes", x, torch.int32), ("g_pre", g_pre, torch.int32),
+                        ("hqt", hqt, torch.int8), ("hs_num", hs_num, torch.int32),
+                        ("hs_den", hs_den, torch.int32)):
+        if t.dtype != dt:
+            raise ValueError(f"{name}: {what} must be {dt}, got {t.dtype}")
+
+
+def _launch_pgd_hqt(entry, x, g_pre, hqt, hs_num, hs_den, iters, g_shift):
+    """One K4 launch through C entry ``entry``; counts as ``pgd_hqt``."""
+    B, Tp = g_pre.shape
+    K.require_cuda("pgd_hqt", x, g_pre, hqt, hs_num, hs_den)
+    if Tp % 4 or Tp > 256:
+        raise ValueError(f"pgd_hqt: Tp={Tp} must be a multiple of 4, <= 256")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = getattr(K.library(), entry)(
+            x.data_ptr(), g_pre.data_ptr(), hqt.data_ptr(),
+            hs_num.data_ptr(), hs_den.data_ptr(), out.data_ptr(),
+            B, Tp, iters, g_shift, K.stream_of(x),
+        )
+    K.check(err, "pgd_hqt")
+    K.count_launch("pgd_hqt")
+    return out
+
+
 def pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """``iters`` error-feedback PGD steps with per-problem Hessians.
 
@@ -74,46 +111,40 @@ def pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     with ``hqt[k, j, b] = Hq_b[j, k]``; hs_num, hs_den (B,) int32.  Returns
     the final lanes (B, Tp) int32.  Kernel for CUDA tensors, plain version
     for CPU tensors."""
-    B, Tp = g_pre.shape
-    if lanes.shape != (B, Tp) or hqt.shape != (Tp, Tp, B):
-        raise ValueError(
-            f"pgd_hqt: lanes {tuple(lanes.shape)}, g_pre {(B, Tp)}, "
-            f"hqt {tuple(hqt.shape)} do not agree"
-        )
-    if hs_num.shape != (B,) or hs_den.shape != (B,):
-        raise ValueError("pgd_hqt: hs_num and hs_den must be (B,)")
-    for name, t, dt in (("lanes", lanes, torch.int32), ("g_pre", g_pre, torch.int32),
-                        ("hqt", hqt, torch.int8), ("hs_num", hs_num, torch.int32),
-                        ("hs_den", hs_den, torch.int32)):
-        if t.dtype != dt:
-            raise ValueError(f"pgd_hqt: {name} must be {dt}, got {t.dtype}")
+    _check_pgd_hqt("pgd_hqt", lanes, 1, g_pre, hqt, hs_num, hs_den)
     if lanes.device.type == "cpu":
         return pgd_hqt_plain(
             lanes, g_pre, hqt, hs_num, hs_den, iters=iters, g_shift=g_shift
         )
-    K.require_cuda("pgd_hqt", lanes, g_pre, hqt, hs_num, hs_den)
-    if Tp % 4 or Tp > 256:
-        raise ValueError(f"pgd_hqt: Tp={Tp} must be a multiple of 4, <= 256")
-    out = torch.empty_like(lanes)
-    with torch.cuda.device(lanes.device):
-        err = K.library().pint_pgd_hqt(
-            lanes.data_ptr(), g_pre.data_ptr(), hqt.data_ptr(),
-            hs_num.data_ptr(), hs_den.data_ptr(), out.data_ptr(),
-            B, Tp, iters, g_shift, K.stream_of(lanes),
-        )
-    K.check(err, "pgd_hqt")
-    K.count_launch("pgd_hqt")
-    return out
+    return _launch_pgd_hqt("pint_pgd_hqt", lanes, g_pre, hqt, hs_num, hs_den,
+                           iters, g_shift)
+
+
+def pgd_fused_words_pre_plain(u_words, g_pre, hqt, hs_num, hs_den, *, iters,
+                              g_shift):
+    """Plain PyTorch version of :func:`pgd_fused_words_pre` (any device):
+    unpack, :func:`pgd_hqt_plain`, pack."""
+    lanes = pgd_hqt_plain(unpack_controls(u_words), g_pre, hqt, hs_num, hs_den,
+                          iters=iters, g_shift=g_shift)
+    return pack_controls(lanes)
 
 
 def pgd_fused_words_pre(u_words, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """Packed words in, packed words out: u_words (B, Tp/4) int32 words,
     hqt already batch-last in the kernel orientation (what
-    :func:`pint_tpu_torch.mpc.condense_fused.lipq_fused` emits)."""
-    lanes = unpack_controls(u_words)
-    return pack_controls(
-        pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, iters=iters, g_shift=g_shift)
-    )
+    :func:`pint_tpu_torch.mpc.condense_fused.lipq_fused` emits).
+
+    For CUDA tensors one K4 launch on the words themselves: the (B, Tp/4)
+    int32 words are the (B, Tp) int8 lanes in memory, so there is no unpack
+    or pack around it.  Equal to ``pack_controls(pgd_hqt(unpack_controls(
+    u_words), ...))``; plain version :func:`pgd_fused_words_pre_plain` for
+    CPU tensors."""
+    _check_pgd_hqt("pgd_fused_words_pre", u_words, 4, g_pre, hqt, hs_num, hs_den)
+    if u_words.device.type == "cpu":
+        return pgd_fused_words_pre_plain(u_words, g_pre, hqt, hs_num, hs_den,
+                                         iters=iters, g_shift=g_shift)
+    return _launch_pgd_hqt("pint_pgd_hqt_words", u_words, g_pre, hqt, hs_num,
+                           hs_den, iters, g_shift)
 
 
 def pgd_fused_words(u_words, g_pre, Hq, hs_num, hs_den, *, iters, g_shift):

@@ -39,7 +39,7 @@ class FixedPointPGD:
     (|acc| <= 128 * 127 * Tp) and free of TF32, on any device."""
 
     def __init__(self, qqp: QuantizedQP, iters: int = 40,
-                 error_feedback: bool = False, device="cpu"):
+                 error_feedback: bool = False, device="cuda"):
         self.qqp = qqp
         self.iters = iters
         self.error_feedback = error_feedback

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "pint_matvec_cols": [_P, _P, _P, _I, _I, _I, _P],
     # lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, stream
     "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, stream
+    "pint_pgd_hqt_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
     "pint_lipq": [_P, _P, _P, _P, _I, _I, _I, _P],
     # st, sqc, sqj, lip, s_scale, row_amp, B, C, Tm, power_iters, stream
@@ -95,9 +97,9 @@ and K11a-c on u64 planar pairs."""
 
 KERNELS = ("fused_pgd", "fused_pgd_packed", "pgd_hqt", "pgd_matvec_cols", "lipq",
            "alm", "alm_shared", "pen") + SWAR_KERNELS
-"""Launch-count names: K2 and K2p (``mpc/fused.py``), K4, K10, K5 and K7
-(``mpc/fused_alm.py``), K3 and K6 (``mpc/condense_fused.py``) and the SWAR
-kernels."""
+"""Launch-count names: K2 and K2p (``mpc/fused.py``), K4 (its lanes and its
+words entry both count as ``pgd_hqt``), K10, K5 and K7 (``mpc/fused_alm.py``),
+K3 and K6 (``mpc/condense_fused.py``) and the SWAR kernels."""
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -156,9 +158,9 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list) -> None:
-    """Run the commands all at once; raise with the output of the first
-    that fails, after every one has ended."""
+def _run(cmds: list) -> list:
+    """Run the commands all at once and return their outputs; raise with
+    the output of the first that fails, after every one has ended."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
@@ -167,24 +169,30 @@ def _run(cmds: list) -> None:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{text}"
             )
+    return outs
 
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the cached shared library; returns its
-    path.  A library with the sources' hash is reused as it is."""
+    path.  A library with the sources' hash is reused as it is.  Beside it,
+    ``<library>.ptxas.txt`` keeps each source's ``-Xptxas -v`` report
+    (registers, stack and spills of every kernel)."""
     out = BUILD_DIR / f"libpint_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, cmds = [], []
-        for src in sorted(CSRC.glob("*.cu")):
+        objs, cmds, srcs = [], [], sorted(CSRC.glob("*.cu"))
+        for src in srcs:
             objs.append(os.path.join(tmp, src.stem + ".o"))
-            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
-        _run(cmds)
+            cmds.append([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", objs[-1],
+                         str(src)])
+        reports = _run(cmds)
         so = os.path.join(tmp, out.name)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        out.with_suffix(".ptxas.txt").write_text("".join(
+            f"== {src.name}\n{text}" for src, text in zip(srcs, reports)))
         os.replace(so, out)
     return out
 

@@ -87,7 +87,7 @@ class PackedArray:
                    layout)
 
     @classmethod
-    def zeros(cls, layout: PackedLayout, shape=(), *, device="cpu") -> "PackedArray":
+    def zeros(cls, layout: PackedLayout, shape=(), *, device="cuda") -> "PackedArray":
         return cls(torch.zeros(shape, dtype=W.container_dtype(layout),
                                device=K.resolve_device(device)), layout)
 

@@ -86,7 +86,7 @@ class MPCService:
         inputs_per_step: int = 1,
         g_on_device: Optional[bool] = None,
         deadline_s: Optional[float] = LTI_BUDGET_S,
-        device="cpu",
+        device="cuda",
     ):
         """``use_fused`` and ``g_on_device`` default to "a CUDA device was
         asked for".  ``g_on_device`` computes the fixed-point linear term

@@ -5,20 +5,26 @@
 * :func:`op_word_costs` -- whole-word integer op counts of each packed op.
 * :func:`roofline_report` -- measured op rates against the memory and
   integer-ALU bounds.  Callers pass the card's own calibration (a raw-add
-  rate, its SM count and clock); nothing here holds a device constant.
+  rate, its SM count and clock).
+* :func:`kernel_cost` -- the bytes a kernel must move (each input read once,
+  each output written once) and the operations it must do, from its shapes;
+  :func:`bound_ms` -- the least time a card could take for them, against
+  published peaks (:data:`H100_SXM`).  Pure arithmetic: nothing is measured.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 from pint_tpu_torch.layout import PackedLayout
 
-__all__ = ["trace", "roofline_report", "op_word_costs"]
+__all__ = ["H100_SXM", "KernelCost", "bound_ms", "kernel_cost", "op_word_costs",
+           "roofline_report", "trace"]
 
 
 @contextlib.contextmanager
@@ -97,3 +103,103 @@ def roofline_report(
             "bound": "mem" if sol == mem_bound else "alu",
         }
     return out
+
+
+# -- kernel bounds ---------------------------------------------------------------
+
+H100_SXM = {
+    "bytes_per_s": 3.35e12,
+    "int8": 1979e12,     # tensor cores, dense (an int8 MAC counts 2 operations)
+    "f32": 67e12,        # outside the tensor cores (a multiply and an add, 2)
+    "int32": 16.7e12,    # 132 SMs x 64 INT32 lanes x 1.98 GHz
+}
+"""Published peaks of one H100 SXM at its 700 W limit: NVIDIA's data sheet
+(memory, int8, f32) and the Hopper white paper's SM (int32 lanes, boost
+clock).  A card set to a lower power limit runs below them."""
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    bytes: int       # each input read once, each output written once
+    ops: int         # operations these inputs need
+    op_type: str     # key of the peak rate the operations run at
+
+
+def _swar_cost(layout: PackedLayout, kind: str, n: int, op: str = "",
+               steps: int = 1, pair: bool = False) -> KernelCost:
+    """K1/K11a (binop), K9/K11b (shift), K8/K11c (accumulate) on ``n``
+    words.  A u64 word, native or as a pair, costs two int32 operations."""
+    w = layout.word_dtype.itemsize
+    per = 2 if (pair or w == 8) else 1
+    costs = op_word_costs(layout)
+    if kind == "binop":
+        return KernelCost(3 * n * w, n * costs[op] * per, "int32")
+    if kind == "shift":
+        return KernelCost(2 * n * w, n * costs[op] * per, "int32")
+    if kind == "sat_accum":
+        c = costs["add_signed_saturate" if op == "signed" else "add_unsigned_saturate"]
+        return KernelCost((steps + 2) * n * w, n * steps * c * per, "int32")
+    raise ValueError(f"unknown SWAR kernel kind {kind!r}")
+
+
+def _alm_macs(Tp: int, Cp: int, outer: int, inners: int) -> int:
+    """int8 MACs of one problem's ALM solve: each inner step runs Hq u,
+    Sq u and two Sq^T y; each outer step one more Sq u."""
+    return outer * (inners * (Tp * Tp + 3 * Cp * Tp) + Cp * Tp)
+
+
+def kernel_cost(kernel: str, **shape) -> KernelCost:
+    """Bytes and operations of one call of an MPC kernel (or, with
+    ``layout`` and ``kind``, a SWAR kernel) at the given shape.
+
+    ``fused_pgd`` (K2; ``packed=True`` for K2p): B, Tp, iters.
+    ``lipq`` (K3): B, Tm, power_iters.  ``pgd_hqt`` (K4; ``words=True``
+    for the words entry): B, Tp, iters.  ``alm`` (K5) and ``alm_shared``
+    (K7): B, Tp, Cp, outer, inners.  ``pen`` (K6): B, C, Tm, power_iters.
+    ``pgd_matvec_cols`` (K10): B, K, rows.  ``swar``: layout, kind
+    ("binop", "shift", "sat_accum"), n, op, steps, pair."""
+    s = shape
+    if kernel == "swar":
+        return _swar_cost(**s)
+    if kernel == "fused_pgd":
+        B, Tp = s["B"], s["Tp"]
+        lane = 1 if s.get("packed") else 4
+        return KernelCost(2 * B * Tp * lane + 4 * B * Tp + Tp * Tp,
+                          2 * s["iters"] * Tp * Tp * B, "int8")
+    if kernel == "lipq":
+        B, Tm = s["B"], s["Tm"]
+        return KernelCost(5 * Tm * Tm * B + 8 * B,
+                          2 * (s["power_iters"] + 1) * Tm * Tm * B, "f32")
+    if kernel == "pgd_hqt":
+        B, Tp = s["B"], s["Tp"]
+        lane = 1 if s.get("words") else 4
+        return KernelCost(Tp * Tp * B + 2 * B * Tp * lane + 4 * B * Tp + 8 * B,
+                          2 * s["iters"] * Tp * Tp * B, "int8")
+    if kernel in ("alm", "alm_shared"):
+        B, Tp, Cp = s["B"], s["Tp"], s["Cp"]
+        lanes = 4 * B * (2 * Tp + 4 * Cp)          # lanes, g, c_off, lam in; out
+        if kernel == "alm":                        # hqt, sqj, sqc, lo, hi, sc
+            mats = B * (Tp * Tp + 2 * Cp * Tp) + 4 * B * (2 * Cp + 8)
+        else:                                      # one hq, sq, lo, hi
+            mats = Tp * Tp + Cp * Tp + 8 * Cp
+        return KernelCost(lanes + mats,
+                          2 * B * _alm_macs(Tp, Cp, s["outer"], s["inners"]), "int8")
+    if kernel == "pen":
+        B, C, Tm = s["B"], s["C"], s["Tm"]
+        return KernelCost(4 * C * Tm * B + 2 * C * Tm * B + 12 * B,
+                          (4 * (s["power_iters"] + 1) + 2) * C * Tm * B, "f32")
+    if kernel == "pgd_matvec_cols":
+        B, Kc, rows = s["B"], s["K"], s["rows"]
+        return KernelCost(Kc * rows * B + 4 * B * Kc + 4 * B * rows,
+                          2 * Kc * rows * B, "int8")
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def bound_ms(cost: KernelCost) -> Tuple[float, str]:
+    """The least milliseconds an H100 (``H100_SXM``) could take for
+    ``cost``, the larger of its bytes over the memory rate and its
+    operations over the peak of their type, and which of the two ("bytes",
+    "operations") sets it."""
+    t_bytes = cost.bytes / H100_SXM["bytes_per_s"] * 1e3
+    t_ops = cost.ops / H100_SXM[cost.op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -137,10 +137,10 @@ def test_constrained_pgd_word_space_bit_identical(qcqps, warm):
     w_x, l_x = jax.jit(jx.solve_words)(*args)
     w_f, l_f = jax.jit(jf.solve_words)(*args)
     np.testing.assert_array_equal(np.asarray(w_x), np.asarray(w_f))
-    targs = (words_from_numpy(j_words0), torch.as_tensor(g), torch.as_tensor(co),
+    targs = (words_from_numpy(j_words0, device="cpu"), torch.as_tensor(g), torch.as_tensor(co),
              torch.as_tensor(lam0))
     for fused in (False, True, None):
-        w, lam = ConstrainedPGD(port, fused=fused, **kw).solve_words(*targs)
+        w, lam = ConstrainedPGD(port, fused=fused, **kw, device="cpu").solve_words(*targs)
         np.testing.assert_array_equal(words_to_numpy(w), np.asarray(w_x))
         np.testing.assert_array_equal(lam.numpy(), np.asarray(l_x))
 
@@ -171,7 +171,7 @@ def test_alm_shared_plain_matches_jax_kernel(qcqps):
     np.testing.assert_array_equal(words_to_numpy(pack_controls(out)), np.asarray(w_j))
     np.testing.assert_array_equal(lam_p.numpy(), np.asarray(l_j))
     w, lam_w = alm_shared_fused_words(
-        words_from_numpy(j_words), t(g), t(co), t(lam), Hq=qq.Hq, Sq=q.Sq,
+        words_from_numpy(j_words, device="cpu"), t(g), t(co), t(lam), Hq=qq.Hq, Sq=q.Sq,
         lo_pre=q.lo_pre, hi_pre=q.hi_pre, **rat, **kw)
     np.testing.assert_array_equal(words_to_numpy(w), np.asarray(w_j))
     np.testing.assert_array_equal(lam_w.numpy(), np.asarray(l_j))
@@ -182,7 +182,7 @@ def test_solve_end_to_end(qcqps):
     x0 = _states(6, 7)
     kw = dict(outer=3, inners=10)
     w_j, U_j, l_j = JConstrainedPGD(ref, fused=False, **kw).solve(x0)
-    w, U, lam = ConstrainedPGD(port, **kw).solve(x0)
+    w, U, lam = ConstrainedPGD(port, **kw, device="cpu").solve(x0)
     np.testing.assert_array_equal(words_to_numpy(w), np.asarray(w_j))
     np.testing.assert_array_equal(U.numpy(), np.asarray(U_j))
     np.testing.assert_array_equal(lam.numpy(), np.asarray(l_j))
@@ -196,7 +196,7 @@ def test_constrained_pgd_binds_and_tracks_reference():
     port = _problem((condense_double_integrator, constrain_states,
                      quantize_constrained), 50)
     x0 = _states(4, 8)
-    _, U, _ = ConstrainedPGD(port, outer=12, inners=60).solve(x0)
+    _, U, _ = ConstrainedPGD(port, outer=12, inners=60, device="cpu").solve(x0)
     c = port.scqp.constraint(U.numpy().astype(np.float64), x0)
     U_ref, _ = port.scqp.solve_alm(x0, rho=50.0, outer=12, inners=60)
     c_ref = port.scqp.constraint(U_ref, x0)

@@ -109,7 +109,7 @@ def test_alm_inner_bit_identical(real_ops, warm):
     np.testing.assert_array_equal(np.asarray(jw), np.asarray(jw_k))
     np.testing.assert_array_equal(np.asarray(jl), np.asarray(jl_k))
 
-    w = words_from_numpy(words)
+    w = words_from_numpy(words, device="cpu")
     rest = [_t(o[k]) for k in ORDER[5:]]
     got = {
         "_alm_batched": _alm_batched(w, *[_t(o[k]) for k in ORDER], _t(lam0), **kw),

@@ -48,12 +48,12 @@ def small_pair():
     ref = JDeviceConstrainedSQP(JDeviceSQP(propagate="unroll", **SMALL),
                                 alm_outer=2, lipq=True, fused=False,
                                 lipq_block=8, **CON)
-    return ref, device_constrained_config(ref)
+    return ref, device_constrained_config(ref, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def big():
-    return DeviceConstrainedSQP(DeviceSQP(**BIG), alm_outer=4, **CON)
+    return DeviceConstrainedSQP(DeviceSQP(**BIG, device="cpu"), alm_outer=4, **CON)
 
 
 def test_config_carries_over(small_pair):
@@ -61,7 +61,7 @@ def test_config_carries_over(small_pair):
     assert port.n_rows == ref.n_rows == 8 and port.padded_rows == 64
     assert port.dev.horizon == 8 and port.rho == 100.0 and port.alm_outer == 2
     assert port.fused is False and port.lipq is True
-    port2 = device_constrained_config(ref, fused=None, use_kernels=False, rho=50.0)
+    port2 = device_constrained_config(ref, fused=None, use_kernels=False, rho=50.0, device="cpu")
     assert port2.fused is None and port2.rho == 50.0
     assert port2.dev.use_kernels is False
 
@@ -93,7 +93,7 @@ def test_full_solve_cost_and_violation_parity(small_pair):
     w_j, l_j = ref.solve_words(ref.init_words(6), x0)
     w, lam = port.solve_words(port.init_words(6), x0)
     assert w.shape == (6, 4) and lam.shape == (6, 64)
-    lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j)))
+    lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
     lanes = _lanes(port, w)
     np.testing.assert_allclose(true_cost(port.dev, x0, lanes),
                                true_cost(port.dev, x0, lanes_j),
@@ -113,7 +113,7 @@ def test_routes_bit_identical(small_pair):
     out = []
     for kw in (dict(fused=None), dict(fused=None, use_kernels=False),
                dict(fused=False)):
-        port = device_constrained_config(ref, **kw)
+        port = device_constrained_config(ref, **kw, device="cpu")
         out.append(port.solve_words(port.init_words(5), x0))
     for w, lam in out[1:]:
         assert torch.equal(w, out[0][0]) and torch.equal(lam, out[0][1])
@@ -129,7 +129,7 @@ def test_binding_constraint_binds(big):
     """The corridor binds: the unconstrained plan overshoots it 2x, the
     constrained one stays inside on the true rollout, with nonzero
     multipliers (tests/test_device_constrained.py's bounds)."""
-    unc = DeviceSQP(**BIG)
+    unc = DeviceSQP(**BIG, device="cpu")
     w_u = unc.solve_words(unc.init_words(2), X0)
     u_phys = torch.as_tensor(
         _lanes(big, w_u).reshape(2, 32, 2) * unc._lane_scales, dtype=torch.float32)
@@ -141,7 +141,7 @@ def test_binding_constraint_binds(big):
 
 
 def test_inactive_constraint_is_inert():
-    wide = DeviceConstrainedSQP(DeviceSQP(**BIG), F=[[0.0, 1.0, 0.0]],
+    wide = DeviceConstrainedSQP(DeviceSQP(**BIG, device="cpu"), F=[[0.0, 1.0, 0.0]],
                                 lo=-5.0, hi=5.0, rho=100.0, alm_outer=2)
     w, lam = wide.solve_words(wide.init_words(2), X0)
     assert int(lam.abs().max()) == 0
@@ -167,8 +167,8 @@ def test_solve_convenience(small_pair):
 def test_validation(small_pair):
     _, port = small_pair
     with pytest.raises(ValueError, match="lo must be < hi"):
-        DeviceConstrainedSQP(DeviceSQP(**SMALL), F=[[0.0, 1.0, 0.0]], lo=1.0, hi=-1.0)
-    bad = DeviceConstrainedSQP(DeviceSQP(**SMALL), F=[[0.0, 1.0]])
+        DeviceConstrainedSQP(DeviceSQP(**SMALL, device="cpu"), F=[[0.0, 1.0, 0.0]], lo=1.0, hi=-1.0)
+    bad = DeviceConstrainedSQP(DeviceSQP(**SMALL, device="cpu"), F=[[0.0, 1.0]])
     with pytest.raises(ValueError, match="columns"):
         bad.solve_words(bad.init_words(1), X0[:1])
     with pytest.raises(ValueError, match="batch"):
@@ -178,8 +178,8 @@ def test_validation(small_pair):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL), lipq=False),
-    lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL)),
+    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL, device="cpu"), lipq=False),
+    lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL, device="cpu")),
 ], ids=["lipq=False", "propagate=scan"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):

@@ -27,13 +27,16 @@ from pint_tpu.mpc.condense_fused import lipq_fused as j_lipq
 from pint_tpu.mpc.fused_alm import pgd_fused_words_pre as j_pgd_pre
 from pint_tpu.mpc.ltv import _pgd_batched_h as j_pgd_batched_h
 from pint_tpu_torch.convert import device_sqp_config, words_from_numpy, words_to_numpy
+from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc import (
     DeviceSQP,
     lipq_fused,
     lipq_plain,
     pgd_fused_words,
     pgd_fused_words_pre,
+    pgd_fused_words_pre_plain,
     pgd_hqt,
+    pgd_hqt_plain,
 )
 from pint_tpu_torch.mpc.ltv import _pgd_batched_h, true_cost
 
@@ -53,7 +56,7 @@ def _x0(B, seed):
 @pytest.fixture(scope="module")
 def pair():
     ref = JDeviceSQP(propagate="unroll", **KW)
-    return ref, device_sqp_config(ref)
+    return ref, device_sqp_config(ref, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +93,7 @@ def test_pgd_inner_bit_identical(pair, operands):
         jnp.asarray(o["words"]), jnp.asarray(o["g_pre"]), jnp.asarray(o["Hq"]),
         jnp.asarray(o["hs_num"]), jnp.asarray(o["hs_den"]), **kw))
     np.testing.assert_array_equal(expect, expect_words)
-    w = words_from_numpy(o["words"])
+    w = words_from_numpy(o["words"], device="cpu")
     args = (_t(o["g_pre"]), _t(o["hqt"]), _t(o["hs_num"]), _t(o["hs_den"]))
     np.testing.assert_array_equal(
         words_to_numpy(pgd_fused_words_pre(w, *args, **kw)), expect)
@@ -108,6 +111,22 @@ def test_pgd_hqt_rejects_bad_operands(operands):
         pgd_hqt(torch.zeros((8, 64), dtype=torch.int32), _t(o["g_pre"]),
                 _t(o["hqt"]).to(torch.int32), _t(o["hs_num"]), _t(o["hs_den"]),
                 iters=1, g_shift=12)
+
+
+def test_words_plain_is_lanes_plain_with_unpack_and_pack(pair, operands):
+    """K4's words entry on the CPU (its plain version) equals the lanes plain
+    version with unpack and pack around it, on warm words with -128 lanes."""
+    ref, _ = pair
+    o = operands
+    kw = dict(iters=ref.pgd_iters, g_shift=ref.g_shift)
+    w = words_from_numpy(o["words"], device="cpu")
+    args = (_t(o["g_pre"]), _t(o["hqt"]), _t(o["hs_num"]), _t(o["hs_den"]))
+    via_lanes = pack_controls(pgd_hqt_plain(unpack_controls(w), *args, **kw))
+    got = pgd_fused_words_pre_plain(w, *args, **kw)
+    assert torch.equal(got, via_lanes)
+    assert torch.equal(pgd_fused_words_pre(w, *args, **kw), got)
+    with pytest.raises(ValueError, match="do not agree"):
+        pgd_fused_words_pre(unpack_controls(w), *args, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -189,7 +208,7 @@ def test_solve_deterministic_and_plain_route_equal(pair):
     w1, _ = port.solve(x0)
     w2, _ = port.solve(x0)
     np.testing.assert_array_equal(w1.numpy(), w2.numpy())
-    plain = device_sqp_config(pair[0], use_kernels=False)
+    plain = device_sqp_config(pair[0], use_kernels=False, device="cpu")
     np.testing.assert_array_equal(plain.solve(x0)[0].numpy(), w1.numpy())
 
 
@@ -201,7 +220,7 @@ def test_solve_deterministic_and_plain_route_equal(pair):
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
-        DeviceSQP(**KW, **kw)
+        DeviceSQP(**KW, **kw, device="cpu")
 
 
 def test_h_scale_and_step_rationals_bit_identical(pair):
@@ -238,7 +257,7 @@ def test_h_scale_and_step_rationals_bit_identical(pair):
 
 def test_indefinite_q_rejected_at_construction():
     with pytest.raises(ValueError, match="PSD"):
-        DeviceSQP(horizon=8, Q=np.diag([1.0, -1.0, 0.1]))
+        DeviceSQP(horizon=8, Q=np.diag([1.0, -1.0, 0.1]), device="cpu")
 
 
 def test_cuda_request_without_cuda_raises():

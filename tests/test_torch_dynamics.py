@@ -72,7 +72,7 @@ def test_fixed_point_rollout_bit_identical():
     words = np.asarray(j_pack(jnp.asarray(lanes)))
     ref = np.asarray(m.rollout_packed(jnp.asarray(x0), jnp.asarray(words)))
     got = Unicycle().rollout_packed(
-        torch.from_numpy(np.array(x0)), words_from_numpy(words)
+        torch.from_numpy(np.array(x0)), words_from_numpy(words, device="cpu")
     )
     np.testing.assert_array_equal(got.numpy(), ref)
 

@@ -71,8 +71,8 @@ def test_fixed_point_pgd_bit_identical(qqps, problem, error_feedback, start):
     expect = jax.jit(JFixed(ref, iters=30, error_feedback=error_feedback).solve_words)(
         jnp.asarray(u0), jnp.asarray(g)
     )
-    got = FixedPointPGD(port, iters=30, error_feedback=error_feedback).solve_words(
-        words_from_numpy(u0), torch.from_numpy(g)
+    got = FixedPointPGD(port, iters=30, error_feedback=error_feedback, device="cpu").solve_words(
+        words_from_numpy(u0, device="cpu"), torch.from_numpy(g)
     )
     np.testing.assert_array_equal(words_to_numpy(got), np.asarray(expect))
 
@@ -84,9 +84,9 @@ def test_fused_pgd_bit_identical_to_jax(qqps, problem, momentum, iters):
     x0, g, warm_words = problem
     jf = JFused(ref, iters=iters, momentum=momentum, block_rows=8, interpret=True)
     expect = np.asarray(jf.solve_words(jnp.asarray(warm_words), jnp.asarray(g)))
-    tf = FusedPGD(port, iters=iters, momentum=momentum)
+    tf = FusedPGD(port, iters=iters, momentum=momentum, device="cpu")
     assert tf.beta_num == jf._beta_num
-    got = tf.solve_words(words_from_numpy(warm_words), torch.from_numpy(g))
+    got = tf.solve_words(words_from_numpy(warm_words, device="cpu"), torch.from_numpy(g))
     np.testing.assert_array_equal(words_to_numpy(got), expect)
 
 
@@ -105,10 +105,11 @@ def test_packed_io_bit_identical_to_jax(qqps, batch, start):
           else np.asarray(j_pack(jnp.asarray(warm))))
     jf = JFused(ref, iters=20, packed_io=True, block_rows=8, interpret=True)
     expect = np.asarray(jf.solve_words(jnp.asarray(u0), jnp.asarray(g)))
-    packed = FusedPGD(port, iters=20, packed_io=True)
-    got = packed.solve_words(words_from_numpy(u0), torch.from_numpy(g))
+    packed = FusedPGD(port, iters=20, packed_io=True, device="cpu")
+    got = packed.solve_words(words_from_numpy(u0, device="cpu"), torch.from_numpy(g))
     np.testing.assert_array_equal(words_to_numpy(got), expect)
-    lanes = FusedPGD(port, iters=20).solve_words(words_from_numpy(u0), torch.from_numpy(g))
+    lanes = FusedPGD(port, iters=20, device="cpu").solve_words(
+        words_from_numpy(u0, device="cpu"), torch.from_numpy(g))
     np.testing.assert_array_equal(got.numpy(), lanes.numpy())
 
 
@@ -116,7 +117,8 @@ def test_fused_pgd_packed_plain_is_the_cpu_route(qqps, problem):
     _, port = qqps
     _, g, warm_words = problem
     kw = dict(hs_num=port.hs_num, hs_den=port.hs_den, g_shift=port.g_shift, iters=7)
-    args = (words_from_numpy(warm_words), torch.from_numpy(g), torch.as_tensor(port.Hq))
+    args = (words_from_numpy(warm_words, device="cpu"), torch.from_numpy(g),
+            torch.as_tensor(port.Hq))
     np.testing.assert_array_equal(fused_pgd_packed(*args, **kw).numpy(),
                                   fused_pgd_packed_plain(*args, **kw).numpy())
 
@@ -124,7 +126,7 @@ def test_fused_pgd_packed_plain_is_the_cpu_route(qqps, problem):
 def test_packed_io_rejects_momentum_and_bad_shapes(qqps):
     _, port = qqps
     with pytest.raises(ValueError, match="momentum"):
-        FusedPGD(port, packed_io=True, momentum=True)
+        FusedPGD(port, packed_io=True, momentum=True, device="cpu")
     with pytest.raises(ValueError, match="do not agree"):
         fused_pgd_packed(torch.zeros((4, 15), dtype=torch.int32),
                          torch.zeros((4, 64), dtype=torch.int32),
@@ -135,8 +137,8 @@ def test_packed_io_rejects_momentum_and_bad_shapes(qqps):
 def test_fused_matches_word_solver(qqps, problem):
     _, port = qqps
     x0, g, _ = problem
-    fused = FusedPGD(port, iters=25)
-    words = FixedPointPGD(port, iters=25)
+    fused = FusedPGD(port, iters=25, device="cpu")
+    words = FixedPointPGD(port, iters=25, device="cpu")
     gt = torch.from_numpy(g)
     np.testing.assert_array_equal(
         fused.solve_words(fused.init_words(BATCH), gt).numpy(),
@@ -148,7 +150,7 @@ def test_solve_physical_controls_match(qqps, problem):
     ref, port = qqps
     x0, _, _ = problem
     _, u_ref = JFixed(ref, iters=20).solve(x0)
-    _, u = FusedPGD(port, iters=20).solve(x0)
+    _, u = FusedPGD(port, iters=20, device="cpu").solve(x0)
     np.testing.assert_array_equal(u.numpy(), np.asarray(u_ref))
 
 

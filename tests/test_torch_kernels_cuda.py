@@ -8,8 +8,8 @@ machine without JAX; there, skip the JAX-only conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the SWAR kernels bit-identical on full-range random words (not
-only canonical ones); K2 and K4 bit-identical; K3 ``hqt``, ``h_max`` and ``lip``
-bit-identical (the plain version adds in the kernel's order; ``lip`` is
+only canonical ones); K2 and K4 (lanes and words entries) bit-identical; K3
+``hqt``, ``h_max`` and ``lip`` bit-identical (the plain version adds in the kernel's order; ``lip`` is
 also held to the contract's rtol 1e-5 first); K5 and K7 bit-identical
 (words and multipliers) to their plain versions and word-space references;
 K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
@@ -85,7 +85,7 @@ def test_k2_bit_identical(cuda, momentum, B, T, pad_to):
     assert torch.equal(got, fused_pgd_plain(lanes, g, hq, **kw))
 
 
-@pytest.fixture(scope="module", params=[32, 16, 64], ids=lambda h: f"T{h}")
+@pytest.fixture(scope="module", params=[32, 16, 40, 64], ids=lambda h: f"T{h}")
 def condensed(cuda, request):
     sqp = DeviceSQP(sqp_iters=1, device=cuda, **dict(SQP_KW, horizon=request.param))
     B = 37
@@ -129,6 +129,81 @@ def test_k4_bit_identical(condensed):
     torch.cuda.synchronize()
     assert torch.equal(got, pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
 
+
+@pytest.mark.parametrize("Tm", [16, 32, 48, 64, 66, 80, 100, 128, 160, 224])
+@pytest.mark.parametrize("B", [37, 4096, 4099, 4100])
+def test_k3_bit_identical_at_every_path(cuda, B, Tm):
+    """K3 against lipq_plain on random slabs.  Tm <= 64, the register
+    kernel (16, 32, 48: the ones built for any Tm; 48 takes six boxes):
+    B = 4096 takes TMA boxes and 16-byte stores, B = 4100 TMA boxes past the
+    batch (zero-filled) and byte stores, B = 37 and 4099 the ragged 4-byte
+    copies and byte stores.  64 < Tm <= 224, the shared-memory ring: quads
+    of problems in 3 slots with 2 groups of warps (66), 2 slots (80) and 1
+    slot (100), with 16-byte copies and word stores when B % 4 == 0 (4096,
+    4100); single problems past Tm = 118 in 3 slots (128), 2 (160) and 1
+    (224)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + Tm)
+    Ht = torch.randn((Tm, Tm, B), generator=gen, device=cuda)
+    got = lipq_fused(Ht, power_iters=16)
+    ref = lipq_plain(Ht, power_iters=16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("hqt", "lip", "h_max"), got, ref):
+        assert torch.equal(a, b), name
+
+
+def _k4_operands(cuda, B, Tp, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda)
+
+    return (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-2**18, 2**18, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
+            t(rng.integers(1, 300, (B,), dtype=np.int32)),
+            t(rng.integers(10, 16, (B,), dtype=np.int32)))
+
+
+@pytest.mark.parametrize("Tp", [32, 64, 256])
+@pytest.mark.parametrize("B", [37, 4096])
+def test_k4_words_and_lanes_bit_identical(cuda, B, Tp):
+    """K4's lanes entry and its words entry against their plain versions and
+    against each other, full-range warm lanes (so -128 occurs)."""
+    from pint_tpu_torch.mpc import pgd_fused_words_pre, pgd_fused_words_pre_plain
+
+    lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, B, Tp, B + Tp)
+    kw = dict(iters=30, g_shift=12)
+    got_lanes = pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)
+    words = pack_controls(lanes)
+    got_words = pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_lanes, pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
+    assert torch.equal(got_words,
+                       pgd_fused_words_pre_plain(words, g_pre, hqt, hs_num, hs_den, **kw))
+    assert torch.equal(got_words, pack_controls(got_lanes))
+
+
+def test_k4_words_entry_is_one_launch(cuda):
+    """The words entry launches K4 once, counted as pgd_hqt, and the device
+    runs nothing else for it: no unpack or pack around the kernel."""
+    from pint_tpu_torch.mpc import pgd_fused_words_pre
+
+    lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, 4096, 64, 7)
+    words = pack_controls(lanes)
+    kw = dict(iters=30, g_shift=12)
+    pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+        torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["pgd_hqt"] == before["pgd_hqt"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ran = [e.key for e in prof.key_averages()
+           if getattr(e, "self_device_time_total", 0) > 0]
+    assert len(ran) == 1 and "pgd_hqt" in ran[0], ran
 
 def test_launch_counts(cuda):
     qqp = quantize(condense_double_integrator(T=50))

@@ -212,7 +212,7 @@ def test_constructors_and_repr():
     np.testing.assert_array_equal(words_to_numpy(w.word), [2**64 - 1, 5])
     np.testing.assert_array_equal(
         words_to_numpy(pt.PackedArray.from_words(lay, torch.tensor([-1])).word), [2**64 - 1])
-    z = pt.PackedArray.zeros(pt.PackedLayout(5, 6, 5), (2, 3))
+    z = pt.PackedArray.zeros(pt.PackedLayout(5, 6, 5), (2, 3), device="cpu")
     assert z.shape == (2, 3) and z.dtype == torch.int16
     assert repr(pt.PackedArray.pack(pt.PackedLayout(8, 8), 255, 1)) == \
         "PackedArray(PackedLayout(8, 8)<u16>, lanes=[255, 1])"
@@ -276,5 +276,6 @@ def test_profiling_trace_writes_chrome_trace(tmp_path):
 
     lay = pt.PackedLayout(8, 8, 8, 8)
     with trace(str(tmp_path / "t")):
-        pt.add_wrap(pt.PackedArray.zeros(lay, (64,)), pt.PackedArray.zeros(lay, (64,)))
+        pt.add_wrap(pt.PackedArray.zeros(lay, (64,), device="cpu"),
+                    pt.PackedArray.zeros(lay, (64,), device="cpu"))
     assert (tmp_path / "t" / "trace.json").stat().st_size > 0

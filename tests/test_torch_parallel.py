@@ -129,10 +129,12 @@ WORKER = textwrap.dedent(
         M.condense_double_integrator(T=T, dt=dt, q_pos=4.0),
         np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
         F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0)
-    dev = M.DeviceSQP(**sqp_kw(cfg["SQP_KW"]))
-    devc = M.DeviceConstrainedSQP(M.DeviceSQP(**sqp_kw(cfg["CON_SQP_KW"])), **cfg["CON_KW"])
+    dev = M.DeviceSQP(device="cpu", **sqp_kw(cfg["SQP_KW"]))
+    devc = M.DeviceConstrainedSQP(M.DeviceSQP(device="cpu", **sqp_kw(cfg["CON_SQP_KW"])),
+                                  **cfg["CON_KW"])
     devc_word = M.DeviceConstrainedSQP(
-        M.DeviceSQP(use_kernels=False, **sqp_kw(cfg["CON_SQP_KW"])), **cfg["CON_KW"])
+        M.DeviceSQP(use_kernels=False, device="cpu", **sqp_kw(cfg["CON_SQP_KW"])),
+        **cfg["CON_KW"])
     B = cfg["B"]
     if rank == 0:      # the single-device references (D4), same thread count
         out["ref/dsqp"] = dev.solve_words(dev.init_words(B), t["sqp_x0"]).numpy()
@@ -153,7 +155,7 @@ WORKER = textwrap.dedent(
             qcqp, mesh, outer=cfg["ALM_OUTER"], inners=cfg["ALM_INNERS"]).solve(inp["lti_con_x0"])
         out[tag + "/cpgd_words"], out[tag + "/cpgd_lam"] = w.numpy(), lam.numpy()
 
-        fp = M.FusedPGD(qqp, iters=cfg["PGD_ITERS"])
+        fp = M.FusedPGD(qqp, iters=cfg["PGD_ITERS"], device="cpu")
         g = torch.as_tensor(qqp.g_lane_fixed(inp["lti_x0"]))
         wl = fp.dp_sharded(mesh)(shard(fp.init_words(B), mesh, ("dp", None)),
                                  shard(g, mesh, ("dp", None)))
@@ -210,8 +212,9 @@ WORKER = textwrap.dedent(
             out[f"{tag}/{name}_words"] = unshard(wl, mesh, ("dp", "tp")).numpy()
             out[f"{mine}/{name}_lam"] = ll.numpy()
 
-        bad_dev = M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1)     # n_dec = 36
-        bad_con = M.DeviceConstrainedSQP(M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1),
+        bad_dev = M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1, device="cpu")  # n_dec = 36
+        bad_con = M.DeviceConstrainedSQP(M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1,
+                                                     device="cpu"),
                                          F=[[0.0, 1.0, 0.0]])
         raised = []
         for fn in (lambda: bad_dev.sharded_solve_words(mesh),
@@ -262,7 +265,7 @@ def _operands():
     warm plans with -128 lanes.  The int8 slabs are stored batch first,
     ``x[b] = slab[..., b]`` (so ``pgd_hqt[b, k, j] = Hq_b[j, k]``)."""
     rng = np.random.default_rng(21)
-    dev = DeviceSQP(**_sqp_kw(SQP_KW))
+    dev = DeviceSQP(**_sqp_kw(SQP_KW), device="cpu")
     lanes = rng.integers(-128, 128, (B, dev.n_dec), dtype=np.int32)
     from pint_tpu_torch.models.dynamics import pack_controls
 
@@ -271,7 +274,7 @@ def _operands():
     out = dict(pgd_words=pack_controls(tl).numpy(), pgd_g=g.numpy(),
                pgd_hqt=np.ascontiguousarray(hqt.permute(2, 0, 1).numpy()),
                pgd_hs_num=num.numpy(), pgd_hs_den=den.numpy())
-    devc = DeviceConstrainedSQP(DeviceSQP(**_sqp_kw(CON_SQP_KW)), **CON_KW)
+    devc = DeviceConstrainedSQP(DeviceSQP(**_sqp_kw(CON_SQP_KW), device="cpu"), **CON_KW)
     lanes = rng.integers(-60, 61, (B, devc.dev.n_dec), dtype=np.int32)
     tl = torch.from_numpy(lanes)
     ops, _ = devc._condense_constrained_dev(torch.from_numpy(_x0_sqp(B, 23, (-np.pi, np.pi))), tl)
@@ -428,7 +431,7 @@ def test_sharded_pgd_bit_identical_to_jax(run, dp, tp):
     from pint_tpu_torch.mpc import FixedPointPGD
 
     single = FixedPointPGD(quantized_qp_from_arrays(j_quantize(j_condense(T=50))),
-                           iters=PGD_ITERS)
+                           iters=PGD_ITERS, device="cpu")
     np.testing.assert_array_equal(p[tag + "/pgd_words"], single.solve(run["inp"]["lti_x0"])[0])
 
 
@@ -437,7 +440,7 @@ def test_sharded_pgd_momentum_bit_identical_to_accelerated(run, dp, tp):
     from pint_tpu_torch.mpc import AcceleratedPGD, condense_double_integrator, quantize
 
     tag, p, j = f"dp{dp}tp{tp}", _rank0(run, dp, tp), run["jax"]
-    acc = AcceleratedPGD(quantize(condense_double_integrator(T=50)), iters=MOM_ITERS)
+    acc = AcceleratedPGD(quantize(condense_double_integrator(T=50)), iters=MOM_ITERS, device="cpu")
     words = acc.solve(run["inp"]["lti_x0"])[0].numpy()
     np.testing.assert_array_equal(_u32(words), j["mom_single"])
     np.testing.assert_array_equal(p[tag + "/mom_words"], words)
@@ -519,7 +522,7 @@ def test_device_constrained_sharded_bit_identical_and_parity(run, dp, tp):
             np.testing.assert_array_equal(o[f"{tag}/r{r}/{name}_lam"],
                                           ref_l[r_dp * rows:(r_dp + 1) * rows])
     assert np.abs(ref_l).max() > 0
-    port = device_constrained_config(run["jdevc"])
+    port = device_constrained_config(run["jdevc"], device="cpu")
     x0 = run["inp"]["con_x0"]
     lp = unpack_controls(torch.from_numpy(ref_w))[:, :16].numpy()
     lj = unpack_controls(torch.from_numpy(j[tag + "/dcon_words"].view(np.int32)))[:, :16].numpy()
@@ -533,7 +536,7 @@ def test_fused_dp_sharded_equals_solve_words(run, dp, tp):
     from pint_tpu_torch.mpc import FusedPGD, condense_double_integrator, quantize
 
     qqp = quantize(condense_double_integrator(T=50))
-    fp = FusedPGD(qqp, iters=PGD_ITERS)
+    fp = FusedPGD(qqp, iters=PGD_ITERS, device="cpu")
     g = torch.as_tensor(qqp.g_lane_fixed(run["inp"]["lti_x0"]))
     np.testing.assert_array_equal(_rank0(run, dp, tp)[f"dp{dp}tp{tp}/fused_dp"],
                                   fp.solve_words(fp.init_words(B), g).numpy())

@@ -54,7 +54,7 @@ def test_mpc_service_bit_identical_over_ticks(qqps, use_fused):
     jsvc = JMPCService(ref, batch=b, iters_per_tick=15, g_on_device=False,
                        use_fused=False)
     tsvc = MPCService(port, batch=b, iters_per_tick=15, g_on_device=False,
-                      use_fused=use_fused)
+                      use_fused=use_fused, device="cpu")
     rng = np.random.default_rng(7)
     for _ in range(3):
         x0 = _lti_states(rng, b)
@@ -69,8 +69,8 @@ def test_mpc_service_device_linear_term(qqps):
     _, port = qqps
     b = 32
     x0 = _lti_states(np.random.default_rng(8), b)
-    dev = MPCService(port, batch=b, g_on_device=True).solve(x0)
-    host = MPCService(port, batch=b, g_on_device=False).solve(x0)
+    dev = MPCService(port, batch=b, g_on_device=True, device="cpu").solve(x0)
+    host = MPCService(port, batch=b, g_on_device=False, device="cpu").solve(x0)
     assert dev.shape == (b, 50) and np.isfinite(dev).all()
     assert np.abs(dev).max() <= 1.0 + 1e-12
     assert np.abs(dev - host).max() <= 2 * port.u_scale
@@ -79,7 +79,7 @@ def test_mpc_service_device_linear_term(qqps):
 def test_mpc_service_resets_bad_rows(qqps):
     _, port = qqps
     b = 4
-    svc = MPCService(port, batch=b, g_on_device=False)
+    svc = MPCService(port, batch=b, g_on_device=False, device="cpu")
     x0 = _lti_states(np.random.default_rng(9), b)
     svc.solve(x0)
     x0[1, 0] = np.nan
@@ -100,7 +100,7 @@ def _rti_plan(u0, warm, unpack, n_dec, m):
 
 def test_rti_service_cost_parity():
     ref = JDeviceSQP(**RTI_KW)
-    port = device_sqp_config(ref)
+    port = device_sqp_config(ref, device="cpu")
     host = QuantizedSQP(**RTI_KW)
     b = 8
     jsvc, tsvc = JRTIService(ref, batch=b), RTIService(port, batch=b)
@@ -122,7 +122,7 @@ def test_rti_service_cost_parity():
 
 
 def test_rti_service_resets_nonfinite_rows():
-    port = device_sqp_config(JDeviceSQP(**RTI_KW))
+    port = device_sqp_config(JDeviceSQP(**RTI_KW), device="cpu")
     svc = RTIService(port, batch=3)
     x0 = np.array([[0.0, 0.0, 0.0], [np.inf, 0.0, 0.0], [0.1, 0.0, 0.5]])
     u = svc.solve(x0)
@@ -186,7 +186,7 @@ def _crti_pair(**kw):
 
     ref = JDeviceConstrainedSQP(JDeviceSQP(propagate="unroll", **CRTI_SQP),
                                 **CRTI_CON, **kw)
-    return ref, device_constrained_config(ref, lipq=None, fused=None)
+    return ref, device_constrained_config(ref, lipq=None, fused=None, device="cpu")
 
 
 def test_constrained_rti_shift_equals_jax():
@@ -212,7 +212,7 @@ def test_constrained_rti_shift_equals_jax():
     lam[:, port.n_rows:] = rng.integers(1, 9, (b, port.padded_rows - port.n_rows))
     x0 = _crti_states(rng, b).astype(np.float32)
     jw, jl, ju = jsvc._tick(jnp.asarray(words), jnp.asarray(lam), jnp.asarray(x0))
-    tw, tl, tu = tsvc._tick(words_from_numpy(words), torch.as_tensor(lam),
+    tw, tl, tu = tsvc._tick(words_from_numpy(words, device="cpu"), torch.as_tensor(lam),
                             torch.as_tensor(x0))
     np.testing.assert_array_equal(words_to_numpy(tw), np.asarray(jw))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))

@@ -54,7 +54,8 @@ def _eq(got: torch.Tensor, ref):
 def test_binop_parity(widths, op):
     a, b = _rand(widths, (1000,), 0), _rand(widths, (1000,), 1)
     ref = JP.binop(JLayout(*widths), op)(jnp.asarray(a), jnp.asarray(b))
-    _eq(S.binop(TLayout(*widths), op)(words_from_numpy(a), words_from_numpy(b)), ref)
+    _eq(S.binop(TLayout(*widths), op)(words_from_numpy(a, device="cpu"),
+                                      words_from_numpy(b, device="cpu")), ref)
 
 
 @pytest.mark.parametrize("op", S.BINOP_NAMES)
@@ -62,7 +63,8 @@ def test_binop_parity(widths, op):
 def test_binop_pair_parity(widths, op):
     a, b = _pair(_rand(widths, (1000,), 4)), _pair(_rand(widths, (1000,), 5))
     ref = JP.binop_pair(JLayout(*widths), op)(jnp.asarray(a), jnp.asarray(b))
-    got = S.binop_pair(TLayout(*widths), op)(words_from_numpy(a), words_from_numpy(b))
+    got = S.binop_pair(TLayout(*widths), op)(words_from_numpy(a, device="cpu"),
+                                             words_from_numpy(b, device="cpu"))
     assert got.dtype == torch.int32
     _eq(got, ref)
 
@@ -74,8 +76,8 @@ def test_shift_parity(widths, op, amount):
     v = _rand(widths, (777,), 2)
     ref = JP.shift(JLayout(*widths), op)(jnp.asarray(v), amount)
     fn = S.shift(TLayout(*widths), op)
-    _eq(fn(words_from_numpy(v), amount), ref)
-    _eq(fn(words_from_numpy(v), torch.tensor(amount)), ref)
+    _eq(fn(words_from_numpy(v, device="cpu"), amount), ref)
+    _eq(fn(words_from_numpy(v, device="cpu"), torch.tensor(amount)), ref)
 
 
 @pytest.mark.parametrize("amount", [0, 3, 32, 40, 64, 100, -1])
@@ -84,7 +86,7 @@ def test_shift_parity(widths, op, amount):
 def test_shift_pair_parity(widths, op, amount):
     v = _pair(_rand(widths, (777,), 6))
     ref = JP.shift_pair(JLayout(*widths), op)(jnp.asarray(v), amount)
-    _eq(S.shift_pair(TLayout(*widths), op)(words_from_numpy(v), amount), ref)
+    _eq(S.shift_pair(TLayout(*widths), op)(words_from_numpy(v, device="cpu"), amount), ref)
 
 
 @pytest.mark.parametrize("signed", [False, True])
@@ -96,10 +98,11 @@ def test_saturating_accumulate_parity(widths, signed):
     ref = JP.saturating_accumulate(JLayout(*widths), signed=signed, steps=steps)(
         jnp.asarray(acc), jnp.asarray(deltas))
     fn = S.saturating_accumulate(TLayout(*widths), signed=signed, steps=steps)
-    _eq(fn(words_from_numpy(acc), words_from_numpy(deltas)), ref)
+    _eq(fn(words_from_numpy(acc, device="cpu"), words_from_numpy(deltas, device="cpu")), ref)
     if JLayout(*widths).word_bits == 64:
         # the pair I/O form: acc (2, n), deltas (2, steps, n)
-        got = fn(words_from_numpy(_pair(acc)), words_from_numpy(_pair(deltas)))
+        got = fn(words_from_numpy(_pair(acc), device="cpu"),
+                 words_from_numpy(_pair(deltas), device="cpu"))
         _eq(got, _pair(np.asarray(ref)))
 
 
@@ -110,7 +113,7 @@ def test_shapes(widths, shape):
     jl, tl = JLayout(*widths), TLayout(*widths)
     a, b = _rand(widths, shape, 10), _rand(widths, shape, 11)
     ja, jb = jnp.asarray(a), jnp.asarray(b)
-    ta, tb = words_from_numpy(a), words_from_numpy(b)
+    ta, tb = words_from_numpy(a, device="cpu"), words_from_numpy(b, device="cpu")
     empty = a.size == 0
     op = "min_signed"
     ref = JW.min_signed(jl, ja, jb) if empty else JP.binop(jl, op)(ja, jb)
@@ -120,10 +123,11 @@ def test_shapes(widths, shape):
     _eq(S.shift(tl, "shift_left")(ta, 3), ref)
     deltas = np.stack([b, a])
     ref = JW.add_signed_saturate(jl, JW.add_signed_saturate(jl, ja, jb), ja)
-    _eq(S.saturating_accumulate(tl, steps=2)(ta, words_from_numpy(deltas)), ref)
+    _eq(S.saturating_accumulate(tl, steps=2)(ta, words_from_numpy(deltas, device="cpu")), ref)
     if jl.word_bits == 64:
         ref = np.asarray(JW.min_signed(jl, ja, jb))
-        _eq(S.binop_pair(tl, op)(words_from_numpy(_pair(a)), words_from_numpy(_pair(b))),
+        _eq(S.binop_pair(tl, op)(words_from_numpy(_pair(a), device="cpu"),
+                                 words_from_numpy(_pair(b), device="cpu")),
             _pair(ref))
 
 
@@ -131,8 +135,8 @@ def test_u64_words_and_pairs_agree():
     """binop on int64 words and binop_pair on their pairs give one result,
     through split_u64/merge_u64."""
     tl = TLayout(20, 20, 24)
-    a, b = words_from_numpy(_rand((20, 20, 24), (300,), 20)), \
-        words_from_numpy(_rand((20, 20, 24), (300,), 21))
+    a, b = words_from_numpy(_rand((20, 20, 24), (300,), 20), device="cpu"), \
+        words_from_numpy(_rand((20, 20, 24), (300,), 21), device="cpu")
     for op in S.BINOP_NAMES:
         words = S.binop(tl, op)(a, b)
         pairs = S.binop_pair(tl, op)(split_u64(a), split_u64(b))
@@ -141,7 +145,7 @@ def test_u64_words_and_pairs_agree():
 
 def test_split_merge_round_trip():
     w = np.array([0, 1, 0xFFFFFFFF, 0x100000000, 2**63, 2**64 - 1], np.uint64)
-    t = words_from_numpy(w)
+    t = words_from_numpy(w, device="cpu")
     pair = split_u64(t)
     np.testing.assert_array_equal(words_to_numpy(pair), _pair(w))
     assert torch.equal(merge_u64(pair), t)
