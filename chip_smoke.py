@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 1. device check: a CUDA card of compute capability 9.0, its name and power
    limit from nvidia-smi; TF32 off;
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
-   source; from the build's -Xptxas -v report, the registers of every K3
-   and K4 kernel (neither may spill) and any kernel that spills;
+   source; from the build's -Xptxas -v report, the registers of every K3,
+   K4, K5 and K7 kernel (none may spill) and any kernel that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
    accumulate) and their u64 pair forms K11a-c, each against its plain
    PyTorch version on 1Mi full-range random words and against the per-lane
@@ -88,8 +88,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
-K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6, and
-phase 16 K10 on both ranks.  The line before the last is the kernels' JSON
+K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
+phase 16 K10 on both ranks, and phase 17 K4 and K5.  The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
 version, the bound from ``utils.profiling.kernel_cost`` at the timed shape
@@ -120,7 +120,7 @@ SHIFT_AMOUNTS = (0, 1, 3, 7, 12, 100, -1)
 N_CHECK, N_ORACLE = 1 << 20, 2048
 N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
-NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu")  # K3 and K4 hold their slabs in registers
+NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu", "alm.cu")  # K3, K4, K5, K7: rows in registers
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
@@ -132,6 +132,8 @@ CON_BATCH = 4096
 CON_SQP_KW = dict(horizon=32, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]))
 CON_KW = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=3)
 LTI_CON_T, LTI_CON_OUTER, LTI_CON_INNERS = 50, 12, 60
+LONG_T, LONG_BATCH, LONG_SQP = 128, 4096, 2
+PAST_T, PAST_BATCH = 144, 1024    # past K3's and K6's fits
 
 
 def say(*parts):
@@ -187,7 +189,8 @@ def phase_build(K):
             f"{ld} bytes spill loads")
     spilled = [r for r in shown if r[0] in NO_SPILL_SOURCES and (r[3] or r[4])]
     if spilled:
-        raise AssertionError(f"ptxas: {len(spilled)} K3/K4 kernels spill registers: {spilled}")
+        raise AssertionError(f"ptxas: {len(spilled)} kernels of {NO_SPILL_SOURCES} spill "
+                             f"registers: {spilled}")
     return {f"{src} {fn}": dict(registers=regs, spill_stores=st, spill_loads=ld)
             for src, fn, regs, st, ld in shown}
 
@@ -1010,7 +1013,7 @@ def phase_k10(torch, P, timing):
     lanes = torch.as_tensor(rng.integers(-60, 61, (RTI_BATCH, sqp.n_dec), dtype=np.int32),
                             device=DEVICE)
     x0 = torch.as_tensor(rti_states(rng, RTI_BATCH), dtype=torch.float32, device=DEVICE)
-    hqt = sqp._condense_lipq(x0, lanes)[0]
+    hqt = sqp._condense(x0, lanes)[0]
     csqp = make_csqp(P, 1)
     xc = torch.as_tensor(con_states(rng, CON_BATCH), dtype=torch.float32, device=DEVICE)
     ops, _ = csqp._condense_constrained_dev(xc, lanes)
@@ -1035,6 +1038,175 @@ def phase_k10(torch, P, timing):
                 f"bit-identical; device ms of queued calls: kernel {ms:.4f} "
                 f"({rec[f'tp{tp}_{name}']['GB_per_s']:.1f} GB/s of slab), plain {pms:.4f}; "
                 f"one kernel call between events {call_ms:.4f} ms")
+    return rec
+
+
+def phase_long(torch, P, K):
+    """DeviceSQP and DeviceConstrainedSQP at T = 128 (Tm = 256: K3 with
+    rows in registers, K6, K4, K5's cluster kernel) and at T = 144 (Tm =
+    288, past K3's and K6's fits: the torch form, K4's and K5's cluster
+    kernels): each stage's form, the kernels of each solve launched (counts
+    set to 0 before it, read after) and no other condensation kernel,
+    words and multipliers bit-identical to the plain versions', cost (and
+    violation) parity."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc.ltv import true_cost
+
+    rec = {}
+
+    def sqp(T):
+        return lambda **k: P.DeviceSQP(sqp_iters=LONG_SQP, device=DEVICE,
+                                       **dict(SQP_KW, horizon=T), **k)
+
+    def con(T):
+        return lambda **k: P.DeviceConstrainedSQP(P.DeviceSQP(
+            sqp_iters=LONG_SQP, device=DEVICE, **dict(CON_SQP_KW, horizon=T), **k),
+            **CON_KW)
+
+    cases = (
+        ("device_sqp", LONG_T, LONG_BATCH, sqp(LONG_T), rti_states,
+         ("lipq", "pgd_hqt"), ()),
+        ("device_constrained", LONG_T, LONG_BATCH, con(LONG_T), con_states,
+         ("lipq", "pen", "alm"), ()),
+        ("device_sqp", PAST_T, PAST_BATCH, sqp(PAST_T), rti_states,
+         ("pgd_hqt",), ("lipq",)),
+        ("device_constrained", PAST_T, PAST_BATCH, con(PAST_T), con_states,
+         ("alm",), ("lipq", "pen")),
+    )
+    for name, T, B, make, states, launched, idle in cases:
+        kern, plain = make(), make(use_kernels=False)
+        x0 = states(np.random.default_rng(11), B).astype(np.float32)
+        x0_t = torch.as_tensor(x0, device=DEVICE)
+        u0 = kern.init_words(B)
+        out, outs_lam = {}, {}
+        for which, solver in (("kernels", kern), ("plain", plain)):
+            if which == "kernels":
+                K.reset_launch_counts()         # this phase's main path starts here
+            t0 = time.perf_counter()
+            res = solver.solve_words(u0, x0_t)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if which == "kernels":
+                counts = K.launch_counts()      # and ends here
+            words = res[0] if isinstance(res, tuple) else res
+            if isinstance(res, tuple):
+                outs_lam[which] = res[1]
+            dev = getattr(solver, "dev", solver)
+            lanes = unpack_controls(words)[:, : dev.n_dec].cpu().numpy()
+            out[which] = (words, true_cost(dev, x0, lanes), ms,
+                          solver.violation(x0, lanes) if name != "device_sqp" else None)
+        for k in launched:
+            if counts[k] < 1:
+                raise AssertionError(f"long horizon {name}: kernel {k} never launched")
+        for k in idle:
+            if counts[k]:
+                raise AssertionError(f"long horizon {name}: {k} launched past its fit")
+        (wk, ck, msk, vk), (wp, cp, msp, vp) = out["kernels"], out["plain"]
+        if not np.isfinite(ck).all():
+            raise AssertionError(f"long horizon {name}: costs not finite")
+        np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
+        if vk is not None:
+            np.testing.assert_allclose(vk, vp, atol=5e-3)
+        differ = int((wk != wp).any(-1).sum().item())
+        if differ:
+            raise AssertionError(f"long horizon {name}: {differ} problems' words differ "
+                                 "from the plain versions'")
+        if isinstance(res, tuple):
+            lam_k, lam_p = outs_lam["kernels"], outs_lam["plain"]
+            if not torch.equal(lam_k, lam_p):
+                raise AssertionError(f"long horizon {name}: multipliers differ from the "
+                                     "plain versions'")
+        key = f"{name}_T{T}"
+        rec[key] = dict(
+            forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
+            launches={k: counts[k] for k in launched}, kernels_ms=msk, plain_ms=msp,
+            max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
+            problems_differing=differ, mean_cost=float(ck.mean()))
+        say(f"long horizon {name} T={T} B={B} {LONG_SQP} SQP: forms {kern.forms}; "
+            f"launches {rec[key]['launches']}; cost parity with the plain versions (max "
+            f"rel diff {rec[key]['max_rel_cost_diff']:.3e}"
+            f"{', violation parity' if vk is not None else ''}), {differ} problems differ "
+            f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms")
+    return rec
+
+
+def phase_long_kernels(torch, P, timing):
+    """The long-horizon path's kernel shapes on real operands, each held to
+    its plain version and timed: at T = 128, K3 with rows in registers (Tm
+    256), K6 a row a thread (C 128 x Tm 256), and K4's and K5's cluster
+    kernels (Tp 256; 256 x 128); at T = 144 the cluster kernels again (288;
+    288 x 192)."""
+    from pint_tpu_torch.models.dynamics import pack_controls
+    from pint_tpu_torch.mpc import (lipq_fused, lipq_plain, pen_fused, pen_plain,
+                                    pgd_fused_words_pre, pgd_fused_words_pre_plain)
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT
+
+    rec = {}
+
+    def timed(key, fn, plain, outs, shape):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (name, exact) in enumerate(outs):
+            if exact and not torch.equal(got[i], ref[i]):
+                raise AssertionError(f"{key}: {name} differs from the plain version")
+            if not exact:
+                if not rel_err(got[i], ref[i]) <= 1e-5:
+                    raise AssertionError(f"{key}: {name} rel err > 1e-5")
+                err = max(err, float((got[i] - ref[i]).abs().max()))
+        rec[key] = dict(shape, max_abs_err=err,
+                        ms=median(timing.cuda_ms(fn, reps=5)),
+                        queued_ms=median(timing.queued_ms(fn, calls=3, reps=3)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=1, warmup=0)))
+        say(f"{key} {shape}: bit-identical to the plain version; kernel "
+            f"{rec[key]['queued_ms']:.4f} ms queued, plain {rec[key]['plain_ms']:.1f} ms")
+
+    for T, B in ((LONG_T, LONG_BATCH), (PAST_T, PAST_BATCH)):
+        csqp = P.DeviceConstrainedSQP(P.DeviceSQP(
+            sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T)), **CON_KW)
+        d = csqp.dev
+        rng = np.random.default_rng(T)
+        x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
+        lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32),
+                                device=DEVICE)
+        o, _ = csqp._condense_constrained_dev(x0, lanes)
+        it = d.power_iters
+        if T == LONG_T:
+            A, Bl, c = d._linearize_phase(x0, lanes)
+            props = d._propagate_unrolled(A, Bl, c)
+            Ht = d._reduce_sym(*props, x0)[0]
+            S_t = csqp._stack_constraints(*props)[0]
+            del A, Bl, c, props
+            timed("lipq (K3)", lambda: lipq_fused(Ht, power_iters=it),
+                  lambda: lipq_plain(Ht, power_iters=it),
+                  (("hqt", True), ("lip", True), ("h_max", True)),
+                  dict(B=B, Tm=d.n_dec, power_iters=it))
+            timed("pen (K6)", lambda: pen_fused(S_t, power_iters=it),
+                  lambda: pen_plain(S_t, power_iters=it),
+                  (("sqc", True), ("sqj", True), ("pen_lip", False), ("s_scale", True),
+                   ("row_amp", False)),
+                  dict(B=B, C=csqp.n_rows, Tm=d.n_dec, power_iters=it))
+            del Ht, S_t
+        words = pack_controls(lanes)
+        pk = dict(iters=d.pgd_iters, g_shift=d.g_shift)
+        pargs = (words, o["g_pre"], o["hqt"], o["hs_num"], o["hs_den"])
+        timed(f"pgd_hqt (K4) T={T}", lambda: (pgd_fused_words_pre(*pargs, **pk),),
+              lambda: (pgd_fused_words_pre_plain(*pargs, **pk),), (("words", True),),
+              dict(B=B, Tp=d.n_dec, iters=d.pgd_iters))
+        lam = torch.as_tensor(rng.integers(0, 500, (B, csqp.padded_rows), dtype=np.int32),
+                              device=DEVICE)
+        sc = torch.stack([o[k] for k in RATIONALS])
+        args = (lanes, o["g_pre"], o["hqt"], o["sqj"], o["sqc"], o["c_off"],
+                o["lo_pre"], o["hi_pre"], lam, sc)
+        kw = dict(outer=csqp.alm_outer, inners=d.pgd_iters, g_shift=d.g_shift,
+                  y_shift=_Y_SHIFT)
+        timed(f"alm (K5) T={T}", lambda: alm_hqt(*args, **kw),
+              lambda: alm_hqt_plain(*args, **kw), (("lanes", True), ("lam", True)),
+              dict(B=B, Tp=d.n_dec, Cp=csqp.padded_rows, outer=csqp.alm_outer,
+                   inners=d.pgd_iters))
+        del o, args, pargs
     return rec
 
 
@@ -1211,7 +1383,7 @@ def rehearsal_worker(rank, port, out_dir):
         # D4 needs every tp rank to quantize identically: a checksum of one
         # K3 slab, summed and maxed over the ranks (CPU tensors, gloo)
         lanes0 = unpack_controls(d.init_words(RTI_BATCH))
-        hqt = d._condense_lipq(pr["x_rti"], lanes0)[0]
+        hqt = d._condense(pr["x_rti"], lanes0)[0]
         w8 = torch.arange(1, hqt.numel() + 1, device=DEVICE, dtype=torch.int64) % 1000003
         ck = torch.tensor([float((hqt.reshape(-1).to(torch.int64) * w8).sum().item())],
                           dtype=torch.float64)
@@ -1314,6 +1486,8 @@ def main():
     k10 = phase_k10(torch, P, timing)
     world1, single = phase_world1(torch, P, K, timing)
     rehearsal = phase_rehearsal(torch, single)
+    long = phase_long(torch, P, K)
+    long_kernels = phase_long_kernels(torch, P, timing)
 
     from pint_tpu_torch.utils.profiling import bound_ms, kernel_cost
 
@@ -1383,6 +1557,29 @@ def main():
           k7["launches"], k7,
           kernel_cost("alm_shared", B=CON_BATCH, Tp=k7["Tp"], Cp=k7["Cp"],
                       outer=LTI_CON_OUTER, inners=LTI_CON_INNERS), "loop")
+    lc = {k: r["launches"] for k, r in long.items()}
+    sqp_l, con_l = lc[f"device_sqp_T{LONG_T}"], lc[f"device_constrained_T{LONG_T}"]
+    sqp_p, con_p = lc[f"device_sqp_T{PAST_T}"], lc[f"device_constrained_T{PAST_T}"]
+    for key, name, kernel, source, line, launches in (
+            ("lipq (K3)", "lipq (K3, T=128, rows in registers)", "lipq", "lipq.cu",
+             "condense_fused.py:77", sqp_l["lipq"] + con_l["lipq"]),
+            ("pen (K6)", "pen (K6, T=128)", "pen", "pen.cu", "condense_fused.py:198",
+             con_l["pen"]),
+            (f"pgd_hqt (K4) T={LONG_T}", "pgd_hqt (K4, T=128, cluster kernel)", "pgd_hqt",
+             "alm.cu", "fused_alm.py:402", sqp_l["pgd_hqt"]),
+            (f"alm (K5) T={LONG_T}", "alm (K5, T=128, cluster kernel)", "alm", "alm.cu",
+             "fused_alm.py:335", con_l["alm"]),
+            (f"pgd_hqt (K4) T={PAST_T}", "pgd_hqt (K4, T=144, cluster kernel)", "pgd_hqt",
+             "alm.cu", "fused_alm.py:402", sqp_p["pgd_hqt"]),
+            (f"alm (K5) T={PAST_T}", "alm (K5, T=144, cluster kernel)", "alm", "alm.cu",
+             "fused_alm.py:335", con_p["alm"])):
+        r = long_kernels[key]
+        shape = {k: r[k] for k in ("B", "Tm", "Tp", "Cp", "C", "iters", "power_iters",
+                                   "outer", "inners") if k in r}
+        if kernel == "pgd_hqt":
+            shape["words"] = True
+        entry(name, f"pint_tpu_torch/csrc/{source}", f"pint_tpu/mpc/{line}", launches, r,
+              kernel_cost(kernel, **shape), "power" if kernel in ("lipq", "pen") else "loop")
     k2p_main = k2p["iters15"]
     entry("fused_pgd_packed (K2p)", "pint_tpu_torch/csrc/fused_pgd.cu",
           "pint_tpu/mpc/fused.py:136", k2p["launches"],
@@ -1400,7 +1597,8 @@ def main():
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
                     "flagship": flagship, "constrained_flagship": con_flagship,
                     "lti_constrained": k7}))
-    say(json.dumps({"k2p": k2p, "k10": k10, "world1": world1, "rehearsal": rehearsal}))
+    say(json.dumps({"k2p": k2p, "k10": k10, "world1": world1, "rehearsal": rehearsal,
+                    "long_horizon": long, "long_horizon_kernels": long_kernels}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

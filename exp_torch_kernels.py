@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""The MPC kernels K3 (lipq), K4's words entry (pgd_fused_words_pre), K5
+(alm_hqt) and K7 (alm_shared) of one pint_tpu_torch checkout on one card:
+their device time against their iteration counts, and the device time of
+the solves they serve.
+
+    python3 exp_torch_kernels.py [--root DIR] [--out FILE]
+
+``--root`` names the checkout whose package is measured (default: this
+one).  Two designs are compared by running the script for each in turns on
+one card, an earlier one unpacked with
+``git archive <commit> pint_tpu_torch | tar -x -C .chipwork/old``.  The
+script calls only functions that the port has had since K5 and K7 were
+first ported, and helpers of this checkout's ``chip_smoke.py``.
+
+At chip_smoke.py's RTI configuration (B = 4096, Tm = Tp = 64): K3 at 0, 1, 4
+and 16 power steps and K4's words entry at 0, 1, 10 and 30 PGD iterations,
+device ms of calls queued behind a device sleep (what is left at 0 is
+staging and write-back), and one call between CUDA events at the main-path
+counts; each held bit-identical to its plain version first.  Then 20
+RTIService ticks (host clock p50, p99) and 5 flagship 4 x 30 solves
+(solves/s), and the device time of one tick and one solve (sum over their
+device operations, torch.profiler).
+
+At chip_smoke.py's constrained configurations: K7 (B = 4096, Tp = Cp = 64,
+the LTI constrained problem) at 1 x 1, 12 x 1, 12 x 10 and 12 x 60 ALM
+iterations and K5 (B = 4096, Tp = Cp = 64, one real DeviceConstrainedSQP
+condensation) at 1 x 0, 1 x 1, 3 x 10 and 3 x 30, queued device ms, each
+held bit-identical to its plain version first; then the LTI constrained
+solve (ConstrainedPGD 12 x 60, solves/s over 5 solves and the device time
+of one) and the constrained flagship (4 SQP x (3 x 30), the same).  Prints
+one JSON line.
+
+    python3 exp_torch_kernels.py --long [--root DIR] [--out FILE]
+
+instead times the long-horizon shapes on random operands at B = 4096 (queued
+device ms): K4 at Tp = 256 and 260 (30 iterations), K3 at Tm = 256 (16 power
+steps), K6 at C = 128, Tm = 256, and K5 at Tp = 256, Cp = 128 at 3 x 30 and
+1 x 0 (staging and write-back only).
+"""
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+from statistics import median
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+_spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+CS = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(CS)
+
+TICKS, SOLVES = 20, 5
+
+
+def solve_record(timing, fn, B, reps):
+    """Host ms and solves/s of ``fn`` (a solve of B problems) and the
+    device time of one call."""
+    ms = median(timing.host_ms(fn, reps=reps))
+    ops = CS.device_kernels(torch, fn)
+    return dict(ms=ms, solves_per_s=B / (ms / 1e3),
+                device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+
+
+def constrained(P, timing):
+    """K7 and K5 against their iteration counts, the LTI constrained solve
+    and the constrained flagship."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain, alm_shared, alm_shared_plain
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT
+
+    rec, dev, B = {}, "cuda", CS.CON_BATCH
+    T, dt = CS.LTI_CON_T, 1.0 / 32.0
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    q = P.quantize_constrained(P.constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0)
+    kern = P.ConstrainedPGD(q, outer=CS.LTI_CON_OUTER, inners=CS.LTI_CON_INNERS, device=dev)
+    rng = np.random.default_rng(4)
+    x0 = np.stack([rng.uniform(-1.5, 1.5, B), rng.uniform(-0.2, 0.2, B)], -1)
+    g = torch.as_tensor(q.qqp.g_lane_fixed(x0), device=dev)
+    co = torch.as_tensor(q.c_off_pre(x0), device=dev)
+    u0 = kern.init_words(B)
+    o = kern._ops
+    args = (unpack_controls(u0), g, co, torch.zeros_like(co), o["Hq"], o["Sq"], o["lo"], o["hi"])
+    for outer, inners in ((1, 1), (12, 1), (12, 10), (CS.LTI_CON_OUTER, CS.LTI_CON_INNERS)):
+        kw = dict(outer=outer, inners=inners, g_shift=q.qqp.g_shift, y_shift=q.y_shift,
+                  **kern._rationals)
+        got, ref = alm_shared(*args, **kw), alm_shared_plain(*args, **kw)
+        CS.same(torch, f"K7 lanes at {outer}x{inners}", got[0], ref[0])
+        CS.same(torch, f"K7 lam at {outer}x{inners}", got[1], ref[1])
+        rec[f"k7_{outer}x{inners}_queued_ms"] = median(timing.queued_ms(
+            lambda: alm_shared(*args, **kw), calls=3))
+    rec["k7_call_ms"] = median(timing.cuda_ms(lambda: alm_shared(*args, **kw)))
+    rec["lti_constrained"] = solve_record(timing, lambda: kern.solve_words(u0, g, co), B, 5)
+
+    csqp = CS.make_csqp(P, 1)
+    d = csqp.dev
+    rng = np.random.default_rng(3)
+    xc = torch.as_tensor(CS.con_states(rng, B), dtype=torch.float32, device=dev)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32), device=dev)
+    ops, _ = csqp._condense_constrained_dev(xc, lanes)
+    lam = torch.as_tensor(rng.integers(0, 500, (B, csqp.padded_rows), dtype=np.int32),
+                          device=dev)
+    sc = torch.stack([ops[k] for k in RATIONALS])
+    k5_args = (lanes, ops["g_pre"], ops["hqt"], ops["sqj"], ops["sqc"], ops["c_off"],
+               ops["lo_pre"], ops["hi_pre"], lam, sc)
+    for outer, inners in ((1, 0), (1, 1), (3, 10), (csqp.alm_outer, d.pgd_iters)):
+        kw = dict(outer=outer, inners=inners, g_shift=d.g_shift, y_shift=_Y_SHIFT)
+        got, ref = alm_hqt(*k5_args, **kw), alm_hqt_plain(*k5_args, **kw)
+        CS.same(torch, f"K5 lanes at {outer}x{inners}", got[0], ref[0])
+        CS.same(torch, f"K5 lam at {outer}x{inners}", got[1], ref[1])
+        rec[f"k5_{outer}x{inners}_queued_ms"] = median(timing.queued_ms(
+            lambda: alm_hqt(*k5_args, **kw), calls=5))
+    rec["k5_call_ms"] = median(timing.cuda_ms(lambda: alm_hqt(*k5_args, **kw)))
+
+    flag = CS.make_csqp(P, 4)
+    xf = torch.as_tensor(CS.con_states(np.random.default_rng(0), B).astype(np.float32),
+                         device=dev)
+    w0 = flag.init_words(B)
+    rec["constrained_flagship"] = solve_record(timing, lambda: flag.solve_words(w0, xf), B, 3)
+    return rec
+
+
+def long_horizon(timing):
+    """The long-horizon shapes of K3, K4, K5 and K6 on random operands."""
+    from pint_tpu_torch.mpc import lipq_fused, pen_fused, pgd_hqt
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt
+
+    dev, B, rec = "cuda", 4096, {}
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def queued(fn):
+        return median(timing.queued_ms(fn, calls=3, reps=3))
+
+    for Tp in (256, 260):
+        args = (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
+                t(rng.integers(-2**18, 2**18, (B, Tp), dtype=np.int32)),
+                t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
+                t(rng.integers(1, 300, (B,), dtype=np.int32)),
+                t(rng.integers(10, 16, (B,), dtype=np.int32)))
+        rec[f"k4_Tp{Tp}_queued_ms"] = queued(lambda: pgd_hqt(*args, iters=30, g_shift=12))
+        del args
+    Ht = torch.randn((256, 256, B), device=dev)
+    rec["k3_Tm256_queued_ms"] = queued(lambda: lipq_fused(Ht, power_iters=16))
+    del Ht
+    S_t = torch.randn((128, 256, B), device=dev)
+    rec["k6_C128_Tm256_queued_ms"] = queued(lambda: pen_fused(S_t, power_iters=16))
+    del S_t
+    Tp, Cp = 256, 128
+    sq = rng.integers(-127, 128, (Cp, Tp, B), dtype=np.int8)
+    sc = np.stack([rng.integers(1, 300, B), rng.integers(10, 16, B)] * 4).astype(np.int32)
+    args = (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-2**16, 2**16, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
+            t(np.ascontiguousarray(sq.transpose(1, 0, 2))), t(sq),
+            t(rng.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
+            t(rng.integers(-2000, -100, (B, Cp), dtype=np.int32)),
+            t(rng.integers(100, 2000, (B, Cp), dtype=np.int32)),
+            t(rng.integers(0, 500, (B, Cp), dtype=np.int32)), t(sc))
+    for outer, inners in ((3, 30), (1, 0)):
+        rec[f"k5_256x128_{outer}x{inners}_queued_ms"] = queued(
+            lambda: alm_hqt(*args, outer=outer, inners=inners, g_shift=12, y_shift=9))
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="checkout whose pint_tpu_torch is measured")
+    ap.add_argument("--out", type=Path, help="also write the JSON record here")
+    ap.add_argument("--long", action="store_true",
+                    help="time the long-horizon shapes of K3-K6 instead")
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    CS.phase_device(torch)
+    import pint_tpu_torch as P
+    from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+    from pint_tpu_torch.mpc.condense_fused import lipq_fused, lipq_plain, true_div
+    from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_hqt_plain
+    from pint_tpu_torch.utils import timing
+
+    if root not in Path(P.__file__).resolve().parents:
+        raise SystemExit(f"imported {P.__file__}, not the package under {root}")
+    if args.long:
+        rec = {"root": str(root), "card": torch.cuda.get_device_name(0),
+               **long_horizon(timing)}
+        print(json.dumps(rec), flush=True)
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(rec) + "\n")
+        return
+    B, dev = CS.RTI_BATCH, "cuda"
+    sqp = P.DeviceSQP(sqp_iters=1, device=dev, **CS.SQP_KW)
+    rng = np.random.default_rng(2)
+    x0 = torch.as_tensor(CS.rti_states(rng, B), dtype=torch.float32, device=dev)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, sqp.n_dec), dtype=np.int32), device=dev)
+    Ht, g = sqp._condense_ht(x0, lanes)
+    hqt, lip, hmax = lipq_plain(Ht, power_iters=sqp.power_iters)
+    alpha = true_div(1.0, lip)
+    g_pre = sqp._g_pre_from(g, alpha)
+    _, hs_num, hs_den = sqp._lipq_rationals(alpha, hmax)
+    words = pack_controls(lanes)
+    rec = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+
+    def k3(p):
+        return lipq_fused(Ht, power_iters=p)
+
+    def k4(n):
+        return pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, iters=n,
+                                   g_shift=sqp.g_shift)
+
+    for p in (0, 1, 4, sqp.power_iters):
+        for name, a, b in zip(("hqt", "lip", "h_max"), k3(p), lipq_plain(Ht, power_iters=p)):
+            CS.same(torch, f"K3 {name} at {p} power steps", a, b)
+        rec[f"k3_power_iters_{p}_queued_ms"] = median(timing.queued_ms(lambda: k3(p)))
+    for n in (0, 1, 10, sqp.pgd_iters):
+        ref = pack_controls(pgd_hqt_plain(unpack_controls(words), g_pre, hqt, hs_num, hs_den,
+                                          iters=n, g_shift=sqp.g_shift))
+        CS.same(torch, f"K4 words entry at {n} iterations", k4(n), ref)
+        rec[f"k4_words_iters_{n}_queued_ms"] = median(timing.queued_ms(lambda: k4(n)))
+    rec["k3_call_ms"] = median(timing.cuda_ms(lambda: k3(sqp.power_iters)))
+    rec["k4_words_call_ms"] = median(timing.cuda_ms(lambda: k4(sqp.pgd_iters)))
+
+    rti = P.RTIService(P.DeviceSQP(sqp_iters=1, device=dev, **CS.SQP_KW), batch=B)
+    xr = CS.rti_states(np.random.default_rng(0), B)
+    lat = []
+    for _ in range(TICKS):
+        rti.solve(xr)
+        lat.append(rti.stats.last_latency_s * 1e3)
+    ops = CS.device_kernels(torch, lambda: rti.solve(xr))
+    rec["rti_tick"] = dict(p50_ms=CS.pct(lat, 50), p99_ms=CS.pct(lat, 99), readings_ms=lat,
+                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    flag = P.DeviceSQP(sqp_iters=4, device=dev, **CS.SQP_KW)
+    xf = torch.as_tensor(CS.rti_states(np.random.default_rng(0), B).astype(np.float32),
+                         device=dev)
+    u0 = flag.init_words(B)
+    ms = median(timing.host_ms(lambda: flag.solve_words(u0, xf), reps=SOLVES))
+    ops = CS.device_kernels(torch, lambda: flag.solve_words(u0, xf))
+    rec["flagship"] = dict(ms=ms, solves_per_s=B / (ms / 1e3),
+                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    rec.update(constrained(P, timing))
+    line = json.dumps(rec)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 // K5 and K7: the augmented-Lagrangian (ALM) inner of the state-constrained
-// tier, the whole outer x inners loop in one launch.
+// tier, the whole outer x inners loop in one launch; and K4 past 64 lanes.
 //
 // K5 replaces pint_tpu/mpc/fused_alm.py:335 (_kernel_factory, pallas_call
 // at :674 in _alm_fused_core): per-problem int8 Hessian, constraint rows and
@@ -19,37 +19,85 @@
 //   carry = step - (delta << g_shift);  u = clip(u + delta, -127, 127)
 // and after each `inners` block the multiplier update
 //   lam = clip(t - clip(t, lo, hi), -2^22, 2^22)   (t from the final u).
+// With no constraint rows and extra = 0 this is K4's PGD step
+// (csrc/pgd_hqt.cu), which alm_wide_kernel runs for K4 past 64 lanes.
 // Integer products and sums that XLA lets wrap go through common.cuh's
-// uint32_t helpers; >> of a negative int is arithmetic, as XLA's.
+// uint32_t helpers; >> of a negative int is arithmetic, as XLA's.  The
+// elementwise steps are one set of device functions (constraint_step,
+// objective_step, lam_update) shared by every design below, and each int8
+// product is exact in int32 (|acc| <= 127 * 128 * 4096 < 2^31), so the order
+// of its sum cannot change a bit.
 //
-// What bounds it on the H100: K5's operands are per problem, Hq (Tp x Tp)
-// and Sq in two orientations (2 x Cp x Tp), 12 KB at Tp = Cp = 64, 48 MB
-// at B = 4096, and every one of the 3 x 30 iterations reads all of them:
-// streamed from device memory that is ~4.4 GB a solve, so the kernel would
-// be bound by memory traffic; kept on chip it is bound by the int8 dot
-// issue rate and by the dependent chain of one iteration.  K7's operands
-// are 12 KB in all; its 12 x 60 iterations are bound by the same dot chain.
-// Design (K4's, csrc/pgd_hqt.cu, and K2's, csrc/fused_pgd.cu): a K5 block
-// takes `probs` consecutive problems and stages their matrices from the
-// batch-last layout into shared memory once, consecutive threads on
-// consecutive problems; a K7 block stages the shared matrices once.  Each
-// matrix is stored by output row (Hq by j, Sq by c for Sq u, Sq by j for
-// Sq^T y), rows padded by one word so the 32 rows a warp reads sit on
-// distinct banks.  One warp owns a problem for the whole loop: lanes,
-// linear term, carry, offsets, bounds, ey and lam live in registers, and
-// the lane vector and the two y planes are re-broadcast through shared
-// memory as packed int8, so each of the four matvecs an iteration (Hq u,
-// Sq u, Sq^T y_hi, Sq^T y_lo) is a row of __dp4a.  Only the final lanes and
-// multipliers are written.  Tensor cores (s8 wgmma) are later work.
+// K7 (alm_mma_kernel, Tp and Cp <= 256).  Bound at the main-path shape (B =
+// 4096, Tp = Cp = 64, 12 x 60): 97 G int8 operations, 0.049 ms at the tensor
+// cores' 1,979 TOP/s.  The first design (one warp a problem, each of the four
+// matvecs of an iteration a row of __dp4a whose two operands were both read
+// from shared memory by 4-byte loads: ~224 a lane an iteration) took 3.34 ms
+// on one H100 80GB HBM3, bound by shared-memory load issue (~5.0M warp-wide
+// loads an SM), and spilled.  Here the operands are shared by every problem,
+// so each of the four matvecs is a product across the batch, (16 problems x
+// Tp) int8 times a Tp x Tp or Cp x Tp matrix, run on the tensor cores by
+// mma.sync m16n8k32 s8 -> s32.  Tp and Cp pad to W = 32, 64, 128 or 256; a
+// block owns a tile of 16 problems for the whole loop and each of its warps
+// the output columns of one (two at W = 256) group of 8 of every product.
+// The B fragments of Hq, Sq and Sq^T (zero past Tp and Cp, so Tp = 20 or 52
+// stays exact) are built once a block from global memory and held in
+// registers, or at W = 256 in shared memory in register order (3 x 64 KB,
+// read by conflict-free 4-byte loads); the state (lanes, g, carry, c_off,
+// lam, ey) lives in registers in the accumulator's layout.  Each iteration
+// rebuilds the A operand (u, then y_hi and y_lo) through a 16 x W byte tile
+// in shared memory (rows padded by 16 bytes: the fragment loads are free of
+// bank conflicts), one 32-byte k-chunk at a time, with 2 barriers an
+// iteration.  Problems past B are zero rows that are never stored.  0.454 ms
+// at the main-path shape on the same card; what is left is the elementwise
+// integer work of the loop.
+//
+// K5 (alm_reg_kernel, Tp and Cp <= 64).  Bound at the main-path shape (B =
+// 4096, Tp = Cp = 64, 3 x 30): each problem's hqt, one orientation of Sq
+// (sqc), lanes, g, offsets, bounds, multipliers and rationals read once and
+// its lanes and multipliers written once, 42 MB, 0.0126 ms at 3.35 TB/s.
+// The first design (0.807 ms on the same card) staged 16 problems a block
+// with 1-byte loads out of the batch-last layout, never overlapped with
+// compute, then issued the same ~224 shared loads a lane an iteration as
+// K7's.  Here (K4's design, csrc/pgd_hqt.cu) a persistent grid walks groups
+// of 8 problems, one warp each; a group's hqt and sqc rows land by 8-byte
+// cp.async (8 problems' bytes of one row kj) into one landing buffer, which
+// the next group's copies refill while this group iterates; __byte_perm
+// gathers turn the landed bytes into each problem's Hq rows, Sq rows by c
+// and Sq rows by j, held in registers (96 words a lane at Tp = Cp = 64).  An
+// iteration then issues 128 __dp4a from registers and reads only the
+// broadcast vectors u, y_hi and y_lo from shared memory, 16 bytes a load (~12
+// a lane).  A batch that is not a multiple of 8 stages the same layout with
+// byte loads.  sqj is not read.  0.221 ms on the same card.
+//
+// K5 and K4 past 64 (alm_wide_kernel; the long-horizon path runs it at Tp =
+// 256, Cp = 128 for K5, and at Tp = 256 and 288 for K4): one problem a
+// cluster of NC = 1, 2, 4 or 8 blocks, the fewest whose shared memory holds
+// the problem's rows.  Block r of the cluster holds slice r of the rows j of
+// Hq and of Sq by j (from sqj) and slice r of the rows c of Sq by c, one row
+// a thread, and the whole broadcast vectors u (two buffers) and y_hi, y_lo.
+// An iteration reads its rows by 16-byte loads (rows padded to an odd number
+// of 16 bytes: free of bank conflicts) against the broadcast vectors, and
+// each thread writes its y and then its new u into every block of the
+// cluster through distributed shared memory, with a cluster barrier after
+// each (one for K4).  This reaches the reference's own fits (pgd_viable Tp
+// <= 632, alm_viable), where one problem's rows outgrow one block.  Rows
+// are staged by byte loads out of the batch-last layout, one problem at a
+// time; neighbouring clusters read neighbouring problems of each 32-byte
+// sector, so the sectors come from L2.
 //
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLamCap = 1 << 22;
 constexpr int kYCap = (1 << 13) - 1;
-constexpr int kSharedWarps = 8;
+constexpr int kGroup = 8;  // K5 problems a group, one warp each: 8 bytes a row kj
 
 struct Rationals {
   int hs_num, hs_den, cs_num, cs_den, eh_num, eh_den, el_num, el_den;
@@ -59,309 +107,838 @@ __device__ __forceinline__ int shr_mul(int acc, int num, int den) {
   return pint::wrap_mul(acc, num) >> den;
 }
 
-// One problem's whole ALM loop, run by one warp.  H is Hq by rows j,
-// Sc is Sq by rows c (both row stride Tp + 4), Sj is Sq by rows j (row
-// stride Cp + 4); s_lane (Tp), s_yhi and s_ylo (Cp) are this warp's
-// broadcast buffers.  lanes/g/out_lanes point at the problem's Tp values,
-// coff/lo/hi/lam0/out_lam at its Cp values.  N >= ceil(max(Tp, Cp) / 32).
-template <int N>
-__device__ void alm_problem(const int8_t* __restrict__ H,
-                            const int8_t* __restrict__ Sc,
-                            const int8_t* __restrict__ Sj, int8_t* s_lane,
-                            int8_t* s_yhi, int8_t* s_ylo,
-                            const int* __restrict__ lanes,
-                            const int* __restrict__ g,
-                            const int* __restrict__ coff,
-                            const int* __restrict__ lo,
-                            const int* __restrict__ hi,
-                            const int* __restrict__ lam0,
-                            int* __restrict__ out_lanes,
-                            int* __restrict__ out_lam, const Rationals r,
-                            int Tp, int Cp, int outer, int inners, int g_shift,
-                            int y_shift) {
-  const int lane = threadIdx.x & 31;
-  const int tw = Tp >> 2, cw = Cp >> 2;
-  const int hs = Tp + 4, js = Cp + 4;
+// The constraint side of an iteration from acc = (Sq u)[c]: returns the
+// 14-bit violation y14 and updates eyh, which carries ey + y_half (ey the
+// error feedback), so the rounding offset costs no add an iteration:
+//   yy = t - clip(t, lo, hi) + ey + y_half,  y14 = clip(yy >> y_shift),
+//   eyh' = yy - (y14 << y_shift) = ey' + y_half.
+// negys = -(1 << y_shift): the shift-and-subtract is one multiply-add.
+__device__ __forceinline__ int constraint_step(int acc, int co, int lam, int lo,
+                                               int hi, int& eyh, const Rationals& r,
+                                               int negys, int y_shift) {
+  const int t =
+      pint::wrap_add(pint::wrap_add(shr_mul(acc, r.cs_num, r.cs_den), co), lam);
+  const int yy = pint::wrap_add(pint::wrap_sub(t, pint::clampi(t, lo, hi)), eyh);
+  const int y14 = pint::clampi(yy >> y_shift, -kYCap, kYCap);
+  eyh = pint::wrap_add(yy, pint::wrap_mul(y14, negys));
+  return y14;
+}
+
+// The objective side and the update of one lane from acc = (Hq u)[j] and
+// the two halves of the penalty gradient eh, el = (Sq^T y_hi/lo)[j].  ch
+// carries carry + half, so step + half is four subtractions:
+//   sh = ch - pre - g - eh' - el',  delta = clip(sh >> g_shift),
+//   ch' = sh - (delta << g_shift) = carry' + half.
+// negg = -(1 << g_shift).  Every sum wraps, so the order is free.
+__device__ __forceinline__ void objective_step(int acc, int eh, int el, int gj,
+                                               int& ch, int& x, const Rationals& r,
+                                               int negg, int g_shift) {
+  int sh = pint::wrap_sub(pint::wrap_sub(ch, shr_mul(acc, r.hs_num, r.hs_den)), gj);
+  sh = pint::wrap_sub(pint::wrap_sub(sh, shr_mul(eh, r.eh_num, r.eh_den)),
+                      shr_mul(el, r.el_num, r.el_den));
+  const int delta = pint::clampi(sh >> g_shift, -128, 127);
+  ch = pint::wrap_add(sh, pint::wrap_mul(delta, negg));
+  x = pint::clampi(x + delta, -127, 127);
+}
+
+// The multiplier update from acc = (Sq u)[c] at the inner solution.
+__device__ __forceinline__ int lam_update(int acc, int co, int lam, int lo, int hi,
+                                          const Rationals& r) {
+  const int t =
+      pint::wrap_add(pint::wrap_add(shr_mul(acc, r.cs_num, r.cs_den), co), lam);
+  return pint::clampi(pint::wrap_sub(t, pint::clampi(t, lo, hi)), -kLamCap, kLamCap);
+}
+
+// -- K7: the four matvecs on the tensor cores (Tp, Cp <= 256) ----------------
+
+// d += a . b, one m16n8k32 tile: a the 16 x 32 int8 A fragment (row), b the
+// 32 x 8 int8 B fragment (col), d the 16 x 8 int32 accumulator.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of k-chunk kc of the 16 x W byte tile `t` (row stride RS):
+// rows (g, g+8) x bytes kc*32 + 4tq (+16).
+template <int RS>
+__device__ __forceinline__ void load_a(const unsigned char* t, int gq, int tq, int kc,
+                                       uint32_t (&a)[4]) {
+  const unsigned char* p = t + gq * RS + kc * 32 + tq * 4;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * RS);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * RS + 16);
+}
+
+// The low bytes of v[0], v[1] (row g) and v[2], v[3] (row g+8) at columns
+// col, col + 1 of the byte tile `t`.
+template <int RS>
+__device__ __forceinline__ void store_pairs(unsigned char* t, int gq, int col,
+                                            const int (&v)[4]) {
+  *reinterpret_cast<uint16_t*>(t + gq * RS + col) =
+      (uint16_t)__byte_perm(v[0], v[1], 0x0040);
+  *reinterpret_cast<uint16_t*>(t + (gq + 8) * RS + col) =
+      (uint16_t)__byte_perm(v[2], v[3], 0x0040);
+}
+
+// K7's shape at W: NG column groups of 8 a warp, NW warps, and whether the
+// B fragments live in shared memory (at W = 256 three sets of 48 registers a
+// thread would not fit beside the state).  At W = 256 a warp owns two
+// column groups (16 warps of up to 128 registers), and the k-chunk loops
+// stay rolled, so the fragment loads of all chunks are not hoisted into
+// registers at once.
+template <int W>
+struct MmaShape {
+  static constexpr int KC = W / 32;              // k-chunks of 32 bytes
+  static constexpr int RS = W + 16;              // tile row stride
+  static constexpr int NG = W > 128 ? 2 : 1;     // column groups a warp
+  static constexpr int NW = W / 8 / NG;          // warps a block
+  static constexpr bool SMEM_B = W > 128;
+  static constexpr size_t tiles = 3 * 16 * RS;   // u, y_hi, y_lo tiles
+  static constexpr size_t bytes = tiles + (SMEM_B ? (size_t)3 * W * W : 0);
+};
+
+// A block (MmaShape<W>::NW warps) runs tiles of 16 problems with a grid
+// stride; thread (warp w, group gq, tq) holds, for each of its column groups
+// n = w + NW * i, the elements e of rows gq + 8 (e >> 1), columns 8n + 2tq +
+// (e & 1) of every product, which are its lanes j and its constraint rows c.
+// The padding runs the same steps with no branch: a lane j >= Tp has zero Hq
+// and Sq columns and g = 0, so it stays 0; a row c >= Cp has zero Sq row,
+// offset, bounds and multiplier, so its y and lam stay 0.  Only the stores
+// mask.
+template <int W>
+__global__ void __launch_bounds__(MmaShape<W>::NW * 32)
+alm_mma_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
+               const int* __restrict__ coff, const int* __restrict__ lam0,
+               const int8_t* __restrict__ hq, const int8_t* __restrict__ sq,
+               const int* __restrict__ lo, const int* __restrict__ hi,
+               int* __restrict__ out_lanes, int* __restrict__ out_lam, int B,
+               int Tp, int Cp, int outer, int inners, int g_shift, int y_shift,
+               Rationals r) {
+  using S = MmaShape<W>;
+  constexpr int KC = S::KC, RS = S::RS, NG = S::NG, NW = S::NW;
+  constexpr int KU = S::SMEM_B ? 1 : KC;  // k-chunks unrolled in the products
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* s_u = smem;
+  unsigned char* s_yh = s_u + 16 * RS;
+  unsigned char* s_yl = s_yh + 16 * RS;
+  uint32_t* s_b = reinterpret_cast<uint32_t*>(smem + S::tiles);  // SMEM_B
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
   const int half = 1 << (g_shift - 1);
   const int y_half = (1 << y_shift) >> 1;
-  const int* lw = reinterpret_cast<const int*>(s_lane);
-  const int* yhw = reinterpret_cast<const int*>(s_yhi);
-  const int* ylw = reinterpret_cast<const int*>(s_ylo);
+  const int negg = -(1 << g_shift), negys = -(1 << y_shift);
+  int col[NG];
+#pragma unroll
+  for (int i = 0; i < NG; ++i) col[i] = 8 * (warp + NW * i) + 2 * tq;
 
-  int x[N], gj[N], carry[N];
-  int co[N], clo[N], chi[N], lam[N], ey[N];
+  // B fragments (m = 0 Hq, 1 Sq, 2 Sq^T) for output column n = 8(w + NW i)
+  // + gq: bytes k0..k0+3 of column n, in registers or in shared memory at
+  // word ((m * W/8 + column group) * KC + kc) * 64 + h * 32 + lane
+  uint32_t breg[S::SMEM_B ? 1 : 3][NG][S::SMEM_B ? 1 : KC][2];
 #pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const int j = lane + 32 * q;
-    x[q] = j < Tp ? lanes[j] : 0;
-    gj[q] = j < Tp ? g[j] : 0;
-    carry[q] = 0;
-    const int c = j;
-    co[q] = c < Cp ? coff[c] : 0;
-    clo[q] = c < Cp ? lo[c] : 0;
-    chi[q] = c < Cp ? hi[c] : 0;
-    lam[q] = c < Cp ? lam0[c] : 0;
-    ey[q] = 0;
-  }
-
-  for (int o = 0; o < outer; ++o) {
-    for (int it = 0; it < inners; ++it) {
-      __syncwarp();
+  for (int i = 0; i < NG; ++i) {
+    const int grp = warp + NW * i;
+    const int n = 8 * grp + gq;
 #pragma unroll
-      for (int q = 0; q < N; ++q) {
-        const int j = lane + 32 * q;
-        if (j < Tp) s_lane[j] = (int8_t)x[q];
-      }
-      __syncwarp();
-      // constraint side: t, the violation y and its 14-bit split
+    for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
-      for (int q = 0; q < N; ++q) {
-        const int c = lane + 32 * q;
-        if (c < Cp) {
-          const int acc =
-              pint::dot_i8(reinterpret_cast<const int*>(Sc + c * hs), lw, tw);
-          const int t = pint::wrap_add(
-              pint::wrap_add(shr_mul(acc, r.cs_num, r.cs_den), co[q]), lam[q]);
-          const int y = pint::wrap_add(
-              pint::wrap_sub(t, pint::clampi(t, clo[q], chi[q])), ey[q]);
-          const int y14 =
-              pint::clampi(pint::wrap_add(y, y_half) >> y_shift, -kYCap, kYCap);
-          ey[q] = pint::wrap_sub(y, pint::wrap_shl(y14, y_shift));
-          const int yh = y14 >> 7;
-          s_yhi[c] = (int8_t)yh;
-          s_ylo[c] = (int8_t)(y14 - (yh << 7));
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = kc * 32 + h * 16 + tq * 4;
+        uint32_t w[3] = {0, 0, 0};
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int k = k0 + b;
+          const uint32_t vh = n < Tp && k < Tp ? (uint8_t)hq[n * Tp + k] : 0;  // Hq[j][k]
+          const uint32_t vs = n < Cp && k < Tp ? (uint8_t)sq[n * Tp + k] : 0;  // Sq[c][j]
+          const uint32_t vj = n < Tp && k < Cp ? (uint8_t)sq[k * Tp + n] : 0;  // Sq[c][j]
+          w[0] |= vh << (8 * b);
+          w[1] |= vs << (8 * b);
+          w[2] |= vj << (8 * b);
         }
-      }
-      __syncwarp();
-      // objective side and the penalty gradient, then the update
 #pragma unroll
-      for (int q = 0; q < N; ++q) {
-        const int j = lane + 32 * q;
-        if (j < Tp) {
-          const int acc =
-              pint::dot_i8(reinterpret_cast<const int*>(H + j * hs), lw, tw);
-          const int* srow = reinterpret_cast<const int*>(Sj + j * js);
-          const int eh = pint::dot_i8(srow, yhw, cw);
-          const int el = pint::dot_i8(srow, ylw, cw);
-          const int extra = pint::wrap_add(shr_mul(eh, r.eh_num, r.eh_den),
-                                           shr_mul(el, r.el_num, r.el_den));
-          const int sum = pint::wrap_add(
-              pint::wrap_add(shr_mul(acc, r.hs_num, r.hs_den), gj[q]), extra);
-          const int step = pint::wrap_add(pint::wrap_sub(0, sum), carry[q]);
-          const int delta =
-              pint::clampi(pint::wrap_add(step, half) >> g_shift, -128, 127);
-          carry[q] = pint::wrap_sub(step, pint::wrap_shl(delta, g_shift));
-          x[q] = pint::clampi(x[q] + delta, -127, 127);
+        for (int m = 0; m < 3; ++m) {
+          if constexpr (S::SMEM_B)
+            s_b[((m * (W / 8) + grp) * KC + kc) * 64 + h * 32 + lane] = w[m];
+          else
+            breg[m][i][kc][h] = w[m];
         }
       }
     }
-    // multiplier update from the exact int32 violation at the inner solution
-    __syncwarp();
+  }
+  // the B fragment (word h) of matrix m, column group i, k-chunk kc
+  auto bw = [&](int m, int i, int kc, int h) -> uint32_t {
+    if constexpr (S::SMEM_B)
+      return s_b[((m * (W / 8) + warp + NW * i) * KC + kc) * 64 + h * 32 + lane];
+    else
+      return breg[m][i][kc][h];
+  };
+  int clo[NG][2], chi[NG][2];
 #pragma unroll
-    for (int q = 0; q < N; ++q) {
-      const int j = lane + 32 * q;
-      if (j < Tp) s_lane[j] = (int8_t)x[q];
+  for (int i = 0; i < NG; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      clo[i][e] = col[i] + e < Cp ? lo[col[i] + e] : 0;
+      chi[i][e] = col[i] + e < Cp ? hi[col[i] + e] : 0;
     }
-    __syncwarp();
+
+  const int ntiles = (B + 15) / 16;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // ch: carry + half; eyh: ey + y_half
+    int x[NG][4], gj[NG][4], ch[NG][4], co[NG][4], lam[NG][4], eyh[NG][4];
 #pragma unroll
-    for (int q = 0; q < N; ++q) {
-      const int c = lane + 32 * q;
-      if (c < Cp) {
-        const int acc =
-            pint::dot_i8(reinterpret_cast<const int*>(Sc + c * hs), lw, tw);
-        const int t = pint::wrap_add(
-            pint::wrap_add(shr_mul(acc, r.cs_num, r.cs_den), co[q]), lam[q]);
-        lam[q] = pint::clampi(pint::wrap_sub(t, pint::clampi(t, clo[q], chi[q])),
-                              -kLamCap, kLamCap);
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = tile * 16 + gq + 8 * (e >> 1);
+        const int c = col[i] + (e & 1);
+        const bool jb = b < B && c < Tp, cb = b < B && c < Cp;
+        x[i][e] = jb ? lanes[(size_t)b * Tp + c] : 0;
+        gj[i][e] = jb ? g[(size_t)b * Tp + c] : 0;
+        co[i][e] = cb ? coff[(size_t)b * Cp + c] : 0;
+        lam[i][e] = cb ? lam0[(size_t)b * Cp + c] : 0;
+        ch[i][e] = half;
+        eyh[i][e] = y_half;
+      }
+    __syncthreads();  // the B fragments are staged; the last tile's readers are done
+#pragma unroll
+    for (int i = 0; i < NG; ++i) store_pairs<RS>(s_u, gq, col[i], x[i]);
+    for (int o = 0; o < outer; ++o) {
+      for (int it = 0; it < inners; ++it) {
+        __syncthreads();  // s_u holds u; every read of s_yh, s_yl is done
+        int ds[NG][4] = {}, dh[NG][4] = {};
+#pragma unroll(KU)
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t a[4];
+          load_a<RS>(s_u, gq, tq, kc, a);
+#pragma unroll
+          for (int i = 0; i < NG; ++i) {
+            mma_s8(ds[i], a, bw(1, i, kc, 0), bw(1, i, kc, 1));  // (Sq u)[c]
+            mma_s8(dh[i], a, bw(0, i, kc, 0), bw(0, i, kc, 1));  // (Hq u)[j]
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          int yh[4], yl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int y14 = constraint_step(ds[i][e], co[i][e], lam[i][e], clo[i][e & 1],
+                                            chi[i][e & 1], eyh[i][e], r, negys, y_shift);
+            yh[e] = y14 >> 7;
+            yl[e] = y14 & 0x7F;
+          }
+          store_pairs<RS>(s_yh, gq, col[i], yh);
+          store_pairs<RS>(s_yl, gq, col[i], yl);
+        }
+        __syncthreads();  // s_yh, s_yl complete; every read of s_u is done
+        int de[NG][4] = {}, dl[NG][4] = {};
+#pragma unroll(KU)
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t a[4];
+          load_a<RS>(s_yh, gq, tq, kc, a);
+#pragma unroll
+          for (int i = 0; i < NG; ++i)
+            mma_s8(de[i], a, bw(2, i, kc, 0), bw(2, i, kc, 1));  // (Sq^T y_hi)[j]
+          load_a<RS>(s_yl, gq, tq, kc, a);
+#pragma unroll
+          for (int i = 0; i < NG; ++i)
+            mma_s8(dl[i], a, bw(2, i, kc, 0), bw(2, i, kc, 1));  // (Sq^T y_lo)[j]
+        }
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            objective_step(dh[i][e], de[i][e], dl[i][e], gj[i][e], ch[i][e], x[i][e], r,
+                           negg, g_shift);
+          store_pairs<RS>(s_u, gq, col[i], x[i]);
+        }
+      }
+      // multiplier update from the exact int32 violation at the inner solution
+      __syncthreads();
+      int ds[NG][4] = {};
+#pragma unroll(KU)
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t a[4];
+        load_a<RS>(s_u, gq, tq, kc, a);
+#pragma unroll
+        for (int i = 0; i < NG; ++i) mma_s8(ds[i], a, bw(1, i, kc, 0), bw(1, i, kc, 1));
+      }
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          lam[i][e] = lam_update(ds[i][e], co[i][e], lam[i][e], clo[i][e & 1],
+                                 chi[i][e & 1], r);
+    }
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int b = tile * 16 + gq + 8 * (e >> 1);
+        const int c = col[i] + (e & 1);
+        if (b < B && c < Tp) out_lanes[(size_t)b * Tp + c] = x[i][e];
+        if (b < B && c < Cp) out_lam[(size_t)b * Cp + c] = lam[i][e];
+      }
+  }
+}
+
+// -- K5: each problem's rows in registers (Tp, Cp <= 64) ---------------------
+
+// Byte p of the 8-byte landed rows r0, r0 + st, r0 + 2 st, r0 + 3 st of
+// `land`, as one word (the first row in the low byte).
+__device__ __forceinline__ uint32_t gather4(const unsigned char* land, int r0, int st,
+                                            int p) {
+  const int sel = (p & 3) | ((p & 3) + 4) << 4;
+  const unsigned char* b = land + (p & 4);
+  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(b + (size_t)r0 * 8);
+  const uint32_t w1 = *reinterpret_cast<const uint32_t*>(b + (size_t)(r0 + st) * 8);
+  const uint32_t w2 = *reinterpret_cast<const uint32_t*>(b + (size_t)(r0 + 2 * st) * 8);
+  const uint32_t w3 = *reinterpret_cast<const uint32_t*>(b + (size_t)(r0 + 3 * st) * 8);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+}
+
+// sum of __dp4a over the words of one row held in registers against a
+// broadcast vector of 16-byte chunks (two partial sums: shorter chains;
+// the int32 sum is exact)
+template <int NW>
+__device__ __forceinline__ int dot_regs(const uint32_t (&row)[NW],
+                                        const uint4 (&v)[NW / 4]) {
+  int a = 0, b = 0;
+#pragma unroll
+  for (int ch = 0; ch < NW / 4; ++ch) {
+    int& s = ch & 1 ? b : a;
+    s = __dp4a((int)row[4 * ch], (int)v[ch].x, s);
+    s = __dp4a((int)row[4 * ch + 1], (int)v[ch].y, s);
+    s = __dp4a((int)row[4 * ch + 2], (int)v[ch].z, s);
+    s = __dp4a((int)row[4 * ch + 3], (int)v[ch].w, s);
+  }
+  return a + b;
+}
+
+template <int NC>
+__device__ __forceinline__ void load_vec(const int8_t* v, int n, uint4 (&out)[NC]) {
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch)
+    out[ch] = 16 * ch < n ? *reinterpret_cast<const uint4*>(v + 16 * ch)
+                          : make_uint4(0, 0, 0, 0);
+}
+
+// Shared-memory layout of alm_reg_kernel: the landing buffer of one group,
+// hqt as [k][j][8] and sqc as [c][j][8] with rows of Tp + 1 (so a warp's
+// gathers down a column meet at most 2-way bank conflicts), then each
+// warp's broadcast vectors u, y_hi, y_lo (each rounded up to 16 bytes).
+struct RegLayout {
+  int ss;        // sqc landing row stride, in 8-byte units
+  size_t land_s; // offset of the sqc landing
+  size_t vec;    // offset of the broadcast vectors
+  int tp16, cp16;
+  size_t bytes;
+};
+
+__host__ __device__ inline RegLayout reg_layout(int Tp, int Cp) {
+  RegLayout l;
+  l.ss = Tp + 1;
+  l.land_s = (size_t)Tp * Tp * 8;
+  l.vec = l.land_s + (((size_t)Cp * l.ss * 8 + 15) & ~(size_t)15);
+  l.tp16 = (Tp + 15) & ~15;
+  l.cp16 = (Cp + 15) & ~15;
+  l.bytes = l.vec + (size_t)kGroup * (l.tp16 + 2 * l.cp16);
+  return l;
+}
+
+// NJ = 1 (Tp, Cp <= 32) or 2 (<= 64): lane l holds rows l + 32q, q < NJ.
+template <int NJ>
+__global__ void __launch_bounds__(kGroup * 32, 1)
+alm_reg_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
+               const int8_t* __restrict__ hqt, const int8_t* __restrict__ sqc,
+               const int* __restrict__ coff, const int* __restrict__ lo,
+               const int* __restrict__ hi, const int* __restrict__ lam0,
+               const int* __restrict__ sc, int* __restrict__ out_lanes,
+               int* __restrict__ out_lam, int B, int Tp, int Cp, int outer,
+               int inners, int g_shift, int y_shift, int async) {
+  constexpr int NW = 8 * NJ;  // words a row, at most
+  constexpr int NC = 2 * NJ;  // 16-byte chunks a vector, at most
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RegLayout lay = reg_layout(Tp, Cp);
+  unsigned char* land_h = smem;
+  unsigned char* land_s = smem + lay.land_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int8_t* s_lane = reinterpret_cast<int8_t*>(smem + lay.vec) +
+                   warp * (lay.tp16 + 2 * lay.cp16);
+  int8_t* s_yhi = s_lane + lay.tp16;
+  int8_t* s_ylo = s_yhi + lay.cp16;
+  const int tw = Tp >> 2, cw = Cp >> 2;
+  const int half = 1 << (g_shift - 1);
+  const int y_half = (1 << y_shift) >> 1;
+  const int negg = -(1 << g_shift), negys = -(1 << y_shift);
+  const int ngroups = (B + kGroup - 1) / kGroup;
+
+  // the vectors' pad bytes stay zero: nothing below writes them
+  for (size_t i = lay.vec + threadIdx.x * 16; i < lay.bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(smem + i) = make_uint4(0, 0, 0, 0);
+
+  auto issue = [&](int t) {  // group t of this block -> the landing buffer
+    const int grp = blockIdx.x + t * gridDim.x;
+    if (grp < ngroups) {
+      const size_t b0 = (size_t)grp * kGroup;
+      for (int kj = threadIdx.x; kj < Tp * Tp; kj += blockDim.x)
+        pint::cp_async8(land_h + (size_t)kj * 8, hqt + (size_t)kj * B + b0);
+      for (int cj = threadIdx.x; cj < Cp * Tp; cj += blockDim.x) {
+        const int c = cj / Tp;
+        pint::cp_async8(land_s + ((size_t)c * lay.ss + cj - c * Tp) * 8,
+                        sqc + (size_t)cj * B + b0);
+      }
+    }
+    pint::cp_async_commit();
+  };
+  if (async) issue(0);
+
+  for (int t = 0;; ++t) {
+    const int grp = blockIdx.x + t * gridDim.x;
+    if (grp >= ngroups) break;
+    const int b0 = grp * kGroup;
+    const int nb = min(kGroup, B - b0);
+    if (async) {
+      pint::cp_async_wait<0>();
+    } else {
+      // the same layout from byte loads, zero past the batch
+      for (int i = threadIdx.x; i < Tp * Tp * kGroup; i += blockDim.x) {
+        const int p = i % kGroup, kj = i / kGroup;
+        land_h[i] = p < nb ? (unsigned char)hqt[(size_t)kj * B + b0 + p] : 0;
+      }
+      for (int i = threadIdx.x; i < Cp * Tp * kGroup; i += blockDim.x) {
+        const int p = i % kGroup, cj = i / kGroup, c = cj / Tp;
+        land_s[((size_t)c * lay.ss + cj - c * Tp) * 8 + p] =
+            p < nb ? (unsigned char)sqc[(size_t)cj * B + b0 + p] : 0;
+      }
+    }
+    __syncthreads();
+
+    // this warp's problem: Hq rows j, Sq rows by c and by j, into registers
+    uint32_t hr[NJ][NW], sr[NJ][NW], jr[NJ][NW];
+#pragma unroll
+    for (int q = 0; q < NJ; ++q) {
+      const int rw = lane + 32 * q;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        hr[q][w] = rw < Tp && w < tw ? gather4(land_h, 4 * w * Tp + rw, Tp, warp) : 0;
+        sr[q][w] = rw < Cp && w < tw ? gather4(land_s, rw * lay.ss + 4 * w, 1, warp) : 0;
+        jr[q][w] = rw < Tp && w < cw ? gather4(land_s, 4 * w * lay.ss + rw, lay.ss, warp)
+                                     : 0;
+      }
+    }
+    __syncthreads();  // the landing buffer is free
+    if (async) issue(t + 1);
+
+    if (warp < nb) {
+      const int b = b0 + warp;
+      const Rationals r{sc[b],         sc[B + b],     sc[2 * B + b],
+                        sc[3 * B + b], sc[4 * B + b], sc[5 * B + b],
+                        sc[6 * B + b], sc[7 * B + b]};
+      const size_t bt = (size_t)b * Tp, bc = (size_t)b * Cp;
+      int x[NJ], gj[NJ], ch[NJ], co[NJ], clo[NJ], chi[NJ], lam[NJ], eyh[NJ];
+#pragma unroll
+      for (int q = 0; q < NJ; ++q) {
+        const int j = lane + 32 * q;
+        x[q] = j < Tp ? lanes[bt + j] : 0;
+        gj[q] = j < Tp ? g[bt + j] : 0;
+        co[q] = j < Cp ? coff[bc + j] : 0;
+        clo[q] = j < Cp ? lo[bc + j] : 0;
+        chi[q] = j < Cp ? hi[bc + j] : 0;
+        lam[q] = j < Cp ? lam0[bc + j] : 0;
+        ch[q] = half;    // carry + half
+        eyh[q] = y_half; // ey + y_half
+      }
+      for (int o = 0; o < outer; ++o) {
+        for (int it = 0; it < inners; ++it) {
+          __syncwarp();
+#pragma unroll
+          for (int q = 0; q < NJ; ++q)
+            if (lane + 32 * q < Tp) s_lane[lane + 32 * q] = (int8_t)x[q];
+          __syncwarp();
+          uint4 lv[NC];
+          load_vec<NC>(s_lane, Tp, lv);
+#pragma unroll
+          for (int q = 0; q < NJ; ++q) {
+            const int c = lane + 32 * q;
+            if (c < Cp) {
+              const int y14 = constraint_step(dot_regs<NW>(sr[q], lv), co[q], lam[q],
+                                              clo[q], chi[q], eyh[q], r, negys, y_shift);
+              s_yhi[c] = (int8_t)(y14 >> 7);
+              s_ylo[c] = (int8_t)(y14 & 0x7F);
+            }
+          }
+          __syncwarp();
+          uint4 yh[NC], yl[NC];
+          load_vec<NC>(s_yhi, Cp, yh);
+          load_vec<NC>(s_ylo, Cp, yl);
+#pragma unroll
+          for (int q = 0; q < NJ; ++q)
+            if (lane + 32 * q < Tp)
+              objective_step(dot_regs<NW>(hr[q], lv), dot_regs<NW>(jr[q], yh),
+                             dot_regs<NW>(jr[q], yl), gj[q], ch[q], x[q], r,
+                             negg, g_shift);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < NJ; ++q)
+          if (lane + 32 * q < Tp) s_lane[lane + 32 * q] = (int8_t)x[q];
+        __syncwarp();
+        uint4 lv[NC];
+        load_vec<NC>(s_lane, Tp, lv);
+#pragma unroll
+        for (int q = 0; q < NJ; ++q)
+          if (lane + 32 * q < Cp)
+            lam[q] = lam_update(dot_regs<NW>(sr[q], lv), co[q], lam[q], clo[q],
+                                chi[q], r);
+      }
+#pragma unroll
+      for (int q = 0; q < NJ; ++q) {
+        const int j = lane + 32 * q;
+        if (j < Tp) out_lanes[bt + j] = x[q];
+        if (j < Cp) out_lam[bc + j] = lam[q];
       }
     }
   }
+  pint::cp_async_wait<0>();
+}
+
+// -- K5 and K4 past 64: one problem a cluster of blocks ----------------------
+
+// n rounded up to an odd number of 16 bytes (n > 0): a row stride whose
+// 16-byte loads by consecutive threads meet no bank conflict
+__host__ __device__ inline int odd16(int n) {
+  const int n16 = (n + 15) & ~15;
+  return (n16 / 16) % 2 ? n16 : n16 + 16;
+}
+
+// Shared memory of one block of alm_wide_kernel, a cluster of nc blocks:
+// rj rows of Hq and of Sq by j, rc rows of Sq by c, the two u buffers and
+// y_hi, y_lo (each rounded up to 16 bytes).
+struct WideLayout {
+  int rj, rc, hs, js, tp16, cp16, threads;
+  size_t sc, sj, u, y, bytes;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int Tp, int Cp, int nc) {
+  WideLayout l;
+  l.rj = (Tp + nc - 1) / nc;
+  l.rc = (Cp + nc - 1) / nc;
+  l.hs = odd16(Tp);
+  l.js = Cp ? odd16(Cp) : 0;
+  l.tp16 = (Tp + 15) & ~15;
+  l.cp16 = (Cp + 15) & ~15;
+  l.threads = ((l.rj > l.rc ? l.rj : l.rc) + 31) & ~31;
+  l.sc = (size_t)l.rj * l.hs;
+  l.sj = l.sc + (size_t)l.rc * l.hs;
+  l.u = l.sj + (size_t)l.rj * l.js;
+  l.y = l.u + 2 * (size_t)l.tp16;
+  l.bytes = l.y + 2 * (size_t)l.cp16;
+  return l;
+}
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kWideThreads = 512;  // a row a thread, 128 registers a thread
+
+// The fewest blocks a cluster (1, 2, 4 or 8) whose rows fit; 0 if none.
+int wide_cluster(int Tp, int Cp) {
+  for (int nc = 1; nc <= kMaxCluster; nc *= 2) {
+    const WideLayout l = wide_layout(Tp, Cp, nc);
+    if (l.bytes <= kPintMaxSmem && l.threads <= kWideThreads) return nc;
+  }
+  return 0;
+}
+
+// int8 dot of a row and a broadcast vector, `chunks` 16-byte chunks each
+// (two partial sums: shorter chains; the int32 sum is exact)
+__device__ __forceinline__ int dot16(const int8_t* row, const int8_t* v, int chunks) {
+  int a = 0, b = 0;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const uint4 r = *reinterpret_cast<const uint4*>(row + 16 * ch);
+    const uint4 x = *reinterpret_cast<const uint4*>(v + 16 * ch);
+    int& s = ch & 1 ? b : a;
+    s = __dp4a((int)r.x, (int)x.x, s);
+    s = __dp4a((int)r.y, (int)x.y, s);
+    s = __dp4a((int)r.z, (int)x.z, s);
+    s = __dp4a((int)r.w, (int)x.w, s);
+  }
+  return a + b;
+}
+
+// Stage n bytes: byte i from src[from(i)] (no byte where from(i) < 0) to
+// dst[to(i)], the block's threads each keeping kStageLoads loads in flight
+// (the gathers out of the batch-last layout are one sector a byte).
+constexpr int kStageLoads = 8;
+
+template <typename From, typename To>
+__device__ __forceinline__ void stage_bytes(int8_t* dst, const int8_t* __restrict__ src,
+                                            int n, From from, To to) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kStageLoads * blockDim.x) {
+    long long at[kStageLoads];
+    int8_t v[kStageLoads];
 #pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const int j = lane + 32 * q;
-    if (j < Tp) out_lanes[j] = x[q];
-    if (j < Cp) out_lam[j] = lam[q];
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      at[u] = i < n ? from(i) : -1;
+      v[u] = at[u] >= 0 ? src[at[u]] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u)
+      if (at[u] >= 0) dst[to(i0 + u * blockDim.x)] = v[u];
   }
 }
 
-// Shared-memory bytes of one K5 problem: Hq by j, Sq by c, Sq by j, and the
-// three broadcast buffers (a multiple of 4: Tp and Cp are).
-__host__ __device__ inline size_t alm_per_problem(int Tp, int Cp) {
-  return (size_t)Tp * (Tp + 4) + (size_t)Cp * (Tp + 4) +
-         (size_t)Tp * (Cp + 4) + Tp + 2 * Cp;
-}
+// The operands of alm_wide_kernel.  K5: sc the (8, B) rationals, Cp > 0.
+// K4: Cp = 0, sqc = sqj = sc = nullptr, rationals hs_num, hs_den (B,), one
+// outer block of `inners` = iters steps.
+template <typename L>
+struct WideArgs {
+  const L* lanes;
+  const int* g;
+  const int8_t *hqt, *sqc, *sqj;
+  const int *coff, *lo, *hi, *lam0, *sc, *hs_num, *hs_den;
+  L* out_lanes;
+  int* out_lam;
+  int B, Tp, Cp, outer, inners, g_shift, y_shift;
+};
 
-// K5: a block of `probs` problems (one warp each) stages their batch-last
-// hqt (Tp,Tp,B), sqc (Cp,Tp,B) and sqj (Tp,Cp,B) once.
-template <int N>
-__global__ void __launch_bounds__(16 * 32) alm_kernel(const int* __restrict__ lanes,
-                           const int* __restrict__ g,
-                           const int8_t* __restrict__ hqt,
-                           const int8_t* __restrict__ sqj,
-                           const int8_t* __restrict__ sqc,
-                           const int* __restrict__ coff,
-                           const int* __restrict__ lo,
-                           const int* __restrict__ hi,
-                           const int* __restrict__ lam,
-                           const int* __restrict__ sc,
-                           int* __restrict__ out_lanes,
-                           int* __restrict__ out_lam, int B, int Tp, int Cp,
-                           int outer, int inners, int g_shift, int y_shift) {
+// L: int (lanes) or int8_t (K4's packed words, read and written as bytes).
+template <typename L>
+__global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L> a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int Tp = a.Tp, Cp = a.Cp, B = a.B;
+  const WideLayout lay = wide_layout(Tp, Cp, nc);
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* s = reinterpret_cast<int8_t*>(smem);
-  const int probs = blockDim.x >> 5;
-  const int hs = Tp + 4, js = Cp + 4;
-  const size_t hbytes = (size_t)Tp * hs, cbytes = (size_t)Cp * hs;
-  const size_t jbytes = (size_t)Tp * js;
-  const size_t per = alm_per_problem(Tp, Cp);
-  const int b0 = blockIdx.x * probs;
-  const int nb = min(probs, B - b0);
+  int8_t* const sm = reinterpret_cast<int8_t*>(smem);
+  int8_t* H = sm;               // [rj][hs]: Hq rows j
+  int8_t* Sc = sm + lay.sc;     // [rc][hs]: Sq rows c
+  int8_t* Sj = sm + lay.sj;     // [rj][js]: Sq rows j
+  int8_t* ubuf = sm + lay.u;    // 2 x [tp16]
+  int8_t* yh = sm + lay.y;      // [cp16]
+  int8_t* yl = yh + lay.cp16;   // [cp16]
+  const int tid = threadIdx.x;
+  const int j = rank * lay.rj + tid, c = rank * lay.rc + tid;
+  const bool jv = tid < lay.rj && j < Tp, cv = tid < lay.rc && c < Cp;
+  const int tch = lay.tp16 / 16, cch = lay.cp16 / 16;
+  const int half = 1 << (a.g_shift - 1);
+  const int y_half = (1 << a.y_shift) >> 1;
+  const int negg = -(1 << a.g_shift), negys = -(1 << a.y_shift);
 
-  // hqt[k, j, b0 + p] -> H_p[j][k]
-  for (int i = threadIdx.x; i < Tp * Tp * probs; i += blockDim.x) {
-    const int p = i % probs;
-    const int kj = i / probs;
-    if (p < nb) {
-      const int k = kj / Tp;
-      s[p * per + (kj - k * Tp) * hs + k] = hqt[(size_t)kj * B + b0 + p];
-    }
-  }
-  // sqc[c, j, b0 + p] -> Sc_p[c][j]
-  for (int i = threadIdx.x; i < Cp * Tp * probs; i += blockDim.x) {
-    const int p = i % probs;
-    const int cj = i / probs;
-    if (p < nb) {
-      const int c = cj / Tp;
-      s[p * per + hbytes + c * hs + (cj - c * Tp)] = sqc[(size_t)cj * B + b0 + p];
-    }
-  }
-  // sqj[j, c, b0 + p] -> Sj_p[j][c]
-  for (int i = threadIdx.x; i < Tp * Cp * probs; i += blockDim.x) {
-    const int p = i % probs;
-    const int jc = i / probs;
-    if (p < nb) {
-      const int j = jc / Cp;
-      s[p * per + hbytes + cbytes + j * js + (jc - j * Cp)] =
-          sqj[(size_t)jc * B + b0 + p];
-    }
-  }
-  __syncthreads();
+  // pad bytes stay zero: the staging writes only real rows and columns
+  for (size_t i = (size_t)tid * 16; i < lay.bytes; i += (size_t)blockDim.x * 16)
+    *reinterpret_cast<uint4*>(smem + i) = make_uint4(0, 0, 0, 0);
+  cluster.sync();  // every block has started and zeroed before remote writes
 
-  const int warp = threadIdx.x >> 5;
-  if (warp >= nb) return;
-  const int b = b0 + warp;
-  int8_t* base = s + warp * per;
-  int8_t* buf = base + hbytes + cbytes + jbytes;
-  const Rationals r{sc[b],         sc[B + b],     sc[2 * B + b],
-                    sc[3 * B + b], sc[4 * B + b], sc[5 * B + b],
-                    sc[6 * B + b], sc[7 * B + b]};
-  const size_t bt = (size_t)b * Tp, bc = (size_t)b * Cp;
-  alm_problem<N>(base, base + hbytes, base + hbytes + cbytes, buf, buf + Tp,
-                 buf + Tp + Cp, lanes + bt, g + bt, coff + bc, lo + bc,
-                 hi + bc, lam + bc, out_lanes + bt, out_lam + bc, r, Tp, Cp,
-                 outer, inners, g_shift, y_shift);
-}
+  // a barrier over the cluster, and a byte of a broadcast vector written
+  // into every block of it (a block barrier and a local store for one block)
+  auto sync = [&] {
+    if (nc == 1)
+      __syncthreads();
+    else
+      cluster.sync();
+  };
+  auto put = [&](int8_t* buf, int i, int8_t v) {
+    if (nc == 1)
+      buf[i] = v;
+    else
+      for (int q = 0; q < nc; ++q) cluster.map_shared_rank(buf, q)[i] = v;
+  };
 
-// K7: the shared Hq (Tp,Tp) and Sq (Cp,Tp) staged once a block; each warp
-// walks problems with a grid stride.
-template <int N>
-__global__ void __launch_bounds__(kSharedWarps * 32)
-alm_shared_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
-                  const int* __restrict__ coff, const int* __restrict__ lam,
-                  const int8_t* __restrict__ hq, const int8_t* __restrict__ sq,
-                  const int* __restrict__ lo, const int* __restrict__ hi,
-                  int* __restrict__ out_lanes, int* __restrict__ out_lam,
-                  int B, int Tp, int Cp, int outer, int inners, int g_shift,
-                  int y_shift, Rationals r) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* s = reinterpret_cast<int8_t*>(smem);
-  const int hs = Tp + 4, js = Cp + 4;
-  int8_t* H = s;
-  int8_t* Sc = H + Tp * hs;
-  int8_t* Sj = Sc + Cp * hs;
-  for (int i = threadIdx.x; i < Tp * Tp; i += blockDim.x) {
-    const int j = i / Tp;
-    H[j * hs + (i - j * Tp)] = hq[i];
-  }
-  for (int i = threadIdx.x; i < Cp * Tp; i += blockDim.x) {
-    const int c = i / Tp;
-    const int j = i - c * Tp;
-    Sc[c * hs + j] = sq[i];
-    Sj[j * js + c] = sq[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  int8_t* buf = Sj + Tp * js + warp * (Tp + 2 * Cp);
-  for (int b = blockIdx.x * kSharedWarps + warp; b < B;
-       b += gridDim.x * kSharedWarps) {
+  const int nclusters = gridDim.x / nc;
+  for (int b = blockIdx.x / nc; b < B; b += nclusters) {
+    __syncthreads();  // the last problem's readers are done
+    // Hq rows j, Sq rows c and Sq rows j of this block's slices
+    stage_bytes(
+        H, a.hqt, lay.rj * Tp,
+        [&](int i) -> long long {
+          const int jl = i / Tp, k = i - jl * Tp, jj = rank * lay.rj + jl;
+          return jj < Tp ? ((long long)k * Tp + jj) * B + b : -1;
+        },
+        [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
+    stage_bytes(
+        Sc, a.sqc, lay.rc * Tp,
+        [&](int i) -> long long {
+          const int cc = rank * lay.rc + i / Tp;
+          return cc < Cp ? ((long long)cc * Tp + i % Tp) * B + b : -1;
+        },
+        [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
+    stage_bytes(
+        Sj, a.sqj, lay.rj * Cp,
+        [&](int i) -> long long {
+          const int jj = rank * lay.rj + i / Cp;
+          return jj < Tp ? ((long long)jj * Cp + i % Cp) * B + b : -1;
+        },
+        [&](int i) { return (i / Cp) * lay.js + i % Cp; });
     const size_t bt = (size_t)b * Tp, bc = (size_t)b * Cp;
-    alm_problem<N>(H, Sc, Sj, buf, buf + Tp, buf + Tp + Cp, lanes + bt,
-                   g + bt, coff + bc, lo, hi, lam + bc, out_lanes + bt,
-                   out_lam + bc, r, Tp, Cp, outer, inners, g_shift, y_shift);
+    for (int i = tid; i < Tp; i += blockDim.x) ubuf[i] = (int8_t)a.lanes[bt + i];
+    const Rationals r =
+        a.sc ? Rationals{a.sc[b],         a.sc[B + b],     a.sc[2 * B + b],
+                         a.sc[3 * B + b], a.sc[4 * B + b], a.sc[5 * B + b],
+                         a.sc[6 * B + b], a.sc[7 * B + b]}
+             : Rationals{a.hs_num[b], a.hs_den[b], 0, 0, 0, 0, 0, 0};
+    int x = jv ? (int)a.lanes[bt + j] : 0, gj = jv ? a.g[bt + j] : 0, ch = half;
+    int co = 0, clo = 0, chi = 0, lam = 0, eyh = y_half;
+    if (cv) co = a.coff[bc + c], clo = a.lo[bc + c], chi = a.hi[bc + c], lam = a.lam0[bc + c];
+    __syncthreads();
+
+    int p = 0;  // the u buffer this iteration reads
+    for (int o = 0; o < a.outer; ++o) {
+      for (int it = 0; it < a.inners; ++it) {
+        const int8_t* u = ubuf + p * lay.tp16;
+        const int acc = jv ? dot16(H + tid * lay.hs, u, tch) : 0;
+        int eh = 0, el = 0;
+        if (Cp) {
+          if (cv) {
+            const int y14 = constraint_step(dot16(Sc + tid * lay.hs, u, tch), co, lam, clo,
+                                            chi, eyh, r, negys, a.y_shift);
+            put(yh, c, (int8_t)(y14 >> 7));
+            put(yl, c, (int8_t)(y14 & 0x7F));
+          }
+          sync();  // y complete in every block
+          if (jv) {
+            eh = dot16(Sj + tid * lay.js, yh, cch);
+            el = dot16(Sj + tid * lay.js, yl, cch);
+          }
+        }
+        if (jv) {
+          objective_step(acc, eh, el, gj, ch, x, r, negg, a.g_shift);
+          put(ubuf, (p ^ 1) * lay.tp16 + j, (int8_t)x);
+        }
+        p ^= 1;
+        sync();  // the new u complete in every block; y read
+      }
+      // multiplier update from the exact int32 violation at the inner solution
+      if (cv)
+        lam = lam_update(dot16(Sc + tid * lay.hs, ubuf + p * lay.tp16, tch), co, lam, clo,
+                         chi, r);
+    }
+    if (jv) a.out_lanes[bt + j] = (L)x;
+    if (cv) a.out_lam[bc + c] = lam;
   }
+  cluster.sync();  // no block leaves while another may still write to it
 }
 
-// Problems per K5 block: up to 16, as many as fit in shared memory.
-int alm_probs(int Tp, int Cp) {
-  const size_t p = kPintMaxSmem / alm_per_problem(Tp, Cp);
-  return p > 16 ? 16 : (int)p;
-}
-
-template <int N>
-cudaError_t launch_alm(const int* lanes, const int* g, const int8_t* hqt,
-                       const int8_t* sqj, const int8_t* sqc, const int* coff,
-                       const int* lo, const int* hi, const int* lam,
-                       const int* sc, int* out_lanes, int* out_lam, int B,
-                       int Tp, int Cp, int outer, int inners, int g_shift,
-                       int y_shift, cudaStream_t stream) {
-  const int probs = alm_probs(Tp, Cp);
-  if (probs < 1) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)probs * alm_per_problem(Tp, Cp);
-  cudaError_t err = pint_allow_smem(alm_kernel<N>, smem);
+template <typename L>
+cudaError_t launch_wide(const WideArgs<L>& args, cudaStream_t stream) {
+  const int nc = wide_cluster(args.Tp, args.Cp);
+  if (nc == 0) return cudaErrorInvalidValue;
+  const WideLayout lay = wide_layout(args.Tp, args.Cp, nc);
+  auto kernel = alm_wide_kernel<L>;
+  cudaError_t err = pint_allow_smem(kernel, lay.bytes);
   if (err != cudaSuccess) return err;
-  const int blocks = (B + probs - 1) / probs;
-  alm_kernel<N><<<blocks, probs * 32, smem, stream>>>(
-      lanes, g, hqt, sqj, sqc, coff, lo, hi, lam, sc, out_lanes, out_lam, B,
-      Tp, Cp, outer, inners, g_shift, y_shift);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(lay.threads);
+  cfg.dynamicSmemBytes = lay.bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // as many clusters as may be resident at once, and no more than problems
+  cfg.gridDim = dim3(nc * sms);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  const int clusters = args.B < active ? args.B : active;
+  cfg.gridDim = dim3(nc * clusters);
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch_shared(const int* lanes, const int* g, const int* coff,
-                          const int* lam, const int8_t* hq, const int8_t* sq,
-                          const int* lo, const int* hi, int* out_lanes,
-                          int* out_lam, int B, int Tp, int Cp, int outer,
-                          int inners, int g_shift, int y_shift, Rationals r,
-                          cudaStream_t stream) {
-  const size_t smem = (size_t)Tp * (Tp + 4) + (size_t)Cp * (Tp + 4) +
-                      (size_t)Tp * (Cp + 4) +
-                      (size_t)kSharedWarps * (Tp + 2 * Cp);
-  if (smem > kPintMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = pint_allow_smem(alm_shared_kernel<N>, smem);
+// -- launches -----------------------------------------------------------------
+
+template <int NJ>
+cudaError_t launch_alm_reg(const int* lanes, const int* g, const int8_t* hqt,
+                           const int8_t* sqc, const int* coff, const int* lo,
+                           const int* hi, const int* lam, const int* sc,
+                           int* out_lanes, int* out_lam, int B, int Tp, int Cp,
+                           int outer, int inners, int g_shift, int y_shift,
+                           cudaStream_t stream) {
+  const RegLayout lay = reg_layout(Tp, Cp);
+  const bool async = B % kGroup == 0 && reinterpret_cast<uintptr_t>(hqt) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(sqc) % 8 == 0;
+  auto kernel = alm_reg_kernel<NJ>;
+  cudaError_t err = pint_allow_smem(kernel, lay.bytes);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = pint_persistent_grid(kernel, kGroup * 32, lay.bytes,
+                               (B + kGroup - 1) / kGroup, &grid);
   if (err != cudaSuccess) return err;
-  int blocks = (B + kSharedWarps - 1) / kSharedWarps;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  alm_shared_kernel<N><<<blocks, kSharedWarps * 32, smem, stream>>>(
-      lanes, g, coff, lam, hq, sq, lo, hi, out_lanes, out_lam, B, Tp, Cp,
-      outer, inners, g_shift, y_shift, r);
+  kernel<<<grid, kGroup * 32, lay.bytes, stream>>>(
+      lanes, g, hqt, sqc, coff, lo, hi, lam, sc, out_lanes, out_lam, B, Tp, Cp,
+      outer, inners, g_shift, y_shift, (int)async);
   return cudaGetLastError();
 }
 
-bool bad_geometry(int B, int Tp, int Cp, int outer, int inners, int g_shift,
-                  int y_shift) {
-  return B <= 0 || Tp <= 0 || Cp <= 0 || Tp % 4 || Cp % 4 || Tp > 256 ||
-         Cp > 256 || outer < 0 || inners < 0 || g_shift < 1 || g_shift > 30 ||
+template <int W>
+cudaError_t launch_mma(const int* lanes, const int* g, const int* coff,
+                       const int* lam, const int8_t* hq, const int8_t* sq,
+                       const int* lo, const int* hi, int* out_lanes, int* out_lam,
+                       int B, int Tp, int Cp, int outer, int inners, int g_shift,
+                       int y_shift, Rationals r, cudaStream_t stream) {
+  using S = MmaShape<W>;
+  auto kernel = alm_mma_kernel<W>;
+  constexpr int threads = S::NW * 32;
+  cudaError_t err = pint_allow_smem(kernel, S::bytes);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = pint_persistent_grid(kernel, threads, S::bytes, (B + 15) / 16, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, S::bytes, stream>>>(lanes, g, coff, lam, hq, sq, lo, hi,
+                                              out_lanes, out_lam, B, Tp, Cp, outer,
+                                              inners, g_shift, y_shift, r);
+  return cudaGetLastError();
+}
+
+bool bad_loop(int B, int outer, int inners, int g_shift, int y_shift) {
+  return B <= 0 || outer < 0 || inners < 0 || g_shift < 1 || g_shift > 30 ||
          y_shift < 0 || y_shift > 30;
 }
 
-// The register-array width: a power of two >= ceil(max(Tp, Cp) / 32).
-int width_for(int Tp, int Cp) {
-  const int n = ((Tp > Cp ? Tp : Cp) + 31) / 32;
-  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : 8;
+// K5's shapes: multiples of 4 within the reference's alm_viable (its int8
+// working set at 128 problems within 100 MiB), each side at most 4096 so
+// that a cluster of 8 blocks of 512 threads holds a row a thread.
+bool k5_takes(int Tp, int Cp) {
+  if (Tp <= 0 || Cp <= 0 || Tp % 4 || Cp % 4 || Tp > 4096 || Cp > 4096) return false;
+  const long t = Tp, c = Cp;
+  return t * t + 2 * t * c + 8 * (t + c) <= 409600 && wide_cluster(Tp, Cp) > 0;
 }
 
 }  // namespace
+
+// K4 past 64 lanes (csrc/pgd_hqt.cu's entries): the cluster kernel with no
+// constraint rows.  words: lanes and out are (B, Tp) int8 packed control
+// words, else (B, Tp) int32 lanes.
+cudaError_t pint_pgd_wide(const void* lanes, const int* g, const int8_t* hqt,
+                          const int* hs_num, const int* hs_den, void* out, int B,
+                          int Tp, int iters, int g_shift, bool words,
+                          cudaStream_t stream) {
+  if (words) {
+    const WideArgs<int8_t> a{static_cast<const int8_t*>(lanes), g, hqt, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, hs_num, hs_den,
+                             static_cast<int8_t*>(out), nullptr, B, Tp, 0, 1, iters,
+                             g_shift, 0};
+    return launch_wide(a, stream);
+  }
+  const WideArgs<int> a{static_cast<const int*>(lanes), g, hqt, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, hs_num, hs_den,
+                        static_cast<int*>(out), nullptr, B, Tp, 0, 1, iters, g_shift, 0};
+  return launch_wide(a, stream);
+}
 
 extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
                         const void* sqj, const void* sqc, const void* coff,
@@ -369,7 +946,7 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
                         const void* sc, void* out_lanes, void* out_lam, int B,
                         int Tp, int Cp, int outer, int inners, int g_shift,
                         int y_shift, void* stream) {
-  if (bad_geometry(B, Tp, Cp, outer, inners, g_shift, y_shift))
+  if (bad_loop(B, outer, inners, g_shift, y_shift) || !k5_takes(Tp, Cp))
     return (int)cudaErrorInvalidValue;
   const int* l = static_cast<const int*>(lanes);
   const int* gg = static_cast<const int*>(g);
@@ -384,18 +961,20 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
   int* ol = static_cast<int*>(out_lanes);
   int* om = static_cast<int*>(out_lam);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width_for(Tp, Cp)) {
-#define PINT_CASE(n)                                                         \
-  case n:                                                                    \
-    return (int)launch_alm<n>(l, gg, h, sj, scc, co, lo_, hi_, la, rat, ol,  \
-                              om, B, Tp, Cp, outer, inners, g_shift,         \
-                              y_shift, s);
-    PINT_CASE(1) PINT_CASE(2) PINT_CASE(4) PINT_CASE(8)
-#undef PINT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  const int m = Tp > Cp ? Tp : Cp;
+  if (m <= 32)
+    return (int)launch_alm_reg<1>(l, gg, h, scc, co, lo_, hi_, la, rat, ol, om, B,
+                                  Tp, Cp, outer, inners, g_shift, y_shift, s);
+  if (m <= 64)
+    return (int)launch_alm_reg<2>(l, gg, h, scc, co, lo_, hi_, la, rat, ol, om, B,
+                                  Tp, Cp, outer, inners, g_shift, y_shift, s);
+  const WideArgs<int> a{l,  gg,      h,       scc,     sj, co, lo_, hi_, la, rat,
+                        nullptr, nullptr, ol, om, B,  Tp, Cp,  outer, inners,
+                        g_shift, y_shift};
+  return (int)launch_wide(a, s);
 }
 
+// K7's shapes: Tp and Cp multiples of 4 in [4, 256].
 extern "C" int pint_alm_shared(const void* lanes, const void* g,
                                const void* coff, const void* lam,
                                const void* hq, const void* sq, const void* lo,
@@ -405,7 +984,8 @@ extern "C" int pint_alm_shared(const void* lanes, const void* g,
                                int hs_den, int cs_num, int cs_den, int eh_num,
                                int eh_den, int el_num, int el_den,
                                void* stream) {
-  if (bad_geometry(B, Tp, Cp, outer, inners, g_shift, y_shift))
+  if (bad_loop(B, outer, inners, g_shift, y_shift) || Tp <= 0 || Cp <= 0 || Tp % 4 ||
+      Cp % 4 || Tp > 256 || Cp > 256)
     return (int)cudaErrorInvalidValue;
   const int dens[4] = {hs_den, cs_den, eh_den, el_den};
   for (int d : dens)
@@ -423,14 +1003,13 @@ extern "C" int pint_alm_shared(const void* lanes, const void* g,
   int* ol = static_cast<int*>(out_lanes);
   int* om = static_cast<int*>(out_lam);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width_for(Tp, Cp)) {
-#define PINT_CASE(n)                                                         \
-  case n:                                                                    \
-    return (int)launch_shared<n>(l, gg, co, la, h, sqq, lo_, hi_, ol, om, B, \
-                                 Tp, Cp, outer, inners, g_shift, y_shift, r, \
-                                 s);
-    PINT_CASE(1) PINT_CASE(2) PINT_CASE(4) PINT_CASE(8)
-#undef PINT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  const int m = Tp > Cp ? Tp : Cp;
+  auto run = [&](auto launch) {
+    return (int)launch(l, gg, co, la, h, sqq, lo_, hi_, ol, om, B, Tp, Cp, outer, inners,
+                       g_shift, y_shift, r, s);
+  };
+  if (m <= 32) return run(launch_mma<32>);
+  if (m <= 64) return run(launch_mma<64>);
+  if (m <= 128) return run(launch_mma<128>);
+  return run(launch_mma<256>);
 }

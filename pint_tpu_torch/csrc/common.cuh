@@ -57,7 +57,7 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// -- asynchronous staging (K3, K4) --------------------------------------------
+// -- asynchronous staging (K3, K4, K5) ----------------------------------------
 //
 // cp.async copies global memory into shared memory without passing through
 // registers.  A thread learns that its own copies have landed either by
@@ -75,6 +75,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes (both addresses 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
@@ -165,6 +172,14 @@ static cudaError_t pint_allow_smem(K kernel, size_t bytes) {
 
 // Shared memory a block may use on sm_90 (227 KB).
 constexpr size_t kPintMaxSmem = 232448;
+
+// K4 past 64 lanes (defined in alm.cu, launched by pgd_hqt.cu's entries):
+// one problem a cluster of blocks.  words: lanes and out are the (B, Tp/4)
+// packed control words, else (B, Tp) int32 lanes.
+cudaError_t pint_pgd_wide(const void* lanes, const int* g, const int8_t* hqt,
+                          const int* hs_num, const int* hs_den, void* out, int B,
+                          int Tp, int iters, int g_shift, bool words,
+                          cudaStream_t stream);
 
 // Blocks of `kernel` (`threads` threads, `smem` bytes) for a grid that
 // stays resident: as many as fit on every SM at once, and no more than

@@ -42,10 +42,16 @@
 //   and written with one 16-byte store a row kj (B % 16 == 0), else bytes,
 //   spread over the next octet's power steps so the stores drain while the
 //   warps compute.
-// For 64 < Tm <= 224 (lipq_kernel, off the main path): quads of 4 problems
-// (or single problems past Tm = 118) in a ring of up to 3 shared-memory slots
-// with 2 groups of warps, thread j holding row j of the quad, so the next
-// quad lands while both groups iterate on theirs.
+// For 64 < Tm <= 224 (lipq_kernel): quads of 4 problems (or single
+// problems past Tm = 118) in a ring of up to 3 shared-memory slots with 2
+// groups of warps, thread j holding row j of the quad, so the next quad lands
+// while both groups iterate on theirs.  For 224 < Tm <= 286 (the reference's
+// lipq_viable; T = 128 at two controls is Tm = 256, the long-horizon path)
+// one problem's f32 slab no longer fits the 227 KB a block may hold: the
+// first krows rows k of the slab land in one shared-memory slot as before and
+// thread j holds H[k][j] for the remaining k (at most kRegRows) in registers,
+// loaded once a problem; the matvec adds the shared rows and then the
+// register rows, k still in order, so the result stays bit-identical.
 //
 // What holds it above the bound (PERF.md): at 0 power steps the kernel
 // already takes three quarters of its time at 16, so staging, moving the
@@ -63,6 +69,8 @@
 namespace {
 
 constexpr int kMaxThreads = 448;  // 2 groups of 7 warps (Tm = 224)
+constexpr int kMaxTm = 286;       // the reference's lipq_viable
+constexpr int kRegRows = 96;      // rows k a thread may hold past the slot
 
 template <int G>
 __device__ __forceinline__ void load_g(const float* p, float (&x)[G]) {
@@ -77,9 +85,11 @@ __device__ __forceinline__ void load_g(const float* p, float (&x)[G]) {
 
 // acc[g] = sum_k H[k][j][g] * v[k][g], k in order, rounding each product
 // and sum; with MAX also hm[g] = max(hm[g], |H[k][j][g]|)
+// (rows k < krows of the slab H, row length Tm)
 template <int G, bool MAX>
 __device__ __forceinline__ void matvec(const float* H, const float* v, int Tm,
-                                       int j, float (&acc)[G], float (&hm)[G]) {
+                                       int krows, int j, float (&acc)[G],
+                                       float (&hm)[G]) {
   float h[G], x[G];
   load_g<G>(H + j * G, h);
   load_g<G>(v, x);
@@ -90,7 +100,7 @@ __device__ __forceinline__ void matvec(const float* H, const float* v, int Tm,
   }
   const float* hp = H + (size_t)(Tm + j) * G;
 #pragma unroll 4
-  for (int k = 1; k < Tm; ++k, hp += (size_t)Tm * G) {
+  for (int k = 1; k < krows; ++k, hp += (size_t)Tm * G) {
     load_g<G>(hp, h);
     load_g<G>(v + k * G, x);
 #pragma unroll
@@ -112,14 +122,14 @@ __device__ __forceinline__ int8_t q8(float h, float scale) {
 
 struct Geometry {
   int nq;             // warps a group: ceil(Tm / 32)
-  size_t slab;        // floats a slot
+  size_t slab;        // floats a slot: rows k < krows
   size_t per_group;   // floats a group: v, red, scale
 };
 
-__host__ __device__ inline Geometry geometry(int Tm, int G) {
+__host__ __device__ inline Geometry geometry(int Tm, int G, int krows) {
   Geometry g;
   g.nq = (Tm + 31) / 32;
-  g.slab = ((size_t)Tm * Tm * G + 31) & ~(size_t)31;
+  g.slab = ((size_t)krows * Tm * G + 31) & ~(size_t)31;
   g.per_group = ((size_t)Tm * G + (size_t)G * g.nq * 32 + 4 + 3) & ~(size_t)3;
   return g;
 }
@@ -130,20 +140,24 @@ inline size_t smem_bytes(const Geometry& geo, int slots, int groups) {
 }
 
 // G problems a slot (4, or 1 for large Tm); vec: B % 4 == 0 and G == 4,
-// so every row of a quad is one aligned 16-byte copy
-template <int G>
-__global__ void __launch_bounds__(kMaxThreads)
+// so every row of a quad is one aligned 16-byte copy.  R = 0: the slot holds
+// the whole slab (krows = Tm).  R > 0 (G = 1, one slot, one group): rows
+// k >= krows, at most R, live in the registers of thread j.
+template <int G, int R>
+__global__ void __launch_bounds__(R ? 320 : kMaxThreads)
 lipq_kernel(const float* __restrict__ ht, int8_t* __restrict__ hqt,
             float* __restrict__ lip, float* __restrict__ hmax, int B, int Tm,
-            int power_iters, float inv_sqrt, int slots, int groups, int vec) {
+            int power_iters, float inv_sqrt, int slots, int groups, int vec,
+            int krows) {
+  static_assert(R == 0 || G == 1, "register rows hold one problem");
   extern __shared__ __align__(1024) float fsm[];  // lipq_reg_kernel's symbol
-  const Geometry geo = geometry(Tm, G);
+  const Geometry geo = geometry(Tm, G, krows);
   const int nt = geo.nq * 32;
   const int group = threadIdx.x / nt;
   const int tid = threadIdx.x - group * nt;  // = the row j this thread owns
   const int q = tid >> 5;
   const int lane = tid & 31;
-  const int mm = Tm * Tm;
+  const int mm = krows * Tm;  // slab values a problem in the slot
   float* v = fsm + slots * geo.slab + group * geo.per_group;  // [Tm][G]
   float* red = v + Tm * G;                                    // [G][nq][32]
   float* s_scale = red + G * geo.nq * 32;                     // [G]
@@ -188,21 +202,36 @@ lipq_kernel(const float* __restrict__ ht, int8_t* __restrict__ hqt,
 #pragma unroll
       for (int g = 0; g < G; ++g) v[tid * G + g] = inv_sqrt;
     }
-    pint::mbar_wait(&full[t % slots], (t / slots) & 1);
-    pint::named_sync(bar, nt);
-
     float hm[G], acc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) hm[g] = 0.0f, acc[g] = 0.0f;
+    float hr[R ? R : 1];  // H[krows + r][tid] (R > 0)
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool in = tid < Tm && krows + r < Tm;
+        hr[r] = in ? ht[((size_t)(krows + r) * Tm + tid) * B + b0] : 0.0f;
+        hm[0] = pint::nan_max(hm[0], fabsf(hr[r]));
+      }
+    }
+    pint::mbar_wait(&full[t % slots], (t / slots) & 1);
+    pint::named_sync(bar, nt);
+
     for (int it = 0;; ++it) {
       float c[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) c[g] = 0.0f;
       if (tid < Tm) {
         if (it == 0)
-          matvec<G, true>(H, v, Tm, tid, acc, hm);
+          matvec<G, true>(H, v, Tm, krows, tid, acc, hm);
         else
-          matvec<G, false>(H, v, Tm, tid, acc, hm);
+          matvec<G, false>(H, v, Tm, krows, tid, acc, hm);
+        if constexpr (R > 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (krows + r < Tm)
+              acc[0] = __fadd_rn(acc[0], __fmul_rn(hr[r], v[krows + r]));
+        }
         float vj[G];
         load_g<G>(v + tid * G, vj);
 #pragma unroll
@@ -274,6 +303,14 @@ lipq_kernel(const float* __restrict__ ht, int8_t* __restrict__ hqt,
         const int kj = i / G;
         const int g = i - kj * G;
         if (b0 + g < B) hqt[(size_t)kj * B + b0 + g] = q8(H[i], s_scale[g]);
+      }
+    }
+    if constexpr (R > 0) {
+      if (tid < Tm) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (krows + r < Tm)
+            hqt[((size_t)(krows + r) * Tm + tid) * B + b0] = q8(hr[r], s_scale[0]);
       }
     }
     pint::named_sync(bar, nt);  // the slot, v and s_scale are free
@@ -571,24 +608,34 @@ bool ring(const Geometry& geo, int* slots, int* groups) {
   return false;
 }
 
-template <int G>
+// The rows k of one problem's slab that fit one slot beside one group's
+// vectors: Tm when the whole slab fits.
+int slot_rows(int Tm) {
+  int k = Tm;
+  while (k > 1 && smem_bytes(geometry(Tm, 1, k), 1, 1) > kPintMaxSmem) --k;
+  return k;
+}
+
+template <int G, int R>
 cudaError_t launch(const float* ht, int8_t* hqt, float* lip, float* hmax,
                    int B, int Tm, int power_iters, float inv_sqrt,
                    cudaStream_t stream) {
-  const Geometry geo = geometry(Tm, G);
-  int slots, groups;
-  if (!ring(geo, &slots, &groups)) return cudaErrorInvalidValue;
+  const int krows = R ? slot_rows(Tm) : Tm;
+  if (Tm - krows > R) return cudaErrorInvalidValue;
+  const Geometry geo = geometry(Tm, G, krows);
+  int slots = 1, groups = 1;
+  if (!R && !ring(geo, &slots, &groups)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(geo, slots, groups);
   const int threads = groups * geo.nq * 32;
-  cudaError_t err = pint_allow_smem(lipq_kernel<G>, smem);
+  auto kernel = lipq_kernel<G, R>;
+  cudaError_t err = pint_allow_smem(kernel, smem);
   int grid = 0;
   if (err == cudaSuccess)
-    err = pint_persistent_grid(lipq_kernel<G>, threads, smem, (B + G - 1) / G,
-                               &grid);
+    err = pint_persistent_grid(kernel, threads, smem, (B + G - 1) / G, &grid);
   if (err != cudaSuccess) return err;
-  lipq_kernel<G><<<grid, threads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       ht, hqt, lip, hmax, B, Tm, power_iters, inv_sqrt, slots, groups,
-      G == 4 && B % 4 == 0 && aligned16(ht));
+      G == 4 && B % 4 == 0 && aligned16(ht), krows);
   return cudaGetLastError();
 }
 
@@ -596,7 +643,7 @@ cudaError_t launch(const float* ht, int8_t* hqt, float* lip, float* hmax,
 
 extern "C" int pint_lipq(const void* ht, void* hqt, void* lip, void* hmax,
                          int B, int Tm, int power_iters, void* stream) {
-  if (B <= 0 || Tm <= 0 || Tm > 224 || power_iters < 0)
+  if (B <= 0 || Tm <= 0 || Tm > kMaxTm || power_iters < 0)
     return (int)cudaErrorInvalidValue;
   // the same f32 constant as np.float32(1.0 / np.sqrt(Tm))
   const float inv_sqrt = (float)(1.0 / sqrt((double)Tm));
@@ -609,9 +656,11 @@ extern "C" int pint_lipq(const void* ht, void* hqt, void* lip, void* hmax,
   cudaError_t err;
   if (Tm <= 64)
     err = launch_reg(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
-  else if (ring(geometry(Tm, 4), &slots, &groups))
-    err = launch<4>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
+  else if (ring(geometry(Tm, 4, Tm), &slots, &groups))
+    err = launch<4, 0>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
+  else if (ring(geometry(Tm, 1, Tm), &slots, &groups))
+    err = launch<1, 0>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
   else
-    err = launch<1>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
+    err = launch<1, kRegRows>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
   return (int)err;
 }

@@ -25,6 +25,14 @@
 // broadcast through shared memory.  Both int8 orientations are written in
 // the batch-last order the staging read.
 //
+// Past 64 rows or columns (pen_rows_kernel; the long-horizon path runs it
+// at C = 128, Tm = 256) a slab takes most of a block's shared memory, so the
+// design above ran one warp on an SM, each lane walking 4 to 8 rows of 256
+// serial sums; it took 36.9 ms at B = 4096 on one H100 80GB HBM3.  There one
+// problem takes a block of max(C, Tm) threads: thread c sums row c of S v,
+// thread j column j of S^T w, each in the same index order, and the norm's
+// lane partials go through shared memory in the warp design's order.
+//
 // Rounding: products and sums use __fmul_rn/__fadd_rn, which nvcc never
 // contracts into FMA, and every sum is added in a fixed order (the row
 // loops in index order, the norms as lane-ordered partials and an xor
@@ -172,8 +180,133 @@ __global__ void pen_kernel(const float* __restrict__ st,
   }
 }
 
+// One problem a block (blockIdx.x), nt = 32 ceil(max(C, Tm) / 32) threads.
+// Shared memory: the slab [C][Tm + 1], then v (Tm), w (C), 32 more floats
+// and the norm; the lane partials (32 ceil(Tm / 32) floats) reuse v, w and
+// the 32 floats once a step has read them.
+__global__ void __launch_bounds__(256)
+pen_rows_kernel(const float* __restrict__ st, int8_t* __restrict__ sqc,
+                int8_t* __restrict__ sqj, float* __restrict__ lip,
+                float* __restrict__ sscale, float* __restrict__ rowamp, int B,
+                int C, int Tm, int power_iters, float inv_sqrt) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ss = Tm + 1;
+  float* S = fsm;
+  float* v = S + (size_t)C * ss;
+  float* w = v + Tm;
+  float* red = v;                // [32 ceil(Tm / 32)], after a step's reads
+  float* s_sum = w + C + 32;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  const int mm = C * Tm;
+
+  for (int i = t; i < mm; i += blockDim.x) {
+    const int c = i / Tm;
+    S[c * ss + (i - c * Tm)] = st[(size_t)i * B + b];
+  }
+  __syncthreads();
+
+  // max |S| and the largest row sum of |S| (row c in order, thread c)
+  float sm = 0.0f, ra = 0.0f;
+  if (t < C) {
+    const float* row = S + t * ss;
+    float acc = fabsf(row[0]);
+    sm = acc;
+    for (int j = 1; j < Tm; ++j) {
+      const float a = fabsf(row[j]);
+      sm = pint::nan_max(sm, a);
+      acc = __fadd_rn(acc, a);
+    }
+    ra = acc;
+  }
+  sm = pint::warp_max(sm);
+  ra = pint::warp_max(ra);
+  if (lane == 0) red[warp] = sm, red[nw + warp] = ra;
+  __syncthreads();
+  if (t == 0) {
+    for (int q = 1; q < nw; ++q) sm = pint::nan_max(sm, red[q]);
+    for (int q = 1; q < nw; ++q) ra = pint::nan_max(ra, red[nw + q]);
+    sscale[b] = __fmul_rn(sm, kInv127);
+    rowamp[b] = __fmul_rn(127.0f, ra);
+    const float den = sm != sm ? sm : fmaxf(sm, 1e-30f);
+    s_sum[0] = __fdiv_rn(127.0f, den);
+  }
+  __syncthreads();
+  const float scale = s_sum[0];
+  if (t < Tm) v[t] = inv_sqrt;
+  __syncthreads();
+
+  for (int it = 0;; ++it) {
+    if (t < C) {                       // w = S v
+      const float* row = S + t * ss;
+      float acc = __fmul_rn(row[0], v[0]);
+      for (int j = 1; j < Tm; ++j) acc = __fadd_rn(acc, __fmul_rn(row[j], v[j]));
+      w[t] = acc;
+    }
+    __syncthreads();
+    float u = 0.0f, x = 0.0f;
+    if (t < Tm) {                      // u = S^T w
+      u = __fmul_rn(S[t], w[0]);
+      for (int c = 1; c < C; ++c) u = __fadd_rn(u, __fmul_rn(S[c * ss + t], w[c]));
+      x = it < power_iters ? __fmul_rn(u, u) : __fmul_rn(v[t], u);
+    }
+    __syncthreads();                   // v and w read
+    const int nj = (Tm + 31) >> 5;
+    if (t < nj * 32) red[t] = x;
+    __syncthreads();
+    if (warp == 0) {                   // lane partials in row order, then the butterfly
+      float part = 0.0f;
+      for (int q = 0; q < nj; ++q)
+        if (lane + 32 * q < Tm) part = __fadd_rn(part, red[lane + 32 * q]);
+      part = pint::warp_sum(part);
+      if (lane == 0) s_sum[1] = part;
+    }
+    __syncthreads();
+    const float sum = s_sum[1];
+    if (it == power_iters) {
+      if (t == 0) lip[b] = __fmul_rn(sum, 1.05f);
+      break;
+    }
+    if (t < Tm) v[t] = __fdiv_rn(u, __fadd_rn(__fsqrt_rn(sum), 1e-30f));
+    __syncthreads();
+  }
+
+  for (int i = t; i < mm; i += blockDim.x) {
+    const int c = i / Tm, j = i - c * Tm;
+    float r = rintf(__fmul_rn(S[c * ss + j], scale));
+    r = fminf(fmaxf(r, -127.0f), 127.0f);
+    sqc[(size_t)i * B + b] = (int8_t)(int)r;
+  }
+  for (int i = t; i < mm; i += blockDim.x) {
+    const int j = i / C, c = i - j * C;
+    float r = rintf(__fmul_rn(S[c * ss + j], scale));
+    r = fminf(fmaxf(r, -127.0f), 127.0f);
+    sqj[(size_t)i * B + b] = (int8_t)(int)r;
+  }
+}
+
 size_t pen_per_problem(int C, int Tm) {
   return ((size_t)C * (Tm + 1) + Tm + C + 1) * sizeof(float);
+}
+
+// pen_rows_kernel's shared memory: the slab, v, w, 32 floats, the scale and
+// the norm.
+size_t pen_rows_bytes(int C, int Tm) {
+  return ((size_t)C * (Tm + 1) + Tm + C + 34) * sizeof(float);
+}
+
+cudaError_t launch_rows(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
+                        float* sscale, float* rowamp, int B, int C, int Tm,
+                        int power_iters, float inv_sqrt, cudaStream_t stream) {
+  const size_t smem = pen_rows_bytes(C, Tm);
+  if (smem > kPintMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = pint_allow_smem(pen_rows_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = ((C > Tm ? C : Tm) + 31) / 32 * 32;
+  pen_rows_kernel<<<B, threads, smem, stream>>>(st, sqc, sqj, lip, sscale, rowamp, B,
+                                                C, Tm, power_iters, inv_sqrt);
+  return cudaGetLastError();
 }
 
 // Problems per block: up to 8, as many f32 slabs as fit in shared memory.
@@ -214,12 +347,14 @@ extern "C" int pint_pen(const void* st, void* sqc, void* sqj, void* lip,
   float* ra = static_cast<float*>(rowamp);
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const int n = ((C > Tm ? C : Tm) + 31) / 32;
-  switch (n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : 8) {
+  if (n > 2)
+    return (int)launch_rows(s, qc, qj, l, sc, ra, B, C, Tm, power_iters, inv_sqrt, strm);
+  switch (n <= 1 ? 1 : 2) {
 #define PINT_CASE(k)                                                        \
   case k:                                                                   \
     return (int)launch<k>(s, qc, qj, l, sc, ra, B, C, Tm, power_iters,      \
                           inv_sqrt, strm);
-    PINT_CASE(1) PINT_CASE(2) PINT_CASE(4) PINT_CASE(8)
+    PINT_CASE(1) PINT_CASE(2)
 #undef PINT_CASE
   }
   return (int)cudaErrorInvalidValue;

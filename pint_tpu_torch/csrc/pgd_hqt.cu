@@ -22,25 +22,32 @@
 // stride covered 2 banks.  The 30 __dp4a iterations after it take a few µs.
 //
 // This design:
-// * Where B % 16 == 0 and two landing buffers fit (Tp <= 64), a block's
-//   group of 16 problems lands as [kj][16] bytes, one 16-byte cp.async a row
-//   kj, in a ring of two landing buffers over a persistent grid: group i+1
-//   is in flight while the warps iterate on group i.  A pass in shared
-//   memory then turns each 4 x 16-byte block (4 k of one row j) into the
-//   16 problems' words of 4 k with __byte_perm 4x4 byte transposes, so each
-//   problem's row j is contiguous in k.  Otherwise (a ragged batch, or a
-//   large Tp) the rows are staged straight from global memory one byte a
-//   thread, as many problems as fit.
+// * Where B % 16 == 0, a block's group of 16 problems lands as [kj][16]
+//   bytes, one 16-byte cp.async a row kj, in a ring of two landing buffers
+//   over a persistent grid: group i+1 is in flight while the warps iterate
+//   on group i.  A pass in shared memory then turns each 4 x 16-byte block
+//   (4 k of one row j) into the 16 problems' words of 4 k with __byte_perm
+//   4x4 byte transposes, so each problem's row j is contiguous in k.  A
+//   ragged batch stages the rows straight from global memory one byte a
+//   thread.
 // * Rows are padded to an odd number of 16-byte units, so the 16-byte row
 //   reads of a warp (lane j on row j) are free of bank conflicts.  One warp
-//   runs a problem: lanes, g and carry in registers, and for Tp <= 64 the
-//   lane's Hessian rows too (32 registers at Tp = 64), so an iteration reads
-//   only the lane vector, re-broadcast through shared memory, 16 bytes at a
-//   time for __dp4a.  Only the final lanes are written.
+//   runs a problem: lanes, g, carry and the lane's Hessian rows (32
+//   registers at Tp = 64) in registers, so an iteration reads only the lane
+//   vector, re-broadcast through shared memory, 16 bytes at a time for
+//   __dp4a.  Only the final lanes are written.
 // * L = int reads and writes (B, Tp) int32 lanes; L = int8_t reads and
 //   writes the (B, Tp/4) packed control words, which on this little-endian
 //   card are the int8 lanes in memory (K2p's precedent): the words entry
 //   needs no unpack or pack around it.
+//
+// Past 64 lanes, up to the reference's pgd_viable (Tp <= 632), a lane's
+// rows no longer fit its registers: the entries launch alm.cu's cluster
+// kernel (pint_pgd_wide), a problem a block (or a cluster of blocks past
+// Tp = 464), a row a thread.  An earlier design here ran one warp a problem
+// over rows in shared memory, a lane 8 rows at Tp = 256: 11.91 ms at B =
+// 4096 and 30 iterations on one H100 80GB HBM3, where the cluster kernel
+// takes 4.41 ms at Tp = 260.
 //
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
 #include "common.cuh"
@@ -87,6 +94,7 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
 }
 
 // L: int (lanes) or int8_t (packed words, read and written as bytes).
+// NJ = 1 (Tp <= 32) or 2 (Tp <= 64): lane l owns rows l + 32q, q < NJ.
 template <int NJ, typename L>
 __global__ void __launch_bounds__(kProbs * 32, 1)
 pgd_hqt_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
@@ -175,19 +183,17 @@ pgd_hqt_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
       const int den = hs_den[b];
       const size_t base = (size_t)b * Tp;
       const int chunks = lay.tp16 / 16;
-      // Tp <= 64: this lane's rows (NJ x up to 2 NJ chunks of 16 bytes) live
-      // in registers for all iterations; larger Tp reads them from rows
-      uint4 rr[NJ <= 2 ? NJ : 1][NJ <= 2 ? 2 * NJ : 1];
-      if constexpr (NJ <= 2) {
+      // this lane's rows (NJ x up to 2 NJ chunks of 16 bytes) live in
+      // registers for all iterations
+      uint4 rr[NJ][2 * NJ];
 #pragma unroll
-        for (int q = 0; q < NJ; ++q) {
-          const int j = lane + 32 * q;
+      for (int q = 0; q < NJ; ++q) {
+        const int j = lane + 32 * q;
 #pragma unroll
-          for (int c = 0; c < 2 * NJ; ++c)
-            rr[q][c] = j < Tp && c < chunks
-                           ? *reinterpret_cast<const uint4*>(H + (size_t)j * lay.rs + 16 * c)
-                           : make_uint4(0, 0, 0, 0);
-        }
+        for (int c = 0; c < 2 * NJ; ++c)
+          rr[q][c] = j < Tp && c < chunks
+                         ? *reinterpret_cast<const uint4*>(H + (size_t)j * lay.rs + 16 * c)
+                         : make_uint4(0, 0, 0, 0);
       }
       int x[NJ], gj[NJ], carry[NJ];
 #pragma unroll
@@ -208,36 +214,17 @@ pgd_hqt_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
         int acc[NJ], acc2[NJ];  // two partial sums: shorter __dp4a chains
 #pragma unroll
         for (int q = 0; q < NJ; ++q) acc[q] = 0, acc2[q] = 0;
-        if constexpr (NJ <= 2) {
 #pragma unroll
-          for (int c = 0; c < 2 * NJ; ++c) {
-            if (c < chunks) {
-              const uint4 l4 = *reinterpret_cast<const uint4*>(lv + 16 * c);
-#pragma unroll
-              for (int q = 0; q < NJ; ++q) {
-                int& a = c & 1 ? acc2[q] : acc[q];
-                a = __dp4a((int)rr[q][c].x, (int)l4.x, a);
-                a = __dp4a((int)rr[q][c].y, (int)l4.y, a);
-                a = __dp4a((int)rr[q][c].z, (int)l4.z, a);
-                a = __dp4a((int)rr[q][c].w, (int)l4.w, a);
-              }
-            }
-          }
-        } else {
-#pragma unroll 4
-          for (int c = 0; c < chunks; ++c) {
+        for (int c = 0; c < 2 * NJ; ++c) {
+          if (c < chunks) {
             const uint4 l4 = *reinterpret_cast<const uint4*>(lv + 16 * c);
 #pragma unroll
             for (int q = 0; q < NJ; ++q) {
-              const int j = lane + 32 * q;
-              if (j < Tp) {
-                const uint4 r = *reinterpret_cast<const uint4*>(
-                    H + (size_t)j * lay.rs + 16 * c);
-                acc[q] = __dp4a((int)r.x, (int)l4.x, acc[q]);
-                acc[q] = __dp4a((int)r.y, (int)l4.y, acc[q]);
-                acc[q] = __dp4a((int)r.z, (int)l4.z, acc[q]);
-                acc[q] = __dp4a((int)r.w, (int)l4.w, acc[q]);
-              }
+              int& a = c & 1 ? acc2[q] : acc[q];
+              a = __dp4a((int)rr[q][c].x, (int)l4.x, a);
+              a = __dp4a((int)rr[q][c].y, (int)l4.y, a);
+              a = __dp4a((int)rr[q][c].z, (int)l4.z, a);
+              a = __dp4a((int)rr[q][c].w, (int)l4.w, a);
             }
           }
         }
@@ -270,13 +257,9 @@ cudaError_t launch(const L* lanes, const int* g, const int8_t* hqt,
                    const int* hs_num, const int* hs_den, L* out, int B, int Tp,
                    int iters, int g_shift, cudaStream_t stream) {
   const Layout lay = layout(Tp);
-  bool async = B % kProbs == 0 && reinterpret_cast<uintptr_t>(hqt) % 16 == 0 &&
-               smem_bytes(lay, kProbs, true) <= kPintMaxSmem;
-  int probs = kProbs;
-  while (!async && probs > 0 && smem_bytes(lay, probs, false) > kPintMaxSmem)
-    --probs;
-  if (probs < 1) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(lay, probs, async);
+  const bool async = B % kProbs == 0 && reinterpret_cast<uintptr_t>(hqt) % 16 == 0;
+  const int probs = kProbs;
+  const size_t smem = smem_bytes(lay, probs, async);  // 214,016 bytes at Tp = 64
   auto kernel = pgd_hqt_kernel<NJ, L>;
   cudaError_t err = pint_allow_smem(kernel, smem);
   int grid = 0;
@@ -294,8 +277,10 @@ template <typename L>
 int dispatch(const void* lanes, const void* g, const void* hqt,
              const void* hs_num, const void* hs_den, void* out, int B, int Tp,
              int iters, int g_shift, void* stream) {
-  if (B <= 0 || Tp <= 0 || Tp % 4 || Tp > 256 || iters < 0 || g_shift < 1 ||
-      g_shift > 30)
+  // the reference's pgd_viable: the int8 working set of 128 problems
+  // within 100 MiB
+  if (B <= 0 || Tp <= 0 || Tp % 4 || (long)Tp * Tp + 16L * Tp > 409600 || iters < 0 ||
+      g_shift < 1 || g_shift > 30)
     return (int)cudaErrorInvalidValue;
   const L* l = static_cast<const L*>(lanes);
   const int* gg = static_cast<const int*>(g);
@@ -304,19 +289,11 @@ int dispatch(const void* lanes, const void* g, const void* hqt,
   const int* den = static_cast<const int*>(hs_den);
   L* o = static_cast<L*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch ((Tp + 31) / 32) {
-#define PINT_CASE(n)                                                         \
-  case n:                                                                    \
-    err = launch<n, L>(l, gg, h, num, den, o, B, Tp, iters, g_shift, s);     \
-    break;
-    PINT_CASE(1) PINT_CASE(2) PINT_CASE(3) PINT_CASE(4)
-    PINT_CASE(5) PINT_CASE(6) PINT_CASE(7) PINT_CASE(8)
-#undef PINT_CASE
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (Tp > 64)
+    return (int)pint_pgd_wide(lanes, gg, h, num, den, out, B, Tp, iters, g_shift,
+                              sizeof(L) == 1, s);
+  if (Tp <= 32) return (int)launch<1, L>(l, gg, h, num, den, o, B, Tp, iters, g_shift, s);
+  return (int)launch<2, L>(l, gg, h, num, den, o, B, Tp, iters, g_shift, s);
 }
 
 }  // namespace

@@ -2,8 +2,10 @@
 
 from pint_tpu_torch.mpc.accelerated import AcceleratedPGD
 from pint_tpu_torch.mpc.condense_fused import (
+    lipq_fits,
     lipq_fused,
     lipq_plain,
+    pen_fits,
     pen_fused,
     pen_plain,
 )
@@ -31,6 +33,7 @@ from pint_tpu_torch.mpc.fused import (
     fused_pgd_plain,
 )
 from pint_tpu_torch.mpc.fused_alm import (
+    alm_fits,
     alm_fused_words,
     alm_fused_words_pre,
     alm_hqt,
@@ -38,6 +41,7 @@ from pint_tpu_torch.mpc.fused_alm import (
     alm_shared,
     alm_shared_fused_words,
     alm_shared_plain,
+    pgd_fits,
     pgd_fused_words,
     pgd_fused_words_pre,
     pgd_fused_words_pre_plain,
@@ -59,6 +63,7 @@ __all__ = [
     "QuantizedConstrainedQP",
     "QuantizedQP",
     "StateConstrainedQP",
+    "alm_fits",
     "alm_fused_words",
     "alm_fused_words_pre",
     "alm_hqt",
@@ -73,10 +78,13 @@ __all__ = [
     "fused_pgd_packed",
     "fused_pgd_packed_plain",
     "fused_pgd_plain",
+    "lipq_fits",
     "lipq_fused",
     "lipq_plain",
+    "pen_fits",
     "pen_fused",
     "pen_plain",
+    "pgd_fits",
     "pgd_fused_words",
     "pgd_fused_words_pre",
     "pgd_fused_words_pre_plain",

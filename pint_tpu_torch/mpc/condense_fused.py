@@ -24,8 +24,32 @@ import torch
 
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["lipq_fused", "lipq_plain", "pen_fused", "pen_plain", "quantize_hqt",
-           "true_div"]
+__all__ = ["lipq_fits", "lipq_fused", "lipq_plain", "pen_fits", "pen_fused",
+           "pen_plain", "quantize_hqt", "true_div"]
+
+_SMEM_BYTES = 232448
+"""Shared memory a block may use on the H100 (``kPintMaxSmem``)."""
+
+
+def lipq_fits(Tm: int) -> bool:
+    """True when K3 (``csrc/lipq.cu``) takes a Hessian of ``Tm`` rows:
+    Tm <= 286, the reference's ``lipq_viable``.  Past Tm = 224 one
+    problem's f32 slab outgrows a block's shared memory and the kernel
+    holds its last rows in registers.  Past the gate the solvers take the
+    torch form of the Lipschitz and quantize phases, as the reference
+    takes its XLA form."""
+    return 0 < Tm <= 286
+
+
+def pen_fits(C: int, Tm: int) -> bool:
+    """True when K6 (``csrc/pen.cu``) takes ``C`` constraint rows over
+    ``Tm`` columns: C, Tm <= 256 and one problem's f32 slab, its two
+    vectors and 34 floats of reductions in shared memory.  The port's
+    counterpart of the reference's ``pen_viable`` (``C Tm <= 68266``
+    there); past it the constrained solver takes the torch form of the
+    constraint rows' phases."""
+    return (0 < C <= 256 and 0 < Tm <= 256
+            and (C * (Tm + 1) + Tm + C + 34) * 4 <= _SMEM_BYTES)
 
 
 def true_div(a, b):
@@ -112,10 +136,10 @@ def lipq_fused(
         return lipq_plain(Ht, power_iters=power_iters)
     K.require_cuda("lipq_fused", Ht)
     Tm, _, B = Ht.shape
-    if Tm > 224:
+    if not lipq_fits(Tm):
         raise ValueError(
-            f"lipq_fused: Tm={Tm} > 224 does not fit one f32 slab in shared "
-            "memory (a streaming kernel is later work)"
+            f"lipq_fused: Tm={Tm} is past 286, the reference's lipq_viable "
+            "(lipq_fits; the solvers take the torch form past it)"
         )
     hqt = torch.empty(Ht.shape, dtype=torch.int8, device=Ht.device)
     lip = torch.empty((B,), dtype=torch.float32, device=Ht.device)
@@ -199,10 +223,11 @@ def pen_fused(
         return pen_plain(S_t, power_iters=power_iters)
     K.require_cuda("pen_fused", S_t)
     C, Tm, B = S_t.shape
-    if C > 256 or Tm > 256 or (C * (Tm + 1) + Tm + C + 1) * 4 > 232448:
+    if not pen_fits(C, Tm):
         raise ValueError(
             f"pen_fused: C={C}, Tm={Tm}: one f32 slab must fit in shared "
-            "memory and C, Tm <= 256 (a streaming kernel is later work)"
+            "memory and C, Tm <= 256 (pen_fits; the solvers take the torch "
+            "form past it)"
         )
     dev = S_t.device
     sqc = torch.empty((C, Tm, B), dtype=torch.int8, device=dev)

@@ -11,14 +11,26 @@ of problems at once:
 * constraint-row stacking S = F Bbar, P = F Abar, r = F Cbar from the same
   propagator stacks, batch-last;
 * K3 (:func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) on the
-  Hessian and K6 (:func:`~pint_tpu_torch.mpc.condense_fused.pen_fused`) on
-  the constraint rows: power iterations and int8 quantization in both
-  kernel orientations;
+  Hessian where ``lipq`` is not False and
+  :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fits` takes Tm, and K6
+  (:func:`~pint_tpu_torch.mpc.condense_fused.pen_fused`) on the constraint
+  rows where ``lipq`` is not False and
+  :func:`~pint_tpu_torch.mpc.condense_fused.pen_fits` takes (C, Tm): power
+  iterations and int8 quantization in both kernel orientations; each
+  otherwise in the torch form of the reference's ``lipq=False`` branch
+  (``DeviceSQP._lipschitz_phase`` and ``DeviceSQP._quantize_phase``;
+  :meth:`DeviceConstrainedSQP._pen_lipschitz` and
+  :meth:`DeviceConstrainedSQP._quantize_rows`);
 * the int32 rationals, bounds and offsets in c-pre units, and the
   multiplier rescale across relinearizations (lam lives in c-pre units
   whose per-problem scale moves with the trajectory);
 * ``alm_outer x pgd_iters`` integer ALM iterations as the K5 kernel
-  (:func:`~pint_tpu_torch.mpc.fused_alm.alm_fused_words_pre`).
+  (:func:`~pint_tpu_torch.mpc.fused_alm.alm_fused_words_pre`) where
+  :func:`~pint_tpu_torch.mpc.fused_alm.alm_fits` takes (Tp, Cp), otherwise
+  the word-space ``_alm_batched``, the reference's XLA inner.
+
+Each choice is made once, at construction, from the shapes
+(:attr:`DeviceConstrainedSQP.forms`).
 
 The device and ``use_kernels`` are ``dev``'s: on a CUDA device K3, K6 and
 K5 are the hand-written kernels, on the CPU their plain versions, and
@@ -30,9 +42,8 @@ the kernels are held to on the card).  ``fused=False`` runs the word-space
 a (dp, tp) process mesh; with tp > 1 its ALM inner is column-sharded over
 K10.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP queue 1):
-``lipq=False`` (the XLA-form ``_pen_lipschitz`` and quantize branch);
-``dev``'s own unported options raise in :class:`DeviceSQP`.
+Not ported yet: ``dev``'s own unported options, which raise
+``NotImplementedError`` in :class:`DeviceSQP`.
 ``propagate="auto"`` runs the unrolled propagation, the only form ported
 (the reference's T < 40 scan crossover is a TPU measurement).
 
@@ -52,15 +63,17 @@ import torch
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc.condense_fused import (
     INV_127,
+    lipq_fits,
     lipq_fused,
     lipq_plain,
+    pen_fits,
     pen_fused,
     pen_plain,
     true_div,
 )
 from pint_tpu_torch.mpc.constrained import RATIONALS, _C_BITS, _CX0_CAP, _LAM_CAP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP, _f32_to_i32, sharded_program
-from pint_tpu_torch.mpc.fused_alm import alm_fused_words_pre, alm_hqt_plain
+from pint_tpu_torch.mpc.fused_alm import alm_fits, alm_fused_words_pre, alm_hqt_plain
 from pint_tpu_torch.mpc.sqp_constrained import (
     _Y_SHIFT,
     _alm_batched,
@@ -69,8 +82,6 @@ from pint_tpu_torch.mpc.sqp_constrained import (
 )
 
 __all__ = ["DeviceConstrainedSQP"]
-
-_TODO = "not ported yet (ROADMAP.md queue 1)"
 
 _REST = ("cs_num", "cs_den", "c_off", "lo_pre", "hi_pre", "eh_num", "eh_den",
          "el_num", "el_den")
@@ -119,9 +130,31 @@ class DeviceConstrainedSQP:
     lipq: Optional[bool] = None
 
     def __post_init__(self):
-        if self.lipq is False:
-            raise NotImplementedError(f"lipq=False: {_TODO}")
         self._bounds  # validate lo < hi now, not at the first solve
+        self.forms    # choose each stage's form now, from the shapes
+
+    @functools.cached_property
+    def forms(self) -> dict:
+        """The form each stage of an SQP iteration takes, chosen from the
+        shapes alone: ``condense`` is "lipq" (K3, or its plain version)
+        where ``lipq`` is not False and :func:`lipq_fits` takes Tm, else
+        "torch"; ``constraints`` is "pen" (K6, or its plain version) where
+        ``lipq`` is not False and :func:`pen_fits` takes (C, Tm), else
+        "torch".  Each kernel runs wherever its own gate takes the shape;
+        the reference's ``_use_lipq`` needs both of its gates, which the
+        port's meet together on every shape but those where K6 stops short
+        of ``pen_viable`` (C, Tm past 256, or a slab past 227 KB).
+        ``inner`` is "alm" (K5, or its plain version) where ``fused`` is
+        not False and :func:`alm_fits` takes (Tp, Cp), else "alm_batched"
+        (the word-space ``_alm_batched``)."""
+        Tm, C, Cp = self.dev.n_dec, self.n_rows, self.padded_rows
+        kernels = self.lipq is not False
+        return dict(
+            condense="lipq" if kernels and lipq_fits(Tm) else "torch",
+            constraints="pen" if kernels and pen_fits(C, Tm) else "torch",
+            inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
+            else "alm_batched",
+        )
 
     @property
     def device(self) -> torch.device:
@@ -185,8 +218,45 @@ class DeviceConstrainedSQP:
         r_t = torch.einsum("ci,bki->kcb", Fj, Cbar).reshape(C, -1)
         return S_t.contiguous(), P_t, r_t
 
+    def _pen_lipschitz(self, S_t):
+        """Power iteration for lambda_max(S S^T) per problem (it equals
+        lambda_max(S^T S)) with the 1.05 safety factor, on the batch-last
+        S_t (C, Tm, B): the torch form of the reference's
+        ``_pen_lipschitz`` (``pint_tpu/mpc/device_constrained.py:185-203``).
+        One batch-first copy of S_t, then two batched f32 products a step;
+        against JAX it agrees to f32 roundoff.  Returns pen_lip (B,)."""
+        _, Tm, B = S_t.shape
+        Sb = S_t.permute(2, 0, 1).contiguous()                   # (B, C, Tm)
+        SbT = Sb.transpose(1, 2)
+
+        def sts(v):                                              # (B, Tm, 1)
+            return torch.bmm(SbT, torch.bmm(Sb, v))
+
+        v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
+                       dtype=torch.float32, device=S_t.device)
+        for _ in range(self.dev.power_iters):
+            u = sts(v)
+            v = u / (torch.sqrt((u * u).sum(1, keepdim=True)) + 1e-30)
+        return (v * sts(v)).sum((1, 2)) * float(np.float32(1.05))
+
+    def _quantize_rows(self, S_t):
+        """The constraint rows' int8 quantization from S_t (C, Tm, B): the
+        torch form of the reference's ``lipq=False`` branch
+        (``pint_tpu/mpc/device_constrained.py:274-284``), bit for bit given
+        the same S_t.  ``max|S| / 127`` compiles to a multiply by
+        f32(1/127) and ``S_t / s_scale`` is an IEEE division.  Returns
+        (sqc (C, Tm, B) int8, ``sqc[c, j, b] = Sq_b[c, j]``; s_scale (B,);
+        row_amp (B,) = 127 max_c sum_j |S|)."""
+        a = torch.abs(S_t)
+        s_scale = torch.amax(a, dim=(0, 1)) * INV_127
+        q = true_div(S_t, s_scale)
+        sqc = q.round_().clamp_(-127, 127).to(torch.int8)
+        return sqc, s_scale, 127.0 * torch.amax(a.sum(1), dim=0)
+
     def _condense_constrained_dev(self, x0_f, lanes):
-        """Per-iteration prep: linearize, condense, stack, K3 + K6, the
+        """Per-iteration prep: linearize, condense, stack, quantize in the
+        forms ``forms["condense"]`` (K3, or the torch phases) and
+        ``forms["constraints"]`` (K6, or the torch phases) name, the
         rationals, bounds and offsets.  Returns (ops dict, c_unit (B,)
         f32); ops carries the batch-last kernel-orientation int8 matrices
         ``hqt``/``sqj``/``sqc`` (constraint rows zero-padded to Cp)."""
@@ -199,28 +269,36 @@ class DeviceConstrainedSQP:
         Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
         Ht, g = d._reduce_sym(Abar, Bbar, Cbar, x0_f)
         S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
-        if d.use_kernels:
-            hqt, lip, h_max = lipq_fused(Ht, power_iters=d.power_iters)
-            sqc, sqj, pen_lip, s_scale, row_amp = pen_fused(
-                S_t, power_iters=d.power_iters)
+        rho = float(np.float32(self.rho))
+        kernels = d.use_kernels
+        if self.forms["condense"] == "lipq":
+            lipq = lipq_fused if kernels else lipq_plain
+            hqt, lip, h_max = lipq(Ht, power_iters=d.power_iters)
         else:
-            hqt, lip, h_max = lipq_plain(Ht, power_iters=d.power_iters)
-            sqc, sqj, pen_lip, s_scale, row_amp = pen_plain(
-                S_t, power_iters=d.power_iters)
-        lip_total = lip + float(np.float32(self.rho)) * pen_lip
+            lip = d._lipschitz_phase(Ht)
+        if self.forms["constraints"] == "pen":
+            pen = pen_fused if kernels else pen_plain
+            sqc, sqj, pen_lip, s_scale, row_amp = pen(S_t, power_iters=d.power_iters)
+        else:
+            pen_lip = self._pen_lipschitz(S_t)
+            sqc, s_scale, row_amp = self._quantize_rows(S_t)
+            sqj = sqc.transpose(0, 1).contiguous()
+        lip_total = lip + rho * pen_lip
         alpha = true_div(1.0, lip_total)                          # (B,)
-        g_pre = d._g_pre_from(g, alpha)
-        # the reference's alpha * h_max / 127.0, as XLA compiles it
-        hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
-        if Cp > C:
-            sqc = torch.nn.functional.pad(sqc, (0, 0, 0, 0, 0, Cp - C))
-            sqj = torch.nn.functional.pad(sqj, (0, 0, 0, Cp - C))
+        if self.forms["condense"] == "lipq":
+            g_pre = d._g_pre_from(g, alpha)
+            # the reference's alpha * h_max / 127.0, as XLA compiles it
+            hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
+        else:
+            hqt, g_pre, hs_num, hs_den = d._quantize_phase(Ht, g, lip_total)
+        sqc = torch.nn.functional.pad(sqc, (0, 0, 0, 0, 0, Cp - C))
+        sqj = torch.nn.functional.pad(sqj, (0, 0, 0, Cp - C))
 
         c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))
         cs_num, cs_den = _rational_traced(
             true_div(s_scale, c_unit), 127 * 127 * Tp, 2**31 - 1)
         base = (
-            float(np.float32(self.rho)) * s_scale * float(1 << _Y_SHIFT)
+            rho * s_scale * float(1 << _Y_SHIFT)
             * c_unit * alpha
         ) * float(1 << d.g_shift)
         eh_num, eh_den = _rational_traced(base * 128.0, 64 * 127 * Cp, 2**30 - 1)
@@ -248,14 +326,16 @@ class DeviceConstrainedSQP:
         return ops, c_unit
 
     def _run_inner(self, words, ops, lam):
-        """The ALM inner on the quantized operands: K5 (its plain version
-        with ``use_kernels=False``), or the word-space ``_alm_batched``
-        with ``fused=False`` -- bit-identical given the same operands."""
+        """The ALM inner on the quantized operands, in the form
+        ``forms["inner"]`` names: K5 (its plain version with
+        ``use_kernels=False``), or the word-space ``_alm_batched`` (with
+        ``fused=False``, or past K5's fit) -- bit-identical given the same
+        operands."""
         d = self.dev
         kw = dict(outer=self.alm_outer, inners=d.pgd_iters,
                   g_shift=d.g_shift, y_shift=_Y_SHIFT)
         rest = [ops[k] for k in _REST]
-        if self.fused is False:
+        if self.forms["inner"] == "alm_batched":
             return _alm_batched(
                 words, ops["g_pre"], ops["hqt"].permute(2, 1, 0), ops["hs_num"],
                 ops["hs_den"], ops["sqc"].permute(2, 0, 1), *rest, lam, **kw)
@@ -340,7 +420,8 @@ class DeviceConstrainedSQP:
 
         **dp** shards problems.  **tp** shards the ALM inner's horizon
         columns: each SQP iteration one exact int32 all-gather rebuilds the
-        plan, every tp rank runs the same condensation, K3 and K6, and each
+        plan, every tp rank runs the same condensation and quantization
+        (either form), and each
         inner iteration the rank's K10 launch over its combined gradient
         and constraint slab feeds one exact int32 all-reduce
         (:func:`~pint_tpu_torch.mpc.sqp_constrained._alm_batched_cols_hqt`;

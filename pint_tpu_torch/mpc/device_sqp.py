@@ -9,21 +9,31 @@ only.  Each SQP iteration, for a batch of problems at once:
   square contraction ``Ht = W^T W`` with ``W = L^T B-stack`` and
   ``Q = L L^T`` (``reduce="sym"``), keeping the Hessian batch-last
   (Tm, Tm, B);
-* Lipschitz estimate + int8 quantization in one pass (K3,
-  :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`), then the int32
-  step rationals and linear term;
-* the fixed-point PGD inner with error feedback (K4,
-  :func:`~pint_tpu_torch.mpc.fused_alm.pgd_fused_words_pre`).
+* Lipschitz estimate + int8 quantization, then the int32 step rationals
+  and linear term: in one pass (K3,
+  :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) where
+  :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fits` takes the horizon
+  and ``lipq`` is not False, otherwise in the torch form of the
+  reference's ``lipq=False`` phases (:meth:`DeviceSQP._lipschitz_phase`,
+  :meth:`DeviceSQP._quantize_phase`);
+* the fixed-point PGD inner with error feedback: K4
+  (:func:`~pint_tpu_torch.mpc.fused_alm.pgd_fused_words_pre`) where
+  :func:`~pint_tpu_torch.mpc.fused_alm.pgd_fits` takes the horizon,
+  otherwise the word-space ``ltv._pgd_batched_h``, the reference's XLA
+  inner.
 
-On a CUDA device K3 and K4 are the hand-written kernels; on the CPU their
-plain PyTorch versions.  ``use_kernels=False`` runs the plain versions on
-any device: it is the reference the kernels are held to on the card.
+Each choice is made once, at construction, from the shapes
+(:attr:`DeviceSQP.forms`), as the reference's ``_use_lipq`` and
+``_use_fused`` gates choose, so every horizon solves on the card.  On a
+CUDA device K3 and K4 are the hand-written kernels; on the CPU their plain
+PyTorch versions.  ``use_kernels=False`` runs the plain versions on any
+device: it is the reference the kernels are held to on the card.
 :meth:`DeviceSQP.sharded_solve_words` runs the same iteration on a (dp, tp)
 process mesh; with tp > 1 its PGD inner is column-sharded over K10.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-``propagate="scan"`` and ``"allpairs"``, ``reduce`` other than ``"sym"``
-and ``lipq=False`` (the XLA-form Lipschitz and quantize phases).
+``propagate="scan"`` and ``"allpairs"``, and ``reduce`` other than
+``"sym"``.
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -38,9 +48,23 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.models.dynamics import Unicycle, unpack_controls
-from pint_tpu_torch.mpc.condense_fused import INV_127, lipq_fused, lipq_plain, true_div
-from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_fused_words_pre_plain
-from pint_tpu_torch.mpc.ltv import _pgd_batched_h_cols, _pgd_batched_h_cols_hqt
+from pint_tpu_torch.mpc.condense_fused import (
+    INV_127,
+    lipq_fits,
+    lipq_fused,
+    lipq_plain,
+    true_div,
+)
+from pint_tpu_torch.mpc.fused_alm import (
+    pgd_fits,
+    pgd_fused_words_pre,
+    pgd_fused_words_pre_plain,
+)
+from pint_tpu_torch.mpc.ltv import (
+    _pgd_batched_h,
+    _pgd_batched_h_cols,
+    _pgd_batched_h_cols_hqt,
+)
 from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["DeviceSQP"]
@@ -123,8 +147,6 @@ class DeviceSQP:
             )
         if self.reduce != "sym":
             raise NotImplementedError(f"reduce={self.reduce!r}: {_TODO}")
-        if self.lipq is False:
-            raise NotImplementedError(f"lipq=False: {_TODO}")
         if self.n_dec % 4:
             raise ValueError(
                 f"horizon*n_ctrl = {self.n_dec} must be a multiple of 4 "
@@ -140,6 +162,25 @@ class DeviceSQP:
             )
         object.__setattr__(self, "device", K.resolve_device(self.device))
         self._Q_sqrt  # validate Q (PSD) now, not at the first solve
+        self.forms    # choose each stage's form now, from the shapes
+
+    @functools.cached_property
+    def forms(self) -> dict:
+        """The form each stage of an SQP iteration takes, chosen from the
+        shapes alone: ``condense`` is "lipq" (K3; its plain version with
+        ``use_kernels=False`` or on the CPU) where ``lipq`` is not False and
+        :func:`lipq_fits` takes ``n_dec``, else "torch"
+        (:meth:`_lipschitz_phase` and :meth:`_quantize_phase`); ``inner`` is
+        "pgd_hqt" (K4, or its plain version) where :func:`pgd_fits` takes
+        ``n_dec``, else "pgd_batched_h" (the word-space
+        ``ltv._pgd_batched_h``).  ``lipq=True`` past K3's fit takes the
+        torch form, as the reference's ``_use_lipq`` does past
+        ``lipq_viable``."""
+        return dict(
+            condense="lipq" if self.lipq is not False and lipq_fits(self.n_dec)
+            else "torch",
+            inner="pgd_hqt" if pgd_fits(self.n_dec) else "pgd_batched_h",
+        )
 
     # -- geometry -------------------------------------------------------------
 
@@ -294,14 +335,51 @@ class DeviceSQP:
         hs_num = _f32_to_i32(val * torch.exp2(hs_den))
         return hs_num, hs_den.to(torch.int32)
 
-    def _condense_lipq(self, x0_f, lanes):
-        """Condense, then K3: (hqt (Tm,Tm,B) int8, g_pre (B,Tm) int32,
-        hs_num, hs_den (B,) int32)."""
+    def _lipschitz_phase(self, Ht):
+        """Power iteration for lambda_max(H) (PSD) with the 1.05 safety
+        factor, on the batch-last Ht (Tm, Tm, B): the torch form of the
+        reference's ``_lipschitz_phase`` (``pint_tpu/mpc/device_sqp.py:
+        645-667``).  One batch-first copy of Ht, then each step is one
+        batched f32 product that allocates only (B, Tm) vectors.  Sums run
+        in the GEMM's order, not XLA's: against JAX ``lip`` agrees to f32
+        roundoff.  Returns lip (B,)."""
+        Tm, _, B = Ht.shape
+        Hb = Ht.permute(2, 0, 1).contiguous()                    # (B, k, j)
+        v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
+                       dtype=torch.float32, device=Ht.device)
+        for _ in range(self.power_iters):
+            w = torch.bmm(Hb, v)
+            v = w / (torch.sqrt((w * w).sum(1, keepdim=True)) + 1e-30)
+        return (v * torch.bmm(Hb, v)).sum((1, 2)) * float(np.float32(1.05))
+
+    def _quantize_phase(self, Ht, g, lip):
+        """int8 Hessian, int32 linear term and step rationals from the
+        batch-last Ht (Tm, Tm, B), g (B, Tm) and lip (B,): the torch form of
+        the reference's ``_quantize_phase`` (``pint_tpu/mpc/device_sqp.py:
+        759-780``), bit for bit given the same Ht, g and lip.  ``1.0 / lip``
+        and ``127.0 / h_max`` are IEEE divisions; XLA compiles ``alpha *
+        h_max / 127.0`` as a multiply by f32(1/127).  Returns (hqt
+        (Tm, Tm, B) int8 in the kernel orientation, ``hqt[k, j, b] =
+        Hq_b[j, k] = q(Ht[j, k, b])``, g_pre, hs_num, hs_den)."""
+        alpha = true_div(1.0, lip)
+        h_max = torch.amax(torch.abs(Ht), dim=(0, 1))
+        q = Ht * true_div(127.0, h_max)
+        hq = q.round_().clamp_(-127, 127).to(torch.int8)
+        del q  # a GiB of f32 at T = 128, B = 4096: free it before the transpose
+        hs_num, hs_den = self._step_rationals(alpha * h_max * INV_127)
+        return (hq.transpose(0, 1).contiguous(), self._g_pre_from(g, alpha),
+                hs_num, hs_den)
+
+    def _condense(self, x0_f, lanes):
+        """Condense and quantize in the form ``forms["condense"]`` names
+        (K3, or the torch phases): (hqt (Tm, Tm, B) int8 in the kernel
+        orientation, g_pre (B, Tm) int32, hs_num, hs_den (B,) int32), the
+        operands of either inner and of both sharded inners."""
         Ht, g = self._condense_ht(x0_f, lanes)
-        if self.use_kernels:
-            hqt, lip, h_max = lipq_fused(Ht, power_iters=self.power_iters)
-        else:
-            hqt, lip, h_max = lipq_plain(Ht, power_iters=self.power_iters)
+        if self.forms["condense"] == "torch":
+            return self._quantize_phase(Ht, g, self._lipschitz_phase(Ht))
+        lipq = lipq_fused if self.use_kernels else lipq_plain
+        hqt, lip, h_max = lipq(Ht, power_iters=self.power_iters)
         alpha = true_div(1.0, lip)
         g_pre = self._g_pre_from(g, alpha)
         _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
@@ -315,9 +393,14 @@ class DeviceSQP:
         return (h_scale, *self._step_rationals(h_scale))
 
     def _run_inner(self, words, x0_f, lanes):
-        """One SQP iteration: condense + K3, then the K4 inner."""
-        hqt, g_pre, hs_num, hs_den = self._condense_lipq(x0_f, lanes)
+        """One SQP iteration: :meth:`_condense`, then the inner
+        ``forms["inner"]`` names (all bit-identical given the same
+        operands)."""
+        hqt, g_pre, hs_num, hs_den = self._condense(x0_f, lanes)
         kw = dict(iters=self.pgd_iters, g_shift=self.g_shift)
+        if self.forms["inner"] == "pgd_batched_h":
+            return _pgd_batched_h(words, g_pre, hqt.permute(2, 1, 0).contiguous(),
+                                  hs_num, hs_den, **kw)
         inner = pgd_fused_words_pre if self.use_kernels else pgd_fused_words_pre_plain
         return inner(words, g_pre, hqt, hs_num, hs_den, **kw)
 
@@ -359,25 +442,25 @@ class DeviceSQP:
 
         **dp** shards problems.  **tp** shards the PGD inner's horizon
         columns: each SQP iteration one exact int32 all-gather rebuilds the
-        lane plan, every tp rank runs the same f32 condensation and K3 on
-        it, and the column inner adds the rank's K10 matvec to an exact
+        lane plan, every tp rank runs the same f32 condensation and
+        quantization on it (:meth:`_condense`, either form), and the column inner adds the rank's K10 matvec to an exact
         int32 all-reduce every iteration (:func:`~pint_tpu_torch.mpc.ltv.
         _pgd_batched_h_cols_hqt`; the plain column dot
         :func:`~pint_tpu_torch.mpc.ltv._pgd_batched_h_cols` with
         ``use_kernels=False``).  With tp == 1 each shard runs
-        :meth:`solve_words`'s iteration (K3 + K4) with no collective.
+        :meth:`solve_words`'s iteration with no collective.
 
         Bit-identical to :meth:`solve_words` on every mesh shape as long as
-        every tp rank computes the same f32 condensation and K3
-        quantization bit for bit: the port has only the lipq path, whose
-        quantization is one kernel.  Programs are memoized per mesh."""
+        every tp rank computes the same f32 condensation and quantization
+        bit for bit: the same operations on the same inputs on one kind of
+        device, in either form.  Programs are memoized per mesh."""
 
         def cols_inner(cols, block):
             kw = dict(iters=self.pgd_iters, g_shift=self.g_shift,
                       group=mesh.tp_group, rank=mesh.r_tp, block=block)
 
             def inner(words, x0_f, lanes):
-                hqt, g_pre, hs_num, hs_den = self._condense_lipq(x0_f, lanes)
+                hqt, g_pre, hs_num, hs_den = self._condense(x0_f, lanes)
                 g_r = g_pre[:, cols].contiguous()
                 if self.use_kernels:
                     return _pgd_batched_h_cols_hqt(words, g_r, hqt, hs_num, hs_den, **kw)

@@ -8,11 +8,12 @@ PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
   versions :func:`pgd_hqt_plain` and :func:`pgd_fused_words_pre_plain`;
 * K5, the per-problem ALM inner of DeviceConstrainedSQP
   (``alm_fused_words_pre``, ``alm_fused_words``): :func:`alm_hqt`, CUDA
-  kernel ``csrc/alm.cu`` (``alm_kernel``), plain version
-  :func:`alm_hqt_plain`;
+  kernel ``csrc/alm.cu`` (``alm_reg_kernel`` to 64 lanes and rows,
+  ``alm_wide_kernel`` past them; the latter also runs K4 past 64 lanes),
+  plain version :func:`alm_hqt_plain`;
 * K7, the shared-operand ALM of the LTI ConstrainedPGD
   (``alm_shared_fused_words``): :func:`alm_shared`, CUDA kernel
-  ``csrc/alm.cu`` (``alm_shared_kernel``), plain version
+  ``csrc/alm.cu`` (``alm_mma_kernel``, on the tensor cores), plain version
   :func:`alm_shared_plain`;
 * K10, one tp rank's column matvec, launched once an iteration by the
   column-sharded inners with the int32 all-reduce between launches
@@ -20,9 +21,12 @@ PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
   ``csrc/matvec_cols.cu``, plain version :func:`pgd_matvec_cols_plain`.
 
 Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
-tensors.  The reference's VMEM gates and its TPU crossover for the column
-matvec (``matvec_viable``, ``matvec_wins``, ``_MATVEC_MIN_COLS``,
-``resolve_tp_fused``) are not ported: K10 checks its own shared-memory fit.
+tensors.  :func:`pgd_fits` and :func:`alm_fits` state the shapes K4 and
+K5 take (the reference's ``pgd_viable`` and ``alm_viable``); the wrappers
+refuse by them and the solvers choose their inners by them.  K7 takes Tp
+and Cp to 256.  The reference's TPU crossover for the column matvec
+(``matvec_viable``, ``matvec_wins``, ``_MATVEC_MIN_COLS``,
+``resolve_tp_fused``) is not ported: K10 checks its own shared-memory fit.
 
 Exactness: for in-range int8 lanes ``max_signed(add_signed_saturate(u, d),
 -127)`` equals ``clip(u + d, -127, 127)`` in lane space, so every route is
@@ -42,10 +46,10 @@ from pint_tpu_torch.mpc.constrained import RATIONALS, _alm_loop, _f64_mv, _lane_
 from pint_tpu_torch.mpc.ltv import _bmv
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["alm_fused_words", "alm_fused_words_pre", "alm_hqt", "alm_hqt_plain",
-           "alm_shared", "alm_shared_fused_words", "alm_shared_plain",
-           "pgd_fused_words", "pgd_fused_words_pre", "pgd_fused_words_pre_plain",
-           "pgd_hqt", "pgd_hqt_plain",
+__all__ = ["alm_fits", "alm_fused_words", "alm_fused_words_pre", "alm_hqt",
+           "alm_hqt_plain", "alm_shared", "alm_shared_fused_words", "alm_shared_plain",
+           "pgd_fits", "pgd_fused_words", "pgd_fused_words_pre",
+           "pgd_fused_words_pre_plain", "pgd_hqt", "pgd_hqt_plain",
            "pgd_matvec_cols", "pgd_matvec_cols_plain"]
 
 
@@ -86,12 +90,40 @@ def _check_pgd_hqt(name, x, lanes_per, g_pre, hqt, hs_num, hs_den):
             raise ValueError(f"{name}: {what} must be {dt}, got {t.dtype}")
 
 
+_VMEM_WORDS = 409600
+"""The reference's fits in int8 bytes a problem: its 100 MiB VMEM ceiling
+over two buffers of 128 problems."""
+
+
+def pgd_fits(Tp: int) -> bool:
+    """True when K4 (``csrc/pgd_hqt.cu``) takes a horizon of ``Tp`` lanes:
+    a multiple of 4 (dp4a words) within the reference's ``pgd_viable``
+    (``Tp^2 + 16 Tp <= 409600``, Tp <= 632).  Past 256 lanes K4 runs
+    ``csrc/alm.cu``'s cluster kernel.  Past the gate ``DeviceSQP`` runs
+    the word-space ``_pgd_batched_h``, as the reference runs its XLA
+    inner."""
+    return Tp > 0 and Tp % 4 == 0 and Tp * Tp + 16 * Tp <= _VMEM_WORDS
+
+
+def alm_fits(Tp: int, Cp: int) -> bool:
+    """True when K5 (``csrc/alm.cu``) takes ``Tp`` lanes and ``Cp``
+    constraint rows: multiples of 4 within the reference's ``alm_viable``
+    (``Tp^2 + 2 Tp Cp + 8 (Tp + Cp) <= 409600``), each at most 4096 (a
+    cluster of 8 blocks of 512 threads, a row a thread; every such shape
+    fits their shared memory).  Past the gate ``DeviceConstrainedSQP``
+    runs the word-space ``_alm_batched``, as the reference runs its XLA
+    inner."""
+    return (0 < Tp <= 4096 and 0 < Cp <= 4096 and Tp % 4 == 0 and Cp % 4 == 0
+            and Tp * Tp + 2 * Tp * Cp + 8 * (Tp + Cp) <= _VMEM_WORDS)
+
+
 def _launch_pgd_hqt(entry, x, g_pre, hqt, hs_num, hs_den, iters, g_shift):
     """One K4 launch through C entry ``entry``; counts as ``pgd_hqt``."""
     B, Tp = g_pre.shape
     K.require_cuda("pgd_hqt", x, g_pre, hqt, hs_num, hs_den)
-    if Tp % 4 or Tp > 256:
-        raise ValueError(f"pgd_hqt: Tp={Tp} must be a multiple of 4, <= 256")
+    if not pgd_fits(Tp):
+        raise ValueError(f"pgd_hqt: Tp={Tp} must be a multiple of 4 within the "
+                         "reference's pgd_viable, Tp <= 632 (pgd_fits)")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = getattr(K.library(), entry)(
@@ -211,15 +243,6 @@ def _check(name, specs):
             raise ValueError(f"{name}: {what} must be {dt}, got {t.dtype}")
 
 
-def _check_geometry(name, Tp, Cp):
-    """The kernels' limits: dp4a words, at most 8 lanes a thread.  At
-    Tp = Cp = 256 one K5 problem stages 200,448 bytes, so every accepted
-    shape fits the 232,448 bytes of shared memory a block may use."""
-    if Tp % 4 or Cp % 4 or not 0 < Tp <= 256 or not 0 < Cp <= 256:
-        raise ValueError(
-            f"{name}: Tp={Tp}, Cp={Cp} must be multiples of 4 in [4, 256]")
-
-
 def alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *,
                      hs_num, hs_den, cs_num, cs_den, eh_num, eh_den, el_num,
                      el_den, outer, inners, g_shift, y_shift):
@@ -263,7 +286,9 @@ def alm_shared(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *, hs_num,
         return alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre,
                                 hi_pre, **kw)
     K.require_cuda("alm_shared", lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre)
-    _check_geometry("alm_shared", Tp, Cp)
+    if not (0 < Tp <= 256 and 0 < Cp <= 256 and Tp % 4 == 0 and Cp % 4 == 0):
+        raise ValueError(f"alm_shared: Tp={Tp}, Cp={Cp} must be multiples of 4 in "
+                         "[4, 256]")
     out_lanes = torch.empty_like(lanes)
     out_lam = torch.empty_like(lam)
     with torch.cuda.device(lanes.device):
@@ -345,7 +370,9 @@ def alm_hqt(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc, *,
                              hi_pre, lam, sc, **kw)
     ops = (lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc)
     K.require_cuda("alm_hqt", *ops)
-    _check_geometry("alm_hqt", Tp, Cp)
+    if not alm_fits(Tp, Cp):
+        raise ValueError(f"alm_hqt: Tp={Tp}, Cp={Cp} must be multiples of 4 within "
+                         "the reference's alm_viable (alm_fits)")
     out_lanes = torch.empty_like(lanes)
     out_lam = torch.empty_like(lam)
     with torch.cuda.device(lanes.device):

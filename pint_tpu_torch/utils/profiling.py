@@ -178,8 +178,8 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
     if kernel in ("alm", "alm_shared"):
         B, Tp, Cp = s["B"], s["Tp"], s["Cp"]
         lanes = 4 * B * (2 * Tp + 4 * Cp)          # lanes, g, c_off, lam in; out
-        if kernel == "alm":                        # hqt, sqj, sqc, lo, hi, sc
-            mats = B * (Tp * Tp + 2 * Cp * Tp) + 4 * B * (2 * Cp + 8)
+        if kernel == "alm":                        # hqt, one of sqj/sqc, lo, hi, sc
+            mats = B * (Tp * Tp + Cp * Tp) + 4 * B * (2 * Cp + 8)
         else:                                      # one hq, sq, lo, hi
             mats = Tp * Tp + Cp * Tp + 8 * Cp
         return KernelCost(lanes + mats,

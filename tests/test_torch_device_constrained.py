@@ -7,7 +7,10 @@ tests/test_device_sqp.py's cross-path checks; full solves against JAX's
 held to cost parity, rtol 0.01, atol 1e-4, and violation parity, atol
 5e-3 (tests/test_condense_fused.py::test_constrained_lipq_solution_quality),
 since last-ulp f32 differences can move an int8 rounding tie.  Inside the
-port every route is bit-identical.
+port every route is bit-identical.  The torch form of the reference's
+``lipq=False`` branch: ``pen_lip`` and ``row_amp`` rtol 1e-5 (sums in
+another order than XLA's), ``sqc`` and ``s_scale`` bit-identical given
+JAX's own ``S_t``.
 """
 
 import jax
@@ -178,12 +181,132 @@ def test_validation(small_pair):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: DeviceConstrainedSQP(DeviceSQP(**SMALL, device="cpu"), lipq=False),
+    lambda: DeviceConstrainedSQP(DeviceSQP(reduce="einsum", **SMALL, device="cpu")),
     lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL, device="cpu")),
-], ids=["lipq=False", "propagate=scan"])
+], ids=["reduce=einsum", "propagate=scan"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):
         make()
+
+
+@pytest.fixture(scope="module")
+def jax_s_t(small_pair):
+    """JAX's own constraint stack S_t (C, Tm, B) of one warm plan."""
+    ref, _ = small_pair
+    d = ref.dev
+    rng = np.random.default_rng(81)
+    B = 7
+    lanes = rng.integers(-100, 100, (B, d.n_dec), dtype=np.int32)
+
+    def stack(x0_f, lanes):
+        A, Bl, c = d._linearize_phase(x0_f, lanes)
+        return ref._stack_constraints(*d._propagate_unrolled(A, Bl, c))[0]
+
+    return np.array(jax.jit(stack)(jnp.asarray(_x0(B, 82)), jnp.asarray(lanes)))
+
+
+def test_pen_lipschitz_matches_jax(small_pair, jax_s_t):
+    ref, port = small_pair
+    expect = np.asarray(jax.jit(ref._pen_lipschitz)(jnp.asarray(jax_s_t)))
+    got = port._pen_lipschitz(torch.as_tensor(jax_s_t))
+    np.testing.assert_allclose(got.numpy(), expect, rtol=1e-5)
+
+
+def test_quantize_rows_bit_identical(small_pair, jax_s_t):
+    """The constraint quantization of the reference's lipq=False branch
+    (pint_tpu/mpc/device_constrained.py:274-284, jitted as it runs there)
+    against the torch form on the same S_t."""
+    _, port = small_pair
+
+    @jax.jit
+    def reference(S_t):
+        s_scale = jnp.max(jnp.abs(S_t), axis=(0, 1)) / 127.0
+        Sq_t = jnp.clip(jnp.round(S_t / s_scale[None, None, :]), -127, 127
+                        ).astype(jnp.int8)
+        row_amp = 127.0 * jnp.max(jnp.sum(jnp.abs(S_t), axis=1), axis=0)
+        return Sq_t, s_scale, row_amp
+
+    sq_j, scale_j, amp_j = (np.asarray(v) for v in reference(jnp.asarray(jax_s_t)))
+    sqc, s_scale, row_amp = port._quantize_rows(torch.as_tensor(jax_s_t))
+    np.testing.assert_array_equal(sqc.numpy(), sq_j)
+    np.testing.assert_array_equal(s_scale.numpy(), scale_j)
+    np.testing.assert_allclose(row_amp.numpy(), amp_j, rtol=1e-5)
+
+
+def test_lipq_false_solve_parity(small_pair):
+    """JAX's lipq=False form (XLA quantize, XLA inner) against the port's
+    torch form into K5's plain version: cost and violation parity; inside
+    the port the word-space inner gives the same bits."""
+    ref, _ = small_pair
+    ref_x = JDeviceConstrainedSQP(ref.dev, alm_outer=2, lipq=False, fused=False, **CON)
+    port = device_constrained_config(ref_x, fused=None, device="cpu")
+    assert port.forms == dict(condense="torch", constraints="torch", inner="alm")
+    x0 = np.concatenate([X0, _x0(4, 83)])
+    w_j, _ = ref_x.solve_words(ref_x.init_words(6), x0)
+    w, lam = port.solve_words(port.init_words(6), x0)
+    lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
+    lanes = _lanes(port, w)
+    np.testing.assert_allclose(true_cost(port.dev, x0, lanes),
+                               true_cost(port.dev, x0, lanes_j), rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.violation(x0, lanes),
+                               ref_x.violation(x0, lanes_j), atol=5e-3)
+    word = device_constrained_config(ref_x, fused=False, device="cpu")
+    assert word.forms["inner"] == "alm_batched"
+    w2, lam2 = word.solve_words(word.init_words(6), x0)
+    assert torch.equal(w2, w) and torch.equal(lam2, lam)
+
+
+def _long_horizon_parity(horizon, forms, Cp):
+    """One SQP iteration at ``horizon`` resolves to ``forms`` and is at cost
+    and violation parity with JAX's (scan propagation; on the CPU its
+    lipq=False form and XLA inner)."""
+    kw = dict(horizon=horizon, sqp_iters=1, pgd_iters=10, x_ref=np.array([1.0, 0.0, 0.0]))
+    ref = JDeviceConstrainedSQP(JDeviceSQP(propagate="scan", **kw), alm_outer=2, **CON)
+    port = device_constrained_config(ref, device="cpu")
+    assert port.forms == forms
+    assert port.padded_rows == Cp
+    w_j, _ = ref.solve_words(ref.init_words(2), X0)
+    w, lam = port.solve_words(port.init_words(2), X0)
+    lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
+    lanes = _lanes(port, w)
+    assert lam.shape == (2, Cp)
+    np.testing.assert_allclose(true_cost(port.dev, X0, lanes),
+                               true_cost(port.dev, X0, lanes_j), rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.violation(X0, lanes),
+                               ref.violation(X0, lanes_j), atol=5e-3)
+
+
+def test_long_horizon_solves_in_the_torch_form():
+    """T = 144 (Tm = 288, past K3's fit; C = 144 rows, past K6's; Cp = 192)
+    takes the torch form of both and K5 (its plain version here)."""
+    _long_horizon_parity(144, dict(condense="torch", constraints="torch", inner="alm"),
+                         192)
+
+
+def test_t128_solves_through_k3_k6_and_k5():
+    """T = 128 (Tm = 256; C = 128 rows, Cp = 128) takes K3, K6 and K5, as
+    the reference does on its chip."""
+    _long_horizon_parity(128, dict(condense="lipq", constraints="pen", inner="alm"), 128)
+
+
+@pytest.mark.parametrize("horizon, kw, forms", [
+    (32, {}, ("lipq", "pen", "alm")), (112, {}, ("lipq", "pen", "alm")),
+    (114, {}, ("lipq", "pen", "alm")), (128, {}, ("lipq", "pen", "alm")),
+    (130, {}, ("lipq", "torch", "alm")), (144, {}, ("torch", "torch", "alm")),
+    (300, {}, ("torch", "torch", "alm_batched")),
+    (32, dict(lipq=False), ("torch", "torch", "alm")),
+    (32, dict(fused=False), ("lipq", "pen", "alm_batched")),
+    (8, dict(F=np.eye(3)[:1].repeat(200, 0)), ("lipq", "torch", "alm")),
+    (8, dict(F=np.eye(3)[:1].repeat(1100, 0)), ("lipq", "torch", "alm_batched")),
+])
+def test_forms_follow_the_gates(horizon, kw, forms):
+    """K3 and K6 each by its own fit (K6 stops at C, Tm = 256: horizon 130
+    has Tm = 260; C = 200 x 8 rows is past it), K5 by the reference's
+    alm_viable (C = 1100 x 8 rows, Cp = 8832, is past it)."""
+    kw = dict(CON, **kw)
+    csqp = DeviceConstrainedSQP(DeviceSQP(**dict(SMALL, horizon=horizon), device="cpu"),
+                                **kw)
+    assert (csqp.forms["condense"], csqp.forms["constraints"], csqp.forms["inner"]) == forms
 
 
 def test_cuda_request_without_cuda_raises():

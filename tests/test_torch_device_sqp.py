@@ -10,7 +10,10 @@ tests/test_condense_fused.py run them.  Tolerances:
 * the f32 condensation ``Ht``, ``g``: rtol 1e-5, atol 1e-4, the bound of
   tests/test_device_sqp.py's cross-path checks;
 * full solves: cost parity, rtol 0.01, atol 1e-4 (tests/test_device_sqp.py),
-  since last-ulp f32 differences can move an int8 rounding tie.
+  since last-ulp f32 differences can move an int8 rounding tie;
+* the torch form of the reference's ``lipq=False`` phases: ``lip`` rtol 1e-5
+  (the power iteration sums in the GEMM's order, not XLA's), the quantized
+  operands bit-identical given JAX's own ``Ht``, ``g`` and ``lip``.
 """
 
 import numpy as np
@@ -30,8 +33,12 @@ from pint_tpu_torch.convert import device_sqp_config, words_from_numpy, words_to
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc import (
     DeviceSQP,
+    alm_fits,
+    lipq_fits,
     lipq_fused,
     lipq_plain,
+    pen_fits,
+    pgd_fits,
     pgd_fused_words,
     pgd_fused_words_pre,
     pgd_fused_words_pre_plain,
@@ -216,7 +223,7 @@ def test_solve_deterministic_and_plain_route_equal(pair):
     (dict(propagate="scan"), "scan"),
     (dict(propagate="allpairs"), "allpairs"),
     (dict(reduce="einsum"), "einsum"),
-    (dict(lipq=False), "lipq"),
+    (dict(reduce="blocked"), "blocked"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -253,6 +260,125 @@ def test_h_scale_and_step_rationals_bit_identical(pair):
         np.testing.assert_array_equal(g.numpy(), e)
     ieee = true_div(_t(alpha) * _t(h_max), 127.0).numpy()
     assert (ieee != expect[0]).any()
+
+
+@pytest.fixture(scope="module")
+def jax_ht_g(pair):
+    """JAX's own condensation (Ht, g) of one warm plan, and JAX's own
+    ``_lipschitz_phase`` on it."""
+    ref, _ = pair
+    rng = np.random.default_rng(71)
+    B = 8
+    lanes = rng.integers(-100, 100, (B, ref.n_dec), dtype=np.int32)
+    Ht, g = jax.jit(ref._condense_ht)(jnp.asarray(_x0(B, 72)), jnp.asarray(lanes))
+    lip = jax.jit(ref._lipschitz_phase)(Ht)
+    return np.asarray(Ht), np.asarray(g), np.asarray(lip)
+
+
+def test_lipschitz_phase_matches_jax(pair, jax_ht_g):
+    _, port = pair
+    Ht, _, lip_j = jax_ht_g
+    lip = port._lipschitz_phase(_t(Ht))
+    assert lip.shape == lip_j.shape and lip.dtype == torch.float32
+    np.testing.assert_allclose(lip.numpy(), lip_j, rtol=1e-5)
+
+
+def test_quantize_phase_bit_identical(pair, jax_ht_g):
+    """Given JAX's Ht, g and lip, the torch form's int8 Hessian (in the
+    kernel orientation), linear term and step rationals equal the
+    reference's jitted ``_quantize_phase`` bit for bit."""
+    ref, port = pair
+    Ht, g, lip = jax_ht_g
+    Hq_j, *rest_j = (np.asarray(v) for v in jax.jit(ref._quantize_phase)(
+        jnp.asarray(Ht), jnp.asarray(g), jnp.asarray(lip)))
+    hqt, *rest = port._quantize_phase(_t(Ht), _t(g), _t(lip))
+    assert hqt.dtype == torch.int8 and hqt.is_contiguous()
+    np.testing.assert_array_equal(hqt.permute(2, 1, 0).numpy(), Hq_j)
+    for a, b in zip(rest, rest_j):
+        assert a.numpy().dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_lipq_false_solve_cost_parity(pair):
+    """``lipq=False`` runs the torch form into K4's plain version; JAX's
+    default on the CPU is its ``lipq=False`` form into the XLA inner."""
+    ref, _ = pair
+    port = device_sqp_config(ref, lipq=False, device="cpu")
+    assert port.forms == dict(condense="torch", inner="pgd_hqt")
+    x0 = _x0(6, 73)
+    w_ref, _ = ref.solve(x0)
+    w, _ = port.solve(x0)
+    lanes = unpack_controls(w)[:, : ref.n_dec].numpy()
+    lanes_ref = unpack_controls(words_from_numpy(np.asarray(w_ref), device="cpu"))
+    cost = true_cost(port, x0, lanes)
+    cost_ref = true_cost(port, x0, lanes_ref[:, : ref.n_dec].numpy())
+    np.testing.assert_allclose(cost, cost_ref, rtol=0.01, atol=1e-4)
+    # the word-space inner and K4's plain version agree on the torch form
+    plain = device_sqp_config(ref, lipq=False, use_kernels=False, device="cpu")
+    np.testing.assert_array_equal(plain.solve(x0)[0].numpy(), w.numpy())
+
+
+def _long_horizon_parity(horizon, forms, seed):
+    """One SQP iteration at ``horizon`` resolves to ``forms`` and is at cost
+    parity with JAX's (scan propagation; on the CPU its lipq=False form and
+    XLA inner)."""
+    kw = dict(KW, horizon=horizon, sqp_iters=1)
+    ref = JDeviceSQP(propagate="scan", **kw)
+    port = device_sqp_config(ref, device="cpu")
+    assert port.forms == forms
+    x0 = _x0(2, seed)
+    w_ref, _ = ref.solve(x0)
+    w, plans = port.solve(x0)
+    assert plans.shape == (2, horizon, 2) and np.isfinite(plans).all()
+    lanes = unpack_controls(w)[:, : port.n_dec].numpy()
+    lanes_ref = unpack_controls(words_from_numpy(np.asarray(w_ref), device="cpu"))
+    np.testing.assert_allclose(
+        true_cost(port, x0, lanes),
+        true_cost(port, x0, lanes_ref[:, : port.n_dec].numpy()), rtol=0.01, atol=1e-4)
+
+
+def test_long_horizon_solves_in_the_torch_form():
+    """T = 144 (Tm = 288, past K3's fit, the reference's lipq_viable)
+    takes the torch form and K4 (its plain version here)."""
+    _long_horizon_parity(144, dict(condense="torch", inner="pgd_hqt"), 74)
+
+
+def test_t128_solves_through_k3_and_k4():
+    """T = 128 (Tm = 256, the reference's longest shipped horizon) takes
+    K3 and K4, as the reference does on its chip."""
+    _long_horizon_parity(128, dict(condense="lipq", inner="pgd_hqt"), 75)
+
+
+@pytest.mark.parametrize("horizon, forms", [
+    (32, ("lipq", "pgd_hqt")), (112, ("lipq", "pgd_hqt")),
+    (114, ("lipq", "pgd_hqt")), (128, ("lipq", "pgd_hqt")),
+    (130, ("lipq", "pgd_hqt")), (142, ("lipq", "pgd_hqt")),
+    (144, ("torch", "pgd_hqt")), (316, ("torch", "pgd_hqt")),
+    (318, ("torch", "pgd_batched_h")),
+])
+def test_forms_follow_the_gates(horizon, forms):
+    """Each stage's form comes from the shapes at construction: K3 to Tm
+    286 (horizon 143), K4 to Tp 632 (horizon 316), the reference's
+    lipq_viable and pgd_viable."""
+    sqp = DeviceSQP(**dict(KW, horizon=horizon), device="cpu")
+    assert (sqp.forms["condense"], sqp.forms["inner"]) == forms
+    assert DeviceSQP(**dict(KW, horizon=horizon), lipq=False,
+                     device="cpu").forms["condense"] == "torch"
+
+
+def test_fits_gates_at_their_boundaries():
+    assert lipq_fits(286) and not lipq_fits(288) and not lipq_fits(0)
+    assert pgd_fits(256) and pgd_fits(632) and not pgd_fits(636)
+    assert not pgd_fits(254) and not pgd_fits(0)
+    # alm_viable: Tp^2 + 2 Tp Cp + 8 (Tp + Cp) <= 409600
+    assert alm_fits(256, 256) and alm_fits(260, 64) and alm_fits(64, 260)
+    assert alm_fits(632, 4) and not alm_fits(632, 8)
+    assert alm_fits(512, 136) and not alm_fits(512, 140)
+    assert not alm_fits(64, 62) and alm_fits(4, 4096) and not alm_fits(4, 4100)
+    # K6's shared-memory edge: (C (Tm + 1) + Tm + C + 34) * 4 <= 232448
+    assert pen_fits(224, 256) and not pen_fits(225, 256)
+    assert pen_fits(256, 223) and not pen_fits(256, 224)
+    assert not pen_fits(257, 8) and not pen_fits(8, 257)
 
 
 def test_indefinite_q_rejected_at_construction():

@@ -50,6 +50,16 @@ def test_k4_words_entry_moves_a_quarter_of_the_lanes():
     assert lanes.ops == words.ops
 
 
+def test_alm_counts_one_orientation_of_the_constraint_rows():
+    """K5 takes Sq in two orientations (sqj, sqc) but needs one: its bytes
+    are hqt, one Sq, the lanes and int32 vectors, read or written once."""
+    B, Tp, Cp = 4096, 64, 64
+    cost = kernel_cost("alm", B=B, Tp=Tp, Cp=Cp, outer=3, inners=30)
+    assert cost.bytes == (B * (Tp * Tp + Cp * Tp) + 4 * B * (2 * Cp + 8)
+                          + 4 * B * (2 * Tp + 4 * Cp))
+    assert bound_ms(cost)[1] == "bytes"
+
+
 def test_operations_bound_a_long_shared_alm():
     """K7 at the LTI constrained shape does 97 G int8 operations on 6.3 MB:
     the tensor-core peak, not memory, sets its bound."""

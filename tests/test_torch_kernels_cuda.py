@@ -14,8 +14,11 @@ also held to the contract's rtol 1e-5 first); K5 and K7 bit-identical
 (words and multipliers) to their plain versions and word-space references;
 K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
 rtol 1e-5 first); K10 and K2p bit-identical (K2p also to K2 with its unpack
-and pack); a whole DeviceSQP solve, kernels against plain versions, cost
-parity rtol 0.01, atol 1e-4.
+and pack); whole DeviceSQP and DeviceConstrainedSQP solves (T = 32; T = 128,
+through K3 and K6; T = 144, past their fits), kernels against plain
+versions, cost parity rtol 0.01, atol 1e-4 (violation atol 5e-3).  Each
+shape gate (``lipq_fits``, ``pen_fits``, ``pgd_fits``, ``alm_fits``) is true
+exactly where its kernel's C entry accepts the shape.
 """
 
 import numpy as np
@@ -130,7 +133,8 @@ def test_k4_bit_identical(condensed):
     assert torch.equal(got, pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
 
 
-@pytest.mark.parametrize("Tm", [16, 32, 48, 64, 66, 80, 100, 128, 160, 224])
+@pytest.mark.parametrize("Tm", [16, 32, 48, 64, 66, 80, 100, 128, 160, 224, 228, 256,
+                                286])
 @pytest.mark.parametrize("B", [37, 4096, 4099, 4100])
 def test_k3_bit_identical_at_every_path(cuda, B, Tm):
     """K3 against lipq_plain on random slabs.  Tm <= 64, the register
@@ -141,7 +145,8 @@ def test_k3_bit_identical_at_every_path(cuda, B, Tm):
     of problems in 3 slots with 2 groups of warps (66), 2 slots (80) and 1
     slot (100), with 16-byte copies and word stores when B % 4 == 0 (4096,
     4100); single problems past Tm = 118 in 3 slots (128), 2 (160) and 1
-    (224)."""
+    (224); past 224 one slot holds the first rows and registers the rest
+    (228, 256, 286: 4 to 85 rows in registers)."""
     gen = torch.Generator(device=cuda).manual_seed(B + Tm)
     Ht = torch.randn((Tm, Tm, B), generator=gen, device=cuda)
     got = lipq_fused(Ht, power_iters=16)
@@ -168,7 +173,8 @@ def _k4_operands(cuda, B, Tp, seed):
 @pytest.mark.parametrize("B", [37, 4096])
 def test_k4_words_and_lanes_bit_identical(cuda, B, Tp):
     """K4's lanes entry and its words entry against their plain versions and
-    against each other, full-range warm lanes (so -128 occurs)."""
+    against each other, full-range warm lanes (so -128 occurs): rows in
+    registers (32, 64) and the cluster kernel (256)."""
     from pint_tpu_torch.mpc import pgd_fused_words_pre, pgd_fused_words_pre_plain
 
     lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, B, Tp, B + Tp)
@@ -181,6 +187,24 @@ def test_k4_words_and_lanes_bit_identical(cuda, B, Tp):
     assert torch.equal(got_words,
                        pgd_fused_words_pre_plain(words, g_pre, hqt, hs_num, hs_den, **kw))
     assert torch.equal(got_words, pack_controls(got_lanes))
+
+
+@pytest.mark.parametrize("B, Tp", [(37, 100), (4096, 288), (37, 512), (1000, 632)])
+def test_k4_cluster_kernel_bit_identical(cuda, B, Tp):
+    """Past 64 lanes K4 runs alm.cu's cluster kernel: one block a problem
+    to Tp = 464, a cluster of two past it (512, 632: the reference's
+    pgd_viable limit); both entries against their plain versions."""
+    from pint_tpu_torch.mpc import pgd_fused_words_pre, pgd_fused_words_pre_plain
+
+    lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, B, Tp, B + Tp)
+    kw = dict(iters=20, g_shift=12)
+    got_lanes = pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)
+    words = pack_controls(lanes)
+    got_words = pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_lanes, pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
+    assert torch.equal(got_words,
+                       pgd_fused_words_pre_plain(words, g_pre, hqt, hs_num, hs_den, **kw))
 
 
 def test_k4_words_entry_is_one_launch(cuda):
@@ -409,6 +433,23 @@ def test_k6_bit_identical(con_condensed):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("C, Tm", [(8, 100), (100, 66), (128, 256), (224, 256),
+                                   (256, 223)])
+@pytest.mark.parametrize("B", [37, 1000])
+def test_k6_rows_kernel_bit_identical(cuda, B, C, Tm):
+    """Past 64 rows or columns K6 runs a problem a block, a row a thread,
+    up to its shared-memory edge; every output against pen_plain."""
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(B + C + Tm)
+    S_t = torch.randn((C, Tm, B), generator=gen, device=cuda)
+    got = pen_fused(S_t, power_iters=16)
+    ref = pen_plain(S_t, power_iters=16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"), got, ref):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 def test_k5_bit_identical(con_condensed, warm):
     from pint_tpu_torch.mpc import alm_fused_words_pre
@@ -548,6 +589,209 @@ def test_device_constrained_kernels_cost_parity(cuda):
     np.testing.assert_allclose(out[0][1], out[1][1], atol=5e-3)
 
 
+def _k7_operands(cuda, B, Tp, Cp, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda)
+
+    return (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-2**16, 2**16, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
+            t(rng.integers(0, 500, (B, Cp), dtype=np.int32)),
+            t(rng.integers(-127, 128, (Tp, Tp), dtype=np.int8)),
+            t(rng.integers(-127, 128, (Cp, Tp), dtype=np.int8)),
+            t(rng.integers(-2000, -100, (Cp,), dtype=np.int32)),
+            t(rng.integers(100, 2000, (Cp,), dtype=np.int32)))
+
+
+@pytest.mark.parametrize("Tp, Cp", [(20, 20), (64, 64), (52, 100), (256, 256)])
+@pytest.mark.parametrize("B", [1, 15, 17, 1000, 4096])
+def test_k7_bit_identical_at_every_shape(cuda, B, Tp, Cp):
+    """K7 against alm_shared_plain on random operands with warm lanes (so
+    -128 occurs) and multipliers: the tensor-core kernel at W = 32 (20 x
+    20), 64, 128 (52 x 100) and 256 (256 x 256, B fragments in shared
+    memory, four column groups a warp); tiles of 16 problems, ragged at 1,
+    15, 17 and 1000."""
+    from pint_tpu_torch.mpc import alm_shared, alm_shared_plain
+
+    args = _k7_operands(cuda, B, Tp, Cp, B + Tp + Cp)
+    kw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
+              el_num=23, el_den=11, outer=3, inners=8, g_shift=12, y_shift=9)
+    got = alm_shared(*args, **kw)
+    ref = alm_shared_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_k7_one_launch_a_constrained_pgd_solve(cuda):
+    from pint_tpu_torch.mpc import ConstrainedPGD
+
+    q = _lti_constrained(50)
+    solver = ConstrainedPGD(q, outer=2, inners=10, device=cuda)
+    x0 = np.stack([np.linspace(-1.5, 1.5, 33), np.linspace(-0.2, 0.2, 33)], -1)
+    before = K.launch_counts()
+    solver.solve(x0)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["alm_shared"] == before["alm_shared"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+def _k5_operands(cuda, B, Tp, Cp, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=cuda)
+
+    sq = rng.integers(-127, 128, (Cp, Tp, B), dtype=np.int8)
+    sc = np.stack([rng.integers(1, 300, B), rng.integers(10, 16, B),
+                   rng.integers(1, 300, B), rng.integers(8, 14, B),
+                   rng.integers(1, 300, B), rng.integers(12, 18, B),
+                   rng.integers(1, 300, B), rng.integers(8, 14, B)]).astype(np.int32)
+    return (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-2**16, 2**16, (B, Tp), dtype=np.int32)),
+            t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
+            t(np.ascontiguousarray(sq.transpose(1, 0, 2))), t(sq),
+            t(rng.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
+            t(rng.integers(-2000, -100, (B, Cp), dtype=np.int32)),
+            t(rng.integers(100, 2000, (B, Cp), dtype=np.int32)),
+            t(rng.integers(0, 500, (B, Cp), dtype=np.int32)), t(sc))
+
+
+@pytest.mark.parametrize("Tp, Cp", [(64, 64), (32, 64), (256, 128)])
+@pytest.mark.parametrize("B", [37, 4096, 4099])
+def test_k5_bit_identical_at_every_shape(cuda, B, Tp, Cp):
+    """K5 against alm_hqt_plain on random operands: rows in registers
+    (Tp, Cp <= 64; B = 4096 lands by 8-byte copies, 37 and 4099 by byte
+    loads) and the cluster kernel past 64 (256 x 128, one block a
+    problem)."""
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+
+    args = _k5_operands(cuda, B, Tp, Cp, B + Tp + Cp)
+    kw = dict(outer=3, inners=10, g_shift=12, y_shift=9)
+    got = alm_hqt(*args, **kw)
+    ref = alm_hqt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("Tp, Cp", [(100, 68), (288, 192), (512, 128), (632, 4),
+                                    (16, 1600)])
+@pytest.mark.parametrize("B", [37, 1000])
+def test_k5_cluster_kernel_to_the_reference_fit(cuda, B, Tp, Cp):
+    """K5's cluster kernel against alm_hqt_plain up to the reference's
+    alm_viable: one block a problem (100 x 68, 288 x 192), two blocks whose
+    rows j and c split (512 x 128, 632 x 4), and four of 400 rows c each
+    (16 x 1600)."""
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+
+    args = _k5_operands(cuda, B, Tp, Cp, B + Tp + Cp)
+    kw = dict(outer=2, inners=6, g_shift=12, y_shift=9)
+    got = alm_hqt(*args, **kw)
+    ref = alm_hqt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _entry_accepts(cuda, entry, ptrs, *ints):
+    """Whether C entry ``entry`` accepts the shape: 0 from a launch on
+    zero operands of a generous size, and the launch runs."""
+    bufs = [torch.zeros(1 << 22, dtype=torch.int32, device=cuda) for _ in range(ptrs)]
+    err = getattr(K.library(), entry)(*(b.data_ptr() for b in bufs), *ints,
+                                      K.stream_of(bufs[0]))
+    torch.cuda.synchronize()
+    return err == 0
+
+
+@pytest.mark.parametrize("Tm", [220, 224, 228, 256, 286, 288])
+def test_lipq_fits_is_where_k3_accepts(cuda, Tm):
+    from pint_tpu_torch.mpc import lipq_fits
+
+    assert _entry_accepts(cuda, "pint_lipq", 4, 1, Tm, 2) == lipq_fits(Tm)
+
+
+@pytest.mark.parametrize("C, Tm", [(224, 256), (225, 256), (256, 223), (256, 224),
+                                   (257, 8), (128, 256)])
+def test_pen_fits_is_where_k6_accepts(cuda, C, Tm):
+    from pint_tpu_torch.mpc import pen_fits
+
+    assert _entry_accepts(cuda, "pint_pen", 6, 1, C, Tm, 2) == pen_fits(C, Tm)
+
+
+@pytest.mark.parametrize("Tp", [4, 64, 254, 256, 260, 632, 636])
+def test_pgd_fits_is_where_k4_accepts(cuda, Tp):
+    from pint_tpu_torch.mpc import pgd_fits
+
+    for entry in ("pint_pgd_hqt", "pint_pgd_hqt_words"):
+        assert _entry_accepts(cuda, entry, 6, 1, Tp, 2, 12) == pgd_fits(Tp)
+
+
+@pytest.mark.parametrize("Tp, Cp", [(64, 64), (256, 256), (260, 64), (64, 260),
+                                    (62, 64), (20, 100), (632, 4), (632, 8),
+                                    (512, 136), (512, 140), (4, 4096), (4, 4100)])
+def test_alm_fits_is_where_k5_and_k7_accept(cuda, Tp, Cp):
+    """K5 takes what alm_fits takes; K7 takes that shape up to 256."""
+    from pint_tpu_torch.mpc import alm_fits
+
+    fits = alm_fits(Tp, Cp)
+    assert _entry_accepts(cuda, "pint_alm", 12, 1, Tp, Cp, 1, 2, 12, 9) == fits
+    assert _entry_accepts(cuda, "pint_alm_shared", 10, 1, Tp, Cp, 1, 2, 12, 9,
+                          1, 0, 1, 0, 1, 0, 1, 0) == (fits and max(Tp, Cp) <= 256)
+
+
+@pytest.mark.parametrize("horizon, forms", [
+    (128, dict(condense="lipq", inner="pgd_hqt")),
+    (144, dict(condense="torch", inner="pgd_hqt")),
+])
+def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
+    """At T = 128 (Tm 256: K3 with rows in registers, K4) and past K3's fit
+    (Tm 288: the torch form, K4's cluster kernel) the solve runs on the
+    card at cost parity with the plain versions."""
+    kw = dict(SQP_KW, horizon=horizon)
+    kern = DeviceSQP(sqp_iters=2, device=cuda, **kw)
+    plain = DeviceSQP(sqp_iters=2, device=cuda, use_kernels=False, **kw)
+    assert kern.forms == forms
+    x0 = _x0(64, 23)
+    costs = []
+    for sqp in (kern, plain):
+        w = sqp.solve_words(sqp.init_words(64), torch.as_tensor(x0, device=cuda))
+        costs.append(true_cost(sqp, x0, unpack_controls(w)[:, : sqp.n_dec].cpu().numpy()))
+    assert np.isfinite(costs[0]).all()
+    np.testing.assert_allclose(costs[0], costs[1], rtol=0.01, atol=1e-4)
+
+
+@pytest.mark.parametrize("horizon, forms", [
+    (128, dict(condense="lipq", constraints="pen", inner="alm")),
+    (144, dict(condense="torch", constraints="torch", inner="alm")),
+])
+def test_long_horizon_device_constrained_cost_parity(cuda, horizon, forms):
+    """T = 128 through K3, K6 and K5's cluster kernel; T = 144 past K3's and
+    K6's fits, K5's cluster kernel at 288 x 192."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    sqp_kw = dict(horizon=horizon, sqp_iters=2, pgd_iters=30,
+                  x_ref=np.array([1.0, 0.0, 0.0]))
+    kern = DeviceConstrainedSQP(DeviceSQP(device=cuda, **sqp_kw), **CON)
+    plain = DeviceConstrainedSQP(DeviceSQP(device=cuda, use_kernels=False, **sqp_kw), **CON)
+    assert kern.forms == forms
+    fits = forms["condense"] == "lipq"
+    x0 = _con_x0(64, 24)
+    out = []
+    before = K.launch_counts()
+    for csqp in (kern, plain):
+        w, lam = csqp.solve_words(csqp.init_words(64), torch.as_tensor(x0, device=cuda))
+        lanes = unpack_controls(w)[:, : csqp.dev.n_dec].cpu().numpy()
+        out.append((true_cost(csqp.dev, x0, lanes), csqp.violation(x0, lanes)))
+        if csqp is kern:
+            after = K.launch_counts()
+            assert after["alm"] == before["alm"] + 2
+            assert after["lipq"] == before["lipq"] + 2 * fits
+            assert after["pen"] == before["pen"] + 2 * fits
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=5e-3)
+
+
 # -- the multi-device tier's kernels: K10 and K2p -------------------------------
 
 
@@ -562,7 +806,7 @@ def rti_slabs(cuda):
     sqp = DeviceSQP(sqp_iters=1, device=cuda, **SQP_KW)
     lanes = torch.as_tensor(rng.integers(-60, 61, (B, sqp.n_dec), dtype=np.int32),
                             device=cuda)
-    hqt = sqp._condense_lipq(torch.as_tensor(_x0(B, 21), device=cuda), lanes)[0]
+    hqt = sqp._condense(torch.as_tensor(_x0(B, 21), device=cuda), lanes)[0]
     csqp = DeviceConstrainedSQP(
         DeviceSQP(horizon=32, sqp_iters=1, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]),
                   device=cuda), **CON)

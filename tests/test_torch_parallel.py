@@ -270,7 +270,7 @@ def _operands():
     from pint_tpu_torch.models.dynamics import pack_controls
 
     tl = torch.from_numpy(lanes)
-    hqt, g, num, den = dev._condense_lipq(torch.from_numpy(_x0_sqp(B, 22)), tl)
+    hqt, g, num, den = dev._condense(torch.from_numpy(_x0_sqp(B, 22)), tl)
     out = dict(pgd_words=pack_controls(tl).numpy(), pgd_g=g.numpy(),
                pgd_hqt=np.ascontiguousarray(hqt.permute(2, 0, 1).numpy()),
                pgd_hs_num=num.numpy(), pgd_hs_den=den.numpy())
