@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero):
    limit from nvidia-smi; TF32 off;
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
    source; from the build's -Xptxas -v report, the registers of every K3,
-   K4, K5 and K7 kernel (none may spill) and any kernel that spills;
+   K4, K5, K6, K7 and K10 kernel (none may spill) and any kernel that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
    accumulate) and their u64 pair forms K11a-c, each against its plain
    PyTorch version on 1Mi full-range random words and against the per-lane
@@ -84,12 +84,22 @@ Phases (any failure raises and the script exits non-zero):
     all-reduced), their joined words and their multipliers must equal
     phase 15's one-process results bit for bit, and K10 must have launched
     on both ranks in both SQP solves.  Wall ms are the rehearsal's, not a
-    rate of the tier.
+    rate of the tier;
+17. long horizons, 2 SQP iterations each: DeviceSQP and
+    DeviceConstrainedSQP at T = 128, B = 4096 (K3 with rows in registers,
+    K6's cluster kernel, K4's and K5's cluster kernels), DeviceConstrainedSQP
+    at T = 136, B = 1024 (C 136 x Tm 272: K6's cluster kernel, where K6's
+    first gate took the torch form), and both at T = 144, B = 1024 (past
+    K3's fit: the torch phases, no K6), each against use_kernels=False: 0
+    problems differing in words and multipliers, cost parity; then those
+    kernels alone on real operands at those shapes, each against its plain
+    version.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
-phase 16 K10 on both ranks, and phase 17 K4 and K5.  The line before the last is the kernels' JSON
+phase 16 K10 on both ranks, and phase 17 each long-horizon solve's kernels.
+The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
 version, the bound from ``utils.profiling.kernel_cost`` at the timed shape
@@ -120,7 +130,8 @@ SHIFT_AMOUNTS = (0, 1, 3, 7, 12, 100, -1)
 N_CHECK, N_ORACLE = 1 << 20, 2048
 N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
-NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu", "alm.cu")  # K3, K4, K5, K7: rows in registers
+NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu", "alm.cu", "pen.cu",  # operands in registers:
+                    "matvec_cols.cu")                          # K3-K7, K10
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
@@ -133,7 +144,8 @@ CON_SQP_KW = dict(horizon=32, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]))
 CON_KW = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=3)
 LTI_CON_T, LTI_CON_OUTER, LTI_CON_INNERS = 50, 12, 60
 LONG_T, LONG_BATCH, LONG_SQP = 128, 4096, 2
-PAST_T, PAST_BATCH = 144, 1024    # past K3's and K6's fits
+PEN_T, PEN_BATCH = 136, 1024      # C = Tm / 2 = 136: past K6's first gate (C, Tm <= 256)
+PAST_T, PAST_BATCH = 144, 1024    # past K3's fit, so (as in the reference) no K6
 
 
 def say(*parts):
@@ -1043,8 +1055,9 @@ def phase_k10(torch, P, timing):
 
 def phase_long(torch, P, K):
     """DeviceSQP and DeviceConstrainedSQP at T = 128 (Tm = 256: K3 with
-    rows in registers, K6, K4, K5's cluster kernel) and at T = 144 (Tm =
-    288, past K3's and K6's fits: the torch form, K4's and K5's cluster
+    rows in registers, K6, K4, K5's cluster kernel), DeviceConstrainedSQP at
+    T = 136 (C 136 x Tm 272: K3, K6's cluster kernel, K5), and both at T =
+    144 (Tm = 288, past K3's fit: the torch form, K4's and K5's cluster
     kernels): each stage's form, the kernels of each solve launched (counts
     set to 0 before it, read after) and no other condensation kernel,
     words and multipliers bit-identical to the plain versions', cost (and
@@ -1067,6 +1080,8 @@ def phase_long(torch, P, K):
         ("device_sqp", LONG_T, LONG_BATCH, sqp(LONG_T), rti_states,
          ("lipq", "pgd_hqt"), ()),
         ("device_constrained", LONG_T, LONG_BATCH, con(LONG_T), con_states,
+         ("lipq", "pen", "alm"), ()),
+        ("device_constrained", PEN_T, PEN_BATCH, con(PEN_T), con_states,
          ("lipq", "pen", "alm"), ()),
         ("device_sqp", PAST_T, PAST_BATCH, sqp(PAST_T), rti_states,
          ("pgd_hqt",), ("lipq",)),
@@ -1133,9 +1148,9 @@ def phase_long(torch, P, K):
 def phase_long_kernels(torch, P, timing):
     """The long-horizon path's kernel shapes on real operands, each held to
     its plain version and timed: at T = 128, K3 with rows in registers (Tm
-    256), K6 a row a thread (C 128 x Tm 256), and K4's and K5's cluster
-    kernels (Tp 256; 256 x 128); at T = 144 the cluster kernels again (288;
-    288 x 192)."""
+    256), K6's cluster kernel (C 128 x Tm 256), and K4's and K5's cluster
+    kernels (Tp 256; 256 x 128); at T = 136 K6 again (136 x 272); at T = 144
+    the cluster kernels again (288; 288 x 192)."""
     from pint_tpu_torch.models.dynamics import pack_controls
     from pint_tpu_torch.mpc import (lipq_fused, lipq_plain, pen_fused, pen_plain,
                                     pgd_fused_words_pre, pgd_fused_words_pre_plain)
@@ -1163,7 +1178,7 @@ def phase_long_kernels(torch, P, timing):
         say(f"{key} {shape}: bit-identical to the plain version; kernel "
             f"{rec[key]['queued_ms']:.4f} ms queued, plain {rec[key]['plain_ms']:.1f} ms")
 
-    for T, B in ((LONG_T, LONG_BATCH), (PAST_T, PAST_BATCH)):
+    for T, B in ((LONG_T, LONG_BATCH), (PEN_T, PEN_BATCH), (PAST_T, PAST_BATCH)):
         csqp = P.DeviceConstrainedSQP(P.DeviceSQP(
             sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T)), **CON_KW)
         d = csqp.dev
@@ -1171,24 +1186,28 @@ def phase_long_kernels(torch, P, timing):
         x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
         lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32),
                                 device=DEVICE)
-        o, _ = csqp._condense_constrained_dev(x0, lanes)
         it = d.power_iters
-        if T == LONG_T:
+        if T in (LONG_T, PEN_T):
             A, Bl, c = d._linearize_phase(x0, lanes)
             props = d._propagate_unrolled(A, Bl, c)
             Ht = d._reduce_sym(*props, x0)[0]
             S_t = csqp._stack_constraints(*props)[0]
             del A, Bl, c, props
-            timed("lipq (K3)", lambda: lipq_fused(Ht, power_iters=it),
-                  lambda: lipq_plain(Ht, power_iters=it),
-                  (("hqt", True), ("lip", True), ("h_max", True)),
-                  dict(B=B, Tm=d.n_dec, power_iters=it))
-            timed("pen (K6)", lambda: pen_fused(S_t, power_iters=it),
+            if T == LONG_T:
+                timed("lipq (K3)", lambda: lipq_fused(Ht, power_iters=it),
+                      lambda: lipq_plain(Ht, power_iters=it),
+                      (("hqt", True), ("lip", True), ("h_max", True)),
+                      dict(B=B, Tm=d.n_dec, power_iters=it))
+            timed("pen (K6)" if T == LONG_T else f"pen (K6) T={T}",
+                  lambda: pen_fused(S_t, power_iters=it),
                   lambda: pen_plain(S_t, power_iters=it),
                   (("sqc", True), ("sqj", True), ("pen_lip", False), ("s_scale", True),
                    ("row_amp", False)),
                   dict(B=B, C=csqp.n_rows, Tm=d.n_dec, power_iters=it))
             del Ht, S_t
+        if T == PEN_T:
+            continue
+        o, _ = csqp._condense_constrained_dev(x0, lanes)
         words = pack_controls(lanes)
         pk = dict(iters=d.pgd_iters, g_shift=d.g_shift)
         pargs = (words, o["g_pre"], o["hqt"], o["hs_num"], o["hs_den"])
@@ -1560,11 +1579,14 @@ def main():
     lc = {k: r["launches"] for k, r in long.items()}
     sqp_l, con_l = lc[f"device_sqp_T{LONG_T}"], lc[f"device_constrained_T{LONG_T}"]
     sqp_p, con_p = lc[f"device_sqp_T{PAST_T}"], lc[f"device_constrained_T{PAST_T}"]
+    con_k6 = lc[f"device_constrained_T{PEN_T}"]
     for key, name, kernel, source, line, launches in (
             ("lipq (K3)", "lipq (K3, T=128, rows in registers)", "lipq", "lipq.cu",
              "condense_fused.py:77", sqp_l["lipq"] + con_l["lipq"]),
-            ("pen (K6)", "pen (K6, T=128)", "pen", "pen.cu", "condense_fused.py:198",
-             con_l["pen"]),
+            ("pen (K6)", "pen (K6, T=128, cluster kernel)", "pen", "pen.cu",
+             "condense_fused.py:198", con_l["pen"]),
+            (f"pen (K6) T={PEN_T}", "pen (K6, T=136, cluster kernel)", "pen", "pen.cu",
+             "condense_fused.py:198", con_k6["pen"]),
             (f"pgd_hqt (K4) T={LONG_T}", "pgd_hqt (K4, T=128, cluster kernel)", "pgd_hqt",
              "alm.cu", "fused_alm.py:402", sqp_l["pgd_hqt"]),
             (f"alm (K5) T={LONG_T}", "alm (K5, T=128, cluster kernel)", "alm", "alm.cu",

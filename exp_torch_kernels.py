@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The MPC kernels K3 (lipq), K4's words entry (pgd_fused_words_pre), K5
-(alm_hqt) and K7 (alm_shared) of one pint_tpu_torch checkout on one card:
+(alm_hqt), K6 (pen_fused), K7 (alm_shared) and K10 (pgd_matvec_cols) of one
+pint_tpu_torch checkout on one card:
 their device time against their iteration counts, and the device time of
 the solves they serve.
 
@@ -28,15 +29,21 @@ iterations and K5 (B = 4096, Tp = Cp = 64, one real DeviceConstrainedSQP
 condensation) at 1 x 0, 1 x 1, 3 x 10 and 3 x 30, queued device ms, each
 held bit-identical to its plain version first; then the LTI constrained
 solve (ConstrainedPGD 12 x 60, solves/s over 5 solves and the device time
-of one) and the constrained flagship (4 SQP x (3 x 30), the same).  Prints
-one JSON line.
+of one) and the constrained flagship (4 SQP x (3 x 30), the same).  K6 on
+one real DeviceConstrainedSQP constraint stack (B = 4096, C = 32, Tm = 64)
+at 0, 1, 4 and 16 power steps, and K10 on rank 0's slab of one real
+DeviceSQP and one DeviceConstrainedSQP condensation at tp = 2 and 4 (K = 32
+and 16; rows 64 and 128), each held bit-identical to its plain version
+first.  Prints one JSON line.
 
     python3 exp_torch_kernels.py --long [--root DIR] [--out FILE]
 
 instead times the long-horizon shapes on random operands at B = 4096 (queued
 device ms): K4 at Tp = 256 and 260 (30 iterations), K3 at Tm = 256 (16 power
-steps), K6 at C = 128, Tm = 256, and K5 at Tp = 256, Cp = 128 at 3 x 30 and
-1 x 0 (staging and write-back only).
+steps), K6 at C = 128, Tm = 256 at 0, 1, 4 and 16 power steps and at the
+card tests' other shapes (B = 1000, shapes the parent's package takes too),
+and K5 at Tp = 256, Cp = 128 at 3 x 30 and 1 x 0 (staging and write-back
+only).
 """
 
 import argparse
@@ -55,6 +62,7 @@ CS = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(CS)
 
 TICKS, SOLVES = 20, 5
+K6_SHAPES = ((8, 100), (100, 66), (224, 256), (256, 223), (20, 40), (64, 64))
 
 
 def solve_record(timing, fn, B, reps):
@@ -129,6 +137,44 @@ def constrained(P, timing):
     return rec
 
 
+def k6_k10(P, timing):
+    """K6 against its power steps and K10 at tp = 2 and 4, on real
+    operands."""
+    from pint_tpu_torch.mpc import (pen_fused, pen_plain, pgd_matvec_cols,
+                                    pgd_matvec_cols_plain)
+
+    rec, dev, B = {}, "cuda", CS.CON_BATCH
+    csqp = CS.make_csqp(P, 1)
+    d = csqp.dev
+    rng = np.random.default_rng(3)
+    xc = torch.as_tensor(CS.con_states(rng, B), dtype=torch.float32, device=dev)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32), device=dev)
+    A, Bl, c = d._linearize_phase(xc, lanes)
+    S_t = csqp._stack_constraints(*d._propagate_unrolled(A, Bl, c))[0]
+    for p in (0, 1, 4, d.power_iters):
+        for name, a, b in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"),
+                              pen_fused(S_t, power_iters=p), pen_plain(S_t, power_iters=p)):
+            CS.same(torch, f"K6 {name} at {p} power steps", a, b)
+        rec[f"k6_power_iters_{p}_queued_ms"] = median(timing.queued_ms(
+            lambda: pen_fused(S_t, power_iters=p)))
+    rec["k6_call_ms"] = median(timing.cuda_ms(lambda: pen_fused(S_t, power_iters=d.power_iters)))
+
+    sqp = P.DeviceSQP(sqp_iters=1, device=dev, **CS.SQP_KW)
+    x0 = torch.as_tensor(CS.rti_states(rng, B), dtype=torch.float32, device=dev)
+    hqt = sqp._condense(x0, lanes)[0]
+    ops, _ = csqp._condense_constrained_dev(xc, lanes)
+    for tp in (2, 4):
+        k = sqp.n_dec // tp
+        lanes_r = lanes[:, :k].contiguous()
+        for name, slab in (("sqp", hqt[:k]),
+                           ("constrained", torch.cat([ops["hqt"][:k], ops["sqj"][:k]], 1))):
+            CS.same(torch, f"K10 tp={tp} {name}", pgd_matvec_cols(lanes_r, slab),
+                    pgd_matvec_cols_plain(lanes_r, slab))
+            rec[f"k10_tp{tp}_{name}_queued_ms"] = median(timing.queued_ms(
+                lambda: pgd_matvec_cols(lanes_r, slab)))
+    return rec
+
+
 def long_horizon(timing):
     """The long-horizon shapes of K3, K4, K5 and K6 on random operands."""
     from pint_tpu_torch.mpc import lipq_fused, pen_fused, pgd_hqt
@@ -155,7 +201,13 @@ def long_horizon(timing):
     rec["k3_Tm256_queued_ms"] = queued(lambda: lipq_fused(Ht, power_iters=16))
     del Ht
     S_t = torch.randn((128, 256, B), device=dev)
-    rec["k6_C128_Tm256_queued_ms"] = queued(lambda: pen_fused(S_t, power_iters=16))
+    for p in (0, 1, 4, 16):
+        rec[f"k6_C128_Tm256_power_iters_{p}_queued_ms"] = queued(
+            lambda: pen_fused(S_t, power_iters=p))
+    del S_t
+    for C, Tm in K6_SHAPES:  # the card tests' other K6 shapes, B = 1000
+        S_t = torch.randn((C, Tm, 1000), device=dev)
+        rec[f"k6_C{C}_Tm{Tm}_B1000_queued_ms"] = queued(lambda: pen_fused(S_t, power_iters=16))
     del S_t
     Tp, Cp = 256, 128
     sq = rng.integers(-127, 128, (Cp, Tp, B), dtype=np.int8)
@@ -251,6 +303,7 @@ def main():
     rec["flagship"] = dict(ms=ms, solves_per_s=B / (ms / 1e3),
                            device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
     rec.update(constrained(P, timing))
+    rec.update(k6_k10(P, timing))
     line = json.dumps(rec)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

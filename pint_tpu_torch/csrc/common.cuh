@@ -7,6 +7,7 @@
 // shift_right_arithmetic is.
 #pragma once
 
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -199,4 +200,38 @@ static cudaError_t pint_persistent_grid(K kernel, int threads, size_t smem,
   const long cap = (long)per_sm * sms;
   *grid = (int)(work < cap ? work : cap);
   return cudaSuccess;
+}
+
+// A 3-D tensor map of f32 (dims innermost first; strides in bytes of dims 1
+// and 2) with boxes of `box`, in the 32-byte swizzle (K3's oct_word, K6's
+// too) and 128-byte L2 promotion; out-of-bounds box elements land as zeros.
+// The encoder comes from the CUDA runtime's entry-point query (no link to
+// libcuda).
+static inline cudaError_t pint_encode_map3d_f32(CUtensorMap* map, const float* base,
+                                                const cuuint64_t dims[3],
+                                                const cuuint64_t strides[2],
+                                                const cuuint32_t box[3]) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+  }
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                            const_cast<float*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -62,8 +62,6 @@
 // follows later, from L2).  An earlier version of this design staged by
 // 16-byte cp.async from every thread; there each power step added its
 // whole time to the call, as if the loads did not overlap the power steps.
-#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
-
 #include "common.cuh"
 
 namespace {
@@ -541,36 +539,13 @@ lipq_reg_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict
 
 // The tensor map of Ht as (B, Tm, Tm) f32, innermost first, boxes of
 // (kOct, Tm, kBoxK) in the 32-byte swizzle of oct_word; L2 fetches whole
-// 128-byte lines, whose other octets the neighbouring blocks read.  The
-// encoder is the driver's, found through the runtime (no link to libcuda).
+// 128-byte lines, whose other octets the neighbouring blocks read.
 cudaError_t encode_map(CUtensorMap* map, const float* ht, int B, int Tm) {
-  static PFN_cuTensorMapEncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }
   const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)Tm, (cuuint64_t)Tm};
   const cuuint64_t strides[2] = {(cuuint64_t)B * sizeof(float),
                                  (cuuint64_t)B * Tm * sizeof(float)};
   const cuuint32_t box[3] = {kOct, (cuuint32_t)Tm, kBoxK};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                            const_cast<float*>(ht), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return pint_encode_map3d_f32(map, ht, dims, strides, box);
 }
 
 cudaError_t launch_reg(const float* ht, int8_t* hqt, float* lip, float* hmax,

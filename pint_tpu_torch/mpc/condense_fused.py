@@ -10,8 +10,8 @@ Contract (each kernel against its plain version on the same input): the
 int8 outputs, ``h_max`` and ``s_scale`` bit-identical, ``lip``, ``pen_lip``
 and ``row_amp`` to f32 roundoff at least.  The kernels round every product
 and sum (no FMA) and add in a fixed order, and the plain versions add in
-that same order (:func:`_warp_order_sum`, :func:`_seq_sum`), so on the card
-they come out bit-identical too.  Against JAX (whose reductions XLA orders)
+that same order (:func:`_warp_order_sum`, :func:`_seq_sum`, :func:`_sum4`),
+so on the card they come out bit-identical too.  Against JAX (whose reductions XLA orders)
 the f32 reductions agree to roundoff.
 """
 
@@ -43,13 +43,13 @@ def lipq_fits(Tm: int) -> bool:
 
 def pen_fits(C: int, Tm: int) -> bool:
     """True when K6 (``csrc/pen.cu``) takes ``C`` constraint rows over
-    ``Tm`` columns: C, Tm <= 256 and one problem's f32 slab, its two
-    vectors and 34 floats of reductions in shared memory.  The port's
-    counterpart of the reference's ``pen_viable`` (``C Tm <= 68266``
-    there); past it the constrained solver takes the torch form of the
-    constraint rows' phases."""
-    return (0 < C <= 256 and 0 < Tm <= 256
-            and (C * (Tm + 1) + Tm + C + 34) * 4 <= _SMEM_BYTES)
+    ``Tm`` columns: C Tm <= 68266, the reference's ``pen_viable``.  Past
+    one block's 227 KB of shared memory (C Tm about 56K) the kernel splits
+    a problem over a cluster of blocks.  The constrained solver runs K6
+    where this and :func:`lipq_fits` both hold, as the reference's
+    ``_use_lipq`` does, and the torch form of the constraint rows' phases
+    elsewhere."""
+    return C > 0 and Tm > 0 and C * Tm * 1536 <= 100 * 2**20
 
 
 def true_div(a, b):
@@ -170,13 +170,26 @@ def _seq_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def _sum4(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of ``x`` along ``dim`` as K6 adds it: four partial sums from
+    +0.0, term k to partial k % 4 in index order, then (p0 + p1) + (p2 +
+    p3).  Four independent chains a sum keep the kernels' power steps off
+    one long chain of dependent additions."""
+    parts = x.unbind(dim)
+    p = [torch.zeros_like(parts[0]) for _ in range(4)]
+    for k, t in enumerate(parts):
+        p[k % 4] = p[k % 4] + t
+    return (p[0] + p[1]) + (p[2] + p[3])
+
+
 def pen_plain(
     S_t: torch.Tensor, *, power_iters: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`pen_fused` (any device), adding in
-    the kernel's order: ``S v`` over j and ``S^T w`` over c in index order,
-    the norms in the warp's order (:func:`_warp_order_sum`), the row sums
-    of ``row_amp`` over j in index order."""
+    the kernel's order: ``S v`` over j and ``S^T w`` over c as four partial
+    sums (:func:`_sum4`), the norms in the warp's order
+    (:func:`_warp_order_sum`), the row sums of ``row_amp`` over j in index
+    order; a power step scales ``u`` by the reciprocal of its norm."""
     C, Tm, B = S_t.shape
     v = torch.full(
         (Tm, B), float(np.float32(1.0 / np.sqrt(Tm))),
@@ -184,19 +197,22 @@ def pen_plain(
     )
 
     def ssv(v):                                        # (Tm, B) -> (C, B)
-        return _seq_sum(S_t * v[None], 1)
+        return _sum4(S_t * v[None], 1)
 
     def stw(w):                                        # (C, B) -> (Tm, B)
-        return _seq_sum(S_t * w[:, None], 0)
+        return _sum4(S_t * w[:, None], 0)
 
     for _ in range(power_iters):
         u = stw(ssv(v))
-        v = u / (torch.sqrt(_warp_order_sum(u * u)) + 1e-30)
+        v = u * torch.reciprocal(torch.sqrt(_warp_order_sum(u * u)) + 1e-30)
     lip = _warp_order_sum(v * stw(ssv(v)))[0] * 1.05
     a = torch.abs(S_t)
     sm = torch.amax(a, dim=(0, 1))
     ra = torch.amax(_seq_sum(a, 1), dim=0)
-    sqc = quantize_hqt(S_t, sm)
+    # quantize_hqt's rounding, and NaN to 0 as XLA (and the kernel) convert it
+    scale = true_div(127.0, torch.clamp_min(sm, 1e-30))
+    q = torch.clamp(torch.round(S_t * scale), -127, 127)
+    sqc = torch.where(q.isnan(), 0.0, q).to(torch.int8)
     return (sqc, sqc.transpose(0, 1).contiguous(), lip, sm * INV_127,
             127.0 * ra)
 
@@ -225,20 +241,23 @@ def pen_fused(
     C, Tm, B = S_t.shape
     if not pen_fits(C, Tm):
         raise ValueError(
-            f"pen_fused: C={C}, Tm={Tm}: one f32 slab must fit in shared "
-            "memory and C, Tm <= 256 (pen_fits; the solvers take the torch "
-            "form past it)"
+            f"pen_fused: C={C}, Tm={Tm}: C Tm is past 68266, the reference's "
+            "pen_viable (pen_fits; the solvers take the torch form past it)"
         )
     dev = S_t.device
     sqc = torch.empty((C, Tm, B), dtype=torch.int8, device=dev)
     sqj = torch.empty((Tm, C, B), dtype=torch.int8, device=dev)
     lip, s_scale, row_amp = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(3))
+    lib = K.library()
+    # past the register kernel the int8 rows pass batch-first through scratch
+    scratch = torch.empty((lib.pint_pen_scratch(B, C, Tm),), dtype=torch.int8,
+                          device=dev)
     with torch.cuda.device(dev):
-        err = K.library().pint_pen(
+        err = lib.pint_pen(
             S_t.data_ptr(), sqc.data_ptr(), sqj.data_ptr(), lip.data_ptr(),
-            s_scale.data_ptr(), row_amp.data_ptr(), B, C, Tm, power_iters,
-            K.stream_of(S_t),
+            s_scale.data_ptr(), row_amp.data_ptr(), scratch.data_ptr(), B, C, Tm,
+            power_iters, K.stream_of(S_t),
         )
     K.check(err, "pen_fused")
     K.count_launch("pen")

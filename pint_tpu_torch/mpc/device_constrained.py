@@ -14,8 +14,9 @@ of problems at once:
   Hessian where ``lipq`` is not False and
   :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fits` takes Tm, and K6
   (:func:`~pint_tpu_torch.mpc.condense_fused.pen_fused`) on the constraint
-  rows where ``lipq`` is not False and
-  :func:`~pint_tpu_torch.mpc.condense_fused.pen_fits` takes (C, Tm): power
+  rows where K3 runs and
+  :func:`~pint_tpu_torch.mpc.condense_fused.pen_fits` takes (C, Tm) (the
+  reference's ``_use_lipq``): power
   iterations and int8 quantization in both kernel orientations; each
   otherwise in the torch form of the reference's ``lipq=False`` branch
   (``DeviceSQP._lipschitz_phase`` and ``DeviceSQP._quantize_phase``;
@@ -139,19 +140,18 @@ class DeviceConstrainedSQP:
         shapes alone: ``condense`` is "lipq" (K3, or its plain version)
         where ``lipq`` is not False and :func:`lipq_fits` takes Tm, else
         "torch"; ``constraints`` is "pen" (K6, or its plain version) where
-        ``lipq`` is not False and :func:`pen_fits` takes (C, Tm), else
-        "torch".  Each kernel runs wherever its own gate takes the shape;
-        the reference's ``_use_lipq`` needs both of its gates, which the
-        port's meet together on every shape but those where K6 stops short
-        of ``pen_viable`` (C, Tm past 256, or a slab past 227 KB).
-        ``inner`` is "alm" (K5, or its plain version) where ``fused`` is
-        not False and :func:`alm_fits` takes (Tp, Cp), else "alm_batched"
-        (the word-space ``_alm_batched``)."""
+        the condensation is "lipq" and :func:`pen_fits` takes (C, Tm), else
+        "torch".  These are the reference's ``_use_lipq`` gates
+        (``lipq_viable`` and ``pen_viable``): K6 runs wherever the reference
+        runs it, and past K3's fit neither kernel runs.  ``inner`` is "alm"
+        (K5, or its plain version) where ``fused`` is not False and
+        :func:`alm_fits` takes (Tp, Cp), else "alm_batched" (the word-space
+        ``_alm_batched``)."""
         Tm, C, Cp = self.dev.n_dec, self.n_rows, self.padded_rows
-        kernels = self.lipq is not False
+        lipq = self.lipq is not False and lipq_fits(Tm)
         return dict(
-            condense="lipq" if kernels and lipq_fits(Tm) else "torch",
-            constraints="pen" if kernels and pen_fits(C, Tm) else "torch",
+            condense="lipq" if lipq else "torch",
+            constraints="pen" if lipq and pen_fits(C, Tm) else "torch",
             inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
             else "alm_batched",
         )

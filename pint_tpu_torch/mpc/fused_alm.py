@@ -193,7 +193,9 @@ def pgd_fused_words(u_words, g_pre, Hq, hs_num, hs_den, *, iters, g_shift):
 
 def pgd_matvec_cols_plain(lanes_r, hqt_r):
     """Plain PyTorch version of :func:`pgd_matvec_cols` (any device): an
-    exact float64 product (|acc| <= 128 * 127 * K)."""
+    exact float64 product for the int8-valued lanes the solvers pass
+    (|acc| <= 128 * 127 * K).  The kernel wraps modulo 2^32 for any int32
+    lanes; this conversion does not."""
     acc = torch.einsum("kjb,bk->bj", hqt_r.to(torch.float64), lanes_r.to(torch.float64))
     return acc.to(torch.int32)
 
@@ -205,9 +207,10 @@ def pgd_matvec_cols(lanes_r, hqt_r):
     lanes_r (B, K) int32, this rank's iterate columns (int8 values);
     hqt_r (K, rows, B) int8, this rank's k-slice of the batch-last slab
     (``hqt[k, j, b] = Hq_b[j, k]``).  Returns (B, rows) int32.  Kernel for
-    CUDA tensors, plain version for CPU tensors.  The kernel stages the
-    lanes in shared memory and refuses (``RuntimeError``) a K that does not
-    fit a block (``csrc/matvec_cols.cu``)."""
+    CUDA tensors, plain version for CPU tensors.  The kernel
+    (``csrc/matvec_cols.cu``) takes any K, a chunk of 32 columns at a
+    time, and refuses (``RuntimeError``) more rows than its grid covers
+    (16 x 65535)."""
     B, Kc = lanes_r.shape
     if hqt_r.dim() != 3 or hqt_r.shape[0] != Kc or hqt_r.shape[2] != B:
         raise ValueError(

@@ -72,8 +72,9 @@ _SIGNATURES = {
     "pint_pgd_hqt_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
     "pint_lipq": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # st, sqc, sqj, lip, s_scale, row_amp, B, C, Tm, power_iters, stream
-    "pint_pen": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # st, sqc, sqj, lip, s_scale, row_amp, scratch, B, C, Tm, power_iters,
+    # stream
+    "pint_pen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lanes, g, hqt, sqj, sqc, c_off, lo, hi, lam, sc, out_lanes, out_lam,
     # B, Tp, Cp, outer, inners, g_shift, y_shift, stream
     "pint_alm": [_P] * 12 + [_I] * 7 + [_P],
@@ -88,6 +89,12 @@ _SIGNATURES = {
     "pint_swar_shift": [_I, _I, _I, _P, _P, _L, _P, _L, _P, _P],
     # word_bits, pair, signed, acc, deltas, out, n, steps, layout*, stream
     "pint_swar_sat_accum": [_I, _I, _I, _P, _P, _P, _L, _I, _P, _P],
+}
+
+# C entries that return a size in bytes: name -> argtypes
+_SIZES = {
+    # B, C, Tm -> the scratch pint_pen needs
+    "pint_pen_scratch": [_I, _I, _I],
 }
 
 SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",
@@ -207,6 +214,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int64
             lib.pint_error_string.argtypes = [ctypes.c_int]
             lib.pint_error_string.restype = ctypes.c_char_p
             _lib = lib

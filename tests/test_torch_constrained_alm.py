@@ -183,9 +183,16 @@ def s_stack():
     return devc, np.asarray(S_t)
 
 
-def test_pen_matches_jax_kernel(s_stack):
-    devc, S_t = s_stack
-    it = devc.dev.power_iters
+@pytest.mark.parametrize("case", ["condensed", "past_old_fit"])
+def test_pen_matches_jax_kernel(request, case):
+    """On a real constraint stack, and at C = 260, Tm = 4 (past C 256, where
+    the port's gate stopped before it took the reference's pen_viable)."""
+    if case == "condensed":
+        devc, S_t = request.getfixturevalue("s_stack")
+        it = devc.dev.power_iters
+    else:
+        S_t = np.random.default_rng(59).standard_normal((260, 4, 3)).astype(np.float32)
+        it = 16
     sqc_j, sqj_j, lip_j, ss_j, ra_j = j_pen(jnp.asarray(S_t), power_iters=it,
                                             block=5, interpret=True)
     sqc, sqj, lip, ss, ra = pen_fused(_t(S_t), power_iters=it)

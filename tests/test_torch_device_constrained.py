@@ -277,8 +277,9 @@ def _long_horizon_parity(horizon, forms, Cp):
 
 
 def test_long_horizon_solves_in_the_torch_form():
-    """T = 144 (Tm = 288, past K3's fit; C = 144 rows, past K6's; Cp = 192)
-    takes the torch form of both and K5 (its plain version here)."""
+    """T = 144 (Tm = 288, past K3's fit; C = 144 rows, Cp = 192) takes the
+    torch form of both, as the reference's _use_lipq does, and K5 (its plain
+    version here)."""
     _long_horizon_parity(144, dict(condense="torch", constraints="torch", inner="alm"),
                          192)
 
@@ -292,21 +293,39 @@ def test_t128_solves_through_k3_k6_and_k5():
 @pytest.mark.parametrize("horizon, kw, forms", [
     (32, {}, ("lipq", "pen", "alm")), (112, {}, ("lipq", "pen", "alm")),
     (114, {}, ("lipq", "pen", "alm")), (128, {}, ("lipq", "pen", "alm")),
-    (130, {}, ("lipq", "torch", "alm")), (144, {}, ("torch", "torch", "alm")),
+    (130, {}, ("lipq", "pen", "alm")), (144, {}, ("torch", "torch", "alm")),
     (300, {}, ("torch", "torch", "alm_batched")),
     (32, dict(lipq=False), ("torch", "torch", "alm")),
     (32, dict(fused=False), ("lipq", "pen", "alm_batched")),
-    (8, dict(F=np.eye(3)[:1].repeat(200, 0)), ("lipq", "torch", "alm")),
+    (8, dict(F=np.eye(3)[:1].repeat(200, 0)), ("lipq", "pen", "alm")),
+    (8, dict(F=np.eye(3)[:1].repeat(600, 0)), ("lipq", "torch", "alm_batched")),
     (8, dict(F=np.eye(3)[:1].repeat(1100, 0)), ("lipq", "torch", "alm_batched")),
 ])
 def test_forms_follow_the_gates(horizon, kw, forms):
-    """K3 and K6 each by its own fit (K6 stops at C, Tm = 256: horizon 130
-    has Tm = 260; C = 200 x 8 rows is past it), K5 by the reference's
-    alm_viable (C = 1100 x 8 rows, Cp = 8832, is past it)."""
+    """K3 by the reference's lipq_viable, K6 where K3 runs and the
+    reference's pen_viable takes (C, Tm) (C Tm <= 68266: 200 x 8 rows over
+    Tm 16 is 25600, 600 x 8 rows 76800), K5 by the reference's alm_viable
+    (C = 600 x 8 rows, Cp = 4800, and 1100 x 8 are past it)."""
     kw = dict(CON, **kw)
     csqp = DeviceConstrainedSQP(DeviceSQP(**dict(SMALL, horizon=horizon), device="cpu"),
                                 **kw)
     assert (csqp.forms["condense"], csqp.forms["constraints"], csqp.forms["inner"]) == forms
+
+
+@pytest.mark.parametrize("horizon, rows", [(32, 1), (128, 1), (136, 1), (64, 6)])
+def test_k6_runs_where_the_reference_runs_its_kernel(horizon, rows):
+    """forms["constraints"] is "pen" exactly where the reference's
+    _use_lipq() holds (built with lipq=True: its auto is False off the
+    TPU): T = 32, 128, 136 at one constraint row a step, and a 6-row
+    constraint at T = 64 (C 384, Tm 128).  Solvers only, no solve."""
+    F = np.tile(np.array([[0.0, 1.0, 0.0]]), (rows, 1))
+    kw = dict(SMALL, horizon=horizon)
+    con = dict(CON, F=F, lo=-0.03 * np.ones(rows), hi=0.03 * np.ones(rows))
+    ref = JDeviceConstrainedSQP(JDeviceSQP(**kw), lipq=True, **con)
+    port = DeviceConstrainedSQP(DeviceSQP(**kw, device="cpu"), **con)
+    assert ref._use_lipq()
+    assert port.forms["constraints"] == "pen"
+    assert port.forms["condense"] == "lipq"
 
 
 def test_cuda_request_without_cuda_raises():

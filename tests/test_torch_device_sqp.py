@@ -27,6 +27,7 @@ from pint_tpu.models.dynamics import pack_controls as j_pack
 from pint_tpu.mpc import DeviceSQP as JDeviceSQP
 from pint_tpu.mpc import QuantizedSQP
 from pint_tpu.mpc.condense_fused import lipq_fused as j_lipq
+from pint_tpu.mpc.condense_fused import pen_viable as j_pen_viable
 from pint_tpu.mpc.fused_alm import pgd_fused_words_pre as j_pgd_pre
 from pint_tpu.mpc.ltv import _pgd_batched_h as j_pgd_batched_h
 from pint_tpu_torch.convert import device_sqp_config, words_from_numpy, words_to_numpy
@@ -375,10 +376,17 @@ def test_fits_gates_at_their_boundaries():
     assert alm_fits(632, 4) and not alm_fits(632, 8)
     assert alm_fits(512, 136) and not alm_fits(512, 140)
     assert not alm_fits(64, 62) and alm_fits(4, 4096) and not alm_fits(4, 4100)
-    # K6's shared-memory edge: (C (Tm + 1) + Tm + C + 34) * 4 <= 232448
-    assert pen_fits(224, 256) and not pen_fits(225, 256)
-    assert pen_fits(256, 223) and not pen_fits(256, 224)
-    assert not pen_fits(257, 8) and not pen_fits(8, 257)
+    # K6: the reference's pen_viable, C Tm <= 68266
+    assert pen_fits(225, 256) and pen_fits(256, 256) and pen_fits(257, 8)
+    assert pen_fits(261, 261) and not pen_fits(262, 261)
+    assert pen_fits(1, 68266) and not pen_fits(1, 68267) and not pen_fits(0, 8)
+
+
+@pytest.mark.parametrize("C, Tm", [
+    (32, 64), (128, 256), (136, 272), (256, 256), (384, 128), (261, 261), (262, 261),
+    (2048, 32), (4, 17066), (4, 17067), (68266, 1), (68267, 1), (130, 260), (1, 1)])
+def test_pen_fits_is_the_reference_pen_viable(C, Tm):
+    assert pen_fits(C, Tm) == j_pen_viable(C, Tm)
 
 
 def test_indefinite_q_rejected_at_construction():

@@ -13,9 +13,11 @@ only canonical ones); K2 and K4 (lanes and words entries) bit-identical; K3
 also held to the contract's rtol 1e-5 first); K5 and K7 bit-identical
 (words and multipliers) to their plain versions and word-space references;
 K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
-rtol 1e-5 first); K10 and K2p bit-identical (K2p also to K2 with its unpack
-and pack); whole DeviceSQP and DeviceConstrainedSQP solves (T = 32; T = 128,
-through K3 and K6; T = 144, past their fits), kernels against plain
+rtol 1e-5 first; NaN where the plain version has NaN); K10 and K2p
+bit-identical (K10 with int32-extreme lanes against an int64 product
+wrapped modulo 2^32, which the plain version's float64 product does not
+reproduce; K2p also to K2 with its unpack and pack); whole DeviceSQP and DeviceConstrainedSQP solves (T = 32; T = 128,
+and 136, through K3 and K6; T = 144, past K3's fit), kernels against plain
 versions, cost parity rtol 0.01, atol 1e-4 (violation atol 5e-3).  Each
 shape gate (``lipq_fits``, ``pen_fits``, ``pgd_fits``, ``alm_fits``) is true
 exactly where its kernel's C entry accepts the shape.
@@ -437,8 +439,9 @@ def test_k6_bit_identical(con_condensed):
                                    (256, 223)])
 @pytest.mark.parametrize("B", [37, 1000])
 def test_k6_rows_kernel_bit_identical(cuda, B, C, Tm):
-    """Past 64 rows or columns K6 runs a problem a block, a row a thread,
-    up to its shared-memory edge; every output against pen_plain."""
+    """Past C 32 or Tm 64 K6 runs its small-slab row kernel (8 x 100) or its
+    cluster kernel, a problem a block or split over 2 blocks (224 x 256,
+    256 x 223); every output against pen_plain."""
     from pint_tpu_torch.mpc import pen_fused, pen_plain
 
     gen = torch.Generator(device=cuda).manual_seed(B + C + Tm)
@@ -448,6 +451,58 @@ def test_k6_rows_kernel_bit_identical(cuda, B, C, Tm):
     torch.cuda.synchronize()
     for name, a, b in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"), got, ref):
         assert torch.equal(a, b), name
+
+
+def _same_bits(name, a, b):
+    """Bit-identical, NaN where NaN (a NaN's payload aside)."""
+    if a.is_floating_point():
+        assert torch.equal(a.isnan(), b.isnan()), name
+        a, b = a.nan_to_num(0.0), b.nan_to_num(0.0)
+    assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("power_iters", [0, 16])
+@pytest.mark.parametrize("C, Tm, B", [
+    (32, 64, 4096), (32, 64, 4095), (32, 64, 1), (128, 256, 1000), (136, 272, 37),
+    (256, 256, 37), (384, 128, 37), (2048, 32, 9), (20, 40, 100)])
+def test_k6_bit_identical_at_every_design(cuda, C, Tm, B, power_iters):
+    """The register kernel (32 x 64: TMA boxes and 16-byte stores at B
+    4096, 4-byte copies and byte stores at 4095 and 1; any C <= 32, Tm <= 64
+    at 20 x 40) and the cluster kernel (a problem a block at 128 x 256, 136
+    x 272, 384 x 128; two blocks, split by rows, past 227 KB at 256 x 256
+    and 2048 x 32), every output against pen_plain."""
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(C + Tm + B + power_iters)
+    S_t = torch.randn((C, Tm, B), generator=gen, device=cuda)
+    got = pen_fused(S_t, power_iters=power_iters)
+    ref = pen_plain(S_t, power_iters=power_iters)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"), got, ref):
+        _same_bits(name, a, b)
+
+
+@pytest.mark.parametrize("C, Tm", [(32, 64), (128, 256), (4, 17000)])
+def test_k6_nan_stays_in_its_problem(cuda, C, Tm):
+    """A NaN in one problem's slab: that problem's outputs are NaN (its int8
+    rows 0), every other problem's are as without it; the register kernel,
+    the cluster kernel and its column split (4 x 17000)."""
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+
+    B = 64
+    gen = torch.Generator(device=cuda).manual_seed(C + Tm)
+    S_t = torch.randn((C, Tm, B), generator=gen, device=cuda)
+    clean = pen_fused(S_t, power_iters=4)
+    S_t[C // 2, Tm // 3, 5] = float("nan")
+    got = pen_fused(S_t, power_iters=4)
+    ref = pen_plain(S_t, power_iters=4)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("sqc", "sqj", "pen_lip", "s_scale", "row_amp"), got, ref,
+                             clean):
+        _same_bits(name, a, b)
+        keep = torch.arange(B, device=cuda) != 5
+        assert torch.equal(a[..., keep], c[..., keep]), name
+    assert got[2][5].isnan() and not got[0][..., 5].any()
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
@@ -553,8 +608,8 @@ def test_constrained_kernels_reject_bad_operands(cuda, con_condensed):
                 o["lo_pre"], o["hi_pre"], lam, sc.to(torch.int64), **kw)
     with pytest.raises(ValueError, match="float32"):
         pen_fused(S_t.double(), power_iters=1)
-    with pytest.raises(ValueError, match="shared"):
-        pen_fused(torch.zeros((256, 256, 2), device=cuda), power_iters=1)
+    with pytest.raises(ValueError, match="pen_viable"):
+        pen_fused(torch.zeros((262, 261, 2), device=cuda), power_iters=1)
     z = torch.zeros
     with pytest.raises(ValueError, match="multiples of 4"):
         alm_shared(z((2, 260), dtype=torch.int32, device=cuda),
@@ -712,11 +767,12 @@ def test_lipq_fits_is_where_k3_accepts(cuda, Tm):
 
 
 @pytest.mark.parametrize("C, Tm", [(224, 256), (225, 256), (256, 223), (256, 224),
-                                   (257, 8), (128, 256)])
+                                   (257, 8), (128, 256), (261, 261), (262, 261),
+                                   (2048, 32), (1, 68266), (1, 68267), (68266, 1)])
 def test_pen_fits_is_where_k6_accepts(cuda, C, Tm):
     from pint_tpu_torch.mpc import pen_fits
 
-    assert _entry_accepts(cuda, "pint_pen", 6, 1, C, Tm, 2) == pen_fits(C, Tm)
+    assert _entry_accepts(cuda, "pint_pen", 7, 1, C, Tm, 2) == pen_fits(C, Tm)
 
 
 @pytest.mark.parametrize("Tp", [4, 64, 254, 256, 260, 632, 636])
@@ -763,11 +819,13 @@ def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
 
 @pytest.mark.parametrize("horizon, forms", [
     (128, dict(condense="lipq", constraints="pen", inner="alm")),
+    (136, dict(condense="lipq", constraints="pen", inner="alm")),
     (144, dict(condense="torch", constraints="torch", inner="alm")),
 ])
 def test_long_horizon_device_constrained_cost_parity(cuda, horizon, forms):
-    """T = 128 through K3, K6 and K5's cluster kernel; T = 144 past K3's and
-    K6's fits, K5's cluster kernel at 288 x 192."""
+    """T = 128 and 136 through K3, K6 and K5's cluster kernel; T = 144 past
+    K3's fit (and so, as in the reference, no K6), K5's cluster kernel at
+    288 x 192."""
     from pint_tpu_torch.mpc import DeviceConstrainedSQP
 
     sqp_kw = dict(horizon=horizon, sqp_iters=2, pgd_iters=30,
@@ -850,15 +908,46 @@ def test_k10_ragged_shapes(cuda, B, K_, rows):
 
 
 def test_k10_refuses_what_it_cannot_stage(cuda):
-    """K = 2000 columns of lanes do not fit a block's shared memory: the C
-    entry refuses them before the launch."""
+    """More rows than the grid's 65535 tiles of 16 cover: the C entry
+    refuses them before the launch."""
     from pint_tpu_torch.mpc import pgd_matvec_cols
 
+    rows = 16 * 65535 + 1
     before = K.launch_counts()["pgd_matvec_cols"]
     with pytest.raises(RuntimeError, match="pgd_matvec_cols: CUDA error .*invalid argument"):
-        pgd_matvec_cols(torch.zeros((2, 2000), dtype=torch.int32, device=cuda),
-                        torch.zeros((2000, 4, 2), dtype=torch.int8, device=cuda))
+        pgd_matvec_cols(torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+                        torch.zeros((1, rows, 1), dtype=torch.int8, device=cuda))
     assert K.launch_counts()["pgd_matvec_cols"] == before
+
+
+def _matvec_wrap(lanes, slab):
+    """out[b, j] = sum_k slab[k, j, b] lanes[b, k] in int64, wrapped to int32."""
+    acc = torch.einsum("kjb,bk->bj", slab.cpu().to(torch.int64), lanes.cpu().to(torch.int64))
+    acc = acc & 0xFFFFFFFF
+    return torch.where(acc >= 2**31, acc - 2**32, acc).to(torch.int32)
+
+
+@pytest.mark.parametrize("B", [4096, 4095, 1])
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("K_", [1, 16, 32, 33])
+def test_k10_bit_identical_at_every_shape(cuda, K_, rows, B):
+    """16-byte slab loads (B % 16 == 0) and byte loads, one chunk of k or
+    two (K 33); int8 lanes against the plain version, then lanes at int32's
+    extremes against an int64 product wrapped modulo 2^32."""
+    from pint_tpu_torch.mpc import pgd_matvec_cols, pgd_matvec_cols_plain
+
+    rng = np.random.default_rng(K_ * rows + B)
+    slab = torch.as_tensor(rng.integers(-128, 128, (K_, rows, B), dtype=np.int8),
+                           device=cuda)
+    lanes = torch.as_tensor(rng.integers(-128, 128, (B, K_), dtype=np.int32), device=cuda)
+    got = pgd_matvec_cols(lanes, slab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pgd_matvec_cols_plain(lanes, slab))
+    ext = np.array([-2**31, 2**31 - 1, -2**31 + 1, 2**30, -1, 0], np.int64)
+    wide = torch.as_tensor(rng.choice(ext, (B, K_)).astype(np.int32), device=cuda)
+    got = pgd_matvec_cols(wide, slab)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _matvec_wrap(wide, slab))
 
 
 @pytest.mark.parametrize("B", [1, 100, 8192])
