@@ -146,6 +146,11 @@ LTI_CON_T, LTI_CON_OUTER, LTI_CON_INNERS = 50, 12, 60
 LONG_T, LONG_BATCH, LONG_SQP = 128, 4096, 2
 PEN_T, PEN_BATCH = 136, 1024      # C = Tm / 2 = 136: past K6's first gate (C, Tm <= 256)
 PAST_T, PAST_BATCH = 144, 1024    # past K3's fit, so (as in the reference) no K6
+# a 2-row constraint (the lateral offset, and the position along x) at T =
+# 20: C = Tm = 40, K6's warp kernel (32 < C <= 64)
+TWO_ROW_T, TWO_ROW_BATCH = 20, 4096
+CON2_KW = dict(F=[[0.0, 1.0, 0.0], [1.0, 0.0, 0.0]], lo=[-0.03, -0.5], hi=[0.03, 1.5],
+               rho=100.0, alm_outer=3)
 
 
 def say(*parts):
@@ -1056,12 +1061,13 @@ def phase_k10(torch, P, timing):
 def phase_long(torch, P, K):
     """DeviceSQP and DeviceConstrainedSQP at T = 128 (Tm = 256: K3 with
     rows in registers, K6, K4, K5's cluster kernel), DeviceConstrainedSQP at
-    T = 136 (C 136 x Tm 272: K3, K6's cluster kernel, K5), and both at T =
-    144 (Tm = 288, past K3's fit: the torch form, K4's and K5's cluster
-    kernels): each stage's form, the kernels of each solve launched (counts
-    set to 0 before it, read after) and no other condensation kernel,
-    words and multipliers bit-identical to the plain versions', cost (and
-    violation) parity."""
+    T = 136 (C 136 x Tm 272: K3, K6's cluster kernel, K5), both at T = 144
+    (Tm = 288, past K3's fit: the torch form, K4's and K5's cluster
+    kernels), and DeviceConstrainedSQP with a 2-row constraint at T = 20
+    (C 40 x Tm 40: K6's warp kernel): each stage's form, the kernels of each
+    solve launched (counts set to 0 before it, read after) and no other
+    condensation kernel, words and multipliers bit-identical to the plain
+    versions', cost (and violation) parity."""
     from pint_tpu_torch.models.dynamics import unpack_controls
     from pint_tpu_torch.mpc.ltv import true_cost
 
@@ -1071,10 +1077,10 @@ def phase_long(torch, P, K):
         return lambda **k: P.DeviceSQP(sqp_iters=LONG_SQP, device=DEVICE,
                                        **dict(SQP_KW, horizon=T), **k)
 
-    def con(T):
+    def con(T, con_kw=CON_KW):
         return lambda **k: P.DeviceConstrainedSQP(P.DeviceSQP(
             sqp_iters=LONG_SQP, device=DEVICE, **dict(CON_SQP_KW, horizon=T), **k),
-            **CON_KW)
+            **con_kw)
 
     cases = (
         ("device_sqp", LONG_T, LONG_BATCH, sqp(LONG_T), rti_states,
@@ -1087,6 +1093,8 @@ def phase_long(torch, P, K):
          ("pgd_hqt",), ("lipq",)),
         ("device_constrained", PAST_T, PAST_BATCH, con(PAST_T), con_states,
          ("alm",), ("lipq", "pen")),
+        ("device_constrained", TWO_ROW_T, TWO_ROW_BATCH, con(TWO_ROW_T, CON2_KW), con_states,
+         ("lipq", "pen", "alm"), ()),
     )
     for name, T, B, make, states, launched, idle in cases:
         kern, plain = make(), make(use_kernels=False)
@@ -1150,7 +1158,8 @@ def phase_long_kernels(torch, P, timing):
     its plain version and timed: at T = 128, K3 with rows in registers (Tm
     256), K6's cluster kernel (C 128 x Tm 256), and K4's and K5's cluster
     kernels (Tp 256; 256 x 128); at T = 136 K6 again (136 x 272); at T = 144
-    the cluster kernels again (288; 288 x 192)."""
+    the cluster kernels again (288; 288 x 192); K6's warp kernel on the
+    2-row constraint at T = 20 (40 x 40)."""
     from pint_tpu_torch.models.dynamics import pack_controls
     from pint_tpu_torch.mpc import (lipq_fused, lipq_plain, pen_fused, pen_plain,
                                     pgd_fused_words_pre, pgd_fused_words_pre_plain)
@@ -1178,16 +1187,18 @@ def phase_long_kernels(torch, P, timing):
         say(f"{key} {shape}: bit-identical to the plain version; kernel "
             f"{rec[key]['queued_ms']:.4f} ms queued, plain {rec[key]['plain_ms']:.1f} ms")
 
-    for T, B in ((LONG_T, LONG_BATCH), (PEN_T, PEN_BATCH), (PAST_T, PAST_BATCH)):
+    for T, B in ((LONG_T, LONG_BATCH), (PEN_T, PEN_BATCH), (PAST_T, PAST_BATCH),
+                 (TWO_ROW_T, TWO_ROW_BATCH)):
         csqp = P.DeviceConstrainedSQP(P.DeviceSQP(
-            sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T)), **CON_KW)
+            sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T)),
+            **(CON2_KW if T == TWO_ROW_T else CON_KW))
         d = csqp.dev
         rng = np.random.default_rng(T)
         x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
         lanes = torch.as_tensor(rng.integers(-60, 61, (B, d.n_dec), dtype=np.int32),
                                 device=DEVICE)
         it = d.power_iters
-        if T in (LONG_T, PEN_T):
+        if T in (LONG_T, PEN_T, TWO_ROW_T):
             A, Bl, c = d._linearize_phase(x0, lanes)
             props = d._propagate_unrolled(A, Bl, c)
             Ht = d._reduce_sym(*props, x0)[0]
@@ -1205,7 +1216,7 @@ def phase_long_kernels(torch, P, timing):
                    ("row_amp", False)),
                   dict(B=B, C=csqp.n_rows, Tm=d.n_dec, power_iters=it))
             del Ht, S_t
-        if T == PEN_T:
+        if T in (PEN_T, TWO_ROW_T):
             continue
         o, _ = csqp._condense_constrained_dev(x0, lanes)
         words = pack_controls(lanes)
@@ -1579,7 +1590,7 @@ def main():
     lc = {k: r["launches"] for k, r in long.items()}
     sqp_l, con_l = lc[f"device_sqp_T{LONG_T}"], lc[f"device_constrained_T{LONG_T}"]
     sqp_p, con_p = lc[f"device_sqp_T{PAST_T}"], lc[f"device_constrained_T{PAST_T}"]
-    con_k6 = lc[f"device_constrained_T{PEN_T}"]
+    con_k6, con_2 = lc[f"device_constrained_T{PEN_T}"], lc[f"device_constrained_T{TWO_ROW_T}"]
     for key, name, kernel, source, line, launches in (
             ("lipq (K3)", "lipq (K3, T=128, rows in registers)", "lipq", "lipq.cu",
              "condense_fused.py:77", sqp_l["lipq"] + con_l["lipq"]),
@@ -1587,6 +1598,8 @@ def main():
              "condense_fused.py:198", con_l["pen"]),
             (f"pen (K6) T={PEN_T}", "pen (K6, T=136, cluster kernel)", "pen", "pen.cu",
              "condense_fused.py:198", con_k6["pen"]),
+            (f"pen (K6) T={TWO_ROW_T}", "pen (K6, T=20 two rows, warp kernel)", "pen",
+             "pen.cu", "condense_fused.py:198", con_2["pen"]),
             (f"pgd_hqt (K4) T={LONG_T}", "pgd_hqt (K4, T=128, cluster kernel)", "pgd_hqt",
              "alm.cu", "fused_alm.py:402", sqp_l["pgd_hqt"]),
             (f"alm (K5) T={LONG_T}", "alm (K5, T=128, cluster kernel)", "alm", "alm.cu",

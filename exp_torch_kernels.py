@@ -41,9 +41,18 @@ first.  Prints one JSON line.
 instead times the long-horizon shapes on random operands at B = 4096 (queued
 device ms): K4 at Tp = 256 and 260 (30 iterations), K3 at Tm = 256 (16 power
 steps), K6 at C = 128, Tm = 256 at 0, 1, 4 and 16 power steps and at the
-card tests' other shapes (B = 1000, shapes the parent's package takes too),
-and K5 at Tp = 256, Cp = 128 at 3 x 30 and 1 x 0 (staging and write-back
-only).
+card tests' other shapes (B = 1000, shapes the parent's package takes too)
+and at C, Tm <= 64 past C 32 (B = 4096: a 2-row constraint at T = 20 is
+40 x 40), K10 at the card tests' shapes (random int8 operands), and K5 at
+Tp = 256, Cp = 128 at 3 x 30 and 1 x 0 (staging and write-back only).
+
+    python3 exp_torch_kernels.py --rehearsal [--root DIR] [--out FILE]
+
+instead runs chip_smoke.py's two-rank rehearsal (dp = 1 x tp = 2 over gloo,
+both ranks on the one card) for a DeviceSQP and a DeviceConstrainedSQP
+sharded solve at B = 4096 and profiles one of each (torch.profiler) on
+both ranks: K10's launches and their summed device time a solve, and the
+solve's device time.
 """
 
 import argparse
@@ -62,7 +71,10 @@ CS = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(CS)
 
 TICKS, SOLVES = 20, 5
-K6_SHAPES = ((8, 100), (100, 66), (224, 256), (256, 223), (20, 40), (64, 64))
+K6_SHAPES = ((8, 100), (100, 66), (224, 256), (256, 223), (20, 40), (64, 64), (40, 40))
+K6_MID = ((40, 40), (36, 30), (48, 48), (56, 56), (64, 64))
+K10_SHAPES = ((32, 64, 4096), (16, 64, 4096), (32, 128, 4096), (16, 128, 4096),
+              (33, 64, 4095), (130, 64, 4096))
 
 
 def solve_record(timing, fn, B, reps):
@@ -177,7 +189,8 @@ def k6_k10(P, timing):
 
 def long_horizon(timing):
     """The long-horizon shapes of K3, K4, K5 and K6 on random operands."""
-    from pint_tpu_torch.mpc import lipq_fused, pen_fused, pgd_hqt
+    from pint_tpu_torch.mpc import (lipq_fused, pen_fused, pen_plain, pgd_hqt,
+                                    pgd_matvec_cols, pgd_matvec_cols_plain)
     from pint_tpu_torch.mpc.fused_alm import alm_hqt
 
     dev, B, rec = "cuda", 4096, {}
@@ -208,7 +221,19 @@ def long_horizon(timing):
     for C, Tm in K6_SHAPES:  # the card tests' other K6 shapes, B = 1000
         S_t = torch.randn((C, Tm, 1000), device=dev)
         rec[f"k6_C{C}_Tm{Tm}_B1000_queued_ms"] = queued(lambda: pen_fused(S_t, power_iters=16))
+    for C, Tm in K6_MID:  # past C 32, B = 4096, held to the plain version first
+        S_t = torch.randn((C, Tm, B), device=dev)
+        for a, b in zip(pen_fused(S_t, power_iters=16), pen_plain(S_t, power_iters=16)):
+            CS.same(torch, f"K6 at {C} x {Tm}", a, b)
+        rec[f"k6_C{C}_Tm{Tm}_B{B}_queued_ms"] = queued(lambda: pen_fused(S_t, power_iters=16))
     del S_t
+    for k, rows, b in K10_SHAPES:  # int8 lanes, held to the plain version first
+        slab = t(rng.integers(-128, 128, (k, rows, b), dtype=np.int8))
+        lanes = t(rng.integers(-128, 128, (b, k), dtype=np.int32))
+        CS.same(torch, f"K10 at K {k} x rows {rows}, B = {b}", pgd_matvec_cols(lanes, slab),
+                pgd_matvec_cols_plain(lanes, slab))
+        rec[f"k10_K{k}_rows{rows}_B{b}_queued_ms"] = queued(lambda: pgd_matvec_cols(lanes, slab))
+    del slab
     Tp, Cp = 256, 128
     sq = rng.integers(-127, 128, (Cp, Tp, B), dtype=np.int8)
     sc = np.stack([rng.integers(1, 300, B), rng.integers(10, 16, B)] * 4).astype(np.int32)
@@ -226,6 +251,65 @@ def long_horizon(timing):
     return rec
 
 
+def rehearsal_rank(rank, port, out, P):
+    """One rank of the rehearsal: gloo, mesh dp = 1 x tp = 2 on the one
+    card; K10's device time in one profiled solve of each sharded solver."""
+    from pint_tpu_torch.parallel import distributed as D
+    from pint_tpu_torch.parallel import make_mesh
+    from pint_tpu_torch.parallel.mesh import shard
+
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    rec = {}
+    try:
+        mesh = make_mesh(dp=1, tp=2, device="cuda")
+        rng = np.random.default_rng(9)
+        x_rti = torch.as_tensor(CS.rti_states(rng, CS.RTI_BATCH), dtype=torch.float32,
+                                device="cuda")
+        x_con = torch.as_tensor(CS.con_states(rng, CS.CON_BATCH), dtype=torch.float32,
+                                device="cuda")
+        for name, solver, x, B in (
+                ("device_sqp", P.DeviceSQP(sqp_iters=4, device="cuda", **CS.SQP_KW), x_rti,
+                 CS.RTI_BATCH),
+                ("device_constrained", CS.make_csqp(P, 4), x_con, CS.CON_BATCH)):
+            solve = solver.sharded_solve_words(mesh)
+            w0 = shard(solver.init_words(B), mesh, ("dp", "tp"))
+            xs = shard(x, mesh, ("dp", None))
+            ops = CS.device_kernels(torch, lambda: solve(w0, xs))
+            k10 = [us for key, us in ops if "matvec" in key]
+            rec[name] = dict(k10_launches=len(k10), k10_device_ms=sum(k10) / 1e3,
+                             device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(rec))
+
+
+def rehearsal(root):
+    """Both ranks of the rehearsal, started as processes of this script."""
+    import subprocess
+    import tempfile
+
+    from pint_tpu_torch.ops import kernels as K
+
+    K.library()  # built here, once, for both ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        port = CS.free_port()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--root",
+                                   str(root), "--rehearsal-rank", str(r), str(port),
+                                   f"{tmp}/rank{r}.json"]) for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                if p.wait(timeout=CS.REHEARSAL_TIMEOUT_S):
+                    raise SystemExit(f"rehearsal rank {r} failed ({p.returncode})")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(2)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=HERE,
@@ -233,11 +317,20 @@ def main():
     ap.add_argument("--out", type=Path, help="also write the JSON record here")
     ap.add_argument("--long", action="store_true",
                     help="time the long-horizon shapes of K3-K6 instead")
+    ap.add_argument("--rehearsal", action="store_true",
+                    help="profile K10 in the two-rank rehearsal's sharded solves instead")
+    ap.add_argument("--rehearsal-rank", nargs=3, metavar=("RANK", "PORT", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     CS.phase_device(torch)
     import pint_tpu_torch as P
+
+    if args.rehearsal_rank:
+        rank, port, out = args.rehearsal_rank
+        rehearsal_rank(int(rank), int(port), out, P)
+        return
     from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
     from pint_tpu_torch.mpc.condense_fused import lipq_fused, lipq_plain, true_div
     from pint_tpu_torch.mpc.fused_alm import pgd_fused_words_pre, pgd_hqt_plain
@@ -245,9 +338,12 @@ def main():
 
     if root not in Path(P.__file__).resolve().parents:
         raise SystemExit(f"imported {P.__file__}, not the package under {root}")
-    if args.long:
-        rec = {"root": str(root), "card": torch.cuda.get_device_name(0),
-               **long_horizon(timing)}
+    if args.long or args.rehearsal:
+        rec = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+        if args.long:
+            rec.update(long_horizon(timing))
+        else:
+            rec["rehearsal_ranks"] = rehearsal(root)
         print(json.dumps(rec), flush=True)
         if args.out:
             args.out.parent.mkdir(parents=True, exist_ok=True)

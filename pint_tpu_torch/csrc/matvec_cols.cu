@@ -30,18 +30,21 @@
 // the exact path, bytes sign-extended with prmt and multiplied and added in
 // uint32_t.  Both are exact modulo 2^32.  The 16 x 128 results go back
 // through shared memory (rows padded so a warp's stores meet no bank
-// conflict) and out as each problem's contiguous run of 16 rows.  A batch
-// that is not a multiple of 16 (or a slab not 16-byte aligned) reads the
-// same layout with byte loads, 8 k at a time; K % 4 != 0 stages the lanes
-// by 4-byte copies.
+// conflict) and out as each problem's contiguous run of 16 rows.  K % 4 !=
+// 0 stages the lanes by 4-byte copies.
 //
 // What holds it above the bound (PERF.md): an empty kernel queued the same
 // way takes 0.0020 ms, and each SM holds one block, whose loads, lane
-// staging, arithmetic and stores follow one another.
+// staging, arithmetic and stores follow one another (blocks of 8 or 4 rows,
+// twice and four times the blocks, read slower at every main-path slab).
 //
-// The first design (32 problems x 8 rows a block, one byte load a lane, 8
-// loads in flight a warp) read 0.0084 ms at K = 32, rows = 64, B = 4096 on
-// one H100 80GB HBM3 (PERF.md); it stays for the smallest slabs (below).
+// The first design (matvec_bytes_kernel: 32 problems x 8 rows a block, one
+// byte load a lane, 8 loads in flight a warp) read 0.0084 ms at K = 32, rows
+// = 64, B = 4096 on one H100 80GB HBM3 (PERF.md).  It takes the shapes the
+// 16-byte loads cannot (B % 16 != 0, or a slab not 16-byte aligned, where
+// a byte load a lane read faster than 16 byte loads a thread) and the
+// smallest slabs (K rows <= 1024, the tp = 4 DeviceSQP slab, where its 1024
+// blocks hide the latency better; PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -53,8 +56,7 @@ constexpr int kWarps = 4;
 constexpr int kRowsWarp = 4;               // rows j a warp
 constexpr int kRows = kWarps * kRowsWarp;  // rows a block: 16
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 32;                 // k a stage, 16-byte loads
-constexpr int kChunkBytes = 8;             // k a stage, byte loads
+constexpr int kChunk = 32;                 // k a stage
 constexpr int kLaneStride = kChunk + 4;    // ints a problem's staged lanes
 constexpr int kLaneTile = kProbs * kLaneStride + kGroups * 4;
 constexpr int kOutStride = kProbs + 8;     // result rows: conflict-free stores
@@ -87,14 +89,14 @@ __device__ __forceinline__ uint32_t word_of(const uint4& h, int q) {
   return q == 0 ? h.x : q == 1 ? h.y : q == 2 ? h.z : h.w;
 }
 
-// VEC: B % 16 == 0 and hqt 16-byte aligned (every group's 16 bytes of a row
-// are one aligned load); else byte loads, zero past the batch.  LVEC: K % 4
-// == 0 and lanes 16-byte aligned (16-byte lane copies).
-template <bool VEC, bool LVEC>
+// B % 16 == 0 and hqt 16-byte aligned: every group's 16 bytes of a row are
+// one aligned load.  LVEC: K % 4 == 0 and lanes 16-byte aligned (16-byte
+// lane copies).
+template <bool LVEC>
 __global__ void __launch_bounds__(kThreads)
 matvec_cols_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hqt,
                    int* __restrict__ out, int B, int K, int rows) {
-  constexpr int CH = VEC ? kChunk : kChunkBytes;
+  constexpr int CH = kChunk;
   __shared__ __align__(16) int s_l[kLaneTile];              // [p][k]
   __shared__ __align__(16) int s_o[kRows * kOutStride];     // [row][problem]
   __shared__ uint32_t s_p[kProbs * kPackStride];            // [p][k-quad]
@@ -121,18 +123,7 @@ matvec_cols_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hqt
 #pragma unroll
     for (int kk = 0; kk < CH; ++kk) {
       hv[kk] = make_uint4(0, 0, 0, 0);
-      if (live && kk < nk) {
-        const int8_t* row = h + (k0 + kk) * kstride;
-        if constexpr (VEC) {
-          hv[kk] = *reinterpret_cast<const uint4*>(row);
-        } else {
-          uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-          for (int p = 0; p < kGroup; ++p)
-            if (bg + p < B) w[p >> 2] |= (uint32_t)(uint8_t)row[p] << (8 * (p & 3));
-          hv[kk] = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-      }
+      if (live && kk < nk) hv[kk] = *reinterpret_cast<const uint4*>(h + (k0 + kk) * kstride);
     }
     // ... while the chunk's lanes of the block's problems land by cp.async
     if (LVEC) {
@@ -227,53 +218,50 @@ matvec_cols_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hqt
   }
 }
 
-// K rows <= kSmallSlab (the tp = 4 DeviceSQP slab, K 16 x rows 64) keeps the
-// first design, which read 0.0059 ms there against 0.0062 for the one above
-// (and lost at every larger slab; PERF.md): 32 problems x 8 rows a block,
-// one row a warp, lane b on problem b0 + b, so a warp's read of one (k, j)
-// is 32 consecutive bytes; the lanes staged transposed, the results through
-// shared memory.  1024 blocks at B = 4096 hide the latency of small slabs.
-constexpr int kSmallSlab = 1024;
-
-namespace small_slab {
+// The first design: 32 problems x 8 rows a block, one row a warp, lane b on
+// problem b0 + b, so a warp's read of one (k, j) is 32 consecutive bytes (any
+// B and alignment); the lanes staged transposed, kStage k at a time, the
+// results through shared memory.
+namespace bytes {
 
 constexpr int kProbs = 32;  // problems a block: one a warp lane
 constexpr int kRows = 8;    // output rows a block, one a warp
 constexpr int kWarps = 8;
+constexpr int kStage = 64;  // k a stage of lanes
 
 __global__ void __launch_bounds__(kWarps * 32)
-matvec_small_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hqt,
+matvec_bytes_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hqt,
                     int* __restrict__ out, int B, int K, int rows) {
-  extern __shared__ int smem[];
-  int* s_l = smem;                           // [K][kProbs + 1]
-  int* s_o = smem + K * (kProbs + 1);        // [kProbs][kRows + 1]
+  __shared__ int s_l[kStage * (kProbs + 1)];  // [k][problem]
+  __shared__ int s_o[kProbs * (kRows + 1)];   // [problem][row]
   const int b0 = blockIdx.x * kProbs;
   const int j0 = blockIdx.y * kRows;
   const int nb = min(kProbs, B - b0);
-
-  for (int i = threadIdx.x; i < kProbs * K; i += blockDim.x) {
-    const int p = i / K;
-    const int k = i - p * K;
-    s_l[k * (kProbs + 1) + p] = p < nb ? lanes[(size_t)(b0 + p) * K + k] : 0;
-  }
-  __syncthreads();
-
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int j = j0 + warp;
   const size_t kstride = (size_t)rows * B;
-  for (int jj = warp; jj < kRows; jj += kWarps) {
-    const int j = j0 + jj;
-    uint32_t acc = 0;
-    if (j < rows && lane < nb) {
-      const int8_t* h = hqt + (size_t)j * B + b0 + lane;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k)
-        acc += (uint32_t)(int)h[k * kstride] * (uint32_t)s_l[k * (kProbs + 1) + lane];
+  const bool live = j < rows && lane < nb;
+  const int8_t* h = hqt + (size_t)j * B + b0 + lane;
+  uint32_t acc = 0;
+  for (int k0 = 0; k0 < K; k0 += kStage) {
+    const int nk = min(kStage, K - k0);
+    if (k0) __syncthreads();  // the last stage's lanes are read
+    for (int i = threadIdx.x; i < kProbs * nk; i += blockDim.x) {
+      const int p = i / nk;
+      const int k = i - p * nk;
+      s_l[k * (kProbs + 1) + p] = p < nb ? lanes[(size_t)(b0 + p) * K + k0 + k] : 0;
     }
-    s_o[lane * (kRows + 1) + jj] = (int)acc;
+    __syncthreads();
+    if (live) {
+#pragma unroll 8
+      for (int k = 0; k < nk; ++k)
+        acc += (uint32_t)(int)h[(size_t)(k0 + k) * kstride] *
+               (uint32_t)s_l[k * (kProbs + 1) + lane];
+    }
   }
+  s_o[lane * (kRows + 1) + warp] = (int)acc;
   __syncthreads();
-
   for (int i = threadIdx.x; i < kProbs * kRows; i += blockDim.x) {
     const int p = i / kRows;
     const int jj = i - p * kRows;
@@ -282,38 +270,31 @@ matvec_small_kernel(const int* __restrict__ lanes, const int8_t* __restrict__ hq
   }
 }
 
-cudaError_t launch(const int* lanes, const int8_t* hqt, int* out, int B, int K, int rows,
-                   cudaStream_t stream) {
-  const size_t smem = 4 * ((size_t)K * (kProbs + 1) + kProbs * (kRows + 1));
-  if ((rows + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = pint_allow_smem(matvec_small_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + kProbs - 1) / kProbs, (rows + kRows - 1) / kRows);
-  matvec_small_kernel<<<grid, kWarps * 32, smem, stream>>>(lanes, hqt, out, B, K, rows);
-  return cudaGetLastError();
-}
-
-}  // namespace small_slab
+}  // namespace bytes
 
 }  // namespace
 
 // lanes (B, K) int32, hqt (K, rows, B) int8 -> out (B, rows) int32
 extern "C" int pint_matvec_cols(const void* lanes, const void* hqt, void* out,
                                 int B, int K, int rows, void* stream) {
-  // rows tiles go on the grid's y axis (at most 65535)
+  // rows tiles of 16 on the grid's y axis (at most 65535)
   if (B <= 0 || K <= 0 || rows <= 0 || (rows + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((long long)K * rows <= kSmallSlab)
-    return (int)small_slab::launch(static_cast<const int*>(lanes),
-                                   static_cast<const int8_t*>(hqt), static_cast<int*>(out),
-                                   B, K, rows, static_cast<cudaStream_t>(stream));
+  const int* l = static_cast<const int*>(lanes);
+  const int8_t* h = static_cast<const int8_t*>(hqt);
+  int* o = static_cast<int*>(out);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if ((long long)K * rows <= 1024 || B % kGroup != 0 ||
+      reinterpret_cast<uintptr_t>(hqt) % 16 != 0) {
+    const dim3 grid((B + bytes::kProbs - 1) / bytes::kProbs,
+                    (rows + bytes::kRows - 1) / bytes::kRows);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    bytes::matvec_bytes_kernel<<<grid, bytes::kWarps * 32, 0, strm>>>(l, h, o, B, K, rows);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((B + kProbs - 1) / kProbs, (rows + kRows - 1) / kRows);
-  const bool vec = B % kGroup == 0 && reinterpret_cast<uintptr_t>(hqt) % 16 == 0;
   const bool lvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(lanes) % 16 == 0;
-  auto kernel = vec ? (lvec ? matvec_cols_kernel<true, true> : matvec_cols_kernel<true, false>)
-                    : (lvec ? matvec_cols_kernel<false, true> : matvec_cols_kernel<false, false>);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(lanes), static_cast<const int8_t*>(hqt),
-      static_cast<int*>(out), B, K, rows);
+  auto kernel = lvec ? matvec_cols_kernel<true> : matvec_cols_kernel<false>;
+  kernel<<<grid, kThreads, 0, strm>>>(l, h, o, B, K, rows);
   return (int)cudaGetLastError();
 }

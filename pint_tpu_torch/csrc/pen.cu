@@ -38,8 +38,8 @@
 // conflicts), and go out as 16-byte rows (8 bytes, or bytes, when B % 16 !=
 // 0) during the next octet's power steps.
 //
-// A slab of at most 2048 floats with Tm > 64 takes pen_small_kernel, the
-// first design's row kernel in the order below (see there).
+// 32 < C <= 64, Tm <= 64 (pen_warp_kernel): a warp a problem out of shared
+// memory (see there).
 //
 // Every other shape (pen_wide_kernel; the long-horizon path runs it at C =
 // 128, Tm = 256 and C = 136, Tm = 272): one problem a block, or 2, 4 or 8
@@ -400,144 +400,177 @@ cudaError_t launch_reg(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
   return cudaGetLastError();
 }
 
-// -- small slabs: a problem a block, no cluster -------------------------------
+// -- 32 < C <= 64, Tm <= 64: a warp a problem out of shared memory ---------
 
-// Past the register kernel, a slab of at most kSmallSlab floats with Tm >
-// 64 takes the first design's row kernel in the order above (one problem a
-// block of 32 ceil(max(C, Tm) / 32) threads, a float a sector gathered out
-// of the batch-last layout, the neighbouring blocks reading the rest of
-// each sector from L2): there the power steps' latency, not the bytes, sets
-// the time, and a block that waits on no cluster steps faster.  At B = 1000
-// on one H100 80GB HBM3 (PERF.md) it read 0.068 ms at 8 x 100, 0.116 at 20
-// x 100 and 0.120 at 8 x 200 against 0.113, 0.128 and 0.217 for the cluster
-// kernel; at 40 x 40 the cluster kernel's whole-sector staging won (0.087
-// against 0.097).
-constexpr int kSmallSlab = 2048;
+// The register kernel with two rows a lane (2 Tm floats of registers, and
+// the columns read out of a copy in shared memory) spilled past Tm 32 and,
+// holding 8 problems an SM, read slower than the first design's warp kernel
+// at 36 x 30, B = 4096, where it did not.  So these shapes (a 2-row constraint at T = 17-32 is C = Tm = 2T, a 3-row one at T
+// = 11-21 C = 3T, Tm = 2T) keep the first design's warp kernel in the order
+// above: a block stages 8 consecutive problems' slabs, 8 problems' floats of
+// a (c, j) row a sector, into [C][Tm | 1] copies (odd rows: a warp's reads
+// of a row and of a column both meet 32 banks), and a warp a problem runs
+// the power iteration out of its copy (lane l on rows l and l + 32 of S v
+// and columns l and l + 32 of S^T w, each as the four partial sums), about
+// 4 blocks an SM at 40 x 40.  It runs while two blocks fit an SM (C Tm <=
+// ~3500); at one block an SM the cluster kernel read faster (64 x 64, B =
+// 4096; PERF.md).
+constexpr int kWarpProbs = 8;  // problems (warps) a block
 
-// the slab [C][Tm + 1], v, u (Tm each), w (C), a term a thread, the norm
-inline size_t small_bytes(int C, int Tm) {
-  return ((size_t)C * (Tm + 1) + 2 * (size_t)Tm + C + 256 + 1) * sizeof(float);
+struct WarpLayout {
+  int ps;        // a copy's row stride, odd
+  size_t bytes;  // 8 x (copy [C][ps], v [64], w [64]) and 8 scales
+};
+
+inline WarpLayout warp_layout(int C, int Tm) {
+  WarpLayout l;
+  l.ps = Tm | 1;
+  l.bytes = ((size_t)kWarpProbs * ((size_t)C * l.ps + 128) + kWarpProbs) * sizeof(float);
+  return l;
 }
 
-__global__ void __launch_bounds__(256)
-pen_small_kernel(const float* __restrict__ st, int8_t* __restrict__ sqc,
-                 int8_t* __restrict__ sqj, float* __restrict__ lip,
-                 float* __restrict__ sscale, float* __restrict__ rowamp, int B, int C,
-                 int Tm, int power_iters, float inv_sqrt) {
+__global__ void __launch_bounds__(kWarpProbs * 32)
+pen_warp_kernel(const float* __restrict__ st, int8_t* __restrict__ sqc,
+                int8_t* __restrict__ sqj, float* __restrict__ lip,
+                float* __restrict__ sscale, float* __restrict__ rowamp, int B, int C,
+                int Tm, int power_iters, float inv_sqrt) {
   extern __shared__ __align__(1024) float fsm[];  // pen_reg_kernel's symbol
-  const int ss = Tm + 1;
-  float* S = fsm;
-  float* v = S + (size_t)C * ss;
-  float* u = v + Tm;
-  float* w = u + Tm;
-  float* red = w + C;   // [256]: a term a thread, or a warp's maxima
-  float* s_sum = red + 256;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nw = blockDim.x >> 5;
-  const int b = blockIdx.x, mm = C * Tm;
+  const int ps = Tm | 1, slab = C * ps;
+  float* s_S = fsm;                                  // 8 x [C][ps]
+  float* s_v = s_S + (size_t)kWarpProbs * slab;      // 8 x [64]
+  float* s_w = s_v + kWarpProbs * 64;                // 8 x [64]
+  float* s_scale = s_w + kWarpProbs * 64;            // 8
+  const int b0 = blockIdx.x * kWarpProbs;
+  const int nb = min(kWarpProbs, B - b0);
+  const int mm = C * Tm;
 
-  for (int i = t; i < mm; i += blockDim.x) {
-    const int c = i / Tm;
-    S[c * ss + (i - c * Tm)] = st[(size_t)i * B + b];
-  }
-  __syncthreads();
-
-  // max |S| and the largest row sum of |S| (row c in order, thread c)
-  float sm = 0.0f, ra = 0.0f;
-  if (t < C) {
-    const float* row = S + t * ss;
-    float acc = fabsf(row[0]);
-    sm = acc;
-    for (int j = 1; j < Tm; ++j) {
-      const float a = fabsf(row[j]);
-      sm = pint::nan_max(sm, a);
-      acc = __fadd_rn(acc, a);
+  for (int i = threadIdx.x; i < mm * kWarpProbs; i += blockDim.x) {
+    const int p = i % kWarpProbs, cj = i / kWarpProbs;
+    if (p < nb) {
+      const int c = cj / Tm;
+      s_S[p * slab + c * ps + (cj - c * Tm)] = st[(size_t)cj * B + b0 + p];
     }
-    ra = acc;
   }
-  sm = pint::warp_max(sm);
-  ra = pint::warp_max(ra);
-  if (lane == 0) red[warp] = sm, red[16 + warp] = ra;
   __syncthreads();
-  if (t == 0) {
-    for (int q = 1; q < nw; ++q) sm = pint::nan_max(sm, red[q]);
-    for (int q = 1; q < nw; ++q) ra = pint::nan_max(ra, red[16 + q]);
-    sscale[b] = __fmul_rn(sm, kInv127);
-    rowamp[b] = __fmul_rn(127.0f, ra);
-    s_sum[0] = quant_scale(sm);
-  }
-  if (t < Tm) v[t] = inv_sqrt;
-  __syncthreads();
-  const float scale = s_sum[0];
 
-  for (int it = 0;; ++it) {
-    if (t < C) {  // w = S v: j to partial j % 4
-      const float* row = S + t * ss;
-      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      int j = 0;
-      for (; j + 4 <= Tm; j += 4) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < nb) {
+    const float* S = s_S + warp * slab;
+    float* v = s_v + warp * 64;
+    float* w = s_w + warp * 64;
+    const int b = b0 + warp;
+
+    float sm = 0.0f, ra = 0.0f;  // max|S|; rows' sums of |S|, j in order
 #pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = __fadd_rn(p[i], __fmul_rn(row[j + i], v[j + i]));
+    for (int q = 0; q < 2; ++q) {
+      const int c = lane + 32 * q;
+      if (c < C) {
+        const float* row = S + c * ps;
+        float acc = fabsf(row[0]);
+        sm = pint::nan_max(sm, acc);
+        for (int j = 1; j < Tm; ++j) {
+          const float a = fabsf(row[j]);
+          sm = pint::nan_max(sm, a);
+          acc = __fadd_rn(acc, a);
+        }
+        ra = q ? pint::nan_max(ra, acc) : acc;
       }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        if (j + i < Tm) p[i] = __fadd_rn(p[i], __fmul_rn(row[j + i], v[j + i]));
-      w[t] = __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
     }
-    __syncthreads();
-    float x = 0.0f;
-    if (t < Tm) {  // u = S^T w: c to partial c % 4
-      float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      int c = 0;
-      for (; c + 4 <= C; c += 4) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          p[i] = __fadd_rn(p[i], __fmul_rn(S[(c + i) * ss + t], w[c + i]));
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        if (c + i < C) p[i] = __fadd_rn(p[i], __fmul_rn(S[(c + i) * ss + t], w[c + i]));
-      u[t] = __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
-      x = it < power_iters ? __fmul_rn(u[t], u[t]) : __fmul_rn(v[t], u[t]);
-    }
-    // the norm: row j's term to lane j % 32, each lane's in order, then the
-    // butterfly
-    red[t] = x;
-    __syncthreads();
-    if (warp == 0) {
-      float part = 0.0f;
-      for (int q = 0; q < nw; ++q) part = __fadd_rn(part, red[lane + 32 * q]);
-      part = pint::warp_sum(part);
-      if (lane == 0) s_sum[0] = part;
-    }
-    __syncthreads();
-    const float sum = s_sum[0];
-    if (it == power_iters) {
-      if (t == 0) lip[b] = __fmul_rn(sum, 1.05f);
-      break;
-    }
-    if (t < Tm) v[t] = __fmul_rn(u[t], __frcp_rn(__fadd_rn(__fsqrt_rn(sum), 1e-30f)));
-    __syncthreads();
-  }
+    sm = pint::warp_max(sm);
+    ra = pint::warp_max(ra);
 
-  for (int i = t; i < mm; i += blockDim.x) {
-    const int c = i / Tm, j = i - c * Tm;
-    sqc[(size_t)i * B + b] = q8(S[c * ss + j], scale);
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (lane + 32 * q < Tm) v[lane + 32 * q] = inv_sqrt;
+    float u[2];
+    for (int it = 0;; ++it) {
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // w = S v: j to partial j % 4
+        const int c = lane + 32 * q;
+        if (c < C) {
+          const float* row = S + c * ps;
+          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          int j = 0;
+#pragma unroll 4
+          for (; j + 4 <= Tm; j += 4) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) p[i] = __fadd_rn(p[i], __fmul_rn(row[j + i], v[j + i]));
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            if (j + i < Tm) p[i] = __fadd_rn(p[i], __fmul_rn(row[j + i], v[j + i]));
+          w[c] = __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
+        }
+      }
+      __syncwarp();
+      float part = 0.0f;  // the lane's columns in order, then the butterfly
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // u = S^T w: c to partial c % 4
+        const int j = lane + 32 * q;
+        u[q] = 0.0f;
+        if (j < Tm) {
+          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          int c = 0;
+#pragma unroll 4
+          for (; c + 4 <= C; c += 4) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              p[i] = __fadd_rn(p[i], __fmul_rn(S[(c + i) * ps + j], w[c + i]));
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+            if (c + i < C) p[i] = __fadd_rn(p[i], __fmul_rn(S[(c + i) * ps + j], w[c + i]));
+          u[q] = __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
+          part = __fadd_rn(part, it < power_iters ? __fmul_rn(u[q], u[q])
+                                                  : __fmul_rn(v[j], u[q]));
+        }
+      }
+      const float sum = pint::warp_sum(part);
+      if (it == power_iters) {
+        if (lane == 0) lip[b] = __fmul_rn(sum, 1.05f);
+        break;
+      }
+      const float rn = __frcp_rn(__fadd_rn(__fsqrt_rn(sum), 1e-30f));
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (lane + 32 * q < Tm) v[lane + 32 * q] = __fmul_rn(u[q], rn);
+    }
+    if (lane == 0) {
+      sscale[b] = __fmul_rn(sm, kInv127);
+      rowamp[b] = __fmul_rn(127.0f, ra);
+      s_scale[warp] = quant_scale(sm);
+    }
   }
-  for (int i = t; i < mm; i += blockDim.x) {
-    const int j = i / C, c = i - j * C;
-    sqj[(size_t)i * B + b] = q8(S[c * ss + j], scale);
+  __syncthreads();
+
+  // both orientations batch-last, 8 problems' bytes of a row together
+  for (int i = threadIdx.x; i < mm * kWarpProbs; i += blockDim.x) {
+    const int p = i % kWarpProbs, cj = i / kWarpProbs;
+    if (p < nb) {
+      const int c = cj / Tm;
+      sqc[(size_t)cj * B + b0 + p] = q8(s_S[p * slab + c * ps + (cj - c * Tm)], s_scale[p]);
+    }
+  }
+  for (int i = threadIdx.x; i < mm * kWarpProbs; i += blockDim.x) {
+    const int p = i % kWarpProbs, jc = i / kWarpProbs;
+    if (p < nb) {
+      const int j = jc / C;
+      sqj[(size_t)jc * B + b0 + p] = q8(s_S[p * slab + (jc - j * C) * ps + j], s_scale[p]);
+    }
   }
 }
 
-cudaError_t launch_small(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
-                         float* sscale, float* rowamp, int B, int C, int Tm,
-                         int power_iters, float inv_sqrt, cudaStream_t stream) {
-  const size_t smem = small_bytes(C, Tm);
-  cudaError_t err = pint_allow_smem(pen_small_kernel, smem);
+cudaError_t launch_warp(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
+                        float* sscale, float* rowamp, int B, int C, int Tm,
+                        int power_iters, float inv_sqrt, cudaStream_t stream) {
+  const WarpLayout l = warp_layout(C, Tm);
+  cudaError_t err = pint_allow_smem(pen_warp_kernel, l.bytes);
   if (err != cudaSuccess) return err;
-  const int threads = ((C > Tm ? C : Tm) + 31) / 32 * 32;
-  pen_small_kernel<<<B, threads, smem, stream>>>(st, sqc, sqj, lip, sscale, rowamp, B, C,
-                                                 Tm, power_iters, inv_sqrt);
+  pen_warp_kernel<<<(B + kWarpProbs - 1) / kWarpProbs, kWarpProbs * 32, l.bytes, stream>>>(
+      st, sqc, sqj, lip, sscale, rowamp, B, C, Tm, power_iters, inv_sqrt);
   return cudaGetLastError();
 }
 
@@ -996,15 +1029,15 @@ cudaError_t launch_wide(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
 
 }  // namespace
 
-// The reference's pen_viable: 2 (C Tm 128 6) <= 100 MiB.
 namespace {
 
-// the register kernel, the small-slab row kernel, else the cluster kernel
-enum class PenPath { reg, small, wide };
+// the register kernel, the warp kernel, else the cluster kernel
+enum class PenPath { reg, warp, wide };
 
 PenPath pen_path(int C, int Tm) {
   if (C <= 32 && Tm <= 64) return PenPath::reg;
-  if (C * Tm <= kSmallSlab && Tm > 64 && Tm <= 256) return PenPath::small;
+  if (C <= 64 && Tm <= 64 && warp_layout(C, Tm).bytes <= kPintMaxSmem / 2)
+    return PenPath::warp;
   return PenPath::wide;
 }
 
@@ -1015,6 +1048,7 @@ extern "C" long long pint_pen_scratch(int B, int C, int Tm) {
   return pen_path(C, Tm) == PenPath::wide ? 2LL * B * C * Tm : 0;
 }
 
+// The reference's pen_viable: 2 (C Tm 128 6) <= 100 MiB.
 extern "C" int pint_pen(const void* st, void* sqc, void* sqj, void* lip,
                         void* sscale, void* rowamp, void* scratch, int B, int C, int Tm,
                         int power_iters, void* stream) {
@@ -1033,8 +1067,8 @@ extern "C" int pint_pen(const void* st, void* sqc, void* sqj, void* lip,
   const PenPath path = pen_path(C, Tm);
   if (path == PenPath::reg)
     return (int)launch_reg(s, qc, qj, l, sc, ra, B, C, Tm, power_iters, inv_sqrt, strm);
-  if (path == PenPath::small)
-    return (int)launch_small(s, qc, qj, l, sc, ra, B, C, Tm, power_iters, inv_sqrt, strm);
+  if (path == PenPath::warp)
+    return (int)launch_warp(s, qc, qj, l, sc, ra, B, C, Tm, power_iters, inv_sqrt, strm);
   return (int)launch_wide(s, qc, qj, l, sc, ra, static_cast<int8_t*>(scratch), B, C, Tm,
                           power_iters, inv_sqrt, strm);
 }

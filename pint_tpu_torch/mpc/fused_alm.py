@@ -208,9 +208,9 @@ def pgd_matvec_cols(lanes_r, hqt_r):
     hqt_r (K, rows, B) int8, this rank's k-slice of the batch-last slab
     (``hqt[k, j, b] = Hq_b[j, k]``).  Returns (B, rows) int32.  Kernel for
     CUDA tensors, plain version for CPU tensors.  The kernel
-    (``csrc/matvec_cols.cu``) takes any K, a chunk of 32 columns at a
-    time, and refuses (``RuntimeError``) more rows than its grid covers
-    (16 x 65535)."""
+    (``csrc/matvec_cols.cu``) takes any K, a chunk of columns at a time,
+    and refuses (``RuntimeError``) more rows than its grid covers (16 x
+    65535; 8 x 65535 for a batch not a multiple of 16)."""
     B, Kc = lanes_r.shape
     if hqt_r.dim() != 3 or hqt_r.shape[0] != Kc or hqt_r.shape[2] != B:
         raise ValueError(

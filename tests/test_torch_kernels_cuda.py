@@ -439,9 +439,9 @@ def test_k6_bit_identical(con_condensed):
                                    (256, 223)])
 @pytest.mark.parametrize("B", [37, 1000])
 def test_k6_rows_kernel_bit_identical(cuda, B, C, Tm):
-    """Past C 32 or Tm 64 K6 runs its small-slab row kernel (8 x 100) or its
-    cluster kernel, a problem a block or split over 2 blocks (224 x 256,
-    256 x 223); every output against pen_plain."""
+    """Past C 64 or Tm 64 K6 runs its cluster kernel, a problem a block or
+    split over 2 blocks (224 x 256, 256 x 223); every output against
+    pen_plain."""
     from pint_tpu_torch.mpc import pen_fused, pen_plain
 
     gen = torch.Generator(device=cuda).manual_seed(B + C + Tm)
@@ -464,13 +464,17 @@ def _same_bits(name, a, b):
 @pytest.mark.parametrize("power_iters", [0, 16])
 @pytest.mark.parametrize("C, Tm, B", [
     (32, 64, 4096), (32, 64, 4095), (32, 64, 1), (128, 256, 1000), (136, 272, 37),
-    (256, 256, 37), (384, 128, 37), (2048, 32, 9), (20, 40, 100)])
+    (256, 256, 37), (384, 128, 37), (2048, 32, 9), (20, 40, 100), (40, 40, 4096),
+    (40, 40, 37), (36, 30, 1000), (64, 20, 9), (33, 64, 4095), (48, 48, 1000),
+    (56, 56, 100), (64, 64, 100)])
 def test_k6_bit_identical_at_every_design(cuda, C, Tm, B, power_iters):
     """The register kernel (32 x 64: TMA boxes and 16-byte stores at B
     4096, 4-byte copies and byte stores at 4095 and 1; any C <= 32, Tm <= 64
-    at 20 x 40) and the cluster kernel (a problem a block at 128 x 256, 136
-    x 272, 384 x 128; two blocks, split by rows, past 227 KB at 256 x 256
-    and 2048 x 32), every output against pen_plain."""
+    at 20 x 40), the warp kernel (32 < C <= 64: 40 x 40, 36 x 30, 64 x 20,
+    33 x 64, 48 x 48, 56 x 56) and the cluster kernel (a problem a block at
+    128 x 256, 136 x 272, 384 x 128 and 64 x 64; two blocks, split by rows,
+    past 227 KB at 256 x 256 and 2048 x 32), every output against
+    pen_plain."""
     from pint_tpu_torch.mpc import pen_fused, pen_plain
 
     gen = torch.Generator(device=cuda).manual_seed(C + Tm + B + power_iters)
@@ -482,11 +486,12 @@ def test_k6_bit_identical_at_every_design(cuda, C, Tm, B, power_iters):
         _same_bits(name, a, b)
 
 
-@pytest.mark.parametrize("C, Tm", [(32, 64), (128, 256), (4, 17000)])
+@pytest.mark.parametrize("C, Tm", [(32, 64), (40, 40), (128, 256), (4, 17000)])
 def test_k6_nan_stays_in_its_problem(cuda, C, Tm):
     """A NaN in one problem's slab: that problem's outputs are NaN (its int8
     rows 0), every other problem's are as without it; the register kernel,
-    the cluster kernel and its column split (4 x 17000)."""
+    the warp kernel (40 x 40), the cluster kernel and its column split (4 x
+    17000)."""
     from pint_tpu_torch.mpc import pen_fused, pen_plain
 
     B = 64
@@ -893,9 +898,12 @@ def test_k10_bit_identical(rti_slabs, tp, slab):
     assert torch.equal(got, pgd_matvec_cols_plain(lanes_r, slab_r))
 
 
-@pytest.mark.parametrize("B, K_, rows", [(37, 32, 64), (1, 8, 5), (4099, 16, 200)])
+@pytest.mark.parametrize("B, K_, rows", [(37, 32, 64), (1, 8, 5), (4099, 16, 200),
+                                          (37, 130, 64), (4096, 130, 64)])
 def test_k10_ragged_shapes(cuda, B, K_, rows):
-    """Batches and row counts that fill no tile, full-range int8 lanes."""
+    """Batches and row counts that fill no tile, and K past one stage of
+    lanes (130: three of the first design's, five of the 16-byte
+    design's), full-range int8 lanes."""
     from pint_tpu_torch.mpc import pgd_matvec_cols, pgd_matvec_cols_plain
 
     rng = np.random.default_rng(B + K_)
