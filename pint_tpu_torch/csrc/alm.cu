@@ -90,6 +90,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -151,53 +152,19 @@ __device__ __forceinline__ int lam_update(int acc, int co, int lam, int lo, int 
 
 // -- K7: the four matvecs on the tensor cores (Tp, Cp <= 256) ----------------
 
-// d += a . b, one m16n8k32 tile: a the 16 x 32 int8 A fragment (row), b the
-// 32 x 8 int8 B fragment (col), d the 16 x 8 int32 accumulator.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using pint::load_a;
+using pint::mma_s8;
+using pint::store_pairs;
 
-// The A fragment of k-chunk kc of the 16 x W byte tile `t` (row stride RS):
-// rows (g, g+8) x bytes kc*32 + 4tq (+16).
-template <int RS>
-__device__ __forceinline__ void load_a(const unsigned char* t, int gq, int tq, int kc,
-                                       uint32_t (&a)[4]) {
-  const unsigned char* p = t + gq * RS + kc * 32 + tq * 4;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * RS);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * RS + 16);
-}
-
-// The low bytes of v[0], v[1] (row g) and v[2], v[3] (row g+8) at columns
-// col, col + 1 of the byte tile `t`.
-template <int RS>
-__device__ __forceinline__ void store_pairs(unsigned char* t, int gq, int col,
-                                            const int (&v)[4]) {
-  *reinterpret_cast<uint16_t*>(t + gq * RS + col) =
-      (uint16_t)__byte_perm(v[0], v[1], 0x0040);
-  *reinterpret_cast<uint16_t*>(t + (gq + 8) * RS + col) =
-      (uint16_t)__byte_perm(v[2], v[3], 0x0040);
-}
-
-// K7's shape at W: NG column groups of 8 a warp, NW warps, and whether the
-// B fragments live in shared memory (at W = 256 three sets of 48 registers a
-// thread would not fit beside the state).  At W = 256 a warp owns two
-// column groups (16 warps of up to 128 registers), and the k-chunk loops
-// stay rolled, so the fragment loads of all chunks are not hoisted into
+// K7's shape at W (csrc/mma_tile.cuh's tile) and whether the B fragments
+// live in shared memory (at W = 256 three sets of 48 registers a thread
+// would not fit beside the state).  At W = 256 the k-chunk loops stay
+// rolled, so the fragment loads of all chunks are not hoisted into
 // registers at once.
 template <int W>
-struct MmaShape {
-  static constexpr int KC = W / 32;              // k-chunks of 32 bytes
-  static constexpr int RS = W + 16;              // tile row stride
-  static constexpr int NG = W > 128 ? 2 : 1;     // column groups a warp
-  static constexpr int NW = W / 8 / NG;          // warps a block
+struct MmaShape : pint::MmaTile<W> {
   static constexpr bool SMEM_B = W > 128;
-  static constexpr size_t tiles = 3 * 16 * RS;   // u, y_hi, y_lo tiles
+  static constexpr size_t tiles = 3 * 16 * pint::MmaTile<W>::RS;  // u, y_hi, y_lo
   static constexpr size_t bytes = tiles + (SMEM_B ? (size_t)3 * W * W : 0);
 };
 

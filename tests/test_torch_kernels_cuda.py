@@ -72,20 +72,44 @@ def _x0(B, seed):
                      rng.uniform(0, 1, B)], -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("momentum", [False, True])
-@pytest.mark.parametrize("B", [1, 1000])
-@pytest.mark.parametrize("T, pad_to", [(50, 64), (20, 32), (100, 64)])
-def test_k2_bit_identical(cuda, momentum, B, T, pad_to):
+# K2 and K2p: B across the tile of 16 problems and the grid; Tp at each
+# padded width W = 32, 64, 128, 256 and at Tp = 52 (zero B-fragment rows and
+# columns past Tp inside W = 64)
+K2_BATCHES = [1, 15, 16, 17, 1000, 8192, 8193]
+K2_SHAPES = [(20, 32), (50, 4), (50, 64), (100, 64), (200, 64)]  # (T, pad_to): Tp 32, 52, 64, 128, 256
+K2_ITERS = [0, 1, 15, 40]
+
+
+def _k2_operands(cuda, B, T, pad_to, g_kind, seed):
+    """qqp, full-range warm lanes (so -128 lanes occur) and g: the QP's own
+    linear terms, or values within 2^20 of int32's extremes, so that
+    -(pre + g) + half wraps."""
     qqp = quantize(condense_double_integrator(T=T), pad_to=pad_to)
-    rng = np.random.default_rng(12)
-    lanes = torch.as_tensor(
-        rng.integers(-128, 128, (B, qqp.padded), dtype=np.int32), device=cuda)
-    g = torch.as_tensor(qqp.g_lane_fixed(np.stack(
-        [rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1)), device=cuda)
-    hq = torch.as_tensor(qqp.Hq, device=cuda)
+    rng = np.random.default_rng(seed)
+    lanes = rng.integers(-128, 128, (B, qqp.padded), dtype=np.int32)
+    if g_kind == "real":
+        g = qqp.g_lane_fixed(np.stack([rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1))
+    else:
+        edge = rng.integers(0, 1 << 20, (B, qqp.padded), dtype=np.int64)
+        g = np.where(rng.integers(0, 2, (B, qqp.padded)) == 1, 2**31 - 1 - edge,
+                     -2**31 + edge).astype(np.int32)
+        g[:, qqp.horizon:] = 0  # padded lanes carry g = 0, as g_lane_fixed's
+    return (qqp, torch.as_tensor(lanes, device=cuda), torch.as_tensor(g, device=cuda),
+            torch.as_tensor(qqp.Hq, device=cuda))
+
+
+@pytest.mark.parametrize("g_kind", ["real", "extreme"])
+@pytest.mark.parametrize("iters", K2_ITERS)
+@pytest.mark.parametrize("momentum", [False, True])
+@pytest.mark.parametrize("B", K2_BATCHES)
+@pytest.mark.parametrize("T, pad_to", K2_SHAPES)
+def test_k2_bit_identical(cuda, momentum, B, T, pad_to, iters, g_kind):
+    qqp, lanes, g, hq = _k2_operands(cuda, B, T, pad_to, g_kind, 12 + B)
     kw = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift,
-              iters=15, momentum=momentum, beta_num=FusedPGD(qqp).beta_num)
+              iters=iters, momentum=momentum, beta_num=FusedPGD(qqp).beta_num)
+    before = K.launch_counts()["fused_pgd"]
     got = fused_pgd(lanes, g, hq, **kw)
+    assert K.launch_counts()["fused_pgd"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, fused_pgd_plain(lanes, g, hq, **kw))
 
@@ -958,21 +982,17 @@ def test_k10_bit_identical_at_every_shape(cuda, K_, rows, B):
     assert torch.equal(got.cpu(), _matvec_wrap(wide, slab))
 
 
-@pytest.mark.parametrize("B", [1, 100, 8192])
-@pytest.mark.parametrize("iters", [15, 40])
-def test_k2p_bit_identical(cuda, B, iters):
+@pytest.mark.parametrize("g_kind", ["real", "extreme"])
+@pytest.mark.parametrize("iters", K2_ITERS)
+@pytest.mark.parametrize("B", K2_BATCHES)
+@pytest.mark.parametrize("T, pad_to", K2_SHAPES)
+def test_k2p_bit_identical(cuda, B, T, pad_to, iters, g_kind):
     """K2p on words against K2 with its unpack and pack, and against its
     plain version; full-range warm words, so -128 lanes occur."""
     from pint_tpu_torch.mpc import fused_pgd_packed, fused_pgd_packed_plain
 
-    qqp = quantize(condense_double_integrator(T=50))
-    rng = np.random.default_rng(B)
-    words = torch.as_tensor(
-        rng.integers(-2**31, 2**31, (B, qqp.padded // 4), dtype=np.int64).astype(np.int32),
-        device=cuda)
-    g = torch.as_tensor(qqp.g_lane_fixed(np.stack(
-        [rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1)), device=cuda)
-    hq = torch.as_tensor(qqp.Hq, device=cuda)
+    qqp, lanes, g, hq = _k2_operands(cuda, B, T, pad_to, g_kind, 40 + B)
+    words = pack_controls(lanes)
     kw = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=iters)
     before = K.launch_counts()["fused_pgd_packed"]
     got = fused_pgd_packed(words, g, hq, **kw)
@@ -983,3 +1003,36 @@ def test_k2p_bit_identical(cuda, B, iters):
     assert torch.equal(got, fused_pgd_packed_plain(words, g, hq, **kw))
     solver = FusedPGD(qqp, iters=iters, packed_io=True, device=cuda)
     assert torch.equal(solver.solve_words(words, g), got)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("T, pad_to", [(50, 4), (50, 64)])
+def test_k2_unaligned_operands(cuda, packed, T, pad_to):
+    """Contiguous views whose data pointers lie 4 bytes past a 16-byte
+    boundary (lanes or words, and g) take the kernel's 4-byte path:
+    bit-identical, one launch."""
+    from pint_tpu_torch.mpc import fused_pgd_packed, fused_pgd_packed_plain
+
+    B = 1000
+    qqp, lanes, g, hq = _k2_operands(cuda, B, T, pad_to, "real", 7)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    kw = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=15)
+    name = "fused_pgd_packed" if packed else "fused_pgd"
+    before = K.launch_counts()[name]
+    if packed:
+        words = pack_controls(lanes)
+        got = fused_pgd_packed(shifted(words), shifted(g), hq, **kw)
+        ref = fused_pgd_packed_plain(words, g, hq, **kw)
+    else:
+        got = fused_pgd(shifted(lanes), shifted(g), hq, **kw)
+        ref = fused_pgd_plain(lanes, g, hq, **kw)
+    assert K.launch_counts()[name] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
