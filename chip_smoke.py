@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
 1. device check: a CUDA card of compute capability 9.0, its name and power
    limit from nvidia-smi; TF32 off;
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
-   source; from the build's -Xptxas -v report, the registers of every K3,
-   K4, K5, K6, K7 and K10 kernel (none may spill) and any kernel that spills;
+   source; from the build's -Xptxas -v report, the registers of every K2,
+   K2p, K3, K4, K5, K6, K7 and K10 kernel (none may spill) and any kernel
+   that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
    accumulate) and their u64 pair forms K11a-c, each against its plain
    PyTorch version on 1Mi full-range random words and against the per-lane
@@ -28,8 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    is timed on;
 5. kernel checks at the serving shapes, each kernel against its plain
    PyTorch version on the card, with CUDA-event times of both:
-   K2 fused PGD (B = 8192, Tp = 64, 15 and 40 iterations, momentum off and
-   on; bit-identical), K3 lipq and K4 PGD inner on one real DeviceSQP
+   K2 fused PGD on the s8 tensor cores (B = 8192, Tp = 64, 15 and 40
+   iterations, momentum off and on; bit-identical), K3 lipq and K4 PGD inner on one real DeviceSQP
    condensation (B = 4096, Tm = 64; K3's hqt, h_max and lip bit-identical;
    K4's lanes entry and its words entry bit-identical to their plain
    versions and to each other, the words entry one kernel launch with no
@@ -61,7 +62,8 @@ Phases (any failure raises and the script exits non-zero):
     phase 6's configuration, kernels against plain versions: cost parity
     (rtol 0.01, atol 1e-4), violation parity (atol 5e-3), mean cost below
     the cold plan's;
-13. K2p: FusedPGD(packed_io=True).solve at the LTI serving shape (B = 8192,
+13. K2p (K2's tensor-core loop on the words' bytes):
+    FusedPGD(packed_io=True).solve at the LTI serving shape (B = 8192,
     Tp = 64, 15 iterations) equal to packed_io=False, then K2p at 15 and 40
     iterations bit-identical to K2 with its unpack and pack and to its plain
     version, with CUDA-event ms of K2p, K2 alone, K2 with unpack and pack,
@@ -130,8 +132,8 @@ SHIFT_AMOUNTS = (0, 1, 3, 7, 12, 100, -1)
 N_CHECK, N_ORACLE = 1 << 20, 2048
 N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
-NO_SPILL_SOURCES = ("lipq.cu", "pgd_hqt.cu", "alm.cu", "pen.cu",  # operands in registers:
-                    "matvec_cols.cu")                          # K3-K7, K10
+NO_SPILL_SOURCES = ("fused_pgd.cu", "lipq.cu", "pgd_hqt.cu", "alm.cu",  # operands in
+                    "pen.cu", "matvec_cols.cu")                # registers: K2-K7, K10
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),

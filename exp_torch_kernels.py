@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The MPC kernels K3 (lipq), K4's words entry (pgd_fused_words_pre), K5
-(alm_hqt), K6 (pen_fused), K7 (alm_shared) and K10 (pgd_matvec_cols) of one
-pint_tpu_torch checkout on one card:
+"""The MPC kernels K2 and K2p (fused_pgd, fused_pgd_packed), K3 (lipq), K4's
+words entry (pgd_fused_words_pre), K5 (alm_hqt), K6 (pen_fused), K7
+(alm_shared) and K10 (pgd_matvec_cols) of one pint_tpu_torch checkout on one
+card:
 their device time against their iteration counts, and the device time of
 the solves they serve.
 
@@ -11,8 +12,18 @@ the solves they serve.
 one).  Two designs are compared by running the script for each in turns on
 one card, an earlier one unpacked with
 ``git archive <commit> pint_tpu_torch | tar -x -C .chipwork/old``.  The
-script calls only functions that the port has had since K5 and K7 were
-first ported, and helpers of this checkout's ``chip_smoke.py``.
+script calls only functions that the port has had since K2p, K5 and K7
+were first ported, and helpers of this checkout's ``chip_smoke.py``.
+
+At chip_smoke.py's LTI serving configuration (double integrator T = 50, Tp
+= 64): K2 at 0, 1, 15 and 40 PGD iterations with momentum off and on, and
+K2p at the same counts, at B = 8192 and at the ragged B = 8200 (not a
+multiple of the 16-problem tile), device ms of calls queued behind a device
+sleep (0 iterations: staging and write-back alone) and one call between
+CUDA events at 15 iterations; each held bit-identical to its plain version
+first.  Then 20 MPCService ticks (B = 8192, 15 iterations a tick; host
+clock p50, p99) and the device time of one tick and K2's share of it
+(torch.profiler).
 
 At chip_smoke.py's RTI configuration (B = 4096, Tm = Tp = 64): K3 at 0, 1, 4
 and 16 power steps and K4's words entry at 0, 1, 10 and 30 PGD iterations,
@@ -71,6 +82,7 @@ CS = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(CS)
 
 TICKS, SOLVES = 20, 5
+K2_ITERS, K2_RAGGED = (0, 1, 15, 40), 8200
 K6_SHAPES = ((8, 100), (100, 66), (224, 256), (256, 223), (20, 40), (64, 64), (40, 40))
 K6_MID = ((40, 40), (36, 30), (48, 48), (56, 56), (64, 64))
 K10_SHAPES = ((32, 64, 4096), (16, 64, 4096), (32, 128, 4096), (16, 128, 4096),
@@ -84,6 +96,54 @@ def solve_record(timing, fn, B, reps):
     ops = CS.device_kernels(torch, fn)
     return dict(ms=ms, solves_per_s=B / (ms / 1e3),
                 device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+
+
+def lti(P, timing):
+    """K2 and K2p against their iteration counts at the LTI serving shape
+    and a ragged batch, and the device time of an MPCService tick."""
+    from pint_tpu_torch.models.dynamics import pack_controls
+    from pint_tpu_torch.mpc import (fused_pgd, fused_pgd_packed, fused_pgd_packed_plain,
+                                    fused_pgd_plain)
+
+    rec, dev = {}, "cuda"
+    qqp = P.quantize(P.condense_double_integrator(T=50))
+    hq = torch.as_tensor(qqp.Hq, device=dev)
+    beta = P.FusedPGD(qqp, device=dev).beta_num
+    for B in (CS.LTI_BATCH, K2_RAGGED):
+        rng = np.random.default_rng(B)
+        g = torch.as_tensor(qqp.g_lane_fixed(CS.lti_states(rng, B)), device=dev)
+        lanes = torch.as_tensor(rng.integers(-128, 128, (B, qqp.padded), dtype=np.int32),
+                                device=dev)
+        words = pack_controls(lanes)
+        for iters in K2_ITERS:
+            base = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift,
+                        iters=iters)
+            for momentum in (False, True):
+                kw = dict(base, momentum=momentum, beta_num=beta)
+                CS.same(torch, f"K2 B={B} iters={iters} momentum={momentum}",
+                        fused_pgd(lanes, g, hq, **kw), fused_pgd_plain(lanes, g, hq, **kw))
+                rec[f"k2_B{B}_iters{iters}_momentum{int(momentum)}_queued_ms"] = median(
+                    timing.queued_ms(lambda: fused_pgd(lanes, g, hq, **kw)))
+            CS.same(torch, f"K2p B={B} iters={iters}", fused_pgd_packed(words, g, hq, **base),
+                    fused_pgd_packed_plain(words, g, hq, **base))
+            rec[f"k2p_B{B}_iters{iters}_queued_ms"] = median(
+                timing.queued_ms(lambda: fused_pgd_packed(words, g, hq, **base)))
+        main = dict(hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=15)
+        rec[f"k2_B{B}_call_ms"] = median(timing.cuda_ms(lambda: fused_pgd(lanes, g, hq, **main)))
+        rec[f"k2p_B{B}_call_ms"] = median(
+            timing.cuda_ms(lambda: fused_pgd_packed(words, g, hq, **main)))
+
+    svc = P.MPCService(qqp, batch=CS.LTI_BATCH, iters_per_tick=15, device=dev)
+    x0 = CS.lti_states(np.random.default_rng(0), CS.LTI_BATCH)
+    lat = []
+    for _ in range(TICKS):
+        svc.solve(x0)
+        lat.append(svc.stats.last_latency_s * 1e3)
+    ops = CS.device_kernels(torch, lambda: svc.solve(x0))
+    rec["mpc_tick"] = dict(p50_ms=CS.pct(lat, 50), p99_ms=CS.pct(lat, 99), readings_ms=lat,
+                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops),
+                           k2_device_ms=sum(us for k, us in ops if "fused_pgd" in k) / 1e3)
+    return rec
 
 
 def constrained(P, timing):
@@ -398,6 +458,7 @@ def main():
     ops = CS.device_kernels(torch, lambda: flag.solve_words(u0, xf))
     rec["flagship"] = dict(ms=ms, solves_per_s=B / (ms / 1e3),
                            device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    rec.update(lti(P, timing))
     rec.update(constrained(P, timing))
     rec.update(k6_k10(P, timing))
     line = json.dumps(rec)

@@ -158,13 +158,14 @@ using pint::store_pairs;
 
 // K7's shape at W (csrc/mma_tile.cuh's tile) and whether the B fragments
 // live in shared memory (at W = 256 three sets of 48 registers a thread
-// would not fit beside the state).  At W = 256 the k-chunk loops stay
+// would not fit beside the state).  At W = 256 a warp owns two column
+// groups (16 warps of up to 128 registers), and the k-chunk loops stay
 // rolled, so the fragment loads of all chunks are not hoisted into
 // registers at once.
 template <int W>
-struct MmaShape : pint::MmaTile<W> {
+struct MmaShape : pint::MmaTile<W, (W > 128 ? 2 : 1)> {
   static constexpr bool SMEM_B = W > 128;
-  static constexpr size_t tiles = 3 * 16 * pint::MmaTile<W>::RS;  // u, y_hi, y_lo
+  static constexpr size_t tiles = 3 * 16 * (W + 16);  // u, y_hi, y_lo
   static constexpr size_t bytes = tiles + (SMEM_B ? (size_t)3 * W * W : 0);
 };
 

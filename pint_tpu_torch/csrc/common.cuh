@@ -33,15 +33,6 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// int8 . int8 -> int32 dot of one Hessian row against the lane vector, both
-// packed four int8 values to a word.  Exact: |sum| <= 128 * 127 * Tp.
-__device__ __forceinline__ int dot_i8(const int* row, const int* lanes,
-                                      int words) {
-  int acc = 0;
-  for (int w = 0; w < words; ++w) acc = __dp4a(row[w], lanes[w], acc);
-  return acc;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;

@@ -28,7 +28,7 @@
 // Here, as in K7 (csrc/alm.cu), the Hessian is one matrix for every
 // problem, so the product runs across the batch on the tensor cores
 // (csrc/mma_tile.cuh): a block owns a tile of 16 problems for the whole
-// loop, its warps the output columns of one (two at W = 256) group of 8
+// loop, its warps the output columns of two groups of 8 (one at W = 32)
 // of (16 x W) int8 times Hq^T, by mma.sync m16n8k32 s8 -> s32, Tp padded to
 // W = 32, 64, 128 or 256.  Hq's B fragments are built once a block from
 // global memory, zero past Tp (so Tp = 20 or 52 stays exact), and held in
@@ -56,10 +56,13 @@ using pint::clampi;
 using pint::wrap_mul;
 using pint::wrap_sub;
 
+// K2's tile at W: two column groups a warp (one at W = 32), so each warp
+// reads the A tile for two products; the B fragments in shared memory at W =
+// 256.
 template <int W>
-struct PgdShape : pint::MmaTile<W> {
+struct PgdShape : pint::MmaTile<W, (W > 32 ? 2 : 1)> {
   static constexpr bool SMEM_B = W > 128;
-  static constexpr size_t tile = 16 * pint::MmaTile<W>::RS;
+  static constexpr size_t tile = 16 * (W + 16);
   static constexpr size_t bytes = 2 * tile + (SMEM_B ? (size_t)W * W : 0);
 };
 
@@ -146,7 +149,7 @@ __device__ __forceinline__ void copy_tile(unsigned char* t, unsigned char* src, 
 // One block: tiles of 16 problems with a grid stride.  L is the lane I/O
 // type: int (K2, (B, Tp) int32 lanes) or int8_t (K2p, (B, Tp/4) words).
 template <int W, bool MOM, typename L>
-__global__ void __launch_bounds__(pint::MmaTile<W>::NW * 32)
+__global__ void __launch_bounds__(PgdShape<W>::NW * 32)
 fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
                  const int8_t* __restrict__ hq, L* __restrict__ out, int B, int Tp,
                  int iters, int hs_num, int hs_den, int g_shift, int beta_num,
@@ -167,8 +170,9 @@ fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
   for (int i = 0; i < NG; ++i) col[i] = 8 * (warp + NW * i) + 2 * tq;
 
   // B fragments for output column n = 8 (w + NW i) + gq: bytes k0..k0+3 of
-  // row n of Hq, in registers or in shared memory at word ((column group) *
-  // KC + kc) * 64 + h * 32 + lane
+  // row n of Hq (one word: Tp % 4 == 0), in registers or in shared memory at
+  // word ((column group) * KC + kc) * 64 + h * 32 + lane
+  const bool hq4 = (reinterpret_cast<uintptr_t>(hq) & 3) == 0;
   uint32_t breg[NG][S::SMEM_B ? 1 : KC][2];
 #pragma unroll
   for (int i = 0; i < NG; ++i) {
@@ -180,9 +184,14 @@ fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
       for (int h = 0; h < 2; ++h) {
         const int k0 = kc * 32 + h * 16 + tq * 4;
         uint32_t w = 0;
+        if (n < Tp && k0 < Tp) {
+          if (hq4) {
+            w = *reinterpret_cast<const uint32_t*>(hq + n * Tp + k0);
+          } else {
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (n < Tp && k0 + b < Tp) w |= (uint32_t)(uint8_t)hq[n * Tp + k0 + b] << (8 * b);
+            for (int b = 0; b < 4; ++b) w |= (uint32_t)(uint8_t)hq[n * Tp + k0 + b] << (8 * b);
+          }
+        }
         if constexpr (S::SMEM_B)
           s_b[(grp * KC + kc) * 64 + h * 32 + lane] = w;
         else
@@ -225,6 +234,8 @@ fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
         if constexpr (MOM) xp[i][e] = x[i][e];
       }
 
+    // unrolled by two, the tiles' addresses are constants
+#pragma unroll 2
     for (int it = 0; it < iters; ++it) {
       unsigned char* t = smem + (it & 1) * S::tile;
       int y[NG][4];
@@ -304,133 +315,6 @@ cudaError_t launch(const L* lanes, const int* g, const int8_t* hq, L* out, int B
   return cudaGetLastError();
 }
 
-// The quad design (K2 at W = 64): one warp owns a tile of 16 problems and
-// all W/8 column groups of its product, so the A fragments are rebuilt from
-// the accumulator's layout by shuffles within each quad of threads that
-// share a row, with no shared memory and no block barrier.
-constexpr int kQuadWarps = 4;
-
-template <int W, bool MOM>
-__global__ void __launch_bounds__(kQuadWarps * 32)
-fused_pgd_quad_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
-                      const int8_t* __restrict__ hq, int* __restrict__ out, int B, int Tp,
-                      int iters, int hs_num, int hs_den, int g_shift, int beta_num,
-                      int beta_den) {
-  constexpr int NG = W / 8, KC = W / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int half = 1 << (g_shift - 1);
-  const bool vec = ((reinterpret_cast<uintptr_t>(lanes) | reinterpret_cast<uintptr_t>(g) |
-                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  int col[NG];
-#pragma unroll
-  for (int n = 0; n < NG; ++n) col[n] = 8 * n + 2 * tq;
-  uint32_t breg[NG][KC][2];
-#pragma unroll
-  for (int n = 0; n < NG; ++n)
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 8 * n + gq, k0 = kc * 32 + h * 16 + tq * 4;
-        uint32_t w = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          if (j < Tp && k0 + b < Tp) w |= (uint32_t)(uint8_t)hq[j * Tp + k0 + b] << (8 * b);
-        breg[n][kc][h] = w;
-      }
-  // A word a[r + 2q] of chunk kc: row gq + 8r, bytes kc*32 + 16q + 4tq..+3,
-  // which threads 2(tq & 1) and 2(tq & 1) + 1 of the quad hold in group
-  // 4kc + 2q + (tq >> 1)
-  const int src0 = (lane & ~3) | (2 * (tq & 1)), src1 = src0 + 1;
-  const uint32_t sel = tq >> 1 ? 0x7632 : 0x5410;
-
-  const int ntiles = (B + 15) / 16;
-  for (int tile = blockIdx.x * kQuadWarps + warp; tile < ntiles;
-       tile += gridDim.x * kQuadWarps) {
-    const int row0 = tile * 16;
-    int x[NG][4], hg[NG][4], xp[MOM ? NG : 1][4];
-    load_lanes<NG>(lanes, row0, B, Tp, col, lane, vec, x);
-    load_lanes<NG>(g, row0, B, Tp, col, lane, vec, hg);
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hg[n][e] = wrap_sub(half, hg[n][e]);
-        if constexpr (MOM) xp[n][e] = x[n][e];
-      }
-    for (int it = 0; it < iters; ++it) {
-      int y[NG][4];
-#pragma unroll
-      for (int n = 0; n < NG; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if constexpr (MOM)
-            y[n][e] = clampi(
-                x[n][e] + (wrap_mul(beta_num, x[n][e] - xp[n][e]) >> beta_den), -127, 127);
-          else
-            y[n][e] = x[n][e];
-        }
-      int acc[NG][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t a[4];
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int n0 = 4 * kc + 2 * q;
-            const uint32_t v =
-                __byte_perm(__byte_perm(y[n0][2 * r], y[n0][2 * r + 1], 0x0040),
-                            __byte_perm(y[n0 + 1][2 * r], y[n0 + 1][2 * r + 1], 0x0040),
-                            0x5410);
-            a[r + 2 * q] = __byte_perm(__shfl_sync(0xffffffffu, v, src0),
-                                       __shfl_sync(0xffffffffu, v, src1), sel);
-          }
-#pragma unroll
-        for (int n = 0; n < NG; ++n) pint::mma_s8(acc[n], a, breg[n][kc][0], breg[n][kc][1]);
-      }
-#pragma unroll
-      for (int n = 0; n < NG; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int pre = wrap_mul(acc[n][e], hs_num) >> hs_den;
-          const int delta = clampi(wrap_sub(hg[n][e], pre) >> g_shift, -128, 127);
-          if constexpr (MOM) xp[n][e] = x[n][e];
-          x[n][e] = clampi(y[n][e] + delta, -127, 127);
-        }
-    }
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + gq + 8 * h;
-        if (r >= B || col[n] >= Tp) continue;
-        int* p = out + (size_t)r * Tp + col[n];
-        if (vec) {
-          *reinterpret_cast<int2*>(p) = make_int2(x[n][2 * h], x[n][2 * h + 1]);
-        } else {
-          p[0] = x[n][2 * h];
-          p[1] = x[n][2 * h + 1];
-        }
-      }
-  }
-}
-
-template <bool MOM>
-cudaError_t launch_quad(const int* lanes, const int* g, const int8_t* hq, int* out, int B,
-                        int Tp, int iters, int hs_num, int hs_den, int g_shift,
-                        int beta_num, int beta_den, cudaStream_t stream) {
-  auto kernel = fused_pgd_quad_kernel<64, MOM>;
-  int grid = 0;
-  cudaError_t err = pint_persistent_grid(kernel, kQuadWarps * 32, 0,
-                                         ((B + 15) / 16 + kQuadWarps - 1) / kQuadWarps, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kQuadWarps * 32, 0, stream>>>(lanes, g, hq, out, B, Tp, iters, hs_num,
-                                               hs_den, g_shift, beta_num, beta_den);
-  return cudaGetLastError();
-}
-
 template <bool MOM, typename L>
 int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B, int Tp,
              int iters, int hs_num, int hs_den, int g_shift, int beta_num, int beta_den,
@@ -447,9 +331,6 @@ int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B,
   if (Tp <= 32)
     err = launch<32, MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
                              beta_den, s);
-  else if (Tp <= 64 && sizeof(L) == 4)
-    err = launch_quad<MOM>(reinterpret_cast<const int*>(l), gg, h, reinterpret_cast<int*>(o),
-                           B, Tp, iters, hs_num, hs_den, g_shift, beta_num, beta_den, s);
   else if (Tp <= 64)
     err = launch<64, MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
                              beta_den, s);

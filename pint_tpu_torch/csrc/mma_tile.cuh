@@ -49,16 +49,15 @@ __device__ __forceinline__ void store_pairs(unsigned char* t, int gq, int col,
       (uint16_t)__byte_perm(v[2], v[3], 0x0040);
 }
 
-// A tile's shape at width W (32, 64, 128 or 256): KC k-chunks of 32 bytes,
-// the tile's row stride RS, NG column groups of 8 a warp and NW warps a
-// block.  At W = 256 a warp owns two column groups (16 warps of up to 128
-// registers).
-template <int W>
+// A tile's shape at width W (32, 64, 128 or 256) with NG column groups of 8
+// a warp: KC k-chunks of 32 bytes, the tile's row stride RS and NW warps a
+// block.
+template <int W, int NG_>
 struct MmaTile {
   static_assert(W == 32 || W == 64 || W == 128 || W == 256, "W: 32, 64, 128 or 256");
   static constexpr int KC = W / 32;
   static constexpr int RS = W + 16;
-  static constexpr int NG = W > 128 ? 2 : 1;
+  static constexpr int NG = NG_;
   static constexpr int NW = W / 8 / NG;
 };
 

@@ -59,7 +59,9 @@ def fused_pgd(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
 
     lanes, g (B, Tp) int32 (lanes in [-128, 127]); hq (Tp, Tp) int8.
     Returns the final lanes (B, Tp) int32.  Kernel for CUDA tensors, plain
-    version for CPU tensors."""
+    version for CPU tensors.  The kernel takes contiguous operands (checked)
+    and reads and writes 16 bytes at a time where every data pointer is
+    16-byte aligned, 4 bytes at a time otherwise."""
     B, Tp = g.shape
     if lanes.shape != (B, Tp) or hq.shape != (Tp, Tp):
         raise ValueError(
@@ -102,7 +104,9 @@ def fused_pgd_packed(words, g, hq, *, hs_num, hs_den, g_shift, iters):
     words (B, Tp/4) int32 packed control words; g (B, Tp) int32; hq (Tp, Tp)
     int8.  Returns the final words (B, Tp/4) int32, equal to
     ``pack_controls(fused_pgd(unpack_controls(words), ...))``.  Kernel for
-    CUDA tensors, plain version for CPU tensors."""
+    CUDA tensors, plain version for CPU tensors; contiguous operands, 16-byte
+    copies where the data pointers are 16-byte aligned, as
+    :func:`fused_pgd`."""
     B, Tp = g.shape
     if words.shape != (B, Tp // 4) or Tp % 4 or hq.shape != (Tp, Tp):
         raise ValueError(

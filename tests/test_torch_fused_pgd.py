@@ -1,5 +1,6 @@
 """Port parity: the LTI box-QP PGD solvers (word-space FixedPointPGD and
-the K2 FusedPGD) against pint_tpu's, at T = 50, batch 16.
+the K2 FusedPGD) against pint_tpu's, at T = 50, batch 16, and at the card
+tests' edges of K2 and K2p (Tp 32, 52 and 128, 0 and 1 iterations, batch 17).
 
 JAX's FusedPGD runs its Pallas kernel in interpret mode, as
 tests/test_fused.py runs it.  Tolerance: bit-identical packed words."""
@@ -111,6 +112,32 @@ def test_packed_io_bit_identical_to_jax(qqps, batch, start):
     lanes = FusedPGD(port, iters=20, device="cpu").solve_words(
         words_from_numpy(u0, device="cpu"), torch.from_numpy(g))
     np.testing.assert_array_equal(got.numpy(), lanes.numpy())
+
+
+@pytest.mark.parametrize("mode", ["lanes", "momentum", "packed_io"])
+@pytest.mark.parametrize("iters", [0, 1])
+@pytest.mark.parametrize("T, pad_to", [(20, 32), (50, 4), (100, 64)])
+def test_fused_pgd_edges_bit_identical_to_jax(T, pad_to, iters, mode):
+    """The card tests' edges against the reference: FusedPGD(device="cpu")
+    -- K2's plain version with momentum off and on, K2p's with packed_io --
+    equals JAX's FusedPGD in interpret mode at Tp 32, 52 and 128, 0 and 1
+    iterations, B = 17 (a tile of 16 problems and one more), on warm words
+    with -128 lanes."""
+    ref = j_quantize(j_condense(T=T), pad_to=pad_to)
+    port = quantized_qp_from_arrays(ref)
+    assert port.padded == {20: 32, 50: 52, 100: 128}[T]
+    B = 17
+    rng = np.random.default_rng(T + iters)
+    x0 = np.stack([rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1)
+    g = ref.g_lane_fixed(x0)
+    warm = rng.integers(-128, 128, (B, ref.padded), dtype=np.int32)
+    u0 = np.asarray(j_pack(jnp.asarray(warm)))
+    kw = dict(iters=iters, momentum=mode == "momentum", packed_io=mode == "packed_io")
+    jf = JFused(ref, block_rows=8, interpret=True, **kw)
+    expect = np.asarray(jf.solve_words(jnp.asarray(u0), jnp.asarray(g)))
+    got = FusedPGD(port, device="cpu", **kw).solve_words(
+        words_from_numpy(u0, device="cpu"), torch.from_numpy(g))
+    np.testing.assert_array_equal(words_to_numpy(got), expect)
 
 
 def test_fused_pgd_packed_plain_is_the_cpu_route(qqps, problem):
