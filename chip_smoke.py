@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SWAR substrate, serving path, state-constrained
-tier and multi-device tier once on one H100.
+tier, multi-device tier, the other model families and every condensation
+form once on one H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -95,12 +96,34 @@ Phases (any failure raises and the script exits non-zero):
     K3's fit: the torch phases, no K6), each against use_kernels=False: 0
     problems differing in words and multipliers, cost parity; then those
     kernels alone on real operands at those shapes, each against its plain
-    version.
+    version;
+18. past 256 lanes (phase_wide): FusedPGD (K2, momentum off and on, K2p)
+    and ConstrainedPGD (K7) solves at T = 260 through the wide forms, equal
+    to the word-space solvers; then K2 (momentum off and on), K2p and K7 at
+    Tp = 260, 512 and 2048 (K7 at (Tp, Cp) = (260, 260), (512, 256),
+    (512, 512), (2048, 2048), 3 x 10), B = 4096, each bit-identical to its
+    plain version and timed, each an entry of the kernels line;
+19. rollouts (bench.py's section): DoubleIntegrator.rollout_packed at
+    B = 8192, H = 52 from seeded words, bit-identical to the CPU's;
+    ``rollouts_per_s_b8192_h52`` by the host clock and the device time;
+20. ConstrainedController at tests/test_constrained.py:256's configuration
+    on 4096 seeded states for 50 ticks: K7 every tick, bit-identical to
+    the CPU's loop, |v| < v_max + 0.01; ticks/s;
+21. the planar quadrotor (bench.py's quadrotor_device: T = 16, B = 4096,
+    4 x 30 and 4 x (3 x 30)) and the pendulum (T = 32) through DeviceSQP
+    and DeviceConstrainedSQP, kernels against use_kernels=False: 0 problems
+    differing in bits, cost and violation parity; solves/s and device time;
+22. the condensation forms (phase_forms): both flagship solvers, one SQP
+    iteration in each propagate and reduce form, at cost parity with
+    unroll + sym, with their device times; DeviceSQP's recursion against
+    allpairs at T = 8, 16, 24, 32, 40, 64.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
-phase 16 K10 on both ranks, and phase 17 each long-horizon solve's kernels.
+phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels,
+phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick, and
+phase 21 K3 and K4 (K3, K6 and K5) in each solve.
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
@@ -153,6 +176,23 @@ PAST_T, PAST_BATCH = 144, 1024    # past K3's fit, so (as in the reference) no K
 TWO_ROW_T, TWO_ROW_BATCH = 20, 4096
 CON2_KW = dict(F=[[0.0, 1.0, 0.0], [1.0, 0.0, 0.0]], lo=[-0.03, -0.5], hi=[0.03, 1.5],
                rho=100.0, alm_outer=3)
+# past 256 lanes: K2 and K2p at 15 iterations (the LTI serving tick's), K7 at
+# 3 x 10 (its 12 x 60 would take seconds a call at 2048 x 2048)
+WIDE_BATCH, WIDE_ITERS, WIDE_TP = 4096, 15, (260, 512, 2048)
+WIDE_K7 = ((260, 260), (512, 256), (512, 512), (2048, 2048))
+WIDE_K7_OUTER, WIDE_K7_INNERS = 3, 10
+ROLL_BATCH, ROLL_H = 8192, 52                   # bench.py's rollouts section
+CTRL_BATCH, CTRL_TICKS, CTRL_T, CTRL_VMAX = 4096, 50, 32, 0.15
+MODEL_BATCH = 4096
+QUAD_KW = dict(horizon=16, sqp_iters=4, pgd_iters=30,     # bench.py's quadrotor_device
+               Q=np.diag([4.0, 4.0, 1.0, 0.2, 0.2, 0.1]), R=np.diag([0.05, 0.05]),
+               qf_scale=20.0, x_ref=np.zeros(6))
+QUAD_CON = dict(F=[[0.0, 0.0, 0.0, 0.0, 1.0, 0.0]], lo=-0.15, hi=0.15, rho=50.0,
+                alm_outer=3)
+PEND_KW = dict(horizon=32, sqp_iters=4, pgd_iters=20, Q=np.diag([1.0, 0.05]),
+               R=np.array([[0.05]]), x_ref=np.zeros(2))
+PEND_CON = dict(F=[[0.0, 1.0]], lo=-0.4, hi=0.4, rho=50.0, alm_outer=3)
+FORMS_T = (8, 16, 24, 32, 40, 64)
 
 
 def say(*parts):
@@ -1242,6 +1282,371 @@ def phase_long_kernels(torch, P, timing):
     return rec
 
 
+def wide_operands(torch, B, Tp, seed):
+    """Random warm lanes (-128 occurs), g within 2^20 of 0 and of int32's
+    extremes, and a symmetric int8 Hessian with a strong diagonal, on the
+    card: the wide forms' bits do not depend on where the operands came
+    from, and a QP's condensation at Tp = 2048 takes minutes on the host."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-60, 61, (Tp, Tp))
+    hq = np.clip((a + a.T) // 2 + 127 * np.eye(Tp, dtype=np.int64), -127, 127)
+    g = rng.integers(-2**20, 2**20, (B, Tp), dtype=np.int64)
+    edge = rng.integers(0, 2, (B, Tp)) == 1
+    g = np.where(edge & (rng.integers(0, 4, (B, Tp)) == 0),
+                 np.where(g > 0, 2**31 - 1 - g, -2**31 - g), g).astype(np.int32)
+
+    def t(x):
+        return torch.as_tensor(x, device=DEVICE)
+
+    return (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)), t(g),
+            t(hq.astype(np.int8)))
+
+
+def phase_wide(torch, P, K, timing):
+    """K2, K2p (momentum off and on for K2) and K7 past 256 lanes (the wide
+    forms: B fragments from L2): the users' path, FusedPGD (K2, K2p) and
+    ConstrainedPGD (K7) solves at T = 260, counts set to 0 before and read
+    after, equal to the word-space solvers; then each public wrapper at Tp
+    = 260, 512 and 2048 (K7 also at (Tp, Cp) = (512, 256), (512, 512)) on
+    B = 4096 random operands, bit-identical to its plain version, timed
+    queued, one call between CUDA events, and the plain version."""
+    from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
+    from pint_tpu_torch.mpc import (alm_shared, alm_shared_plain, fused_pgd,
+                                    fused_pgd_packed, fused_pgd_packed_plain,
+                                    fused_pgd_plain)
+
+    T, B = WIDE_TP[0], WIDE_BATCH
+    dt = 1.0 / 32.0
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    qqp = P.quantize(qp, pad_to=4)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    qc = P.quantize_constrained(P.constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0, pad_to=4)
+    rng = np.random.default_rng(60)
+    x0 = lti_states(rng, B)
+    solvers = dict(
+        k2=P.FusedPGD(qqp, iters=WIDE_ITERS, device=DEVICE),
+        k2m=P.FusedPGD(qqp, iters=WIDE_ITERS, momentum=True, device=DEVICE),
+        k2p=P.FusedPGD(qqp, iters=WIDE_ITERS, packed_io=True, device=DEVICE))
+    con = P.ConstrainedPGD(qc, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS, device=DEVICE)
+    K.reset_launch_counts()                      # the wide path starts
+    words = {k: s.solve(x0)[0] for k, s in solvers.items()}
+    cw, _, clam = con.solve(x0)
+    torch.cuda.synchronize()
+    path = K.launch_counts()                     # and ends here
+    for name, n in (("fused_pgd", 2), ("fused_pgd_packed", 1), ("alm_shared", 1)):
+        if path[name] != n:
+            raise AssertionError(f"wide path: {name} launched {path[name]} times, not {n}")
+    ref, _ = P.FixedPointPGD(qqp, iters=WIDE_ITERS, device=DEVICE).solve(x0)
+    same(torch, "wide K2 FusedPGD.solve vs FixedPointPGD", words["k2"], ref)
+    same(torch, "wide K2p FusedPGD.solve vs FixedPointPGD", words["k2p"], ref)
+    g = torch.as_tensor(qqp.g_lane_fixed(x0), device=DEVICE)
+    m = solvers["k2m"]
+    lanes = fused_pgd_plain(unpack_controls(m.init_words(B)), g, m._hq, hs_num=qqp.hs_num,
+                            hs_den=qqp.hs_den, g_shift=qqp.g_shift, iters=WIDE_ITERS,
+                            momentum=True, beta_num=m.beta_num)
+    same(torch, "wide K2 momentum FusedPGD.solve vs plain", words["k2m"],
+         pack_controls(lanes))
+    gc = torch.as_tensor(qc.qqp.g_lane_fixed(x0), device=DEVICE)
+    co = torch.as_tensor(qc.c_off_pre(x0), device=DEVICE)
+    wx, lx = P.ConstrainedPGD(qc, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS, fused=False,
+                              device=DEVICE).solve_words(con.init_words(B), gc, co)
+    same(torch, "wide K7 ConstrainedPGD.solve vs fused=False", cw, wx)
+    same(torch, "wide K7 ConstrainedPGD.solve lam vs fused=False", clam, lx)
+    say(f"wide path T={T} B={B}: FusedPGD (K2, momentum off and on, K2p) and "
+        f"ConstrainedPGD (K7, Tp {qc.qqp.padded} Cp {qc.padded_rows}) through the wide "
+        f"forms (+{path['fused_pgd']} +{path['fused_pgd_packed']} +{path['alm_shared']}), "
+        f"equal to the word-space solvers")
+
+    rec = {}
+
+    def timed(key, fn, plain, shape):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{key}: kernel differs from its plain version "
+                                     f"({int((a != b).sum())})")
+        rec[key] = dict(shape, max_abs_err=0.0, ms=median(timing.cuda_ms(fn, reps=3)),
+                        queued_ms=median(timing.queued_ms(fn, calls=3, reps=3)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=1, warmup=0)))
+        say(f"{key} {shape}: bit-identical to the plain version; kernel "
+            f"{rec[key]['queued_ms']:.4f} ms queued, plain {rec[key]['plain_ms']:.2f} ms")
+
+    for Tp in WIDE_TP:
+        lanes, g, hq = wide_operands(torch, B, Tp, Tp)
+        words = pack_controls(lanes)
+        kw = dict(hs_num=33, hs_den=9, g_shift=12, iters=WIDE_ITERS)
+        for mom in (False, True):
+            mkw = dict(kw, momentum=mom, beta_num=150 if mom else 0)
+            timed(f"fused_pgd (K2) Tp={Tp} momentum={int(mom)}",
+                  lambda: (fused_pgd(lanes, g, hq, **mkw),),
+                  lambda: (fused_pgd_plain(lanes, g, hq, **mkw),),
+                  dict(B=B, Tp=Tp, iters=WIDE_ITERS))
+        timed(f"fused_pgd_packed (K2p) Tp={Tp}",
+              lambda: (fused_pgd_packed(words, g, hq, **kw),),
+              lambda: (fused_pgd_packed_plain(words, g, hq, **kw),),
+              dict(B=B, Tp=Tp, iters=WIDE_ITERS, packed=True))
+        del lanes, g, hq, words
+    akw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
+               el_num=23, el_den=11, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS,
+               g_shift=12, y_shift=9)
+    for Tp, Cp in WIDE_K7:
+        lanes, g, hq = wide_operands(torch, B, Tp, Tp + Cp)
+        r = np.random.default_rng(Cp)
+
+        def t(x):
+            return torch.as_tensor(x, device=DEVICE)
+
+        args = (lanes, g, t(r.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
+                t(r.integers(0, 500, (B, Cp), dtype=np.int32)), hq,
+                t(r.integers(-127, 128, (Cp, Tp), dtype=np.int8)),
+                t(r.integers(-2000, -100, (Cp,), dtype=np.int32)),
+                t(r.integers(100, 2000, (Cp,), dtype=np.int32)))
+        timed(f"alm_shared (K7) Tp={Tp} Cp={Cp}", lambda: alm_shared(*args, **akw),
+              lambda: alm_shared_plain(*args, **akw),
+              dict(B=B, Tp=Tp, Cp=Cp, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS))
+        del args, lanes, g, hq
+    return rec, path
+
+
+def phase_rollouts(torch, P, timing):
+    """bench.py's rollouts section on the card: DoubleIntegrator.
+    rollout_packed at B = 8192, H = 52 from seeded words (plain int32 torch
+    ops, no kernel of the reference), bit-identical to the same rollout on
+    the CPU; rollouts/s by the host clock and the device time
+    (torch.profiler)."""
+    model = P.DoubleIntegrator()
+    rng = np.random.default_rng(0)
+    lanes = rng.integers(-128, 128, (ROLL_BATCH, ROLL_H), dtype=np.int32)
+    words = P.pack_controls(torch.as_tensor(lanes))
+    st0 = np.stack([rng.integers(-2**20, 2**20, ROLL_BATCH),
+                    rng.integers(-2**18, 2**18, ROLL_BATCH)], -1).astype(np.int32)
+    w_d, s_d = words.to(DEVICE), torch.as_tensor(st0, device=DEVICE)
+    got = model.rollout_packed(s_d, w_d)
+    ref = model.rollout_packed(torch.as_tensor(st0), words)
+    if got.shape != (ROLL_BATCH, ROLL_H + 1, 2) or not torch.equal(got.cpu(), ref):
+        raise AssertionError("rollouts: the card's rollout differs from the CPU's")
+    ms = median(timing.host_ms(lambda: model.rollout_packed(s_d, w_d), reps=10))
+    dev_ms = sum(us for _, us in device_kernels(
+        torch, lambda: model.rollout_packed(s_d, w_d))) / 1e3
+    rec = dict(rollouts_per_s_b8192_h52=ROLL_BATCH / (ms / 1e3), host_ms=ms,
+               device_ms=dev_ms, B=ROLL_BATCH, H=ROLL_H)
+    say(f"rollouts DoubleIntegrator B={ROLL_BATCH} H={ROLL_H}: bit-identical to the "
+        f"CPU; {rec['rollouts_per_s_b8192_h52']:.1f} rollouts/s by the host clock "
+        f"({ms:.3f} ms a call), {dev_ms:.4f} ms of device time")
+    return rec
+
+
+def phase_controller(torch, P, K, timing):
+    """ConstrainedController at tests/test_constrained.py:256's configuration
+    (double integrator T = 32, |v| <= 0.15, rho 50, 3 x 15 ALM a tick) on
+    4096 seeded states for 50 ticks: K7 every tick (counts set to 0 before
+    the run and read after), bit-identical to the same loop on the CPU (the
+    word-space ALM), the velocity limit held; ticks/s by the host clock."""
+    model = P.DoubleIntegrator()
+    dt, T = model.dt, CTRL_T
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0, u_max=127 * model.u_scale)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    q = P.quantize_constrained(P.constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-CTRL_VMAX, hi=CTRL_VMAX), rho=50.0)
+    rng = np.random.default_rng(70)
+    x0 = np.stack([rng.uniform(-1.5, 1.5, CTRL_BATCH) * 2**16,
+                   rng.uniform(-0.1, 0.1, CTRL_BATCH) * 2**16], -1).astype(np.int32)
+
+    def make(device):
+        return P.ConstrainedController(q, plant_step=lambda s, u: model.step(s, u[..., 0]),
+                                       outer_per_tick=3, inners_per_outer=15, device=device)
+
+    ctrl = make(DEVICE)
+    x_d = torch.as_tensor(x0, device=DEVICE)
+    ctrl.run(x_d, 1)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()                      # the closed loop starts
+    t0 = time.perf_counter()
+    states, lanes = ctrl.run(x_d, CTRL_TICKS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = K.launch_counts()["alm_shared"]   # and ends here
+    if launches != CTRL_TICKS:
+        raise AssertionError(f"controller: K7 launched {launches} times in "
+                             f"{CTRL_TICKS} ticks")
+    s_c, l_c = make("cpu").run(torch.as_tensor(x0), CTRL_TICKS)
+    same(torch, "controller states, card vs CPU", states.cpu(), s_c)
+    same(torch, "controller lanes, card vs CPU", lanes.cpu(), l_c)
+    v_max = float(np.abs(s_c.numpy()[..., 1]).max()) * 2.0**-16
+    if not v_max < CTRL_VMAX + 0.01:
+        raise AssertionError(f"controller: |v| reached {v_max}")
+    tick_ms = median(timing.host_ms(lambda: ctrl.run(x_d, 5), reps=3)) / 5
+    dev_ms = sum(us for _, us in device_kernels(torch, lambda: ctrl.run(x_d, 5))) / 5e3
+    rec = dict(launches=launches, ticks=CTRL_TICKS, B=CTRL_BATCH,
+               ticks_per_s=CTRL_TICKS / sec, tick_ms=tick_ms, device_ms_per_tick=dev_ms,
+               max_abs_v=v_max)
+    say(f"ConstrainedController B={CTRL_BATCH} T={T} {CTRL_TICKS} ticks: K7 every tick, "
+        f"bit-identical to the CPU, max |v| {v_max:.4f} < {CTRL_VMAX} + 0.01; "
+        f"{rec['ticks_per_s']:.1f} ticks/s by the host clock ({tick_ms:.3f} ms a tick), "
+        f"{dev_ms:.4f} ms of device time a tick")
+    return rec
+
+
+def model_solvers(P, name, use_kernels):
+    if name == "quadrotor":
+        kw, con = dict(QUAD_KW, model=P.PlanarQuadrotor()), QUAD_CON
+    else:
+        kw, con = dict(PEND_KW, model=P.Pendulum()), PEND_CON
+    sqp = P.DeviceSQP(device=DEVICE, use_kernels=use_kernels, **kw)
+    return sqp, P.DeviceConstrainedSQP(
+        P.DeviceSQP(device=DEVICE, use_kernels=use_kernels, **kw), **con)
+
+
+def model_states(name, rng, B):
+    if name == "quadrotor":
+        return np.stack([rng.uniform(-0.3, 0.3, B), rng.uniform(-0.3, 0.3, B),
+                         rng.uniform(-0.03, 0.03, B), rng.uniform(-0.2, 0.2, B),
+                         rng.uniform(-0.2, 0.2, B), rng.uniform(-0.05, 0.05, B)],
+                        -1).astype(np.float32)
+    return np.stack([rng.uniform(-0.6, 0.6, B), rng.uniform(-0.1, 0.1, B)],
+                    -1).astype(np.float32)
+
+
+def phase_models(torch, P, K, timing):
+    """The planar quadrotor (bench.py's quadrotor_device: T = 16, 4 x 30 and
+    4 x (3 x 30), |vy| <= 0.15, rho 50) and the pendulum
+    (tests/test_device_constrained.py:231's: T = 32, 4 x 20, |omega| <= 0.4)
+    through DeviceSQP and DeviceConstrainedSQP at B = 4096, kernels against
+    use_kernels=False: 0 problems differing in bits, cost parity (rtol 0.01,
+    atol 1e-4), violation parity (atol 5e-3); K3, K4 (and K6, K5) launched
+    in each solve (counts set to 0 before it, read after); solves/s by the
+    host clock and the device time (torch.profiler)."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc.ltv import true_cost
+
+    rec = {}
+    for name in ("quadrotor", "pendulum"):
+        x0 = model_states(name, np.random.default_rng(80), MODEL_BATCH)
+        x_d = torch.as_tensor(x0, device=DEVICE)
+        (sqp, csqp), (psqp, pcsqp) = (model_solvers(P, name, True),
+                                      model_solvers(P, name, False))
+        for kind, kern, plain, need in (
+                ("device_sqp", sqp, psqp, ("lipq", "pgd_hqt")),
+                ("device_constrained", csqp, pcsqp, ("lipq", "pen", "alm"))):
+            con = kind == "device_constrained"
+            d = kern.dev if con else kern
+            K.reset_launch_counts()              # this solve's path starts
+            out = kern.solve_words(kern.init_words(MODEL_BATCH), x_d)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()           # and ends here
+            for k in need:
+                if counts[k] < 1:
+                    raise AssertionError(f"{name} {kind}: kernel {k} never launched")
+            ref = plain.solve_words(plain.init_words(MODEL_BATCH), x_d)
+            w, wp = (out[0], ref[0]) if con else (out, ref)
+            differ = (w != wp).any(-1)
+            if con:
+                differ |= (out[1] != ref[1]).any(-1)
+            lk = unpack_controls(w)[:, : d.n_dec].cpu().numpy()
+            lp = unpack_controls(wp)[:, : d.n_dec].cpu().numpy()
+            ck, cp = true_cost(d, x0, lk), true_cost(d, x0, lp)
+            np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
+            r = dict(forms=kern.forms, launches={k: counts[k] for k in need},
+                     problems_differing=int(differ.sum().item()),
+                     max_rel_cost_diff=float(np.max(np.abs(ck - cp) /
+                                                    np.maximum(np.abs(cp), 1e-12))),
+                     mean_cost=float(ck.mean()))
+            if con:
+                vk, vp = kern.violation(x0, lk), kern.violation(x0, lp)
+                np.testing.assert_allclose(vk, vp, atol=5e-3)
+                r.update(max_violation_diff=float(np.abs(vk - vp).max()),
+                         mean_violation=float(vk.mean()))
+            if r["problems_differing"]:
+                raise AssertionError(f"{name} {kind}: {r['problems_differing']} problems "
+                                     "differ in bits from use_kernels=False")
+            u0 = kern.init_words(MODEL_BATCH)
+            ms = median(timing.host_ms(lambda: kern.solve_words(u0, x_d), reps=5))
+            r.update(host_ms=ms, device_ms=sum(us for _, us in device_kernels(
+                torch, lambda: kern.solve_words(u0, x_d))) / 1e3)
+            key = f"{name}_{kind}_T{d.horizon}"
+            r[f"{key}_solves_per_s"] = MODEL_BATCH / (ms / 1e3)
+            rec[key] = r
+            say(f"{key} B={MODEL_BATCH} forms {kern.forms}: 0 problems differ in bits, "
+                f"cost parity (max rel diff {r['max_rel_cost_diff']:.3e}); "
+                f"{r[f'{key}_solves_per_s']:.1f} solves/s by the host clock "
+                f"({ms:.3f} ms), {r['device_ms']:.3f} ms of device time; "
+                f"launches {r['launches']}")
+    return rec
+
+
+def phase_forms(torch, P):
+    """Both flagship solvers (DeviceSQP at phase 11's configuration,
+    DeviceConstrainedSQP at phase 12's), B = 4096, one SQP iteration in
+    each propagate form (unroll, scan, allpairs, auto) and each reduce form
+    (sym, einsum, blocked, btrans), at cost parity with unroll + sym
+    (violation parity for the constrained one), with the device time of
+    each (torch.profiler); then DeviceSQP's recursion (what "unroll",
+    "scan" and "auto" run) against its one other computation, "allpairs",
+    at T = 8, 16, 24, 32, 40 and 64.  The constrained tier runs the
+    recursion in every propagate form (it needs the stacks)."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc.ltv import true_cost
+
+    B = RTI_BATCH
+
+    def solvers(T, form):
+        sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **dict(SQP_KW, horizon=T, **form))
+        csqp = P.DeviceConstrainedSQP(P.DeviceSQP(
+            sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T, **form)), **CON_KW)
+        return dict(device_sqp=sqp, device_constrained=csqp)
+
+    def run(solver, x_d):
+        out = solver.solve_words(solver.init_words(B), x_d)
+        return out if isinstance(out, tuple) else (out,)
+
+    def device_ms(solver, x_d):
+        return sum(us for _, us in device_kernels(torch, lambda: run(solver, x_d))) / 1e3
+
+    rec = {"T32": {}, "crossover": {}}
+    x0s = dict(device_sqp=rti_states(np.random.default_rng(5), B).astype(np.float32),
+               device_constrained=con_states(np.random.default_rng(6), B).astype(np.float32))
+    base = {}
+    forms = [dict(propagate=p) for p in ("unroll", "scan", "allpairs", "auto")] + [
+        dict(reduce=r) for r in ("einsum", "blocked", "btrans")]
+    for form in forms:
+        label = "+".join(f"{k}={v}" for k, v in form.items())
+        for kind, s in solvers(32, form).items():
+            x0 = x0s[kind]
+            x_d = torch.as_tensor(x0, device=DEVICE)
+            out = run(s, x_d)
+            d = s.dev if kind == "device_constrained" else s
+            lanes = unpack_controls(out[0])[:, : d.n_dec].cpu().numpy()
+            cost = true_cost(d, x0, lanes)
+            viol = s.violation(x0, lanes) if kind == "device_constrained" else None
+            if label == "propagate=unroll":
+                base[kind] = (cost, viol)
+            np.testing.assert_allclose(cost, base[kind][0], rtol=0.01, atol=1e-4)
+            if viol is not None:
+                np.testing.assert_allclose(viol, base[kind][1], atol=5e-3)
+            ms = device_ms(s, x_d)
+            rec["T32"][f"{kind} {label}"] = dict(device_ms=ms, mean_cost=float(cost.mean()))
+            say(f"forms {kind} T=32 B={B} {label}: cost parity with unroll+sym; "
+                f"{ms:.3f} ms of device time an SQP iteration")
+            del s, out
+    x_d = torch.as_tensor(x0s["device_sqp"], device=DEVICE)
+    for T in FORMS_T:
+        r = {}
+        for mode in ("unroll", "allpairs"):
+            s = solvers(T, dict(propagate=mode))["device_sqp"]
+            run(s, x_d)
+            r[mode] = device_ms(s, x_d)
+        rec["crossover"][f"device_sqp T={T}"] = r
+        say(f"crossover device_sqp T={T}: unroll {r['unroll']:.3f} ms, allpairs "
+            f"{r['allpairs']:.3f} ms of device time an SQP iteration")
+    return rec
+
+
 def free_port():
     import socket
 
@@ -1520,6 +1925,11 @@ def main():
     rehearsal = phase_rehearsal(torch, single)
     long = phase_long(torch, P, K)
     long_kernels = phase_long_kernels(torch, P, timing)
+    wide, wide_path = phase_wide(torch, P, K, timing)
+    rollouts = phase_rollouts(torch, P, timing)
+    controller = phase_controller(torch, P, K, timing)
+    models = phase_models(torch, P, K, timing)
+    forms = phase_forms(torch, P)
 
     from pint_tpu_torch.utils.profiling import bound_ms, kernel_cost
 
@@ -1629,6 +2039,18 @@ def main():
           dict(k10_main, ms=k10_main["single_call_ms"], queued_ms=k10_main["ms"]),
           kernel_cost("pgd_matvec_cols", B=RTI_BATCH, K=k10_main["K"],
                       rows=k10_main["rows"]), "matvec")
+    for key, r in wide.items():
+        kernel = key.split(" ")[0]
+        shape = {k: r[k] for k in ("B", "Tp", "Cp", "iters", "outer", "inners", "packed")
+                 if k in r}
+        entry(f"{key} (wide form)", "pint_tpu_torch/csrc/" +
+              ("alm.cu" if kernel == "alm_shared" else "fused_pgd.cu"),
+              {"fused_pgd": "pint_tpu/mpc/fused.py:119",
+               "fused_pgd_packed": "pint_tpu/mpc/fused.py:136",
+               "alm_shared": "pint_tpu/mpc/fused_alm.py:176"}[kernel],
+              wide_path[kernel], r,
+              kernel_cost("fused_pgd" if kernel.startswith("fused_pgd") else kernel,
+                          **shape), "loop")
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
@@ -1636,6 +2058,8 @@ def main():
                     "lti_constrained": k7}))
     say(json.dumps({"k2p": k2p, "k10": k10, "world1": world1, "rehearsal": rehearsal,
                     "long_horizon": long, "long_horizon_kernels": long_kernels}))
+    say(json.dumps({"wide": wide, "rollouts": rollouts, "controller": controller,
+                    "models": models, "forms": forms}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

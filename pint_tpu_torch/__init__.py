@@ -3,9 +3,11 @@
 The JAX package ``pint_tpu`` stays beside it as the reference.  This package
 imports torch and numpy and never jax (nor ``pint_tpu``).  Ported so far:
 the SWAR substrate (``PackedArray`` and its free functions, 8- to 64-bit
-words, runtime shifts), the unicycle model, the LTI box-QP PGD solvers, the
-on-device SQP (default path), the state-constrained tier (the LTI
-``ConstrainedPGD`` and the on-device ``DeviceConstrainedSQP``), the three
+words, runtime shifts), the four models of the device tier (double
+integrator, unicycle, planar quadrotor, pendulum), the LTI box-QP PGD
+solvers, the on-device SQP with every propagation and contraction form, the
+state-constrained tier (the LTI ``ConstrainedPGD`` and its closed loop
+``ConstrainedController``, and the on-device ``DeviceConstrainedSQP``), the three
 serving endpoints and the multi-device tier (:mod:`pint_tpu_torch.parallel`:
 a (dp, tp) process mesh under ``torch.distributed``, the sharded PGD and
 ALM solvers, and the sharded SQP solves), with hand-written CUDA kernels
@@ -18,9 +20,18 @@ ROADMAP.md lists what is still to port.
 
 from pint_tpu_torch import convert, parallel
 from pint_tpu_torch.layout import PackedLayout, word_bits_for
-from pint_tpu_torch.models import CONTROL_LAYOUT, Unicycle, pack_controls, unpack_controls
+from pint_tpu_torch.models import (
+    CONTROL_LAYOUT,
+    DoubleIntegrator,
+    Pendulum,
+    PlanarQuadrotor,
+    Unicycle,
+    pack_controls,
+    unpack_controls,
+)
 from pint_tpu_torch.mpc import (
     CondensedQP,
+    ConstrainedController,
     ConstrainedPGD,
     DeviceConstrainedSQP,
     DeviceSQP,
@@ -79,7 +90,11 @@ __all__ = [
     "slice_lanes",
     "CONTROL_LAYOUT",
     "CondensedQP",
+    "ConstrainedController",
     "ConstrainedPGD",
+    "DoubleIntegrator",
+    "Pendulum",
+    "PlanarQuadrotor",
     "ConstrainedRTIService",
     "DeviceConstrainedSQP",
     "DeviceSQP",

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pint_tpu_torch.models.dynamics import Unicycle
+from pint_tpu_torch.models import DoubleIntegrator, Pendulum, PlanarQuadrotor, Unicycle
 from pint_tpu_torch.mpc.condensed import CondensedQP, QuantizedQP
 from pint_tpu_torch.mpc.constrained import (
     QuantizedConstrainedQP,
@@ -22,7 +22,7 @@ from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["device_constrained_config", "device_sqp_config",
+__all__ = ["device_constrained_config", "device_sqp_config", "model_config",
            "quantized_constrained_qp_from_arrays", "quantized_qp_from_arrays",
            "words_from_numpy", "words_to_numpy"]
 
@@ -69,18 +69,25 @@ def quantized_qp_from_arrays(ref) -> QuantizedQP:
     )
 
 
+_MODELS = {cls.__name__: cls for cls in (DoubleIntegrator, Pendulum, PlanarQuadrotor,
+                                         Unicycle)}
+
+
+def model_config(m):
+    """The port's model with a reference model's dataclass fields."""
+    cls = _MODELS.get(type(m).__name__)
+    if cls is None:
+        raise ValueError(f"no port of model {type(m).__name__}")
+    return cls(**{f.name: getattr(m, f.name) for f in dataclasses.fields(cls)})
+
+
 def device_sqp_config(ref, **overrides) -> DeviceSQP:
     """The port's :class:`DeviceSQP` with a reference ``DeviceSQP``'s
     problem fields (model, horizon, Q, R, Qf, x_ref, iterations, g_shift,
-    power_iters); ``overrides`` sets the port's own (``device``, ...)."""
-    m = ref.model
-    if type(m).__name__ != "Unicycle":
-        raise NotImplementedError(
-            f"model {type(m).__name__} is not ported yet (ROADMAP queue 1)"
-        )
+    power_iters, propagate, reduce); ``overrides`` sets the port's own
+    (``device``, ...)."""
     kw = dict(
-        model=Unicycle(dt_shift=m.dt_shift, frac_bits=m.frac_bits,
-                       v_shift=m.v_shift, w_shift=m.w_shift),
+        model=model_config(ref.model),
         horizon=int(ref.horizon),
         Q=np.asarray(ref.Q, float), R=np.asarray(ref.R, float),
         qf_scale=float(ref.qf_scale),
@@ -88,6 +95,7 @@ def device_sqp_config(ref, **overrides) -> DeviceSQP:
         x_ref=np.asarray(ref.x_ref, float),
         sqp_iters=int(ref.sqp_iters), pgd_iters=int(ref.pgd_iters),
         g_shift=int(ref.g_shift), power_iters=int(ref.power_iters),
+        propagate=ref.propagate, reduce=ref.reduce,
     )
     kw.update(overrides)
     return DeviceSQP(**kw)

@@ -28,7 +28,8 @@
 // product is exact in int32 (|acc| <= 127 * 128 * 4096 < 2^31), so the order
 // of its sum cannot change a bit.
 //
-// K7 (alm_mma_kernel, Tp and Cp <= 256).  Bound at the main-path shape (B =
+// K7 (alm_mma_kernel, Tp and Cp <= 256; past them alm_mma_wide_kernel, to
+// 4096, below).  Bound at the main-path shape (B =
 // 4096, Tp = Cp = 64, 12 x 60): 97 G int8 operations, 0.049 ms at the tensor
 // cores' 1,979 TOP/s.  The first design (one warp a problem, each of the four
 // matvecs of an iteration a row of __dp4a whose two operands were both read
@@ -349,6 +350,214 @@ alm_mma_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
         const int c = col[i] + (e & 1);
         if (b < B && c < Tp) out_lanes[(size_t)b * Tp + c] = x[i][e];
         if (b < B && c < Cp) out_lam[(size_t)b * Cp + c] = lam[i][e];
+      }
+  }
+}
+
+// -- K7 past W = 256: B fragments from L2, state in memory --------------------
+//
+// Past 256 lanes or rows the three B-operand sets (Tp^2 + 2 Tp Cp bytes)
+// no longer fit beside the tiles, and the state (four int32 per lane or row
+// and problem: 640 KB a tile at Tp = Cp = 2048) fits neither registers nor
+// shared memory.  As in K2's wide form (csrc/fused_pgd.cu), the B fragments
+// of Hq, Sq and Sq^T are read from global memory each iteration
+// (pint::frag_word): one set for every block, resident in L2.  Sq^T is a
+// row-major (Tp, Cp) copy that transpose_kernel writes into the caller's
+// scratch before the loop, so every fragment word is one 4-byte load.
+// Shared memory holds the three A tiles u (16 x Tp), y_hi and y_lo
+// (16 x Cp).  Each thread keeps its own elements' state in global memory
+// (L2), read and written only by that thread: carry + half in out_lanes
+// (overwritten by the lanes at the end), the multipliers in out_lam, ey +
+// y_half in the scratch.  Each warp walks the column groups w, w + 16, ...
+// An inner iteration is two passes with a barrier after each: pass 1 reads
+// u and, for each of the thread's groups, computes (Sq u)[c] and the
+// constraint step (writing y_hi, y_lo) and (Hq u)[j], folding -pre into the
+// stored carry (every sum wraps, so the order is free); pass 2 computes
+// (Sq^T y_hi)[j] and (Sq^T y_lo)[j], finishes the objective step and
+// writes the new u over its own elements (no other thread reads them in
+// pass 2).  Padded lanes and rows compute with zero operands and are never
+// stored; A columns past Tp or Cp meet zero B rows.  Exact in int32:
+// |acc| <= 128 * 128 * max(Tp, Cp) < 2^31 below 131,072.  The limit this
+// form states is Tp, Cp <= 4096 (tiles 193 KB of shared memory).
+constexpr int kMmaMaxW = 4096;
+
+__global__ void transpose_kernel(const int8_t* __restrict__ sq, int8_t* __restrict__ sqt,
+                                 int Cp, int Tp) {
+  const long n = (long)Cp * Tp;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const int j = (int)(i / Cp), c = (int)(i - (long)j * Cp);
+    sqt[i] = sq[(size_t)c * Tp + j];
+  }
+}
+
+struct MmaWideArgs {
+  const int *lanes, *g, *coff, *lam0;
+  const int8_t *hq, *sq, *sqt;
+  const int *lo, *hi;
+  int *out_lanes, *out_lam, *eyh;
+  int B, Tp, Cp, outer, inners, g_shift, y_shift;
+  int al4;  // bit 0: hq, bit 1: sq 4-byte aligned (sqt always is)
+  Rationals r;
+};
+
+__global__ void __launch_bounds__(pint::kWideWarps * 32)
+alm_mma_wide_kernel(const MmaWideArgs a) {
+  constexpr int NW = pint::kWideWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Tp = a.Tp, Cp = a.Cp;
+  const int KJ = (Tp + 31) / 32, KY = (Cp + 31) / 32;
+  const int RSU = 32 * KJ + 16, RSY = 32 * KY + 16;
+  const int GJ = (Tp + 7) / 8, GC = (Cp + 7) / 8, GM = max(GJ, GC);
+  unsigned char* s_u = smem;
+  unsigned char* s_yh = s_u + 16 * RSU;
+  unsigned char* s_yl = s_yh + 16 * RSY;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int half = 1 << (a.g_shift - 1);
+  const int y_half = (1 << a.y_shift) >> 1;
+  const int negg = -(1 << a.g_shift), negys = -(1 << a.y_shift);
+  const bool hq4 = a.al4 & 1, sq4 = a.al4 & 2;
+  const Rationals& r = a.r;
+  const int ntiles = (a.B + 15) / 16;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * 16, rows = min(16, a.B - row0);
+    __syncthreads();  // every read of the last tile's u is done
+    const int* src = a.lanes + (size_t)row0 * Tp;
+    for (int u = threadIdx.x; u < 16 * Tp; u += blockDim.x) {
+      const int rr = u / Tp, c = u - rr * Tp;
+      s_u[rr * RSU + c] = (unsigned char)(rr < rows ? src[u] : 0);
+    }
+    // element e of a thread's group grp: row gq + 8 (e >> 1), column
+    // 8 grp + 2 tq + (e & 1); its state's index in a (B, W) array, or -1
+    auto at = [&](int grp, int e, int W) -> long {
+      const int rr = gq + 8 * (e >> 1), c = 8 * grp + 2 * tq + (e & 1);
+      return rr < rows && c < W ? (long)(row0 + rr) * W + c : -1;
+    };
+    for (int grp = warp; grp < GM; grp += NW)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long j = at(grp, e, Tp), c = at(grp, e, Cp);
+        if (grp < GJ && j >= 0) a.out_lanes[j] = half;
+        if (grp < GC && c >= 0) {
+          a.out_lam[c] = a.lam0[c];
+          a.eyh[c] = y_half;
+        }
+      }
+    __syncthreads();  // u is staged
+
+    for (int o = 0; o < a.outer; ++o) {
+      for (int it = 0; it < a.inners; ++it) {
+        // pass 1: y from (Sq u)[c]; the carry takes -pre from (Hq u)[j]
+        for (int grp = warp; grp < GM; grp += NW) {
+          const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
+          if (grp < GC) {
+            int ds[4] = {0, 0, 0, 0};
+#pragma unroll 4
+            for (int kc = 0; kc < KJ; ++kc) {
+              uint32_t av[4];
+              pint::load_a(s_u, RSU, gq, tq, kc, av);
+              const int k0 = 32 * kc + 4 * tq;
+              mma_s8(ds, av, pint::frag_word(a.sq, Tp, n, k0, Cp, Tp, sq4),
+                     pint::frag_word(a.sq, Tp, n, k0 + 16, Cp, Tp, sq4));
+            }
+            int yh[4], yl[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const long i = at(grp, e, Cp);
+              const int c = c0 + (e & 1);
+              const int lo = c < Cp ? a.lo[c] : 0, hi = c < Cp ? a.hi[c] : 0;
+              int eyh = i >= 0 ? a.eyh[i] : y_half;
+              const int y14 = constraint_step(ds[e], i >= 0 ? a.coff[i] : 0,
+                                              i >= 0 ? a.out_lam[i] : 0, lo, hi, eyh, r,
+                                              negys, a.y_shift);
+              if (i >= 0) a.eyh[i] = eyh;
+              yh[e] = y14 >> 7;
+              yl[e] = y14 & 0x7F;
+            }
+            pint::store_pairs(s_yh, RSY, gq, c0, yh);
+            pint::store_pairs(s_yl, RSY, gq, c0, yl);
+          }
+          if (grp < GJ) {
+            int dh[4] = {0, 0, 0, 0};
+#pragma unroll 4
+            for (int kc = 0; kc < KJ; ++kc) {
+              uint32_t av[4];
+              pint::load_a(s_u, RSU, gq, tq, kc, av);
+              const int k0 = 32 * kc + 4 * tq;
+              mma_s8(dh, av, pint::frag_word(a.hq, Tp, n, k0, Tp, Tp, hq4),
+                     pint::frag_word(a.hq, Tp, n, k0 + 16, Tp, Tp, hq4));
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const long i = at(grp, e, Tp);
+              if (i >= 0)
+                a.out_lanes[i] = pint::wrap_sub(a.out_lanes[i], shr_mul(dh[e], r.hs_num, r.hs_den));
+            }
+          }
+        }
+        __syncthreads();  // y_hi, y_lo complete; every read of u is done
+        // pass 2: the penalty gradient, the step and the new u
+        for (int grp = warp; grp < GJ; grp += NW) {
+          const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
+          int de[4] = {0, 0, 0, 0}, dl[4] = {0, 0, 0, 0};
+#pragma unroll 2
+          for (int kc = 0; kc < KY; ++kc) {
+            const int k0 = 32 * kc + 4 * tq;
+            const uint32_t b0 = pint::frag_word(a.sqt, Cp, n, k0, Tp, Cp, true);
+            const uint32_t b1 = pint::frag_word(a.sqt, Cp, n, k0 + 16, Tp, Cp, true);
+            uint32_t av[4];
+            pint::load_a(s_yh, RSY, gq, tq, kc, av);
+            mma_s8(de, av, b0, b1);
+            pint::load_a(s_yl, RSY, gq, tq, kc, av);
+            mma_s8(dl, av, b0, b1);
+          }
+          int xn[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const long i = at(grp, e, Tp);
+            const int rr = gq + 8 * (e >> 1), c = c0 + (e & 1);
+            int ch = i >= 0 ? a.out_lanes[i] : half;
+            int x = (int)(int8_t)s_u[rr * RSU + c];
+            // pre is already in ch: objective_step with acc = 0
+            objective_step(0, de[e], dl[e], i >= 0 ? a.g[i] : 0, ch, x, r, negg,
+                           a.g_shift);
+            if (i >= 0) a.out_lanes[i] = ch;
+            xn[e] = c < Tp ? x : 0;
+          }
+          pint::store_pairs(s_u, RSU, gq, c0, xn);
+        }
+        __syncthreads();  // u is new; every read of y_hi, y_lo is done
+      }
+      // multiplier update from the exact int32 violation at the inner solution
+      for (int grp = warp; grp < GC; grp += NW) {
+        const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
+        int ds[4] = {0, 0, 0, 0};
+#pragma unroll 4
+        for (int kc = 0; kc < KJ; ++kc) {
+          uint32_t av[4];
+          pint::load_a(s_u, RSU, gq, tq, kc, av);
+          const int k0 = 32 * kc + 4 * tq;
+          mma_s8(ds, av, pint::frag_word(a.sq, Tp, n, k0, Cp, Tp, sq4),
+                 pint::frag_word(a.sq, Tp, n, k0 + 16, Cp, Tp, sq4));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long i = at(grp, e, Cp);
+          const int c = c0 + (e & 1);
+          if (i >= 0)
+            a.out_lam[i] = lam_update(ds[e], a.coff[i], a.out_lam[i], c < Cp ? a.lo[c] : 0,
+                                      c < Cp ? a.hi[c] : 0, r);
+        }
+      }
+    }
+    // the lanes over the carries: each thread its own elements
+    for (int grp = warp; grp < GJ; grp += NW)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long i = at(grp, e, Tp);
+        const int rr = gq + 8 * (e >> 1), c = 8 * grp + 2 * tq + (e & 1);
+        if (i >= 0) a.out_lanes[i] = (int)(int8_t)s_u[rr * RSU + c];
       }
   }
 }
@@ -872,6 +1081,33 @@ cudaError_t launch_mma(const int* lanes, const int* g, const int* coff,
   return cudaGetLastError();
 }
 
+// Sq^T's bytes at the front of K7's scratch, rounded to 16; then ey (B, Cp)
+size_t sqt_bytes(int Tp, int Cp) { return ((size_t)Tp * Cp + 15) / 16 * 16; }
+
+cudaError_t launch_mma_wide(MmaWideArgs a, int8_t* scratch, cudaStream_t stream) {
+  int8_t* sqt = scratch;
+  a.sqt = sqt;
+  a.eyh = reinterpret_cast<int*>(scratch + sqt_bytes(a.Tp, a.Cp));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  transpose_kernel<<<4 * sms, 256, 0, stream>>>(a.sq, sqt, a.Cp, a.Tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = alm_mma_wide_kernel;
+  constexpr int threads = pint::kWideWarps * 32;
+  const size_t bytes = 16 * (size_t)(32 * ((a.Tp + 31) / 32) + 16) +
+                       32 * (size_t)(32 * ((a.Cp + 31) / 32) + 16);
+  err = pint_allow_smem(kernel, bytes);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = pint_persistent_grid(kernel, threads, bytes, (a.B + 15) / 16, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool bad_loop(int B, int outer, int inners, int g_shift, int y_shift) {
   return B <= 0 || outer < 0 || inners < 0 || g_shift < 1 || g_shift > 30 ||
          y_shift < 0 || y_shift > 30;
@@ -942,18 +1178,26 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
   return (int)launch_wide(a, s);
 }
 
-// K7's shapes: Tp and Cp multiples of 4 in [4, 256].
+// The scratch K7 needs at (B, Tp, Cp): none to W = 256, past it Sq^T and
+// the error feedback of every problem's rows.
+extern "C" long long pint_alm_shared_scratch(int B, int Tp, int Cp) {
+  if (B <= 0 || Tp <= 0 || Cp <= 0 || (Tp <= 256 && Cp <= 256)) return 0;
+  return (long long)(sqt_bytes(Tp, Cp) + 4 * (size_t)B * Cp);
+}
+
+// K7's shapes: Tp and Cp multiples of 4 in [4, 4096]; past 256 the wide
+// form, with pint_alm_shared_scratch bytes of scratch.
 extern "C" int pint_alm_shared(const void* lanes, const void* g,
                                const void* coff, const void* lam,
                                const void* hq, const void* sq, const void* lo,
                                const void* hi, void* out_lanes, void* out_lam,
-                               int B, int Tp, int Cp, int outer, int inners,
-                               int g_shift, int y_shift, int hs_num,
+                               void* scratch, int B, int Tp, int Cp, int outer,
+                               int inners, int g_shift, int y_shift, int hs_num,
                                int hs_den, int cs_num, int cs_den, int eh_num,
                                int eh_den, int el_num, int el_den,
                                void* stream) {
   if (bad_loop(B, outer, inners, g_shift, y_shift) || Tp <= 0 || Cp <= 0 || Tp % 4 ||
-      Cp % 4 || Tp > 256 || Cp > 256)
+      Cp % 4 || Tp > kMmaMaxW || Cp > kMmaMaxW)
     return (int)cudaErrorInvalidValue;
   const int dens[4] = {hs_den, cs_den, eh_den, el_den};
   for (int d : dens)
@@ -979,5 +1223,11 @@ extern "C" int pint_alm_shared(const void* lanes, const void* g,
   if (m <= 32) return run(launch_mma<32>);
   if (m <= 64) return run(launch_mma<64>);
   if (m <= 128) return run(launch_mma<128>);
-  return run(launch_mma<256>);
+  if (m <= 256) return run(launch_mma<256>);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int al4 = ((reinterpret_cast<uintptr_t>(h) & 3) == 0 ? 1 : 0) |
+                  ((reinterpret_cast<uintptr_t>(sqq) & 3) == 0 ? 2 : 0);
+  const MmaWideArgs a{l,  gg, co, la, h,  sqq,    nullptr, lo_, hi_, ol,    om,      nullptr,
+                      B,  Tp, Cp, outer, inners, g_shift, y_shift, al4, r};
+  return (int)launch_mma_wide(a, static_cast<int8_t*>(scratch), s);
 }

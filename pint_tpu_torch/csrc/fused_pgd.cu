@@ -50,6 +50,10 @@
 // alternative, one warp a tile rebuilding A by shuffles within each quad (no
 // barrier, ~4 warps an SM), took 0.0176 ms.
 //
+// Past Tp 256 Hq no longer fits beside the tile: the wide form below
+// (fused_pgd_wide_kernel) reads its B fragments from L2 each iteration and
+// keeps the state in shared memory, to Tp 4096.
+//
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
 #include "common.cuh"
 #include "mma_tile.cuh"
@@ -302,6 +306,132 @@ fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
   }
 }
 
+// -- K2 and K2p past Tp 256 ----------------------------------------------------
+//
+// Hq (Tp^2 bytes, 256 KB at Tp = 512) no longer fits beside the tile, so its
+// B fragments are read from global memory each iteration (pint::frag_word):
+// Hq is one matrix for every block and stays resident in the 50 MB L2 (4 MB
+// at Tp = 2048).  A block of kWideWarps warps owns a tile of 16 problems;
+// each warp walks the column groups w, w + 16, ... of the (16 x Tp) product,
+// one group's whole k-loop at a time, and updates that group's lanes at
+// once.  Tp pads to KC = ceil(Tp / 32) k-chunks; A columns past Tp meet zero
+// B rows, so what they hold is never read into a sum.  The state lives in
+// shared memory: two 16 x (32 KC + 16) byte tiles of y (iteration it reads
+// tile it & 1 and writes y of the next iteration into the other, so one
+// barrier an iteration) and, with momentum, x as int8 (16 x Tp); half - g
+// is re-read from g (L2) at each update.  The same int32 exactness holds:
+// |acc| <= 128 * 128 * Tp < 2^31 for Tp < 131,072.  Shared memory is
+// 32 (32 KC + 16) + 16 Tp bytes: 193 KB at Tp = 4096, the limit this form
+// states (Hq 16 MB).
+template <bool MOM, typename L>
+__global__ void __launch_bounds__(pint::kWideWarps * 32)
+fused_pgd_wide_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
+                      const int8_t* __restrict__ hq, L* __restrict__ out, int B, int Tp,
+                      int iters, int hs_num, int hs_den, int g_shift, int beta_num,
+                      int beta_den) {
+  constexpr bool PACKED = sizeof(L) == 1;
+  constexpr int NW = pint::kWideWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KC = (Tp + 31) / 32, RS = 32 * KC + 16, G = (Tp + 7) / 8;
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + 32 * RS);  // MOM: x, 16 x Tp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int half = 1 << (g_shift - 1);
+  const bool hq4 = (reinterpret_cast<uintptr_t>(hq) & 3) == 0;
+  const int ntiles = (B + 15) / 16;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int row0 = tile * 16, rows = min(16, B - row0);
+    __syncthreads();  // every read of the last tile's state is done
+    // tile 0 holds y of iteration 0: the lanes, or with momentum clip(x)
+    if constexpr (PACKED) {
+      const int wpr = Tp / 4;  // words a row
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(lanes) + (size_t)row0 * wpr;
+      for (int u = threadIdx.x; u < 16 * wpr; u += blockDim.x) {
+        const int r = u / wpr, q = u - r * wpr;
+        *reinterpret_cast<uint32_t*>(smem + r * RS + 4 * q) = r < rows ? src[u] : 0u;
+      }
+    } else {
+      const int* src = reinterpret_cast<const int*>(lanes) + (size_t)row0 * Tp;
+      for (int u = threadIdx.x; u < 16 * Tp; u += blockDim.x) {
+        const int r = u / Tp, c = u - r * Tp;
+        const int v = r < rows ? src[u] : 0;
+        smem[r * RS + c] = (unsigned char)(MOM ? clampi(v, -127, 127) : v);
+        if constexpr (MOM) xs[u] = (int8_t)v;
+      }
+    }
+    __syncthreads();
+    for (int it = 0; it < iters; ++it) {
+      const unsigned char* cur = smem + (it & 1) * 16 * RS;
+      unsigned char* nxt = smem + ((it + 1) & 1) * 16 * RS;
+      for (int grp = warp; grp < G; grp += NW) {
+        const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
+        int acc[4] = {0, 0, 0, 0};
+#pragma unroll 4
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t a[4];
+          pint::load_a(cur, RS, gq, tq, kc, a);
+          const int k0 = 32 * kc + 4 * tq;
+          pint::mma_s8(acc, a, pint::frag_word(hq, Tp, n, k0, Tp, Tp, hq4),
+                       pint::frag_word(hq, Tp, n, k0 + 16, Tp, Tp, hq4));
+        }
+        int yn[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = gq + 8 * (e >> 1), c = c0 + (e & 1);
+          yn[e] = 0;
+          if (c >= Tp) continue;  // a padded lane: no g, no x
+          const int gv = r < rows ? g[(size_t)(row0 + r) * Tp + c] : 0;
+          const int pre = wrap_mul(acc[e], hs_num) >> hs_den;
+          const int delta = clampi(wrap_sub(wrap_sub(half, gv), pre) >> g_shift, -128, 127);
+          const int x = clampi((int)(int8_t)cur[r * RS + c] + delta, -127, 127);
+          if constexpr (MOM) {
+            const int xo = xs[r * Tp + c];
+            xs[r * Tp + c] = (int8_t)x;
+            yn[e] = clampi(x + (wrap_mul(beta_num, x - xo) >> beta_den), -127, 127);
+          } else {
+            yn[e] = x;
+          }
+        }
+        pint::store_pairs(nxt, RS, gq, c0, yn);
+      }
+      __syncthreads();  // nxt holds y; every read of cur is done
+    }
+    // the lanes: x (momentum), else the last y, in tile iters & 1
+    const unsigned char* fin = smem + (iters & 1) * 16 * RS;
+    if constexpr (PACKED) {
+      const int wpr = Tp / 4;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out) + (size_t)row0 * wpr;
+      for (int u = threadIdx.x; u < rows * wpr; u += blockDim.x) {
+        const int r = u / wpr, q = u - r * wpr;
+        dst[u] = *reinterpret_cast<const uint32_t*>(fin + r * RS + 4 * q);
+      }
+    } else {
+      int* dst = reinterpret_cast<int*>(out) + (size_t)row0 * Tp;
+      for (int u = threadIdx.x; u < rows * Tp; u += blockDim.x) {
+        const int r = u / Tp, c = u - r * Tp;
+        dst[u] = MOM ? (int)xs[u] : (int)(int8_t)fin[r * RS + c];
+      }
+    }
+  }
+}
+
+template <bool MOM, typename L>
+cudaError_t launch_wide(const L* lanes, const int* g, const int8_t* hq, L* out, int B,
+                        int Tp, int iters, int hs_num, int hs_den, int g_shift,
+                        int beta_num, int beta_den, cudaStream_t stream) {
+  auto kernel = fused_pgd_wide_kernel<MOM, L>;
+  constexpr int threads = pint::kWideWarps * 32;
+  const size_t bytes = 32 * (size_t)(32 * ((Tp + 31) / 32) + 16) + (MOM ? 16 * (size_t)Tp : 0);
+  cudaError_t err = pint_allow_smem(kernel, bytes);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = pint_persistent_grid(kernel, threads, bytes, (B + 15) / 16, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, bytes, stream>>>(lanes, g, hq, out, B, Tp, iters, hs_num, hs_den,
+                                           g_shift, beta_num, beta_den);
+  return cudaGetLastError();
+}
+
 template <int W, bool MOM, typename L>
 cudaError_t launch(const L* lanes, const int* g, const int8_t* hq, L* out, int B, int Tp,
                    int iters, int hs_num, int hs_den, int g_shift, int beta_num,
@@ -319,11 +449,14 @@ cudaError_t launch(const L* lanes, const int* g, const int8_t* hq, L* out, int B
   return cudaGetLastError();
 }
 
+// The widest Tp the wide form takes (Hq 16 MB, shared memory 193 KB).
+constexpr int kMaxTp = 4096;
+
 template <bool MOM, typename L>
 int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B, int Tp,
              int iters, int hs_num, int hs_den, int g_shift, int beta_num, int beta_den,
              void* stream) {
-  if (B <= 0 || Tp <= 0 || Tp % 4 || Tp > 256 || iters < 0 || g_shift < 1 ||
+  if (B <= 0 || Tp <= 0 || Tp % 4 || Tp > kMaxTp || iters < 0 || g_shift < 1 ||
       g_shift > 30 || hs_den < 0 || hs_den > 31 || beta_den < 0 || beta_den > 30)
     return (int)cudaErrorInvalidValue;
   const L* l = static_cast<const L*>(lanes);
@@ -341,8 +474,11 @@ int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B,
   else if (Tp <= 128)
     err = launch<128, MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
                               beta_den, s);
-  else
+  else if (Tp <= 256)
     err = launch<256, MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
+                              beta_den, s);
+  else
+    err = launch_wide<MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
                               beta_den, s);
   return (int)err;
 }

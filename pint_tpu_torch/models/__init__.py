@@ -2,9 +2,13 @@
 
 from pint_tpu_torch.models.dynamics import (
     CONTROL_LAYOUT,
+    DoubleIntegrator,
     Unicycle,
     pack_controls,
     unpack_controls,
 )
+from pint_tpu_torch.models.pendulum import Pendulum
+from pint_tpu_torch.models.quadrotor import PlanarQuadrotor
 
-__all__ = ["CONTROL_LAYOUT", "Unicycle", "pack_controls", "unpack_controls"]
+__all__ = ["CONTROL_LAYOUT", "DoubleIntegrator", "Pendulum", "PlanarQuadrotor",
+           "Unicycle", "pack_controls", "unpack_controls"]

@@ -1,10 +1,14 @@
 """Quantized dynamics models (PyTorch port of ``pint_tpu/models/dynamics.py``).
 
 Ported here: the packed control plan (:func:`pack_controls`,
-:func:`unpack_controls`), the quadratic-trig twins, and :class:`Unicycle`
-with its fixed-point step, its float32 twin (``rollout_f32``,
-``linearize_f32``) and its float64 numpy reference.  The double integrator
-and the other models are not ported yet (ROADMAP queue 1).
+:func:`unpack_controls`), the quadratic-trig twins, :class:`DoubleIntegrator`
+(the Q16 plant of the LTI tier: fixed-point step and rollouts, float64
+reference) and :class:`Unicycle` with its fixed-point step, its float32
+twin (``rollout_f32``, ``linearize_f32``) and its float64 numpy reference.
+The planar quadrotor and the pendulum live in their own modules.
+
+The reference scans the horizon with ``lax.scan``; here a rollout is a
+Python loop of plain int32 torch ops, a few launches a step.
 
 Controls are int8 lanes packed four to a 32-bit word
 (``PackedLayout(8, 8, 8, 8)``); words live in ``torch.int32`` containers
@@ -23,7 +27,8 @@ from pint_tpu_torch.ops import word as W
 
 CONTROL_LAYOUT = PackedLayout(8, 8, 8, 8)  # 4 int8 control lanes per word
 
-__all__ = ["CONTROL_LAYOUT", "Unicycle", "pack_controls", "unpack_controls"]
+__all__ = ["CONTROL_LAYOUT", "DoubleIntegrator", "Unicycle", "pack_controls",
+           "unpack_controls"]
 
 
 def pack_controls(
@@ -67,6 +72,14 @@ def _sin_turns_f64(theta_turns: np.ndarray) -> np.ndarray:
     return np.where(t >= 0.5, -val, val)
 
 
+def _dsin_turns_f64(theta_turns: np.ndarray) -> np.ndarray:
+    """d/dtheta of :func:`_sin_turns_f64` (piecewise linear, float64)."""
+    t = np.mod(theta_turns, 1.0)
+    half = np.mod(t, 0.5)
+    dval = 16.0 * (0.5 - 2.0 * half)
+    return np.where(t >= 0.5, -dval, dval)
+
+
 def _sin_turns_f32(theta_turns: torch.Tensor) -> torch.Tensor:
     """float32 twin of the quadratic sine.  ``torch.remainder`` is floor-mod
     like ``jnp.mod``; ``torch.fmod`` would not be."""
@@ -82,6 +95,83 @@ def _dsin_turns_f32(theta_turns: torch.Tensor) -> torch.Tensor:
     half = torch.remainder(t, 0.5)
     dval = 16.0 * (0.5 - 2.0 * half)
     return torch.where(t >= 0.5, -dval, dval)
+
+
+@dataclasses.dataclass(frozen=True)
+class DoubleIntegrator:
+    """1-D double integrator, exactly discretized, fixed point (the same
+    discrete map as ``pint_tpu.models.DoubleIntegrator``).
+
+    p' = v, v' = u with dt = 2**-dt_shift::
+
+        p[k+1] = p[k] + v[k] dt + u[k] dt^2 / 2,   v[k+1] = v[k] + u[k] dt
+
+    State (p, v) int32 Q``frac_bits``; an int8 control lane scales by
+    ``2**u_shift`` into Q``frac_bits`` acceleration.  Every product by dt is
+    an arithmetic shift and every sum wraps in int32, as XLA's."""
+
+    dt_shift: int = 5
+    frac_bits: int = 16
+    u_shift: int = 8
+
+    def __post_init__(self):
+        if not (0 <= self.u_shift <= 23):
+            raise ValueError(f"u_shift={self.u_shift}: lane<<u_shift must fit int32")
+        if not (1 <= self.dt_shift <= 16):
+            raise ValueError(f"dt_shift={self.dt_shift} out of range")
+
+    @property
+    def dt(self) -> float:
+        return 2.0 ** (-self.dt_shift)
+
+    @property
+    def u_scale(self) -> float:
+        """Physical acceleration units per int8 control step."""
+        return 2.0 ** (self.u_shift - self.frac_bits)
+
+    def step(self, state, u_lane) -> torch.Tensor:
+        """One fixed-point step: state (..., 2) int32, u_lane (...) int32 in
+        [-128, 127]."""
+        p, v = state[..., 0], state[..., 1]
+        u_fp = u_lane << self.u_shift
+        p_next = p + (v >> self.dt_shift) + (u_fp >> (2 * self.dt_shift + 1))
+        v_next = v + (u_fp >> self.dt_shift)
+        return torch.stack([p_next, v_next], dim=-1)
+
+    def rollout(self, state0, controls) -> torch.Tensor:
+        """state0 (..., 2) int32; controls (..., T) int32 lanes -> states
+        (..., T+1, 2)."""
+        states = [state0]
+        for k in range(controls.shape[-1]):
+            states.append(self.step(states[-1], controls[..., k]))
+        return torch.stack(states, dim=-2)
+
+    def rollout_packed(self, state0, control_words) -> torch.Tensor:
+        """Rollout from packed control words (..., T/4)."""
+        return self.rollout(state0, unpack_controls(control_words))
+
+    def reference_rollout(self, state0_f: np.ndarray, controls_f: np.ndarray) -> np.ndarray:
+        """float64 rollout of the same discrete map; controls in physical
+        units (lane * u_scale)."""
+        dt = self.dt
+        state0_f = np.asarray(state0_f, dtype=np.float64)
+        controls_f = np.asarray(controls_f, dtype=np.float64)
+        T = controls_f.shape[-1]
+        out = np.empty(state0_f.shape[:-1] + (T + 1, 2), dtype=np.float64)
+        out[..., 0, :] = state0_f
+        p, v = state0_f[..., 0].copy(), state0_f[..., 1].copy()
+        for k in range(T):
+            u = controls_f[..., k]
+            p = p + v * dt + 0.5 * u * dt * dt
+            v = v + u * dt
+            out[..., k + 1, 0], out[..., k + 1, 1] = p, v
+        return out
+
+    def to_fixed(self, x: np.ndarray) -> np.ndarray:
+        return np.round(np.asarray(x) * 2.0**self.frac_bits).astype(np.int32)
+
+    def to_float(self, x) -> np.ndarray:
+        return np.asarray(x, dtype=np.float64) * 2.0**-self.frac_bits
 
 
 @dataclasses.dataclass(frozen=True)

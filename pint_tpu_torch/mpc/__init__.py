@@ -17,6 +17,7 @@ from pint_tpu_torch.mpc.condensed import (
     quantize,
 )
 from pint_tpu_torch.mpc.constrained import (
+    ConstrainedController,
     ConstrainedPGD,
     QuantizedConstrainedQP,
     StateConstrainedQP,
@@ -55,6 +56,7 @@ from pint_tpu_torch.mpc.solver import FixedPointPGD
 __all__ = [
     "AcceleratedPGD",
     "CondensedQP",
+    "ConstrainedController",
     "ConstrainedPGD",
     "DeviceConstrainedSQP",
     "DeviceSQP",

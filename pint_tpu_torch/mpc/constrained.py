@@ -17,8 +17,9 @@ On a CUDA device it runs the whole loop as the K7 kernel
 ``add_signed_saturate`` + ``max_signed``) on any device, bit-identical to
 ``pint_tpu``'s XLA route and the reference K7 is held to on the card.
 
-``ConstrainedController`` is not ported yet: it steps the Q16
-``DoubleIntegrator`` plant (ROADMAP queue 1).
+:class:`ConstrainedController` is the receding-horizon closed loop over
+:class:`ConstrainedPGD` (K7 every tick on the card), stepping a fixed-point
+plant such as the Q16 ``DoubleIntegrator``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from pint_tpu_torch.ops import word as W
 __all__ = [
     "StateConstrainedQP",
     "QuantizedConstrainedQP",
+    "ConstrainedController",
     "ConstrainedPGD",
     "constrain_states",
     "quantize_constrained",
@@ -533,3 +535,109 @@ class ConstrainedPGD:
         words, lam = self.solve_words(self.init_words(x0.shape[0]), g_pre, c_off)
         lanes = unpack_controls(words)[:, : self._q.horizon]
         return words, lanes.to(torch.float32) * float(np.float32(self._q.u_scale)), lam
+
+
+def _mat_round(s_f: torch.Tensor, M: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """round(s_f @ M + ref) to int32 as the reference's jitted tick computes
+    it on the CPU: XLA's dot over the state's n entries (n <= 6) rounds the
+    first product to f32 and fuses each next one into the sum (an FMA), in
+    index order; then ``+ ref`` in f32, round half to even, and a
+    saturating conversion.  The FMA runs here in float64, where the product
+    of two f32 values is exact, and rounds once to f32 (a second rounding
+    can differ from a true FMA only when the f64 sum lands on an f32 tie:
+    never in the parity tests).  The same float64 steps run on every
+    device, so the card and the CPU agree bit for bit."""
+    sd, Md = s_f.to(torch.float64), M.to(torch.float64)
+    acc = (s_f[..., 0:1] * M[0]).to(torch.float64)
+    for i in range(1, M.shape[0]):
+        acc = (sd[..., i:i + 1] * Md[i] + acc).to(torch.float32).to(torch.float64)
+    out = torch.round(acc.to(torch.float32) + ref).to(torch.float64)
+    return torch.clamp(out, -(2.0**31), 2.0**31 - 1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstrainedController:
+    """Receding-horizon closed loop with hard state constraints (the port of
+    ``pint_tpu``'s ``ConstrainedController``).
+
+    Each tick maps the fixed-point state to the QP's linear term and
+    constraint offsets (f32 products, rounded), re-solves the ALM problem
+    with :class:`ConstrainedPGD` (K7 on the card), applies the first
+    control, steps the plant, and warm-starts the next tick by shifting the
+    packed plan by ``inputs_per_step`` lanes and the multipliers by one
+    time block of constraint rows.  The reference runs the loop as one
+    ``lax.scan``; here it is a Python loop of ticks."""
+
+    qcqp: QuantizedConstrainedQP
+    plant_step: callable = dataclasses.field(repr=False)
+    inputs_per_step: int = 1
+    frac_bits: int = 16
+    outer_per_tick: int = 3
+    inners_per_outer: int = 15
+    device: object = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", K.resolve_device(self.device))
+
+    @functools.cached_property
+    def _solver(self) -> ConstrainedPGD:
+        return ConstrainedPGD(self.qcqp, outer=self.outer_per_tick,
+                              inners=self.inners_per_outer, device=self.device)
+
+    @functools.cached_property
+    def _maps(self) -> dict:
+        """The folded f32 maps state_fp -> g_pre (``g_mat``, ``g_ref``) and
+        state_fp -> c_off_pre (``c_mat``, ``c_ref``), built in numpy as the
+        reference builds them."""
+        q, qq = self.qcqp, self.qcqp.qqp
+        n = qq.qp.G.shape[1]
+        G = np.zeros((n, qq.padded), np.float32)
+        G[:, : qq.horizon] = (qq.qp.G * (qq.Gq_scale * 2.0**-self.frac_bits)).T.astype(
+            np.float32)
+        gr = np.zeros((qq.padded,), np.float32)
+        gr[: qq.horizon] = (qq.qp.g_ref * qq.Gq_scale).astype(np.float32)
+        Pm = np.zeros((q.scqp.P.shape[1], q.padded_rows), np.float32)
+        Pm[:, : q.n_rows] = (q.scqp.P * (2.0**-self.frac_bits / q.c_unit)).T.astype(
+            np.float32)
+        cr = np.zeros((q.padded_rows,), np.float32)
+        cr[: q.n_rows] = (q.scqp.r / q.c_unit).astype(np.float32)
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in dict(g_mat=G, g_ref=gr, c_mat=Pm, c_ref=cr).items()}
+
+    def tick(self, state_fp, u_words, lam):
+        """One tick: (next state, shifted words, shifted multipliers, the
+        applied lanes (..., inputs_per_step))."""
+        mp = self._maps
+        s_f = state_fp.to(torch.float32)
+        g = _mat_round(s_f, mp["g_mat"], mp["g_ref"])
+        c_off = _mat_round(s_f, mp["c_mat"], mp["c_ref"])
+        u_words, lam = self._solver.solve_words(u_words, g, c_off, lam)
+        lanes = unpack_controls(u_words)
+        m = self.inputs_per_step
+        u0 = lanes[..., :m]
+        state2 = self.plant_step(state_fp, u0)
+        shifted = torch.cat([lanes[..., m:], torch.zeros_like(lanes[..., :m])], dim=-1)
+        # rows are time-major: one step's rows are n_rows / T of them, where
+        # qqp.horizon is the decision length T * m
+        rb = self.qcqp.n_rows * m // self.qcqp.qqp.horizon
+        lam2 = torch.cat([lam[..., rb:], torch.zeros_like(lam[..., :rb])], dim=-1)
+        return state2, pack_controls(shifted), lam2, u0
+
+    def run(self, state0_fp, ticks: int):
+        """Closed loop from state0_fp (B, n) int32: (states (B, ticks+1, n),
+        applied control lanes (B, ticks, m))."""
+        q = self.qcqp
+        state = state0_fp.to(self.device)
+        batch = state.shape[:-1]
+        words = torch.zeros(batch + (q.qqp.padded // 4,), dtype=torch.int32,
+                            device=self.device)
+        lam = torch.zeros(batch + (q.padded_rows,), dtype=torch.int32, device=self.device)
+        states, applied = [state], []
+        for _ in range(ticks):
+            state, words, lam, u0 = self.tick(state, words, lam)
+            states.append(state)
+            applied.append(u0)
+        lanes = (torch.stack(applied, dim=-2) if applied
+                 else torch.zeros(batch + (0, self.inputs_per_step), dtype=torch.int32,
+                                  device=self.device))
+        return torch.stack(states, dim=-2), lanes

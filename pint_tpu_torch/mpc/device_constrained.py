@@ -6,8 +6,8 @@ PyTorch port of ``pint_tpu/mpc/device_constrained.py``
 of problems at once:
 
 * the condensation of :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP`
-  (f32 rollout + linearization, the unrolled propagator recursion, the
-  ``reduce="sym"`` contraction);
+  (f32 rollout + linearization, the propagator recursion in every
+  ``dev.propagate`` form, the contraction ``dev.reduce`` names);
 * constraint-row stacking S = F Bbar, P = F Abar, r = F Cbar from the same
   propagator stacks, batch-last;
 * K3 (:func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) on the
@@ -42,11 +42,6 @@ the kernels are held to on the card).  ``fused=False`` runs the word-space
 :meth:`DeviceConstrainedSQP.sharded_solve_words` runs the same iteration on
 a (dp, tp) process mesh; with tp > 1 its ALM inner is column-sharded over
 K10.
-
-Not ported yet: ``dev``'s own unported options, which raise
-``NotImplementedError`` in :class:`DeviceSQP`.
-``propagate="auto"`` runs the unrolled propagation, the only form ported
-(the reference's T < 40 scan crossover is a TPU measurement).
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -266,8 +261,11 @@ class DeviceConstrainedSQP:
         c = self._consts
 
         A_seq, B_lane, c_seq = d._linearize_phase(x0_f, lanes)
+        # the constraint rows need the propagator stacks, so every
+        # ``propagate`` form, "allpairs" too (the reference's allpairs takes
+        # its scan here), runs the recursion
         Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
-        Ht, g = d._reduce_sym(Abar, Bbar, Cbar, x0_f)
+        Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f)
         S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
         rho = float(np.float32(self.rho))
         kernels = d.use_kernels

@@ -5,10 +5,16 @@ only.  Each SQP iteration, for a batch of problems at once:
 
 * nominal rollout + linearization with the model's float32 twins
   (``rollout_f32``, ``linearize_f32``);
-* condensation: the unrolled propagator recursion, then the symmetric
-  square contraction ``Ht = W^T W`` with ``W = L^T B-stack`` and
-  ``Q = L L^T`` (``reduce="sym"``), keeping the Hessian batch-last
-  (Tm, Tm, B);
+* condensation: the propagator recursion (``propagate``: "unroll", the
+  step-by-step recursion; "scan" and "auto", the same recursion (see
+  :meth:`DeviceSQP._propagate_mode`); "allpairs", the closed form from
+  log-depth prefix products and per-step Gauss-Jordan inverses), then the
+  Hessian contraction (``reduce``: "sym", the symmetric square
+  ``Ht = W^T W`` with ``W = L^T B-stack`` and ``Q = L L^T``, for a PSD Q;
+  "einsum", the two-operand form any Q takes; "blocked", 2 x 2 block
+  triangular with the mirror; "btrans", one batched GEMM), keeping the
+  Hessian batch-last (Tm, Tm, B).  The port keeps its stacks batch-first
+  (B, T, n, ...); the contractions are batched f32 products;
 * Lipschitz estimate + int8 quantization, then the int32 step rationals
   and linear term: in one pass (K3,
   :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) where
@@ -30,10 +36,6 @@ PyTorch versions.  ``use_kernels=False`` runs the plain versions on any
 device: it is the reference the kernels are held to on the card.
 :meth:`DeviceSQP.sharded_solve_words` runs the same iteration on a (dp, tp)
 process mesh; with tp > 1 its PGD inner is column-sharded over K10.
-
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-``propagate="scan"`` and ``"allpairs"``, and ``reduce`` other than
-``"sym"``.
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -69,7 +71,48 @@ from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["DeviceSQP"]
 
-_TODO = "not ported yet (ROADMAP.md queue 1, slice 3 remainder)"
+PROPAGATE = ("allpairs", "auto", "scan", "unroll")
+REDUCE = ("einsum", "blocked", "btrans", "sym")
+
+
+def _inv_unrolled(M: torch.Tensor) -> torch.Tensor:
+    """Batched small-matrix inverse by pivot-free Gauss-Jordan (the
+    reference's ``_inv_unrolled``: n elementwise row updates over the
+    batch).  Exact enough here: the inputs are one-step discretizations
+    A = I + O(dt), so no pivot degenerates.  ``torch.linalg.inv`` would
+    round differently."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
+    aug = torch.cat([M, eye], dim=-1)                       # (..., n, 2n)
+    for p in range(n):
+        pivot = aug[..., p, :] / aug[..., p, p : p + 1]
+        aug = aug - aug[..., :, p : p + 1] * pivot[..., None, :]
+        aug[..., p, :] = pivot
+    return aug[..., :, n:]
+
+
+def _block_diag(D: torch.Tensor) -> torch.Tensor:
+    """(B, T, m, m) per-step blocks -> (B, T*m, T*m) block diagonal."""
+    Bn, T, m, _ = D.shape
+    eye = torch.eye(T, dtype=D.dtype, device=D.device)
+    return torch.einsum("bpij,pq->bpiqj", D, eye).reshape(Bn, T * m, T * m)
+
+
+def _assoc_scan(combine, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``x`` along dim 1 in ``jax.lax.associative_scan``'s
+    log-depth order (pairs combined, the odd prefixes by recursion, the
+    even ones from them), so that each prefix is the same product tree as
+    the reference's.  ``combine(earlier, later)``."""
+    n = x.shape[1]
+    if n < 2:
+        return x
+    odd = _assoc_scan(combine, combine(x[:, 0 : n - 1 : 2], x[:, 1::2]))
+    even = combine(odd[:, :-1] if n % 2 == 0 else odd, x[:, 2::2])
+    even = torch.cat([x[:, :1], even], dim=1)
+    out = torch.empty_like(x)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
 
 
 def sharded_program(cache, mesh, dev, whole_inner, cols_inner, make_prog):
@@ -114,8 +157,8 @@ class DeviceSQP:
     Same problem definition as ``pint_tpu``'s ``DeviceSQP``: symmetric lane
     box, cost sum (x_k - x_ref)^T Q (x_k - x_ref) + u^T R u with terminal Qf
     (``qf_scale * Q`` unless ``Qf`` is given).  ``horizon * n_ctrl`` must be
-    a multiple of 4.  Q must be PSD (``reduce="sym"``); that is checked at
-    construction."""
+    a multiple of 4.  ``reduce="sym"`` needs Q PSD, which is checked at
+    construction; ``"einsum"`` takes any Q."""
 
     model: object = dataclasses.field(default_factory=Unicycle)
     horizon: int = 48
@@ -139,14 +182,10 @@ class DeviceSQP:
     use_kernels: bool = True
 
     def __post_init__(self):
-        if self.propagate in ("scan", "allpairs"):
-            raise NotImplementedError(f"propagate={self.propagate!r}: {_TODO}")
-        if self.propagate not in ("auto", "unroll"):
-            raise ValueError(
-                f"propagate must be 'auto' or 'unroll', got {self.propagate!r}"
-            )
-        if self.reduce != "sym":
-            raise NotImplementedError(f"reduce={self.reduce!r}: {_TODO}")
+        if self.propagate not in PROPAGATE:
+            raise ValueError(f"propagate must be one of {PROPAGATE}, got {self.propagate!r}")
+        if self.reduce not in REDUCE:
+            raise ValueError(f"reduce must be one of {REDUCE}, got {self.reduce!r}")
         if self.n_dec % 4:
             raise ValueError(
                 f"horizon*n_ctrl = {self.n_dec} must be a multiple of 4 "
@@ -161,7 +200,8 @@ class DeviceSQP:
                 f"{self.n_ctrl} control channel(s)"
             )
         object.__setattr__(self, "device", K.resolve_device(self.device))
-        self._Q_sqrt  # validate Q (PSD) now, not at the first solve
+        if self.reduce == "sym":
+            self._Q_sqrt  # validate Q (PSD) now, not at the first solve
         self.forms    # choose each stage's form now, from the shapes
 
     @functools.cached_property
@@ -215,15 +255,15 @@ class DeviceSQP:
         w, V = np.linalg.eigh((Qn + Qn.T) / 2.0)
         if w.min() < -1e-9 * max(1.0, w.max()):
             raise ValueError(
-                f"reduce='sym' needs Q PSD; eigenvalues {w} (an indefinite "
-                "Q needs reduce='einsum', not ported yet)"
+                f"reduce='sym' needs Q PSD; eigenvalues {w}. For an indefinite "
+                "Q use reduce='einsum'."
             )
         return V * np.sqrt(np.clip(w, 0.0, None))
 
     @functools.cached_property
     def _consts(self):
-        """Qf - Q, R_kron, x_ref, L (Q = L L^T) and the lane scales as f32
-        tensors on the device."""
+        """Q, Qf - Q, R_kron, x_ref, L (Q = L L^T; for ``reduce="sym"``)
+        and the lane scales as f32 tensors on the device."""
         T = self.horizon
         s = self._lane_scales
         R_lane = s[:, None] * np.asarray(self.R) * s[None, :]
@@ -234,10 +274,11 @@ class DeviceSQP:
             return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
         return dict(
+            Q=f32(Q),
             dQ=f32(self.Qf_matrix - Q),
             R_kron=f32(np.kron(np.eye(T), R_lane)),
             x_ref=f32(x_ref),
-            L=f32(self._Q_sqrt),
+            L=f32(self._Q_sqrt) if self.reduce == "sym" else None,
             s=f32(s),
         )
 
@@ -287,6 +328,103 @@ class DeviceSQP:
             cs.append(c)
         return torch.stack(Ps, 1), torch.stack(Ss, 1), torch.stack(cs, 1)
 
+    def _condense_allpairs(self, A_seq, B_lane, c_seq, x0_f):
+        """``propagate="allpairs"``: the closed-form condensation of the
+        reference's ``_condense_allpairs``, batch-first.  Prefix products
+        P_k = A_k ... A_0 and their inverses (per-step Gauss-Jordan
+        inverses, :func:`_inv_unrolled`) by log-depth scans in the
+        reference's combine order, W_j = P_j^-1 B_j, the suffix sums
+        M'_j = sum_{k>=j} P_k^T Q P_k + P_{T-1}^T (Qf-Q) P_{T-1} and
+        r_j likewise, then H[j1, j2] = W_{j1}^T M'_{max} W_{j2} (+ R_kron),
+        g = G x0 + [W_j^T r_j]_j.  Returns (H (B, Tm, Tm), g (B, Tm))."""
+        c = self._consts
+        T, m = self.horizon, self.n_ctrl
+        Q, dQ = c["Q"], c["dQ"]
+        P = _assoc_scan(lambda x, y: y @ x, A_seq)                # (B,T,n,n)
+        Pinv = _assoc_scan(lambda x, y: x @ y, _inv_unrolled(A_seq))
+        W = Pinv @ B_lane                                        # (B,T,n,m)
+        v = torch.einsum("bjin,bjn->bji", Pinv, c_seq)
+        Cbar = torch.einsum("bkin,bkn->bki", P, torch.cumsum(v, dim=1))
+        Cx = Cbar - c["x_ref"]                                   # (B,T,n)
+        QP = torch.einsum("ij,bkjq->bkiq", Q, P)
+        E = torch.einsum("bkiq,bkir->bkqr", QP, P)               # P_k^T Q P_k
+        PT = P[:, T - 1]
+        FT = torch.einsum("biq,ij,bjr->bqr", PT, dQ, PT)
+        Mp = torch.flip(torch.cumsum(torch.flip(E, [1]), 1), [1]) + FT[:, None]
+        d = torch.einsum("bkiq,bki->bkq", QP, Cx)
+        r = torch.flip(torch.cumsum(torch.flip(d, [1]), 1), [1])
+        r = r + torch.einsum("biq,ij,bj->bq", PT, dQ, Cx[:, T - 1])[:, None]
+        Y = Mp @ W                                               # (B,T,n,m)
+        U = torch.einsum("bpni,bqnj->bpiqj", W, Y)               # (B,T,m,T,m)
+        idx = torch.arange(T, device=U.device)
+        mask = (idx[:, None] <= idx[None, :]).to(U.dtype)
+        U = (U * mask[None, :, None, :, None]).reshape(-1, T * m, T * m)
+        D = torch.einsum("bpni,bpnj->bpij", W, Y)
+        H = U + U.transpose(1, 2) - _block_diag(D) + c["R_kron"]
+        g_x0 = torch.einsum("bpqm,bq->bpm", Y, x0_f)
+        g_ref = torch.einsum("bpni,bpn->bpi", W, r)
+        return H, (g_x0 + g_ref).reshape(-1, T * m)
+
+    def _reduce_linear(self, BQ, BQT, Abar, Cx, x0_f):
+        """The linear term g = G x0 + g_ref from the Q-weighted stacks BQ
+        (B,T,n,Tm) and BQT (B,n,Tm) (the reference's ``_reduce_linear``;
+        n-contractions, shared by the einsum, blocked and btrans forms)."""
+        T = self.horizon
+        G = torch.einsum("btjn,btjq->bnq", BQ, Abar)
+        G = G + torch.einsum("bjn,bjq->bnq", BQT, Abar[:, T - 1])
+        g_ref = torch.einsum("btjn,btj->bn", BQ, Cx)
+        g_ref = g_ref + torch.einsum("bjn,bj->bn", BQT, Cx[:, T - 1])
+        return torch.einsum("bnq,bq->bn", G, x0_f) + g_ref
+
+    def _weighted(self, Bbar, Cbar):
+        """(BQ = Q-weighted Bbar (B,T,n,Tm), BT = Bbar_{T-1}, BQT = its
+        (Qf - Q)-weighted form (B,n,Tm), Cx = Cbar - x_ref)."""
+        c = self._consts
+        BQ = torch.einsum("btin,ij->btjn", Bbar, c["Q"])
+        BT = Bbar[:, self.horizon - 1]
+        BQT = torch.einsum("bin,ij->bjn", BT, c["dQ"])
+        return BQ, BT, BQT, Cbar - c["x_ref"]
+
+    def _reduce_phase(self, Abar, Bbar, Cbar, x0_f):
+        """``reduce="einsum"``: Ht = sum_k BQ_k^T Bbar_k + BQT^T B_T +
+        R_kron, the two-operand form any Q takes (an indefinite Q too).
+        Returns (Ht (Tm, Tm, B) batch-last, g (B, Tm))."""
+        BQ, BT, BQT, Cx = self._weighted(Bbar, Cbar)
+        Hb = torch.einsum("btjn,btjm->bnm", BQ, Bbar)
+        Hb = Hb + torch.einsum("bjn,bjm->bnm", BQT, BT) + self._consts["R_kron"]
+        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+
+    def _reduce_blocked(self, Abar, Bbar, Cbar, x0_f):
+        """``reduce="blocked"``: the einsum form as a 2 x 2 block-triangular
+        Ht, the lower-left block the upper-right's exact transpose (steps
+        before T/2 add nothing to the blocks of the second half's columns).
+        Returns (Ht (Tm, Tm, B), g (B, Tm))."""
+        T, m = self.horizon, self.n_ctrl
+        Th = T // 2
+        h = Th * m
+        BQ, BT, BQT, Cx = self._weighted(Bbar, Cbar)
+        lo, hi = slice(0, h), slice(h, self.n_dec)
+
+        def block(k0, a, b):
+            return (torch.einsum("btjn,btjm->bnm", BQ[:, k0:, :, a], Bbar[:, k0:, :, b])
+                    + torch.einsum("bjn,bjm->bnm", BQT[:, :, a], BT[:, :, b]))
+
+        H_ll, H_lh, H_hh = block(0, lo, lo), block(Th, lo, hi), block(Th, hi, hi)
+        top = torch.cat([H_ll, H_lh], dim=2)
+        bot = torch.cat([H_lh.transpose(1, 2), H_hh], dim=2)
+        Hb = torch.cat([top, bot], dim=1) + self._consts["R_kron"]
+        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+
+    def _reduce_btrans(self, Abar, Bbar, Cbar, x0_f):
+        """``reduce="btrans"``: the einsum form as one batched GEMM over the
+        flattened (B, T*n, Tm) stacks.  Returns (Ht (Tm, Tm, B), g (B, Tm))."""
+        T = self.horizon
+        Bn, _, n, Tm = Bbar.shape
+        BQ, BT, BQT, Cx = self._weighted(Bbar, Cbar)
+        Hb = torch.bmm(BQ.reshape(Bn, T * n, Tm).transpose(1, 2), Bbar.reshape(Bn, T * n, Tm))
+        Hb = Hb + torch.bmm(BQT.transpose(1, 2), BT) + self._consts["R_kron"]
+        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+
     def _reduce_sym(self, Abar, Bbar, Cbar, x0_f):
         """``reduce="sym"``: Ht = W^T W + BQT^T B_T + R_kron with
         W = L^T Bbar (the terminal ``Qf - Q`` term, not necessarily PSD,
@@ -312,11 +450,42 @@ class DeviceSQP:
         g = (G * x0_f[:, None, :]).sum(-1) + g_ref
         return Hb.permute(1, 2, 0).contiguous(), g
 
+    def _propagate_mode(self) -> str:
+        """The propagation form an iteration runs: "allpairs", or the
+        recursion ("unroll") for "unroll", "scan" and "auto".  The
+        reference's "scan" feeds each step's control block through a
+        materialized (T, n, Tm, B) injection tensor; adding its zeros
+        changes no bit, so on the port scan and unroll are the same
+        computation and run the same code.  The reference's "auto" picks
+        between those two by a TPU crossover, so here it is the recursion
+        at every horizon.  "allpairs" is a different computation (its (H, g)
+        differ from the recursion's in roundoff, within 1e-4 of max) and is
+        taken only by name, as in the reference.  On one H100 80GB HBM3 at
+        700 W, ``chip_smoke.py``'s ``phase_forms`` timed it against the
+        recursion (device ms of one SQP iteration, B = 4096): slower from
+        T = 8 (2.42 against 1.62) to T = 40 (12.68 against 11.51), 5%
+        faster at T = 64 (23.10 against 24.40; PERF.md section 5)."""
+        return "allpairs" if self.propagate == "allpairs" else "unroll"
+
+    def _reduce(self, Abar, Bbar, Cbar, x0_f):
+        """The contraction ``reduce`` names: (Ht (Tm, Tm, B), g (B, Tm))."""
+        red = {"einsum": self._reduce_phase, "blocked": self._reduce_blocked,
+               "btrans": self._reduce_btrans, "sym": self._reduce_sym}[self.reduce]
+        return red(Abar, Bbar, Cbar, x0_f)
+
     def _condense_ht(self, x0_f, lanes):
-        """f32 linearize + condense: (Ht (Tm, Tm, B), g (B, Tm))."""
+        """f32 linearize + condense in the configured ``propagate`` and
+        ``reduce`` forms: (Ht (Tm, Tm, B), g (B, Tm))."""
         A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
-        Abar, Bbar, Cbar = self._propagate_unrolled(A_seq, B_lane, c_seq)
-        return self._reduce_sym(Abar, Bbar, Cbar, x0_f)
+        if self._propagate_mode() == "allpairs":
+            H, g = self._condense_allpairs(A_seq, B_lane, c_seq, x0_f)
+            return H.permute(1, 2, 0).contiguous(), g
+        return self._reduce(*self._propagate_unrolled(A_seq, B_lane, c_seq), x0_f)
+
+    def _condense_hg(self, x0_f, lanes):
+        """(H (B, Tm, Tm), g (B, Tm)): the batch-first public layout."""
+        Ht, g = self._condense_ht(x0_f, lanes)
+        return Ht.permute(2, 0, 1), g
 
     def _g_pre_from(self, g, alpha):
         """int32 pre-shift linear term from f32 g (B, Tm) and per-problem

@@ -1,7 +1,9 @@
 """Fused PGD solver: the whole iteration loop in one kernel (K2, K2p).
 
 PyTorch port of ``pint_tpu/mpc/fused.py``.  :func:`fused_pgd` runs the CUDA
-kernel ``csrc/fused_pgd.cu`` for CUDA tensors and :func:`fused_pgd_plain`,
+kernel ``csrc/fused_pgd.cu`` (to Tp 256 with Hq's B fragments on chip,
+past it to :data:`FUSED_MAX_TP` reading them from L2) for CUDA tensors and
+:func:`fused_pgd_plain`,
 the plain PyTorch version of the same lane-space loop, for CPU tensors;
 words are unpacked once before the loop and packed once after it.
 :func:`fused_pgd_packed` (K2p, ``FusedPGD(packed_io=True)``) takes and
@@ -33,6 +35,11 @@ from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["FusedPGD", "fused_pgd", "fused_pgd_packed", "fused_pgd_packed_plain",
            "fused_pgd_plain"]
+
+
+FUSED_MAX_TP = 4096
+"""The widest Tp K2 and K2p take (``csrc/fused_pgd.cu``: to 256 Hq's B
+fragments stay on chip; past it they come from L2, 16 MB at 4096)."""
 
 
 def fused_pgd_plain(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
@@ -75,8 +82,9 @@ def fused_pgd(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
     if lanes.device.type == "cpu":
         return fused_pgd_plain(lanes, g, hq, **kw)
     K.require_cuda("fused_pgd", lanes, g, hq)
-    if Tp % 4 or Tp > 256:
-        raise ValueError(f"fused_pgd: Tp={Tp} must be a multiple of 4, <= 256")
+    if Tp % 4 or Tp > FUSED_MAX_TP:
+        raise ValueError(f"fused_pgd: Tp={Tp} must be a multiple of 4, <= "
+                         f"{FUSED_MAX_TP} (K2's limit)")
     out = torch.empty_like(lanes)
     with torch.cuda.device(lanes.device):
         err = K.library().pint_fused_pgd(
@@ -119,8 +127,9 @@ def fused_pgd_packed(words, g, hq, *, hs_num, hs_den, g_shift, iters):
     if words.device.type == "cpu":
         return fused_pgd_packed_plain(words, g, hq, **kw)
     K.require_cuda("fused_pgd_packed", words, g, hq)
-    if Tp > 256:
-        raise ValueError(f"fused_pgd_packed: Tp={Tp} must be <= 256")
+    if Tp > FUSED_MAX_TP:
+        raise ValueError(f"fused_pgd_packed: Tp={Tp} must be <= {FUSED_MAX_TP} "
+                         "(K2p's limit)")
     out = torch.empty_like(words)
     with torch.cuda.device(words.device):
         err = K.library().pint_fused_pgd_packed(

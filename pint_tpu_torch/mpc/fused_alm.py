@@ -13,8 +13,9 @@ PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
   plain version :func:`alm_hqt_plain`;
 * K7, the shared-operand ALM of the LTI ConstrainedPGD
   (``alm_shared_fused_words``): :func:`alm_shared`, CUDA kernel
-  ``csrc/alm.cu`` (``alm_mma_kernel``, on the tensor cores), plain version
-  :func:`alm_shared_plain`;
+  ``csrc/alm.cu`` (``alm_mma_kernel`` on the tensor cores to 256 lanes and
+  rows, ``alm_mma_wide_kernel`` past them, its B fragments from L2), plain
+  version :func:`alm_shared_plain`;
 * K10, one tp rank's column matvec, launched once an iteration by the
   column-sharded inners with the int32 all-reduce between launches
   (``pgd_matvec_cols``): :func:`pgd_matvec_cols`, CUDA kernel
@@ -24,7 +25,8 @@ Each wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors.  :func:`pgd_fits` and :func:`alm_fits` state the shapes K4 and
 K5 take (the reference's ``pgd_viable`` and ``alm_viable``); the wrappers
 refuse by them and the solvers choose their inners by them.  K7 takes Tp
-and Cp to 256.  The reference's TPU crossover for the column matvec
+and Cp to :data:`ALM_SHARED_MAX` (4096); the reference's kernel has no
+limit, and past it the port raises.  The reference's TPU crossover for the column matvec
 (``matvec_viable``, ``matvec_wins``, ``_MATVEC_MIN_COLS``,
 ``resolve_tp_fused``) is not ported: K10 checks its own shared-memory fit.
 
@@ -34,7 +36,8 @@ bit-identical to its word-space reference given the same operands
 (:func:`pint_tpu_torch.mpc.ltv._pgd_batched_h`,
 :func:`pint_tpu_torch.mpc.sqp_constrained._alm_batched`,
 ``ConstrainedPGD(fused=False)``).  The plain versions run the int8 matvecs
-as float64 products, exact here (|acc| <= 128 * 127 * 256) and free of TF32.
+as float64 products, exact here (|acc| <= 128 * 128 * 4096) and free of
+TF32.
 """
 
 from __future__ import annotations
@@ -246,6 +249,12 @@ def _check(name, specs):
             raise ValueError(f"{name}: {what} must be {dt}, got {t.dtype}")
 
 
+ALM_SHARED_MAX = 4096
+"""The widest Tp and Cp K7 takes (``csrc/alm.cu``: to 256 the B fragments
+stay on chip; past it they come from L2 and the tiles take 193 KB of shared
+memory at 4096)."""
+
+
 def alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *,
                      hs_num, hs_den, cs_num, cs_den, eh_num, eh_den, el_num,
                      el_den, outer, inners, g_shift, y_shift):
@@ -289,16 +298,21 @@ def alm_shared(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *, hs_num,
         return alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre,
                                 hi_pre, **kw)
     K.require_cuda("alm_shared", lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre)
-    if not (0 < Tp <= 256 and 0 < Cp <= 256 and Tp % 4 == 0 and Cp % 4 == 0):
+    if not (0 < Tp <= ALM_SHARED_MAX and 0 < Cp <= ALM_SHARED_MAX
+            and Tp % 4 == 0 and Cp % 4 == 0):
         raise ValueError(f"alm_shared: Tp={Tp}, Cp={Cp} must be multiples of 4 in "
-                         "[4, 256]")
+                         f"[4, {ALM_SHARED_MAX}] (K7's limit)")
     out_lanes = torch.empty_like(lanes)
     out_lam = torch.empty_like(lam)
+    lib = K.library()
+    scratch = torch.empty((lib.pint_alm_shared_scratch(B, Tp, Cp),), dtype=torch.int8,
+                          device=lanes.device)
     with torch.cuda.device(lanes.device):
-        err = K.library().pint_alm_shared(
+        err = lib.pint_alm_shared(
             lanes.data_ptr(), g_pre.data_ptr(), c_off.data_ptr(),
             lam.data_ptr(), hq.data_ptr(), sq.data_ptr(), lo_pre.data_ptr(),
             hi_pre.data_ptr(), out_lanes.data_ptr(), out_lam.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             B, Tp, Cp, outer, inners, g_shift, y_shift,
             *(int(kw[k]) for k in RATIONALS), K.stream_of(lanes),
         )

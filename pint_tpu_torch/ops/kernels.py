@@ -78,10 +78,10 @@ _SIGNATURES = {
     # lanes, g, hqt, sqj, sqc, c_off, lo, hi, lam, sc, out_lanes, out_lam,
     # B, Tp, Cp, outer, inners, g_shift, y_shift, stream
     "pint_alm": [_P] * 12 + [_I] * 7 + [_P],
-    # lanes, g, c_off, lam, hq, sq, lo, hi, out_lanes, out_lam, B, Tp, Cp,
-    # outer, inners, g_shift, y_shift, hs_num, hs_den, cs_num, cs_den,
-    # eh_num, eh_den, el_num, el_den, stream
-    "pint_alm_shared": [_P] * 10 + [_I] * 15 + [_P],
+    # lanes, g, c_off, lam, hq, sq, lo, hi, out_lanes, out_lam, scratch, B,
+    # Tp, Cp, outer, inners, g_shift, y_shift, hs_num, hs_den, cs_num,
+    # cs_den, eh_num, eh_den, el_num, el_den, stream
+    "pint_alm_shared": [_P] * 11 + [_I] * 15 + [_P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -95,6 +95,8 @@ _SIGNATURES = {
 _SIZES = {
     # B, C, Tm -> the scratch pint_pen needs
     "pint_pen_scratch": [_I, _I, _I],
+    # B, Tp, Cp -> the scratch pint_alm_shared needs (0 to 256 lanes and rows)
+    "pint_alm_shared_scratch": [_I, _I, _I],
 }
 
 SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",

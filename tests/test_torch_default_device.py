@@ -14,6 +14,7 @@ import pint_tpu_torch as pt
 from pint_tpu_torch.convert import words_from_numpy
 from pint_tpu_torch.mpc import (
     AcceleratedPGD,
+    ConstrainedController,
     ConstrainedPGD,
     DeviceSQP,
     FixedPointPGD,
@@ -55,6 +56,15 @@ ENTRY_POINTS = {
     "FixedPointPGD": lambda **kw: FixedPointPGD(_qqp(), iters=2, **kw),
     "AcceleratedPGD": lambda **kw: AcceleratedPGD(_qqp(), iters=2, **kw),
     "ConstrainedPGD": lambda **kw: ConstrainedPGD(_qcqp(), outer=1, inners=2, **kw),
+    "ConstrainedController": lambda **kw: ConstrainedController(
+        _qcqp(), plant_step=lambda s, u: pt.DoubleIntegrator().step(s, u[..., 0]), **kw),
+    "DeviceSQP(PlanarQuadrotor)": lambda **kw: DeviceSQP(
+        model=pt.PlanarQuadrotor(), horizon=8, sqp_iters=1, pgd_iters=2,
+        Q=np.eye(6), R=np.eye(2), x_ref=np.zeros(6), propagate="allpairs",
+        reduce="einsum", **kw),
+    "DeviceSQP(Pendulum)": lambda **kw: DeviceSQP(
+        model=pt.Pendulum(), horizon=8, sqp_iters=1, pgd_iters=2, Q=np.eye(2),
+        R=np.eye(1), x_ref=np.zeros(2), propagate="scan", reduce="blocked", **kw),
     "PackedArray.zeros": lambda **kw: pt.PackedArray.zeros(
         pt.PackedLayout(8, 8, 8, 8), (3,), **kw),
     "words_from_numpy": lambda **kw: words_from_numpy(
@@ -87,4 +97,7 @@ def test_cpu_entry_points_run_the_plain_versions():
     words, _ = FusedPGD(qqp, iters=3, device="cpu").solve(x0)
     ref, _ = FixedPointPGD(qqp, iters=3, device="cpu").solve(x0)
     assert torch.equal(words, ref)
+    ctrl = ENTRY_POINTS["ConstrainedController"](device="cpu")
+    states, lanes = ctrl.run(torch.tensor([[65536, 0], [-32768, 1000]], dtype=torch.int32), 3)
+    assert states.device.type == "cpu" and lanes.shape == (2, 3, 1)
     assert K.launch_counts() == before

@@ -180,13 +180,28 @@ def test_validation(small_pair):
         port.solve_words(port.init_words(2), X0, torch.zeros((2, 8), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("make", [
-    lambda: DeviceConstrainedSQP(DeviceSQP(reduce="einsum", **SMALL, device="cpu")),
-    lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL, device="cpu")),
+@pytest.mark.parametrize("make, reduce_fn", [
+    (lambda: DeviceConstrainedSQP(DeviceSQP(reduce="einsum", **SMALL, device="cpu")),
+     "_reduce_phase"),
+    (lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL, device="cpu")),
+     "_reduce_sym"),
 ], ids=["reduce=einsum", "propagate=scan"])
-def test_unported_options_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+def test_unported_options_raise(make, reduce_fn, monkeypatch):
+    """These options raised NotImplementedError until the port took them;
+    now the solver builds, and its condensation runs the recursion and the
+    contraction asked for ("scan" is the recursion, "einsum" the
+    two-operand contraction), and nothing else."""
+    csqp = make()
+    calls = []
+    for name in ("_propagate_unrolled", "_condense_allpairs", "_reduce_phase",
+                 "_reduce_blocked", "_reduce_btrans", "_reduce_sym"):
+        def spy(self, *a, _orig=getattr(DeviceSQP, name), _name=name):
+            calls.append(_name)
+            return _orig(self, *a)
+        monkeypatch.setattr(DeviceSQP, name, spy)
+    words, _ = csqp.solve_words(csqp.init_words(2), torch.from_numpy(X0))
+    assert words.shape == (2, csqp.dev.n_dec // 4)
+    assert calls == ["_propagate_unrolled", reduce_fn] * csqp.dev.sqp_iters, calls
 
 
 @pytest.fixture(scope="module")

@@ -227,8 +227,14 @@ def test_solve_deterministic_and_plain_route_equal(pair):
     (dict(reduce="blocked"), "blocked"),
 ])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        DeviceSQP(**KW, **kw, device="cpu")
+    """These options raised NotImplementedError until the port took them;
+    now each builds, and only a value that is no option raises (a
+    ValueError naming the choices)."""
+    (field, value), = kw.items()
+    sqp = DeviceSQP(**KW, **kw, device="cpu")
+    assert getattr(sqp, field) == value
+    with pytest.raises(ValueError, match=match):
+        DeviceSQP(**KW, **{field: value + "-x"}, device="cpu")
 
 
 def test_h_scale_and_step_rationals_bit_identical(pair):

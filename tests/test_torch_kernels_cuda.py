@@ -16,12 +16,18 @@ K6 bit-identical on every output (``pen_lip``, ``row_amp`` also held to
 rtol 1e-5 first; NaN where the plain version has NaN); K10 and K2p
 bit-identical (K10 with int32-extreme lanes against an int64 product
 wrapped modulo 2^32, which the plain version's float64 product does not
-reproduce; K2p also to K2 with its unpack and pack); whole DeviceSQP and DeviceConstrainedSQP solves (T = 32; T = 128,
-and 136, through K3 and K6; T = 144, past K3's fit), kernels against plain
-versions, cost parity rtol 0.01, atol 1e-4 (violation atol 5e-3).  Each
+reproduce; K2p also to K2 with its unpack and pack); K2, K2p and K7 past
+256 lanes (the wide forms) bit-identical, and raising past 4096; whole
+DeviceSQP and DeviceConstrainedSQP solves (T = 32; T = 128, and 136,
+through K3 and K6; T = 144, past K3's fit; the quadrotor and the pendulum;
+every condensation form), kernels against plain versions, cost parity rtol
+0.01, atol 1e-4 (violation atol 5e-3); ConstrainedController on the card
+bit-identical to the CPU's loop.  Each
 shape gate (``lipq_fits``, ``pen_fits``, ``pgd_fits``, ``alm_fits``) is true
 exactly where its kernel's C entry accepts the shape.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -641,12 +647,12 @@ def test_constrained_kernels_reject_bad_operands(cuda, con_condensed):
         pen_fused(torch.zeros((262, 261, 2), device=cuda), power_iters=1)
     z = torch.zeros
     with pytest.raises(ValueError, match="multiples of 4"):
-        alm_shared(z((2, 260), dtype=torch.int32, device=cuda),
-                   z((2, 260), dtype=torch.int32, device=cuda),
+        alm_shared(z((2, 262), dtype=torch.int32, device=cuda),
+                   z((2, 262), dtype=torch.int32, device=cuda),
                    z((2, 64), dtype=torch.int32, device=cuda),
                    z((2, 64), dtype=torch.int32, device=cuda),
-                   z((260, 260), dtype=torch.int8, device=cuda),
-                   z((64, 260), dtype=torch.int8, device=cuda),
+                   z((262, 262), dtype=torch.int8, device=cuda),
+                   z((64, 262), dtype=torch.int8, device=cuda),
                    z((64,), dtype=torch.int32, device=cuda),
                    z((64,), dtype=torch.int32, device=cuda),
                    hs_num=1, hs_den=0, cs_num=1, cs_den=0, eh_num=1, eh_den=0,
@@ -816,13 +822,15 @@ def test_pgd_fits_is_where_k4_accepts(cuda, Tp):
                                     (62, 64), (20, 100), (632, 4), (632, 8),
                                     (512, 136), (512, 140), (4, 4096), (4, 4100)])
 def test_alm_fits_is_where_k5_and_k7_accept(cuda, Tp, Cp):
-    """K5 takes what alm_fits takes; K7 takes that shape up to 256."""
+    """K5 takes what alm_fits takes; K7 takes multiples of 4 up to 4096
+    (its wide form past 256, given its scratch)."""
     from pint_tpu_torch.mpc import alm_fits
 
     fits = alm_fits(Tp, Cp)
     assert _entry_accepts(cuda, "pint_alm", 12, 1, Tp, Cp, 1, 2, 12, 9) == fits
-    assert _entry_accepts(cuda, "pint_alm_shared", 10, 1, Tp, Cp, 1, 2, 12, 9,
-                          1, 0, 1, 0, 1, 0, 1, 0) == (fits and max(Tp, Cp) <= 256)
+    k7 = Tp % 4 == 0 and Cp % 4 == 0 and max(Tp, Cp) <= 4096
+    assert _entry_accepts(cuda, "pint_alm_shared", 11, 1, Tp, Cp, 1, 2, 12, 9,
+                          1, 0, 1, 0, 1, 0, 1, 0) == k7
 
 
 @pytest.mark.parametrize("horizon, forms", [
@@ -1005,6 +1013,165 @@ def test_k2p_bit_identical(cuda, B, T, pad_to, iters, g_kind):
     assert torch.equal(solver.solve_words(words, g), got)
 
 
+# K2 and K2p past Tp 256 (the wide form: Hq's B fragments from L2): Tp 260
+# (a half column group and a half k-chunk of padding), 384, 512 from the
+# QP, 2048 on a random symmetric Hq (the QP's condensation takes minutes
+# there); B ragged around the tile of 16 and across the grid
+K2_WIDE_TP = [260, 384, 512, 2048]
+K2_WIDE_BATCHES = [1, 17, 1000, 4096]
+K2_WIDE_ITERS = [0, 1, 40]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_qp(Tp):
+    """(Hq (Tp, Tp) int8, hs_num, hs_den, g_shift, the QP or None)."""
+    if Tp <= 512:
+        qqp = quantize(condense_double_integrator(T=Tp), pad_to=4)
+        return qqp.Hq, qqp.hs_num, qqp.hs_den, qqp.g_shift, qqp
+    rng = np.random.default_rng(Tp)
+    a = rng.integers(-60, 61, (Tp, Tp))
+    hq = np.clip((a + a.T) // 2 + 127 * np.eye(Tp, dtype=np.int64), -127, 127)
+    return hq.astype(np.int8), 33, 9, 12, None
+
+
+def _k2_wide_operands(cuda, B, Tp, g_kind, seed):
+    hq, hs_num, hs_den, g_shift, qqp = _wide_qp(Tp)
+    rng = np.random.default_rng(seed)
+    lanes = rng.integers(-128, 128, (B, Tp), dtype=np.int32)
+    if g_kind == "real" and qqp is not None:
+        g = qqp.g_lane_fixed(np.stack([rng.uniform(-3, 3, B), rng.uniform(-1, 1, B)], -1))
+    elif g_kind == "real":
+        g = rng.integers(-2**20, 2**20, (B, Tp), dtype=np.int32)
+    else:
+        edge = rng.integers(0, 1 << 20, (B, Tp), dtype=np.int64)
+        g = np.where(rng.integers(0, 2, (B, Tp)) == 1, 2**31 - 1 - edge,
+                     -2**31 + edge).astype(np.int32)
+    kw = dict(hs_num=hs_num, hs_den=hs_den, g_shift=g_shift)
+    return (kw, torch.as_tensor(lanes, device=cuda), torch.as_tensor(g, device=cuda),
+            torch.as_tensor(hq, device=cuda))
+
+
+@pytest.mark.parametrize("g_kind", ["real", "extreme"])
+@pytest.mark.parametrize("iters", K2_WIDE_ITERS)
+@pytest.mark.parametrize("momentum", [False, True])
+@pytest.mark.parametrize("B", K2_WIDE_BATCHES)
+@pytest.mark.parametrize("Tp", K2_WIDE_TP)
+def test_k2_wide_bit_identical(cuda, Tp, B, momentum, iters, g_kind):
+    """K2's wide form against its plain version, one launch a call."""
+    kw, lanes, g, hq = _k2_wide_operands(cuda, B, Tp, g_kind, Tp + B)
+    kw.update(iters=iters, momentum=momentum, beta_num=150 if momentum else 0)
+    before = K.launch_counts()["fused_pgd"]
+    got = fused_pgd(lanes, g, hq, **kw)
+    assert K.launch_counts()["fused_pgd"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_pgd_plain(lanes, g, hq, **kw))
+
+
+@pytest.mark.parametrize("g_kind", ["real", "extreme"])
+@pytest.mark.parametrize("iters", K2_WIDE_ITERS)
+@pytest.mark.parametrize("B", K2_WIDE_BATCHES)
+@pytest.mark.parametrize("Tp", K2_WIDE_TP)
+def test_k2p_wide_bit_identical(cuda, Tp, B, iters, g_kind):
+    """K2p's wide form on the words against its plain version and against
+    K2 with its unpack and pack."""
+    from pint_tpu_torch.mpc import fused_pgd_packed, fused_pgd_packed_plain
+
+    kw, lanes, g, hq = _k2_wide_operands(cuda, B, Tp, g_kind, 7 * Tp + B)
+    kw.update(iters=iters)
+    words = pack_controls(lanes)
+    before = K.launch_counts()["fused_pgd_packed"]
+    got = fused_pgd_packed(words, g, hq, **kw)
+    assert K.launch_counts()["fused_pgd_packed"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_pgd_packed_plain(words, g, hq, **kw))
+    assert torch.equal(got, pack_controls(fused_pgd(unpack_controls(words), g, hq, **kw)))
+
+
+def test_fused_pgd_solve_at_tp512(cuda):
+    """FusedPGD (K2, momentum off and on, and K2p) at Tp = 512 on the card
+    equals the word-space FixedPointPGD."""
+    from pint_tpu_torch.mpc import FixedPointPGD
+
+    qqp = _wide_qp(512)[4]
+    x0 = np.stack([np.linspace(-3, 3, 33), np.linspace(-1, 1, 33)], -1)
+    ref, _ = FixedPointPGD(qqp, iters=20, device=cuda).solve(x0)
+    for kw in (dict(), dict(packed_io=True)):
+        words, _ = FusedPGD(qqp, iters=20, device=cuda, **kw).solve(x0)
+        assert torch.equal(words, ref)
+    solver = FusedPGD(qqp, iters=20, momentum=True, device=cuda)
+    g = torch.as_tensor(qqp.g_lane_fixed(x0), device=cuda)
+    lanes = fused_pgd_plain(unpack_controls(solver.init_words(33)), g, solver._hq,
+                            hs_num=qqp.hs_num, hs_den=qqp.hs_den, g_shift=qqp.g_shift,
+                            iters=20, momentum=True, beta_num=solver.beta_num)
+    assert torch.equal(solver.solve_words(solver.init_words(33), g), pack_controls(lanes))
+
+
+@pytest.mark.parametrize("Tp, Cp", [(260, 64), (384, 384), (512, 256), (512, 512),
+                                    (64, 300), (2048, 128)])
+@pytest.mark.parametrize("B", [1, 17, 1000])
+def test_k7_wide_bit_identical(cuda, B, Tp, Cp):
+    """K7's wide form (B fragments from L2, state in memory) against
+    alm_shared_plain on random operands with warm lanes (so -128 occurs)
+    and multipliers, one launch a call."""
+    from pint_tpu_torch.mpc import alm_shared, alm_shared_plain
+
+    args = _k7_operands(cuda, B, Tp, Cp, B + Tp + Cp)
+    kw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
+              el_num=23, el_den=11, outer=3, inners=8, g_shift=12, y_shift=9)
+    before = K.launch_counts()["alm_shared"]
+    got = alm_shared(*args, **kw)
+    assert K.launch_counts()["alm_shared"] == before + 1
+    ref = alm_shared_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for outer, inners in ((0, 5), (2, 0)):
+        kw.update(outer=outer, inners=inners)
+        got = alm_shared(*args, **kw)
+        ref = alm_shared_plain(*args, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_constrained_pgd_solve_at_tp512(cuda):
+    """ConstrainedPGD at T = 512 (Tp = Cp = 512) runs K7's wide form, equal
+    to the word-space solver."""
+    from pint_tpu_torch.mpc import ConstrainedPGD
+
+    q = _lti_constrained(512)
+    x0 = np.stack([np.linspace(-1.5, 1.5, 33), np.linspace(-0.2, 0.2, 33)], -1)
+    kern = ConstrainedPGD(q, outer=2, inners=10, device=cuda)
+    word = ConstrainedPGD(q, outer=2, inners=10, fused=False, device=cuda)
+    g = torch.as_tensor(q.qqp.g_lane_fixed(x0), device=cuda)
+    co = torch.as_tensor(q.c_off_pre(x0), device=cuda)
+    before = K.launch_counts()["alm_shared"]
+    w_k, l_k = kern.solve_words(kern.init_words(33), g, co)
+    assert K.launch_counts()["alm_shared"] == before + 1
+    w_x, l_x = word.solve_words(kern.init_words(33), g, co)
+    assert torch.equal(w_k, w_x) and torch.equal(l_k, l_x)
+
+
+def test_wide_forms_raise_past_their_limit(cuda):
+    """Past Tp (or Cp) 4096 K2, K2p and K7 raise; nothing falls back."""
+    from pint_tpu_torch.mpc import alm_shared, fused_pgd_packed
+
+    z = torch.zeros
+    T = 4100
+    lanes = z((2, T), dtype=torch.int32, device=cuda)
+    hq = z((T, T), dtype=torch.int8, device=cuda)
+    kw = dict(hs_num=1, hs_den=0, g_shift=12, iters=1)
+    with pytest.raises(ValueError, match="4096"):
+        fused_pgd(lanes, lanes, hq, **kw)
+    with pytest.raises(ValueError, match="4096"):
+        fused_pgd_packed(z((2, T // 4), dtype=torch.int32, device=cuda), lanes, hq, **kw)
+    with pytest.raises(ValueError, match="4096"):
+        alm_shared(lanes, lanes, z((2, 8), dtype=torch.int32, device=cuda),
+                   z((2, 8), dtype=torch.int32, device=cuda), hq,
+                   z((8, T), dtype=torch.int8, device=cuda),
+                   z((8,), dtype=torch.int32, device=cuda),
+                   z((8,), dtype=torch.int32, device=cuda),
+                   hs_num=1, hs_den=0, cs_num=1, cs_den=0, eh_num=1, eh_den=0,
+                   el_num=1, el_den=0, outer=1, inners=1, g_shift=12, y_shift=9)
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("T, pad_to", [(50, 4), (50, 64)])
 def test_k2_unaligned_operands(cuda, packed, T, pad_to):
@@ -1036,3 +1203,162 @@ def test_k2_unaligned_operands(cuda, packed, T, pad_to):
     assert K.launch_counts()[name] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+# -- the other model families and forms on the card -----------------------------
+
+QUAD_KW = dict(horizon=16, pgd_iters=30, Q=np.diag([4.0, 4.0, 1.0, 0.2, 0.2, 0.1]),
+               R=np.diag([0.05, 0.05]), qf_scale=20.0, x_ref=np.zeros(6))
+QUAD_CON = dict(F=[[0.0, 0.0, 0.0, 0.0, 1.0, 0.0]], lo=-0.15, hi=0.15, rho=50.0,
+                alm_outer=3)
+
+
+def _quad_x0(B, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.3, 0.3, B), rng.uniform(-0.3, 0.3, B),
+                     rng.uniform(-0.03, 0.03, B), rng.uniform(-0.1, 0.1, B),
+                     rng.uniform(-0.1, 0.1, B), rng.uniform(-0.03, 0.03, B)],
+                    -1).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=[37, 4096], ids=lambda b: f"B{b}")
+def quad_condensed(cuda, request):
+    """One real DeviceConstrainedSQP condensation of the planar quadrotor
+    (n = 6, m = 2, T = 16: Tm = 32; C = 16 rows padded to Cp = 64)."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    csqp = DeviceConstrainedSQP(DeviceSQP(model=pt.PlanarQuadrotor(), sqp_iters=1,
+                                          device=cuda, **QUAD_KW), **QUAD_CON)
+    assert csqp.forms == dict(condense="lipq", constraints="pen", inner="alm")
+    B = request.param
+    rng = np.random.default_rng(90)
+    x0 = torch.as_tensor(_quad_x0(B, 91), device=cuda)
+    lanes = torch.as_tensor(rng.integers(-100, 100, (B, 32), dtype=np.int32), device=cuda)
+    d = csqp.dev
+    Ht, g = d._condense_ht(x0, lanes)
+    A, Bl, c = d._linearize_phase(x0, lanes)
+    S_t, _, _ = csqp._stack_constraints(*d._propagate_unrolled(A, Bl, c))
+    ops, _ = csqp._condense_constrained_dev(x0, lanes)
+    return csqp, lanes, Ht, g, S_t, ops
+
+
+def test_quadrotor_k3_k4_k6_k5_bit_identical(quad_condensed):
+    """K3, K4, K6 and K5 at the quadrotor's shapes (Tm 32, C 16 in Cp 64)
+    against their plain versions on real operands."""
+    from pint_tpu_torch.mpc import pen_fused, pen_plain
+    from pint_tpu_torch.mpc.constrained import RATIONALS
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT
+
+    csqp, lanes, Ht, g, S_t, o = quad_condensed
+    d = csqp.dev
+    got, ref = lipq_fused(Ht, power_iters=d.power_iters), lipq_plain(Ht, power_iters=d.power_iters)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    hqt, lip, hmax = ref
+    alpha = true_div(1.0, lip)
+    g_pre = d._g_pre_from(g, alpha)
+    hs_num, hs_den = d._step_rationals(alpha * hmax * (1.0 / 127.0))
+    kw = dict(iters=30, g_shift=d.g_shift)
+    assert torch.equal(pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw),
+                       pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
+    for a, b in zip(pen_fused(S_t, power_iters=d.power_iters),
+                    pen_plain(S_t, power_iters=d.power_iters)):
+        assert torch.equal(a, b)
+    sc = torch.stack([o[k] for k in RATIONALS])
+    lam = torch.zeros_like(o["c_off"])
+    args = (lanes.clamp(-127, 127), o["g_pre"], o["hqt"], o["sqj"], o["sqc"], o["c_off"],
+            o["lo_pre"], o["hi_pre"], lam, sc)
+    akw = dict(outer=3, inners=30, g_shift=d.g_shift, y_shift=_Y_SHIFT)
+    a, b = alm_hqt(*args, **akw), alm_hqt_plain(*args, **akw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("model", ["quadrotor", "pendulum"])
+def test_other_models_solve_at_cost_parity(cuda, model):
+    """DeviceSQP and DeviceConstrainedSQP on the quadrotor (T = 16) and the
+    pendulum (T = 32) through the kernels against use_kernels=False: the
+    same words (the plain versions add in the kernels' order), cost and
+    violation parity."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    if model == "quadrotor":
+        kw, con, x0 = dict(QUAD_KW, model=pt.PlanarQuadrotor()), QUAD_CON, _quad_x0(64, 92)
+    else:
+        kw = dict(horizon=32, pgd_iters=30, Q=np.diag([1.0, 0.05]), R=np.array([[0.05]]),
+                  x_ref=np.zeros(2), model=pt.Pendulum())
+        con = dict(F=[[0.0, 1.0]], lo=-0.4, hi=0.4, rho=50.0, alm_outer=3)
+        rng = np.random.default_rng(93)
+        x0 = np.stack([rng.uniform(-0.1, 0.1, 64), rng.uniform(-0.3, 0.3, 64)],
+                      -1).astype(np.float32)
+    x = torch.as_tensor(x0, device=cuda)
+    out = []
+    for use in (True, False):
+        sqp = DeviceSQP(sqp_iters=3, device=cuda, use_kernels=use, **kw)
+        csqp = DeviceConstrainedSQP(sqp, **con)
+        w = sqp.solve_words(sqp.init_words(64), x)
+        wc, lam = csqp.solve_words(csqp.init_words(64), x)
+        lanes = unpack_controls(w)[:, : sqp.n_dec].cpu().numpy()
+        lc = unpack_controls(wc)[:, : sqp.n_dec].cpu().numpy()
+        out.append((w, wc, lam, true_cost(sqp, x0, lanes), true_cost(sqp, x0, lc),
+                    csqp.violation(x0, lc)))
+    torch.cuda.synchronize()
+    (k, p) = out
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    for i in (3, 4):
+        np.testing.assert_allclose(k[i], p[i], rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(k[5], p[5], atol=5e-3)
+
+
+@pytest.mark.parametrize("form", [dict(propagate="scan"), dict(propagate="allpairs"),
+                                  dict(reduce="einsum"), dict(reduce="blocked"),
+                                  dict(reduce="btrans")],
+                         ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()))
+def test_forms_on_the_card_at_cost_parity(cuda, form):
+    """Each condensation form through the kernels on the card at cost
+    parity with the default (unroll + sym) form, both solvers."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    x0 = _x0(64, 94)
+    x = torch.as_tensor(x0, device=cuda)
+    costs = []
+    for f in (dict(), form):
+        sqp = DeviceSQP(sqp_iters=2, device=cuda, **dict(SQP_KW, **f))
+        csqp = DeviceConstrainedSQP(DeviceSQP(sqp_iters=2, device=cuda, **dict(
+            SQP_KW, x_ref=np.array([1.0, 0.0, 0.0]), **f)), **CON)
+        lanes = unpack_controls(sqp.solve_words(sqp.init_words(64), x))[:, :64].cpu().numpy()
+        lc = unpack_controls(csqp.solve_words(csqp.init_words(64), x)[0])[:, :64].cpu().numpy()
+        costs.append((true_cost(sqp, x0, lanes), true_cost(csqp.dev, x0, lc),
+                      csqp.violation(x0, lc)))
+    for i in (0, 1):
+        np.testing.assert_allclose(costs[1][i], costs[0][i], rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(costs[1][2], costs[0][2], atol=5e-3)
+
+
+def test_constrained_controller_on_the_card(cuda):
+    """ConstrainedController through K7 every tick, bit-identical to the
+    same loop on the CPU (word-space ALM), the velocity limit held."""
+    from pint_tpu_torch.mpc import ConstrainedController, constrain_states, quantize_constrained
+
+    model = pt.DoubleIntegrator()
+    dt, T = model.dt, 32
+    qp = condense_double_integrator(T=T, dt=dt, q_pos=4.0, u_max=127 * model.u_scale)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    q = quantize_constrained(constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-0.15, hi=0.15), rho=50.0)
+    rng = np.random.default_rng(95)
+    x0 = np.stack([rng.uniform(-1.5, 1.5, 300) * 2**16, rng.uniform(-0.1, 0.1, 300) * 2**16],
+                  -1).astype(np.int32)
+    runs = []
+    for dev in (cuda, "cpu"):
+        ctrl = ConstrainedController(q, plant_step=lambda s, u: model.step(s, u[..., 0]),
+                                     device=dev)
+        before = K.launch_counts()["alm_shared"]
+        runs.append(ctrl.run(torch.as_tensor(x0), 30))
+        if dev == cuda:
+            assert K.launch_counts()["alm_shared"] == before + 30
+    assert torch.equal(runs[0][0].cpu(), runs[1][0]) and torch.equal(runs[0][1].cpu(), runs[1][1])
+    assert np.abs(runs[1][0].numpy()[..., 1] * 2.0**-16).max() < 0.15 + 0.01
