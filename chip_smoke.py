@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SWAR substrate, serving path, state-constrained
-tier, multi-device tier, the other model families and every condensation
-form once on one H100.
+tier, multi-device tier, the other model families, every condensation
+form, the host SQP tier, the LTI controllers and the planners once on one
+H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -116,14 +117,37 @@ Phases (any failure raises and the script exits non-zero):
 22. the condensation forms (phase_forms): both flagship solvers, one SQP
     iteration in each propagate and reduce form, at cost parity with
     unroll + sym, with their device times; DeviceSQP's recursion against
-    allpairs at T = 8, 16, 24, 32, 40, 64.
+    allpairs at T = 8, 16, 24, 32, 40, 64;
+23. the host SQP tier (phase_sqp_host): QuantizedSQP (unicycle T = 32,
+    6 x 40) and ConstrainedSQP (|y| <= 0.03, rho 100, 6 x (4 x 40)) at
+    B = 512, SQPController at B = 256 for 20 ticks, bit-identical to the
+    CPU (words, multipliers, cost histories, states, applied lanes; the CPU
+    runs every eighth problem); solves/s and ticks/s, one iteration's host
+    condensation ms and inner device ms;
+24. the LTI controllers on K2 (phase_lti_controllers):
+    RecedingHorizonController (double integrator, T = 32, 12 iterations)
+    at B = 8192 for 40 ticks, fused (K2 once a tick) = word-space = CPU;
+    the quadrotor hover LTIController (T = 40, n 6, m 2, 25 iterations) at
+    B = 4096 for 160 ticks, with error feedback against the CPU and fused
+    (K2 once a tick) against the word-space loop; the profiler shows one K2
+    a tick; ticks/s and device ms a tick;
+25. the planners (phase_planners): QuantizedMPPI (H 50, K 512, B 16: 8192
+    rollouts an update) plan and 40-tick closed loop, and
+    QuantizedNonlinearPGD (H 48, 60 iterations, goal + obstacle) at
+    B = 4096, each at cost parity with the CPU (the same noise for MPPI),
+    the differing lanes counted; rollouts/s, solves/s, device time;
+26. examples/swingup.py's flow (phase_swingup): a pendulum QuantizedSQP
+    plan at T = 128 bit-identical to the CPU's, then an SQPController
+    tracker (T = 16) for 192 ticks, ending with |theta| < 0.02 turns.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
 phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels,
-phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick, and
-phase 21 K3 and K4 (K3, K6 and K5) in each solve.
+phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick,
+phase 21 K3 and K4 (K3, K6 and K5) in each solve, and phase 24 K2 once a
+tick in both fused LTI loops (K2's launches in the kernels line add the
+MPCService ticks and these).
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
@@ -135,6 +159,7 @@ last line is ``{"ok": true, "device": {...}}``.  Inputs are made from fixed
 seeds.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -193,6 +218,26 @@ PEND_KW = dict(horizon=32, sqp_iters=4, pgd_iters=20, Q=np.diag([1.0, 0.05]),
                R=np.array([[0.05]]), x_ref=np.zeros(2))
 PEND_CON = dict(F=[[0.0, 1.0]], lo=-0.4, hi=0.4, rho=50.0, alm_outer=3)
 FORMS_T = (8, 16, 24, 32, 40, 64)
+# phase 23, the host SQP tier: tests/test_ltv.py:99's planner and
+# tests/test_sqp_constrained.py's binding corridor.  The host condensation
+# (numpy einsums, one thread) bounds the batch; the card runs every problem
+# and the CPU checks every SQP_CHECK_STRIDE-th (each problem's words are
+# independent of its batch companions)
+SQP_HOST_KW = dict(SQP_KW, sqp_iters=6, pgd_iters=40)
+CSQP_KW = dict(horizon=32, sqp_iters=6, pgd_iters=40, x_ref=np.array([1.0, 0.0, 0.0]))
+CSQP_CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=4)
+SQP_HOST_BATCH, SQP_CHECK_STRIDE = 512, 8
+SQPC_BATCH, SQPC_TICKS = 256, 20
+# phase 24, the LTI controllers on K2: tests/test_controller.py's double
+# integrator and tests/test_quadrotor.py:56's hover loop
+RHC_BATCH, RHC_TICKS, RHC_T, RHC_ITERS = 8192, 40, 32, 12
+HOVER_BATCH, HOVER_TICKS, HOVER_T, HOVER_ITERS, HOVER_CHECK_STRIDE = 4096, 160, 40, 25, 32
+# phase 25, the planners: BASELINE's 8192 rollouts of H = 50 an MPPI update
+# (B 16 x K 512), tests/test_nonlinear.py's planner at B 4096
+MPPI_BATCH, MPPI_H, MPPI_K, MPPI_UPDATES, MPPI_TICKS = 16, 50, 512, 8, 40
+NL_BATCH, NL_H, NL_ITERS, NL_CHECK_STRIDE, NL_PROFILE_ITERS = 4096, 48, 60, 16, 5
+# phase 26, examples/swingup.py's flow
+SWING_TICKS = 192
 
 
 def say(*parts):
@@ -925,7 +970,6 @@ def phase_crti(torch, P, K):
 
 def phase_con_flagship(torch, P, timing):
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     kern, plain = make_csqp(P, 4), make_csqp(P, 4, use_kernels=False)
     x0 = con_states(np.random.default_rng(0), CON_BATCH).astype(np.float32)
@@ -935,12 +979,12 @@ def phase_con_flagship(torch, P, timing):
     for name, csqp in (("kernels", kern), ("plain", plain)):
         words, lam = csqp.solve_words(u0, x0_t)
         lanes = unpack_controls(words)[:, : csqp.dev.n_dec].cpu().numpy()
-        out[name] = (words, lam, true_cost(csqp.dev, x0, lanes),
+        out[name] = (words, lam, csqp.dev.true_cost(x0, lanes),
                      csqp.violation(x0, lanes))
         ms = median(timing.host_ms(lambda: csqp.solve_words(u0, x0_t), reps=3))
         out[name + "_ms"] = ms
     (wk, lk, ck, vk), (wp, lp, cp, vp) = out["kernels"], out["plain"]
-    cold = true_cost(kern.dev, x0, np.zeros((CON_BATCH, kern.dev.n_dec), np.int32))
+    cold = kern.dev.true_cost(x0, np.zeros((CON_BATCH, kern.dev.n_dec), np.int32))
     if not (np.isfinite(ck).all() and ck.mean() < cold.mean()):
         raise AssertionError("constrained flagship: costs not finite or no better "
                              "than cold")
@@ -967,7 +1011,6 @@ def phase_con_flagship(torch, P, timing):
 
 def phase_flagship(torch, P, timing):
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     kern = P.DeviceSQP(sqp_iters=4, device=DEVICE, **SQP_KW)
     plain = P.DeviceSQP(sqp_iters=4, device=DEVICE, use_kernels=False, **SQP_KW)
@@ -978,12 +1021,12 @@ def phase_flagship(torch, P, timing):
     for name, sqp in (("kernels", kern), ("plain", plain)):
         words = sqp.solve_words(u0, x0_t)
         lanes = unpack_controls(words)[:, : sqp.n_dec].cpu().numpy()
-        out[name] = (words, true_cost(sqp, x0, lanes))
+        out[name] = (words, sqp.true_cost(x0, lanes))
         ms = median(timing.host_ms(lambda: sqp.solve_words(u0, x0_t), reps=5))
         out[name + "_solves_per_s"] = RTI_BATCH / (ms / 1e3)
         out[name + "_ms"] = ms
     ck, cp = out["kernels"][1], out["plain"][1]
-    cold = true_cost(kern, x0, np.zeros((RTI_BATCH, kern.n_dec), np.int32))
+    cold = kern.true_cost(x0, np.zeros((RTI_BATCH, kern.n_dec), np.int32))
     if not (np.isfinite(ck).all() and ck.mean() < cold.mean()):
         raise AssertionError("flagship: costs not finite or no better than cold")
     np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
@@ -1111,7 +1154,6 @@ def phase_long(torch, P, K):
     condensation kernel, words and multipliers bit-identical to the plain
     versions', cost (and violation) parity."""
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     rec = {}
 
@@ -1158,7 +1200,7 @@ def phase_long(torch, P, K):
                 outs_lam[which] = res[1]
             dev = getattr(solver, "dev", solver)
             lanes = unpack_controls(words)[:, : dev.n_dec].cpu().numpy()
-            out[which] = (words, true_cost(dev, x0, lanes), ms,
+            out[which] = (words, dev.true_cost(x0, lanes), ms,
                           solver.violation(x0, lanes) if name != "device_sqp" else None)
         for k in launched:
             if counts[k] < 1:
@@ -1523,7 +1565,6 @@ def phase_models(torch, P, K, timing):
     in each solve (counts set to 0 before it, read after); solves/s by the
     host clock and the device time (torch.profiler)."""
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     rec = {}
     for name in ("quadrotor", "pendulum"):
@@ -1550,7 +1591,7 @@ def phase_models(torch, P, K, timing):
                 differ |= (out[1] != ref[1]).any(-1)
             lk = unpack_controls(w)[:, : d.n_dec].cpu().numpy()
             lp = unpack_controls(wp)[:, : d.n_dec].cpu().numpy()
-            ck, cp = true_cost(d, x0, lk), true_cost(d, x0, lp)
+            ck, cp = d.true_cost(x0, lk), d.true_cost(x0, lp)
             np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
             r = dict(forms=kern.forms, launches={k: counts[k] for k in need},
                      problems_differing=int(differ.sum().item()),
@@ -1591,7 +1632,6 @@ def phase_forms(torch, P):
     at T = 8, 16, 24, 32, 40 and 64.  The constrained tier runs the
     recursion in every propagate form (it needs the stacks)."""
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     B = RTI_BATCH
 
@@ -1622,7 +1662,7 @@ def phase_forms(torch, P):
             out = run(s, x_d)
             d = s.dev if kind == "device_constrained" else s
             lanes = unpack_controls(out[0])[:, : d.n_dec].cpu().numpy()
-            cost = true_cost(d, x0, lanes)
+            cost = d.true_cost(x0, lanes)
             viol = s.violation(x0, lanes) if kind == "device_constrained" else None
             if label == "propagate=unroll":
                 base[kind] = (cost, viol)
@@ -1644,6 +1684,385 @@ def phase_forms(torch, P):
         rec["crossover"][f"device_sqp T={T}"] = r
         say(f"crossover device_sqp T={T}: unroll {r['unroll']:.3f} ms, allpairs "
             f"{r['allpairs']:.3f} ms of device time an SQP iteration")
+    return rec
+
+
+def costs_equal(what, got, ref):
+    """Raises unless two float64 cost arrays are equal."""
+    if got.shape != ref.shape or not np.array_equal(got, ref):
+        raise AssertionError(f"{what}: the card's costs differ from the CPU's")
+
+
+def phase_sqp_host(torch, P, timing):
+    """Phase 23, the host SQP tier on the card: QuantizedSQP
+    (tests/test_ltv.py:99: unicycle T = 32, 6 x 40) and ConstrainedSQP
+    (tests/test_sqp_constrained.py's binding corridor: x_ref (1, 0, 0),
+    F = [[0, 1, 0]], -+0.03, rho 100, 4 ALM outers) at SQP_HOST_BATCH seeded
+    starts, then SQPController (one SQP iteration a tick) at SQPC_BATCH for
+    SQPC_TICKS ticks.  Words, multipliers, cost histories, states and applied
+    lanes bit-identical to the same solves on the CPU, for every
+    SQP_CHECK_STRIDE-th problem.  Solves/s and ticks/s by the host clock;
+    one SQP iteration split into its host condensation (ms) and its inner's
+    device time (torch.profiler)."""
+    from pint_tpu_torch.mpc.ltv import _pgd_batched_h
+    from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
+
+    rec = {}
+    rng = np.random.default_rng(90)
+    B = SQP_HOST_BATCH
+    sub = np.arange(0, B, SQP_CHECK_STRIDE)
+    x0, xc = rti_states(rng, B), con_states(rng, B)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sqp = P.QuantizedSQP(device=DEVICE, **SQP_HOST_KW)
+    (w, costs), sec = timed(lambda: sqp.solve(x0))
+    wc, cc = dataclasses.replace(sqp, device="cpu").solve(x0[sub])
+    same(torch, "QuantizedSQP words, card vs CPU", w.cpu()[sub], wc)
+    costs_equal("QuantizedSQP", costs[sub], cc)
+    lanes = sqp.lanes(w)
+    t0 = time.perf_counter()
+    ops = sqp._condense_batch(x0, lanes)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    Hq, g, num, den = (torch.as_tensor(a, device=DEVICE) for a in ops)
+    ev = device_kernels(torch, lambda: _pgd_batched_h(
+        w, g, Hq, num, den, iters=sqp.pgd_iters, g_shift=sqp.g_shift))
+    rec["quantized_sqp"] = dict(
+        B=B, checked_on_cpu=len(sub), sec=sec, solves_per_s=B / sec,
+        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=sum(u for _, u in ev) / 1e3,
+        inner_device_ops_per_iter=len(ev), mean_cost_first=float(costs[:, 0].mean()),
+        mean_cost_last=float(costs[:, -1].mean()))
+    say(f"QuantizedSQP B={B} T=32 6x40: words and cost histories bit-identical to the CPU "
+        f"on {len(sub)} problems; {B / sec:.1f} solves/s by the host clock ({sec:.2f} s); "
+        f"an iteration: host condensation {host_ms:.1f} ms, inner "
+        f"{rec['quantized_sqp']['inner_device_ms_per_iter']:.3f} ms of device time in "
+        f"{len(ev)} operations; mean cost {costs[:, 0].mean():.4f} -> {costs[:, -1].mean():.4f}")
+
+    csqp = P.ConstrainedSQP(P.QuantizedSQP(device=DEVICE, **CSQP_KW), **CSQP_CON)
+    (w, lam, costs), sec = timed(lambda: csqp.solve(xc))
+    ccpu = dataclasses.replace(csqp, sqp=dataclasses.replace(csqp.sqp, device="cpu"))
+    wc, lc, cc = ccpu.solve(xc[sub])
+    same(torch, "ConstrainedSQP words, card vs CPU", w.cpu()[sub], wc)
+    same(torch, "ConstrainedSQP multipliers, card vs CPU", lam.cpu()[sub], lc)
+    costs_equal("ConstrainedSQP", costs[sub], cc)
+    lanes = csqp.sqp.lanes(w)
+    viol = csqp.violation(xc, lanes)
+    t0 = time.perf_counter()
+    ops, _ = csqp._condense_constrained(xc, lanes)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    names = ("g_pre", "Hq", "hs_num", "hs_den", "Sq", "cs_num", "cs_den", "c_off", "lo_pre",
+             "hi_pre", "eh_num", "eh_den", "el_num", "el_den")
+    t_ops = [torch.as_tensor(ops[k], device=DEVICE) for k in names]
+    ev = device_kernels(torch, lambda: _alm_batched(
+        w, *t_ops, lam, outer=csqp.alm_outer, inners=csqp.sqp.pgd_iters,
+        g_shift=csqp.sqp.g_shift, y_shift=_Y_SHIFT))
+    rec["constrained_sqp"] = dict(
+        B=B, checked_on_cpu=len(sub), sec=sec, solves_per_s=B / sec,
+        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=sum(u for _, u in ev) / 1e3,
+        inner_device_ops_per_iter=len(ev), mean_violation=float(viol.mean()),
+        max_violation=float(viol.max()), active_multipliers=int((lam != 0).any(-1).sum()))
+    r = rec["constrained_sqp"]
+    say(f"ConstrainedSQP B={B} T=32 6x(4x40) |y|<=0.03: words, multipliers and cost "
+        f"histories bit-identical to the CPU on {len(sub)} problems; {B / sec:.1f} solves/s "
+        f"by the host clock ({sec:.2f} s); an iteration: host condensation {host_ms:.1f} ms, "
+        f"inner {r['inner_device_ms_per_iter']:.3f} ms of device time; violation mean "
+        f"{r['mean_violation']:.2e}, max {r['max_violation']:.2e}")
+
+    xs = x0[:SQPC_BATCH]
+    ctl = P.SQPController(sqp, iters_per_tick=1)
+    (states, applied), sec = timed(lambda: ctl.run(xs, SQPC_TICKS))
+    csub = sub[sub < SQPC_BATCH]
+    s_c, a_c = P.SQPController(dataclasses.replace(sqp, device="cpu")).run(xs[csub], SQPC_TICKS)
+    if not (np.array_equal(states[csub], s_c) and np.array_equal(applied[csub], a_c)):
+        raise AssertionError("SQPController: the card's loop differs from the CPU's")
+    dist = np.linalg.norm(sqp.model.to_float(states)[:, -1, :2] - SQP_KW["x_ref"][:2], axis=-1)
+    rec["sqp_controller"] = dict(B=SQPC_BATCH, ticks=SQPC_TICKS, checked_on_cpu=len(csub),
+                                 sec=sec, ticks_per_s=SQPC_TICKS / sec,
+                                 mean_final_distance=float(dist.mean()))
+    say(f"SQPController B={SQPC_BATCH} {SQPC_TICKS} ticks: states and applied lanes "
+        f"bit-identical to the CPU on {len(csub)} problems; {SQPC_TICKS / sec:.2f} ticks/s "
+        f"by the host clock; mean distance to the goal {dist.mean():.4f}")
+    return rec
+
+
+def phase_lti_controllers(torch, P, K, timing):
+    """Phase 24, the LTI controllers on K2.  RecedingHorizonController.build(
+    DoubleIntegrator(u_shift=10), horizon=32, iters_per_tick=12) at RHC_BATCH
+    seeded states for RHC_TICKS ticks, with use_fused=True (K2 every tick:
+    counts set to 0 before the loop and read after) and use_fused=False, the
+    two bit-identical to each other and to the CPU's loop.  Then the
+    quadrotor hover LTIController (tests/test_quadrotor.py:56-72: T = 40,
+    n = 6, m = 2, 25 iterations, error feedback) at HOVER_BATCH for
+    HOVER_TICKS ticks, bit-identical to the CPU's loop on every
+    HOVER_CHECK_STRIDE-th problem, and its use_fused=True,
+    error_feedback=False form (K2 every tick) bit-identical to the word-space
+    loop without error feedback.  torch.profiler must show one K2 launch a
+    tick on both fused paths.  Ticks/s by the host clock and device ms a
+    tick.  Returns the record and the K2 launches of the fused loops."""
+    rec, launches = {}, 0
+    rng = np.random.default_rng(100)
+
+    def k2_per_tick(ctl, x, ticks=5):
+        ev = device_kernels(torch, lambda: ctl.run(x, ticks))
+        k2 = [n for n, _ in ev if "fused_pgd" in n]
+        if len(k2) != ticks:
+            raise AssertionError(f"profiler: {len(k2)} K2 launches in {ticks} ticks")
+        return sum(u for _, u in ev) / (ticks * 1e3), len(ev) / ticks
+
+    def loop(ctl, x, ticks):
+        """The fused closed loop, timed, with its K2 launches counted."""
+        nonlocal launches
+        ctl.run(x, 1)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()                  # this loop's path starts
+        t0 = time.perf_counter()
+        out = ctl.run(x, ticks)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = K.launch_counts()["fused_pgd"]        # and ends here
+        if n != ticks:
+            raise AssertionError(f"K2 launched {n} times in {ticks} fused ticks")
+        launches += n
+        return out, sec
+
+    model = P.DoubleIntegrator(u_shift=10)
+    rhc = P.RecedingHorizonController.build(model, horizon=RHC_T, iters_per_tick=RHC_ITERS,
+                                            device=DEVICE)
+    fused = dataclasses.replace(rhc, use_fused=True)
+    x0 = model.to_fixed(lti_states(rng, RHC_BATCH))
+    x_d = torch.as_tensor(x0, device=DEVICE)
+    (sf, lf), sec = loop(fused, x_d, RHC_TICKS)
+    su, lu = rhc.run(x_d, RHC_TICKS)
+    sc, lc = dataclasses.replace(rhc, device="cpu").run(torch.as_tensor(x0), RHC_TICKS)
+    same(torch, "RecedingHorizonController states, fused vs word-space", sf, su)
+    same(torch, "RecedingHorizonController lanes, fused vs word-space", lf, lu)
+    same(torch, "RecedingHorizonController states, card vs CPU", sf.cpu(), sc)
+    same(torch, "RecedingHorizonController lanes, card vs CPU", lf.cpu(), lc)
+    dev_f, ops_f = k2_per_tick(fused, x_d)
+    dev_u = sum(u for _, u in device_kernels(torch, lambda: rhc.run(x_d, 5))) / 5e3
+    ms_f = median(timing.host_ms(lambda: fused.run(x_d, 5), reps=3)) / 5
+    ms_u = median(timing.host_ms(lambda: rhc.run(x_d, 5), reps=3)) / 5
+    pos = np.abs(model.to_float(sc.numpy()[:, -1, 0]))
+    rec["receding_horizon"] = dict(
+        B=RHC_BATCH, ticks=RHC_TICKS, Tp=rhc.qqp.padded, iters=RHC_ITERS, k2_launches=RHC_TICKS,
+        ticks_per_s=RHC_TICKS / sec, fused_tick_ms=ms_f, word_space_tick_ms=ms_u,
+        fused_device_ms_per_tick=dev_f, fused_device_ops_per_tick=ops_f,
+        word_space_device_ms_per_tick=dev_u, mean_abs_final_position=float(pos.mean()))
+    say(f"RecedingHorizonController B={RHC_BATCH} T={RHC_T} {RHC_TICKS} ticks: K2 once a "
+        f"tick (launch count and profiler), fused = word-space = CPU bit for bit; "
+        f"{RHC_TICKS / sec:.1f} ticks/s by the host clock; a tick {ms_f:.3f} ms fused, "
+        f"{ms_u:.3f} ms word-space; device time a tick {dev_f:.4f} ms fused "
+        f"({ops_f:.0f} operations), {dev_u:.4f} ms word-space")
+
+    quad = P.PlanarQuadrotor()
+    A, Bm = quad.hover_lti()
+    Q = np.diag([4.0, 4.0, 2.0, 0.5, 0.5, 0.5])
+    qqp = P.quantize(P.condense_lti(A, Bm, Q, 0.05, 10 * Q, HOVER_T, np.zeros(6),
+                                    100 * quad.f_scale))
+
+    def hover(fused_, ef, device=DEVICE):
+        return P.LTIController(qqp, plant_step=lambda s, u: quad.step(s, u[..., 0], u[..., 1]),
+                               inputs_per_step=2, iters_per_tick=HOVER_ITERS,
+                               use_fused=fused_, error_feedback=ef, device=device)
+
+    st = np.stack([rng.uniform(-0.6, 0.6, HOVER_BATCH), rng.uniform(-0.6, 0.6, HOVER_BATCH),
+                   rng.uniform(-0.03, 0.03, HOVER_BATCH), rng.uniform(-0.2, 0.2, HOVER_BATCH),
+                   rng.uniform(-0.2, 0.2, HOVER_BATCH), rng.uniform(-0.05, 0.05, HOVER_BATCH)],
+                  -1)
+    st[0] = [0.6, -0.4, 0.03, 0.0, 0.0, 0.0]
+    x0 = quad.to_fixed(st)
+    x_d = torch.as_tensor(x0, device=DEVICE)
+    sub = np.arange(0, HOVER_BATCH, HOVER_CHECK_STRIDE)
+    ef = hover(False, True)
+    ef.run(x_d, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se, le = ef.run(x_d, HOVER_TICKS)
+    torch.cuda.synchronize()
+    sec_ef = time.perf_counter() - t0
+    s_c, l_c = hover(False, True, "cpu").run(torch.as_tensor(x0[sub]), HOVER_TICKS)
+    same(torch, "hover LTIController states, card vs CPU", se.cpu()[sub], s_c)
+    same(torch, "hover LTIController lanes, card vs CPU", le.cpu()[sub], l_c)
+    traj = quad.to_float(s_c.numpy()[0])
+    if not (np.abs(traj[-1, :2]).max() < 0.12 and abs(traj[-1, 2]) < 0.02):
+        raise AssertionError(f"hover: the reference test's start ends at {traj[-1]}")
+    fz, wz = hover(True, False), hover(False, False)
+    (sf, lf), sec_f = loop(fz, x_d, HOVER_TICKS)
+    sw, lw = wz.run(x_d, HOVER_TICKS)
+    same(torch, "hover LTIController states, fused vs word-space", sf, sw)
+    same(torch, "hover LTIController lanes, fused vs word-space", lf, lw)
+    dev_f, ops_f = k2_per_tick(fz, x_d)
+    dev_e = sum(u for _, u in device_kernels(torch, lambda: ef.run(x_d, 5))) / 5e3
+    rec["quadrotor_hover"] = dict(
+        B=HOVER_BATCH, ticks=HOVER_TICKS, Tp=qqp.padded, iters=HOVER_ITERS,
+        checked_on_cpu=len(sub), k2_launches=HOVER_TICKS,
+        error_feedback_ticks_per_s=HOVER_TICKS / sec_ef, fused_ticks_per_s=HOVER_TICKS / sec_f,
+        error_feedback_device_ms_per_tick=dev_e, fused_device_ms_per_tick=dev_f,
+        fused_device_ops_per_tick=ops_f)
+    say(f"quadrotor hover LTIController B={HOVER_BATCH} Tp={qqp.padded} {HOVER_TICKS} ticks: "
+        f"error feedback bit-identical to the CPU on {len(sub)} problems "
+        f"({HOVER_TICKS / sec_ef:.1f} ticks/s, {dev_e:.4f} ms of device time a tick); fused "
+        f"(K2 once a tick) = word-space without error feedback ({HOVER_TICKS / sec_f:.1f} "
+        f"ticks/s, {dev_f:.4f} ms of device time a tick)")
+    return rec, launches
+
+
+def phase_planners(torch, P, timing):
+    """Phase 25, the sampling and gradient planners.  QuantizedMPPI
+    (horizon 50, 512 samples, tests/test_mppi.py's unicycle) at MPPI_BATCH
+    seeded goals: ``plan`` with MPPI_UPDATES updates and a MPPI_TICKS-tick
+    ``run_closed_loop``, on the card and on the CPU from one seeded CPU
+    generator each (the same noise for both runs, drawn on the CPU); then
+    QuantizedNonlinearPGD (horizon 48, 60 iterations) at NL_BATCH with
+    goal_cost + obstacle_cost, the CPU solving every NL_CHECK_STRIDE-th
+    problem.  Each held at cost parity (rtol 0.01, atol 1e-4) with the
+    count of differing lanes.  Rollouts/s and solves/s by the host clock,
+    and device time (torch.profiler)."""
+    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc import costs as C
+
+    rec = {}
+    rng = np.random.default_rng(110)
+    model = P.Unicycle(v_shift=10, w_shift=8)
+    goals = np.stack([rng.uniform(-1.5, 1.5, MPPI_BATCH), rng.uniform(-1.5, 1.5, MPPI_BATCH)],
+                     -1).astype(np.float32)
+    cost = P.unicycle_goal_cost(model, goals[:, None, :])
+    mppi = P.QuantizedMPPI(model, horizon=MPPI_H, samples=MPPI_K, noise_lanes=30,
+                           device=DEVICE)
+    cpu = dataclasses.replace(mppi, device="cpu")
+    s0 = torch.zeros((MPPI_BATCH, 3), dtype=torch.int32)
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def plan_cost(words):
+        ctrl = unpack_controls(words.cpu()).reshape(MPPI_BATCH, MPPI_H, 2)
+        return cost(model.rollout(s0, ctrl), ctrl).numpy()
+
+    mppi.plan(gen(0), s0, cost, updates=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, best = mppi.plan(gen(7), s0, cost, updates=MPPI_UPDATES)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    wc, bc = cpu.plan(gen(7), s0, cost, updates=MPPI_UPDATES)
+    ck, cc = plan_cost(w), plan_cost(wc)
+    np.testing.assert_allclose(ck, cc, rtol=0.01, atol=1e-4)
+    n_plan = int((unpack_controls(w).cpu() != unpack_controls(wc)).sum())
+    sd, ad = mppi.run_closed_loop(gen(8), s0, cost, MPPI_TICKS)
+    sc, ac = cpu.run_closed_loop(gen(8), s0, cost, MPPI_TICKS)
+    lk, lc = cost(sd.cpu(), ad.cpu()).numpy(), cost(sc, ac).numpy()
+    np.testing.assert_allclose(lk, lc, rtol=0.01, atol=1e-4)
+    n_loop = int((sd.cpu() != sc).sum())
+    ev = device_kernels(torch, lambda: mppi.step(gen(9), w, s0.to(DEVICE), cost))
+    rollouts = MPPI_BATCH * MPPI_K * MPPI_UPDATES
+    rec["mppi"] = dict(B=MPPI_BATCH, K=MPPI_K, H=MPPI_H, updates=MPPI_UPDATES,
+                       rollouts_per_s=rollouts / sec, plan_sec=sec,
+                       update_device_ms=sum(u for _, u in ev) / 1e3,
+                       update_device_ops=len(ev), plan_lanes_differing=n_plan,
+                       closed_loop_ticks=MPPI_TICKS, closed_loop_state_values_differing=n_loop,
+                       mean_plan_cost=float(ck.mean()), mean_loop_cost=float(lk.mean()))
+    say(f"QuantizedMPPI B={MPPI_BATCH} K={MPPI_K} H={MPPI_H}: plan ({MPPI_UPDATES} updates) and "
+        f"a {MPPI_TICKS}-tick closed loop at cost parity with the CPU on the same noise "
+        f"({n_plan} plan lanes, {n_loop} loop state values differ); {rollouts / sec:.1f} "
+        f"rollouts/s by the host clock; an update {rec['mppi']['update_device_ms']:.3f} ms "
+        f"of device time in {len(ev)} operations")
+
+    nl = P.QuantizedNonlinearPGD(model, horizon=NL_H, iters=NL_ITERS, device=DEVICE)
+    g_nl = np.stack([rng.uniform(1.2, 1.8, NL_BATCH), rng.uniform(-0.4, 0.4, NL_BATCH)],
+                    -1).astype(np.float32)
+    sub = np.arange(0, NL_BATCH, NL_CHECK_STRIDE)
+    obst = [(0.8, 0.06)]
+
+    def nl_cost(g):
+        return C.combine(C.goal_cost(model, g), C.obstacle_cost(model, obst, radius=0.3))
+
+    x0 = model.to_fixed(np.stack([rng.uniform(-0.1, 0.1, NL_BATCH),
+                                  rng.uniform(-0.1, 0.1, NL_BATCH),
+                                  rng.uniform(-0.05, 0.05, NL_BATCH)], -1))
+    x_d = torch.as_tensor(x0, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, st = nl.solve(x_d, nl_cost(g_nl))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    wc, stc = dataclasses.replace(nl, device="cpu").solve(torch.as_tensor(x0[sub]),
+                                                          nl_cost(g_nl[sub]))
+    cf = nl_cost(g_nl[sub])
+
+    def traj_cost(words, states):
+        ctrl = unpack_controls(words.cpu()).reshape(-1, NL_H, 2).to(torch.float32)
+        return cf(states.cpu(), ctrl).numpy()
+
+    ck, cc = traj_cost(w[sub], st[sub]), traj_cost(wc, stc)
+    np.testing.assert_allclose(ck, cc, rtol=0.01, atol=1e-4)
+    n_nl = int((unpack_controls(w.cpu()[sub]) != unpack_controls(wc)).sum())
+    dist = np.linalg.norm(st.cpu().numpy()[:, -1, :2] * 2.0**-16 - g_nl, axis=-1)
+    short = dataclasses.replace(nl, iters=NL_PROFILE_ITERS)
+    ev = device_kernels(torch, lambda: short.solve(x_d, nl_cost(g_nl)))
+    rec["nonlinear"] = dict(B=NL_BATCH, H=NL_H, iters=NL_ITERS, sec=sec,
+                            solves_per_s=NL_BATCH / sec, checked_on_cpu=len(sub),
+                            lanes_differing=n_nl, lanes_checked=int(sub.size * 2 * NL_H),
+                            device_ms_per_iter=sum(u for _, u in ev) / (NL_PROFILE_ITERS * 1e3),
+                            device_ops_per_iter=len(ev) / NL_PROFILE_ITERS,
+                            mean_final_distance=float(dist.mean()))
+    r = rec["nonlinear"]
+    say(f"QuantizedNonlinearPGD B={NL_BATCH} H={NL_H} {NL_ITERS} iterations, goal + obstacle: "
+        f"cost parity with the CPU on {len(sub)} problems ({n_nl} of {r['lanes_checked']} "
+        f"lanes differ); {NL_BATCH / sec:.1f} solves/s by the host clock ({sec:.2f} s); "
+        f"{r['device_ms_per_iter']:.3f} ms of device time an iteration in "
+        f"{r['device_ops_per_iter']:.0f} operations; mean distance to the goal "
+        f"{dist.mean():.4f}")
+    return rec
+
+
+def phase_swingup(torch, P):
+    """Phase 26, examples/swingup.py's flow through the port on the card:
+    Pendulum(u_shift=10), a QuantizedSQP plan at T = 128 (8 x 60) from
+    hanging, then an SQPController tracker at T = 16 (1 x 40, pad_to 16)
+    along the plan for SWING_TICKS ticks.  The plan's words and cost history
+    bit-identical to the CPU's, the tracked loop's states too; it must end
+    with |theta| < 0.02 turns, the example's own assertion."""
+    model = P.Pendulum(u_shift=10)
+    planner = P.QuantizedSQP(model=model, horizon=128, sqp_iters=8, pgd_iters=60,
+                             Q=np.diag([1.0, 0.05]), R=np.array([[0.05]]), qf_scale=80.0,
+                             x_ref=np.zeros(2), device=DEVICE)
+    x0 = np.array([[0.5, 0.0]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, costs = planner.solve(x0)
+    plan_sec = time.perf_counter() - t0
+    wc, cc = dataclasses.replace(planner, device="cpu").solve(x0)
+    same(torch, "swing-up plan words, card vs CPU", w.cpu(), wc)
+    costs_equal("swing-up plan", costs, cc)
+    ref_traj = model.reference_rollout(x0[0], planner.plan_phys(w)[0])
+    x_ref_traj = np.concatenate([ref_traj, np.zeros((SWING_TICKS + 16 - ref_traj.shape[0], 2))])
+    tracker = P.QuantizedSQP(model=model, horizon=16, sqp_iters=1, pgd_iters=40,
+                             Q=np.diag([1.0, 0.3]), R=np.array([[0.01]]), qf_scale=20.0,
+                             x_ref=np.zeros(2), pad_to=16, device=DEVICE)
+    t0 = time.perf_counter()
+    states, applied = P.SQPController(tracker).run(x0, SWING_TICKS, x_ref_traj=x_ref_traj)
+    track_sec = time.perf_counter() - t0
+    s_c, a_c = P.SQPController(dataclasses.replace(tracker, device="cpu")).run(
+        x0, SWING_TICKS, x_ref_traj=x_ref_traj)
+    if not (np.array_equal(states, s_c) and np.array_equal(applied, a_c)):
+        raise AssertionError("swing-up: the card's tracked loop differs from the CPU's")
+    traj = model.to_float(states)[0]
+    if not abs(traj[-1, 0]) < 0.02:
+        raise AssertionError(f"swing-up: did not balance, final theta {traj[-1, 0]}")
+    rec = dict(plan_cost_first=float(costs[0, 0]), plan_cost_last=float(costs[0, -1]),
+               plan_sec=plan_sec, track_ticks=SWING_TICKS, track_sec=track_sec,
+               track_ticks_per_s=SWING_TICKS / track_sec, final_theta=float(traj[-1, 0]),
+               final_omega=float(traj[-1, 1]), plan_endpoint_theta=float(ref_traj[-1, 0]))
+    say(f"swing-up: plan T=128 8x60 bit-identical to the CPU, cost {costs[0, 0]:.1f} -> "
+        f"{costs[0, -1]:.1f} ({plan_sec:.2f} s); tracker T=16 {SWING_TICKS} ticks bit-identical "
+        f"({SWING_TICKS / track_sec:.1f} ticks/s), final theta {traj[-1, 0]:+.5f} turns "
+        f"(|theta| < 0.02: balanced)")
     return rec
 
 
@@ -1930,6 +2349,19 @@ def main():
     controller = phase_controller(torch, P, K, timing)
     models = phase_models(torch, P, K, timing)
     forms = phase_forms(torch, P)
+    t0 = time.perf_counter()
+    sqp_host = phase_sqp_host(torch, P, timing)
+    t1 = time.perf_counter()
+    lti, lti_k2 = phase_lti_controllers(torch, P, K, timing)
+    t2 = time.perf_counter()
+    planners = phase_planners(torch, P, timing)
+    t3 = time.perf_counter()
+    swingup = phase_swingup(torch, P)
+    t4 = time.perf_counter()
+    phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
+                     swingup=t4 - t3)
+    say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
+        f"{phase_sec['planners']:.1f} s, {phase_sec['swingup']:.1f} s ({t4 - t0:.1f} s in all)")
 
     from pint_tpu_torch.utils.profiling import bound_ms, kernel_cost
 
@@ -1976,9 +2408,11 @@ def main():
     k2_main = dict(k2["iters15_momentum0"],
                    max_abs_err=max(r["max_abs_err"] for r in k2.values()))
     entry("fused_pgd (K2)", "pint_tpu_torch/csrc/fused_pgd.cu", "pint_tpu/mpc/fused.py:119",
-          counts["fused_pgd"], k2_main,
+          counts["fused_pgd"] + lti_k2, k2_main,
           kernel_cost("fused_pgd", B=LTI_BATCH, Tp=k2_main["Tp"], iters=k2_main["iters"]),
           "loop")
+    kernels[-1]["launches_by_path"] = {"serving (MPCService ticks)": counts["fused_pgd"],
+                                       "LTI controller ticks (phase 24)": lti_k2}
     entry("lipq (K3)", "pint_tpu_torch/csrc/lipq.cu", "pint_tpu/mpc/condense_fused.py:77",
           counts["lipq"], k3, kernel_cost("lipq", B=RTI_BATCH, Tm=k3["Tm"],
                                              power_iters=k3["power_iters"]),
@@ -2060,6 +2494,8 @@ def main():
                     "long_horizon": long, "long_horizon_kernels": long_kernels}))
     say(json.dumps({"wide": wide, "rollouts": rollouts, "controller": controller,
                     "models": models, "forms": forms}))
+    say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
+                    "swingup": swingup, "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

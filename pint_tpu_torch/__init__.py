@@ -3,10 +3,13 @@
 The JAX package ``pint_tpu`` stays beside it as the reference.  This package
 imports torch and numpy and never jax (nor ``pint_tpu``).  Ported so far:
 the SWAR substrate (``PackedArray`` and its free functions, 8- to 64-bit
-words, runtime shifts), the four models of the device tier (double
-integrator, unicycle, planar quadrotor, pendulum), the LTI box-QP PGD
-solvers, the on-device SQP with every propagation and contraction form, the
-state-constrained tier (the LTI ``ConstrainedPGD`` and its closed loop
+words, runtime shifts), the four models (double integrator, unicycle,
+planar quadrotor, pendulum), the LTI box-QP PGD solvers and their
+closed-loop controllers (``LTIController``, ``RecedingHorizonController``),
+the host SQP tier (``QuantizedSQP``, ``SQPController``, ``ConstrainedSQP``),
+the sampling and gradient planners (``QuantizedMPPI``,
+``QuantizedNonlinearPGD``) with their costs, the on-device SQP with every
+propagation and contraction form, the state-constrained tier (the LTI ``ConstrainedPGD`` and its closed loop
 ``ConstrainedController``, and the on-device ``DeviceConstrainedSQP``), the three
 serving endpoints and the multi-device tier (:mod:`pint_tpu_torch.parallel`:
 a (dp, tp) process mesh under ``torch.distributed``, the sharded PGD and
@@ -33,16 +36,26 @@ from pint_tpu_torch.mpc import (
     CondensedQP,
     ConstrainedController,
     ConstrainedPGD,
+    ConstrainedSQP,
     DeviceConstrainedSQP,
     DeviceSQP,
     FixedPointPGD,
     FusedPGD,
+    LTIController,
+    QuantizedMPPI,
+    QuantizedNonlinearPGD,
     QuantizedQP,
+    QuantizedSQP,
+    RecedingHorizonController,
+    SQPController,
     condense_double_integrator,
     condense_lti,
+    condense_ltv,
     constrain_states,
+    dare_terminal,
     quantize,
     quantize_constrained,
+    unicycle_goal_cost,
 )
 from pint_tpu_torch.packed import (
     PackedArray,
@@ -92,6 +105,7 @@ __all__ = [
     "CondensedQP",
     "ConstrainedController",
     "ConstrainedPGD",
+    "ConstrainedSQP",
     "DoubleIntegrator",
     "Pendulum",
     "PlanarQuadrotor",
@@ -100,18 +114,27 @@ __all__ = [
     "DeviceSQP",
     "FixedPointPGD",
     "FusedPGD",
+    "LTIController",
     "MPCService",
+    "QuantizedMPPI",
+    "QuantizedNonlinearPGD",
     "QuantizedQP",
+    "QuantizedSQP",
     "RTIService",
+    "RecedingHorizonController",
+    "SQPController",
     "ServiceStats",
     "Unicycle",
     "condense_double_integrator",
     "condense_lti",
+    "condense_ltv",
     "constrain_states",
     "convert",
+    "dare_terminal",
     "parallel",
     "pack_controls",
     "quantize",
     "quantize_constrained",
+    "unicycle_goal_cost",
     "unpack_controls",
 ]

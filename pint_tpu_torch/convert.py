@@ -18,13 +18,19 @@ from pint_tpu_torch.mpc.constrained import (
     QuantizedConstrainedQP,
     StateConstrainedQP,
 )
+from pint_tpu_torch.mpc.controller import LTIController, RecedingHorizonController
 from pint_tpu_torch.mpc.device_constrained import DeviceConstrainedSQP
 from pint_tpu_torch.mpc.device_sqp import DeviceSQP
+from pint_tpu_torch.mpc.ltv import QuantizedSQP
+from pint_tpu_torch.mpc.mppi import QuantizedMPPI
+from pint_tpu_torch.mpc.nonlinear import QuantizedNonlinearPGD
+from pint_tpu_torch.mpc.sqp_constrained import ConstrainedSQP
 from pint_tpu_torch.ops import kernels as K
 
-__all__ = ["device_constrained_config", "device_sqp_config", "model_config",
+__all__ = ["constrained_sqp_config", "device_constrained_config", "device_sqp_config",
+           "lti_controller_config", "model_config", "mppi_config", "nonlinear_config",
            "quantized_constrained_qp_from_arrays", "quantized_qp_from_arrays",
-           "words_from_numpy", "words_to_numpy"]
+           "quantized_sqp_config", "words_from_numpy", "words_to_numpy"]
 
 _SIGNED = {np.dtype(np.uint8): np.int8, np.dtype(np.uint16): np.int16,
            np.dtype(np.uint32): np.int32, np.dtype(np.uint64): np.int64}
@@ -139,3 +145,79 @@ def device_constrained_config(ref, **overrides) -> DeviceConstrainedSQP:
     )
     kw.update({k: v for k, v in overrides.items() if k in own})
     return DeviceConstrainedSQP(**kw)
+
+
+def quantized_sqp_config(ref, **overrides) -> QuantizedSQP:
+    """The port's :class:`QuantizedSQP` with a reference ``QuantizedSQP``'s
+    fields (the model through :func:`model_config`); ``overrides`` sets the
+    port's own (``device``, ...)."""
+    kw = dict(
+        model=model_config(ref.model), horizon=int(ref.horizon),
+        Q=np.asarray(ref.Q, float), R=np.asarray(ref.R, float),
+        qf_scale=float(ref.qf_scale),
+        Qf=None if ref.Qf is None else np.asarray(ref.Qf, float),
+        x_ref=np.asarray(ref.x_ref, float), sqp_iters=int(ref.sqp_iters),
+        pgd_iters=int(ref.pgd_iters), g_shift=int(ref.g_shift), pad_to=int(ref.pad_to),
+    )
+    kw.update(overrides)
+    return QuantizedSQP(**kw)
+
+
+def constrained_sqp_config(ref, **overrides) -> ConstrainedSQP:
+    """The port's :class:`ConstrainedSQP` with a reference one's fields;
+    ``sqp`` through :func:`quantized_sqp_config`.  ``overrides`` sets fields
+    of either: the constrained solver's own (``rho``, ...) and the rest on
+    ``sqp`` (``device``, ...)."""
+    own = {f.name for f in dataclasses.fields(ConstrainedSQP)}
+    kw = dict(
+        sqp=quantized_sqp_config(ref.sqp, **{k: v for k, v in overrides.items()
+                                             if k not in own}),
+        F=np.asarray(ref.F, float), lo=np.asarray(ref.lo, float),
+        hi=np.asarray(ref.hi, float), rho=float(ref.rho),
+        alm_outer=int(ref.alm_outer), row_pad=int(ref.row_pad),
+    )
+    kw.update({k: v for k, v in overrides.items() if k in own})
+    return ConstrainedSQP(**kw)
+
+
+def lti_controller_config(ref, plant_step=None, **overrides):
+    """The port's :class:`LTIController` or
+    :class:`RecedingHorizonController` with a reference one's fields (its
+    ``QuantizedQP`` through :func:`quantized_qp_from_arrays`).  An
+    ``LTIController``'s plant step is a function of the caller's, on the
+    port's tensors, and must be given; a ``RecedingHorizonController``
+    steps its model (through :func:`model_config`).  ``overrides`` sets the
+    port's own (``device``, ...)."""
+    qqp = quantized_qp_from_arrays(ref.qqp)
+    if type(ref).__name__ == "RecedingHorizonController":
+        kw = dict(qqp=qqp, model=model_config(ref.model),
+                  iters_per_tick=int(ref.iters_per_tick), use_fused=bool(ref.use_fused))
+        kw.update(overrides)
+        return RecedingHorizonController(**kw)
+    if plant_step is None:
+        raise ValueError("an LTIController needs the caller's plant_step on the "
+                         "port's tensors")
+    kw = dict(qqp=qqp, plant_step=plant_step, inputs_per_step=int(ref.inputs_per_step),
+              frac_bits=int(ref.frac_bits), iters_per_tick=int(ref.iters_per_tick),
+              use_fused=bool(ref.use_fused), error_feedback=bool(ref.error_feedback))
+    kw.update(overrides)
+    return LTIController(**kw)
+
+
+def mppi_config(ref, **overrides) -> QuantizedMPPI:
+    """The port's :class:`QuantizedMPPI` with a reference one's fields."""
+    kw = dict(model=model_config(ref.model), horizon=int(ref.horizon),
+              samples=int(ref.samples), noise_lanes=int(ref.noise_lanes),
+              temperature=float(ref.temperature))
+    kw.update(overrides)
+    return QuantizedMPPI(**kw)
+
+
+def nonlinear_config(ref, **overrides) -> QuantizedNonlinearPGD:
+    """The port's :class:`QuantizedNonlinearPGD` with a reference one's
+    fields."""
+    kw = dict(model=model_config(ref.model), horizon=int(ref.horizon),
+              iters=int(ref.iters), step_lanes=float(ref.step_lanes),
+              final_lanes=float(ref.final_lanes))
+    kw.update(overrides)
+    return QuantizedNonlinearPGD(**kw)

@@ -4,7 +4,8 @@ Ported here: the packed control plan (:func:`pack_controls`,
 :func:`unpack_controls`), the quadratic-trig twins, :class:`DoubleIntegrator`
 (the Q16 plant of the LTI tier: fixed-point step and rollouts, float64
 reference) and :class:`Unicycle` with its fixed-point step, its float32
-twin (``rollout_f32``, ``linearize_f32``) and its float64 numpy reference.
+twin (``rollout_f32``, ``linearize_f32``) and its float64 numpy host half
+(``reference_rollout``, ``linearize`` and the fixed-point conversions).
 The planar quadrotor and the pendulum live in their own modules.
 
 The reference scans the horizon with ``lax.scan``; here a rollout is a
@@ -320,3 +321,64 @@ class Unicycle:
             th = th + w * dt
             out[..., k + 1, 0], out[..., k + 1, 1], out[..., k + 1, 2] = x, y, th
         return out
+
+    # -- linearization (the LTV/SQP inner-QP ingredient) ---------------------
+
+    def linearize(self, states_f: np.ndarray, controls_f: np.ndarray) -> tuple:
+        """Jacobians of the float64 discrete map at (states_f, controls_f).
+
+        states_f (..., 3) [x, y, theta-in-turns] and controls_f (..., 2)
+        [v, w], physical units.  Returns (A (..., 3, 3), B (..., 3, 2)): the
+        exact derivatives of :meth:`reference_rollout`'s step, quadratic
+        trig included."""
+        states_f = np.asarray(states_f, np.float64)
+        controls_f = np.asarray(controls_f, np.float64)
+        th = states_f[..., 2]
+        v = controls_f[..., 0]
+        dt = self.dt
+        cos_q = _sin_turns_f64(th + 0.25)
+        sin_q = _sin_turns_f64(th)
+        dcos = _dsin_turns_f64(th + 0.25)
+        dsin = _dsin_turns_f64(th)
+        batch = states_f.shape[:-1]
+        A = np.zeros(batch + (3, 3))
+        A[..., 0, 0] = 1.0
+        A[..., 1, 1] = 1.0
+        A[..., 2, 2] = 1.0
+        A[..., 0, 2] = v * dcos * dt
+        A[..., 1, 2] = v * dsin * dt
+        B = np.zeros(batch + (3, 2))
+        B[..., 0, 0] = cos_q * dt
+        B[..., 1, 0] = sin_q * dt
+        B[..., 2, 1] = dt
+        return A, B
+
+    # -- fixed-point conversions (numpy) ----------------------------------------
+
+    def to_fixed_xy(self, x: np.ndarray) -> np.ndarray:
+        return np.round(np.asarray(x) * 2.0**self.frac_bits).astype(np.int32)
+
+    def to_fixed_theta(self, t: np.ndarray) -> np.ndarray:
+        return np.round(np.asarray(t) * 2.0**16).astype(np.int32)
+
+    def to_fixed(self, state_f: np.ndarray) -> np.ndarray:
+        """Whole-state (..., 3) conversion (xy Q``frac_bits``, theta Q16)."""
+        state_f = np.asarray(state_f, np.float64)
+        return np.concatenate(
+            [self.to_fixed_xy(state_f[..., :2]), self.to_fixed_theta(state_f[..., 2:])],
+            axis=-1,
+        )
+
+    def to_float(self, state_fp) -> np.ndarray:
+        """Whole-state inverse of :meth:`to_fixed`."""
+        state_fp = np.asarray(state_fp)
+        return np.concatenate(
+            [self.to_float_xy(state_fp[..., :2]), self.to_float_theta(state_fp[..., 2:])],
+            axis=-1,
+        )
+
+    def to_float_xy(self, x) -> np.ndarray:
+        return np.asarray(x, dtype=np.float64) * 2.0**-self.frac_bits
+
+    def to_float_theta(self, t) -> np.ndarray:
+        return np.asarray(t, dtype=np.float64) * 2.0**-16

@@ -4,10 +4,12 @@ Copied from ``pint_tpu/mpc/condensed.py``: the port never imports jax, and
 importing the reference package would.  Builds, on the host in float64, the
 condensed quadratic program of a box-constrained linear MPC problem and
 quantizes it into the int8/int32 fixed-point operands the PGD solvers
-consume.  Ported: :class:`CondensedQP`, :class:`QuantizedQP`,
-:func:`condense_lti`, :func:`condense_double_integrator` and
-:func:`quantize`; the LTV condensations and ``dare_terminal`` wait
-(ROADMAP queue 1).
+consume: :class:`CondensedQP`, :class:`QuantizedQP`, :func:`condense_lti`,
+the time-varying :func:`condense_ltv` and :func:`condense_ltv_batch` (the
+SQP tiers' host condensation), :func:`dare_terminal`,
+:func:`condense_double_integrator` and :func:`quantize`.  The code is the
+reference's, ``einsum(..., optimize=True)`` calls included, so the same
+inputs give the same float64 bits.
 
 Condensation (standard): with x_{k+1} = A x_k + B u_k,
 
@@ -31,7 +33,10 @@ __all__ = [
     "CondensedQP",
     "QuantizedQP",
     "condense_lti",
+    "condense_ltv",
+    "condense_ltv_batch",
     "condense_double_integrator",
+    "dare_terminal",
     "quantize",
 ]
 
@@ -153,6 +158,194 @@ def condense_lti(
     H += np.kron(np.eye(T), R)
     lip = float(np.linalg.eigvalsh(H).max())
     return CondensedQP(H=H, G=Gg, g_ref=g_ref, u_max=u_max, lipschitz=lip)
+
+
+def condense_ltv(
+    A_seq: np.ndarray,
+    B_seq: np.ndarray,
+    c_seq: Optional[np.ndarray],
+    Q: np.ndarray,
+    R,
+    Qf: np.ndarray,
+    x_ref,
+    u_max: float,
+) -> CondensedQP:
+    """Condense a box-constrained **time-varying affine** MPC problem.
+
+    x_{k+1} = A_k x_k + B_k u_k + c_k with A_seq (T, n, n), B_seq (T, n, m),
+    c_seq (T, n) or None; cost sum_k (x_{k+1} - x_ref_k)^T Q (...) +
+    u_k^T R u_k with terminal Qf; x_ref is (n,) or (T, n) (per-step targets
+    for x_1..x_T).  This is the SQP inner problem: A/B/c come from
+    linearizing nonlinear dynamics along a nominal trajectory in **absolute**
+    controls (c_k = f(xbar_k, ubar_k) - A_k xbar_k - B_k ubar_k), which keeps
+    the box symmetric -- |u| <= u_max maps onto int8 lane saturation exactly
+    as in the LTI path.
+
+    Propagation is the forward recursion
+    Abar_k = A_k Abar_{k-1}, Bbar_k = A_k Bbar_{k-1} + [0..B_k..0],
+    Cbar_k = A_k Cbar_{k-1} + c_k; with constant A, B and c = 0 this agrees
+    with :func:`condense_lti`.
+    """
+    A_seq = np.asarray(A_seq, float)
+    B_seq = np.asarray(B_seq, float)
+    T, n, m = B_seq.shape
+    if A_seq.shape != (T, n, n):
+        raise ValueError(f"A_seq {A_seq.shape} vs B_seq {B_seq.shape}")
+    c_seq = (
+        np.zeros((T, n)) if c_seq is None else np.asarray(c_seq, float)
+    )
+    x_ref = np.asarray(x_ref, float)
+    x_ref_seq = np.broadcast_to(x_ref, (T, n)) if x_ref.ndim == 1 else x_ref
+    R = np.eye(m) * R if np.isscalar(R) else np.asarray(R, float)
+
+    Abar = np.empty((T, n, n))
+    Bbar = np.zeros((T, n, T * m))
+    Cbar = np.empty((T, n))
+    Ak_prod = np.eye(n)
+    c_acc = np.zeros(n)
+    for k in range(T):
+        Ak_prod = A_seq[k] @ Ak_prod
+        Abar[k] = Ak_prod
+        if k:
+            Bbar[k] = A_seq[k] @ Bbar[k - 1]
+        Bbar[k, :, k * m : (k + 1) * m] = B_seq[k]
+        c_acc = A_seq[k] @ c_acc + c_seq[k]
+        Cbar[k] = c_acc
+
+    Qs = [Q] * (T - 1) + [Qf]
+    H = np.kron(np.eye(T), R)
+    Gg = np.zeros((T * m, n))
+    g_ref = np.zeros(T * m)
+    for k in range(T):
+        BtQ = Bbar[k].T @ Qs[k]
+        H += BtQ @ Bbar[k]
+        Gg += BtQ @ Abar[k]
+        g_ref += BtQ @ (Cbar[k] - x_ref_seq[k])
+    lip = float(np.linalg.eigvalsh(H).max())
+    return CondensedQP(H=H, G=Gg, g_ref=g_ref, u_max=u_max, lipschitz=lip)
+
+
+def condense_ltv_batch(
+    A_seq: np.ndarray,
+    B_seq: np.ndarray,
+    c_seq: Optional[np.ndarray],
+    Q: np.ndarray,
+    R,
+    Qf: np.ndarray,
+    x_ref,
+    return_propagators: bool = False,
+) -> Tuple[np.ndarray, ...]:
+    """Batched :func:`condense_ltv`: one condensation per problem, the time
+    recursion shared and every per-step product a batched GEMM.
+
+    A_seq (B, T, n, n), B_seq (B, T, n, m), c_seq (B, T, n) or None;
+    x_ref (n,) or (T, n), shared across the batch.  Returns
+    ``(H (B,Tm,Tm), G (B,Tm,n), g_ref (B,Tm), lipschitz (B,))`` with
+    per-problem values matching the scalar function to float rounding
+    (the per-k accumulation order is identical; only the GEMM batching
+    differs).  This is the SQP tiers' host-side hot path.
+
+    With ``return_propagators=True`` the per-step propagators are appended:
+    ``(..., Abar (B,T,n,n), Bbar (B,T,n,Tm), Cbar (B,T,n))`` where
+    x_{k+1} = Abar_k x0 + Bbar_k U + Cbar_k -- the inputs state-constraint
+    stacking needs (mpc/constrained.py, mpc/sqp_constrained.py).
+    """
+    A_seq = np.asarray(A_seq, float)
+    B_seq = np.asarray(B_seq, float)
+    Bb, T, n, m = B_seq.shape
+    c_seq = (
+        np.zeros((Bb, T, n)) if c_seq is None else np.asarray(c_seq, float)
+    )
+    x_ref = np.asarray(x_ref, float)
+    x_ref_seq = np.broadcast_to(x_ref, (T, n)) if x_ref.ndim == 1 else x_ref
+    R = np.eye(m) * R if np.isscalar(R) else np.asarray(R, float)
+    Q = np.asarray(Q, float)
+    Qf = np.asarray(Qf, float)
+
+    Tm = T * m
+    # forward recursion (sequential in k, batched over problems), storing
+    # the per-step propagators so the weighted accumulations below become
+    # three big optimized einsums instead of T temp-allocating GEMMs
+    Abar = np.empty((Bb, T, n, n))
+    Bbar_all = np.empty((Bb, T, n, Tm))
+    Cbar_all = np.empty((Bb, T, n))
+    Cx = np.empty((Bb, T, n))        # Cbar_k - x_ref_k
+    Ak_prod = np.zeros((Bb, n, n))
+    Ak_prod[:] = np.eye(n)
+    Bbar = np.zeros((Bb, n, Tm))
+    c_acc = np.zeros((Bb, n))
+    for k in range(T):
+        Ak = A_seq[:, k]
+        Ak_prod = Ak @ Ak_prod
+        if k:
+            Bbar = Ak @ Bbar
+        Bbar[:, :, k * m : (k + 1) * m] = B_seq[:, k]
+        c_acc = np.einsum("bij,bj->bi", Ak, c_acc) + c_seq[:, k]
+        Abar[:, k] = Ak_prod
+        Bbar_all[:, k] = Bbar
+        Cbar_all[:, k] = c_acc
+        Cx[:, k] = c_acc - x_ref_seq[k]
+
+    H = np.zeros((Bb, Tm, Tm))
+    H[:] = np.kron(np.eye(T), R)
+    # shared Q over all steps plus a terminal (Qf - Q) correction
+    dQ = Qf - Q
+    BQ = np.einsum("bkin,ij->bkjn", Bbar_all, Q, optimize=True)
+    BT = Bbar_all[:, T - 1]
+    BQT = np.einsum("bin,ij->bjn", BT, dQ, optimize=True)
+    H += np.einsum("bkjn,bkjm->bnm", BQ, Bbar_all, optimize=True)
+    H += np.einsum("bjn,bjm->bnm", BQT, BT, optimize=True)
+    G = np.einsum("bkjn,bkjq->bnq", BQ, Abar, optimize=True)
+    G += np.einsum("bjn,bjq->bnq", BQT, Abar[:, T - 1], optimize=True)
+    g_ref = np.einsum("bkjn,bkj->bn", BQ, Cx, optimize=True)
+    g_ref += np.einsum("bjn,bj->bn", BQT, Cx[:, T - 1], optimize=True)
+    lip = np.linalg.eigvalsh(H)[:, -1]
+    if return_propagators:
+        return H, G, g_ref, lip, Abar, Bbar_all, Cbar_all
+    return H, G, g_ref, lip
+
+
+def dare_terminal(
+    A: np.ndarray,
+    B: np.ndarray,
+    Q: np.ndarray,
+    R,
+    iters: int = 1000,
+    tol: float = 1e-10,
+) -> np.ndarray:
+    """Terminal weight P from the discrete algebraic Riccati equation.
+
+    Fixed-point iteration of
+    P <- Q + A^T (P - P B (R + B^T P B)^-1 B^T P) A.
+    Using P as the MPC terminal cost (instead of a heuristic qf_scale * Q)
+    makes the finite-horizon controller inherit the infinite-horizon LQR's
+    stability margin, which is what lets regulation horizons stay SHORT --
+    the regime where condensation of unstable plants is well-conditioned
+    and the fixed-point PGD converges in tens of iterations.
+
+    For nonlinear models, call with the linearization at the operating
+    point (e.g. ``model.linearize(x_ref, u=0)`` scaled to lane units).
+    """
+    A = np.atleast_2d(np.asarray(A, float))
+    B = np.asarray(B, float).reshape(A.shape[0], -1)
+    m = B.shape[1]
+    R = np.eye(m) * R if np.isscalar(R) else np.asarray(R, float)
+    Q = np.asarray(Q, float)
+    P = Q.copy()
+    for _ in range(iters):
+        BtP = B.T @ P
+        K = np.linalg.solve(R + BtP @ B, BtP @ A)
+        P_next = Q + A.T @ P @ (A - B @ K)
+        P_next = 0.5 * (P_next + P_next.T)
+        if not np.isfinite(P_next).all() or np.abs(P_next).max() > 1e12:
+            break  # diverging: unstabilizable pair
+        if np.abs(P_next - P).max() < tol * max(1.0, np.abs(P).max()):
+            return P_next
+        P = P_next
+    raise ValueError(
+        "DARE iteration did not converge: the linearized pair (A, B) may "
+        "not be stabilizable within the control budget"
+    )
 
 
 def condense_double_integrator(

@@ -63,6 +63,7 @@ from pint_tpu_torch.mpc.fused_alm import (
     pgd_fused_words_pre_plain,
 )
 from pint_tpu_torch.mpc.ltv import (
+    QuantizedSQP,
     _pgd_batched_h,
     _pgd_batched_h_cols,
     _pgd_batched_h_cols_hqt,
@@ -222,25 +223,15 @@ class DeviceSQP:
             inner="pgd_hqt" if pgd_fits(self.n_dec) else "pgd_batched_h",
         )
 
-    # -- geometry -------------------------------------------------------------
+    # -- geometry (the problem definition is QuantizedSQP's, so are these
+    # members, the true nonlinear objective of cost parity among them) ------
 
-    @functools.cached_property
-    def _lane_scales(self) -> np.ndarray:
-        return np.asarray(self.model.lane_scales, np.float64)
-
-    @property
-    def n_ctrl(self) -> int:
-        return len(self._lane_scales)
-
-    @property
-    def n_dec(self) -> int:
-        return self.n_ctrl * self.horizon
-
-    @functools.cached_property
-    def Qf_matrix(self) -> np.ndarray:
-        if self.Qf is not None:
-            return np.asarray(self.Qf, float)
-        return self.qf_scale * np.asarray(self.Q, float)
+    _lane_scales = QuantizedSQP._lane_scales
+    n_ctrl = QuantizedSQP.n_ctrl
+    n_dec = QuantizedSQP.n_dec
+    Qf_matrix = QuantizedSQP.Qf_matrix
+    true_cost = QuantizedSQP.true_cost
+    _check_dims = QuantizedSQP._check_dims
 
     def init_words(self, batch: int) -> torch.Tensor:
         return torch.zeros(

@@ -1,6 +1,13 @@
-"""State-constrained SQP helpers: the word-space per-problem ALM inner.
+"""State-constrained nonlinear SQP: hard ``lo <= F x <= hi`` on packed plans.
 
-PyTorch port of parts of ``pint_tpu/mpc/sqp_constrained.py``: the static
+PyTorch port of ``pint_tpu/mpc/sqp_constrained.py``.
+:class:`ConstrainedSQP` combines the SQP outer loop of
+:class:`~pint_tpu_torch.mpc.ltv.QuantizedSQP` (host linearize and condense,
+numpy) with the augmented-Lagrangian machinery: per SQP iteration the
+constraint rows are re-stacked from the fresh linearization's propagators,
+quantized per problem on the host, and the word-space ALM inner
+:func:`_alm_batched` runs on the device; the multipliers carry over between
+iterations, rescaled to the new c-unit.  Also here: the static
 y-split shift (``_T_AMP``, ``_Y_SHIFT``), the vectorized rational
 ``_rational_vec`` and ``_alm_batched``, the batched integer ALM with
 per-problem int8 Hessians and constraint rows -- the word-space reference
@@ -9,13 +16,16 @@ for bit -- and its column-sharded forms for a tp mesh,
 :func:`_alm_batched_cols` (plain column dots) and
 :func:`_alm_batched_cols_hqt` (K10).  The reference's shared column body
 ``_alm_cols_loop`` is :func:`pint_tpu_torch.mpc.constrained._alm_loop`
-here, the one body of every ALM form.  ``ConstrainedSQP`` waits for the LTV
-modules it is built on (ROADMAP queue 1).
+here, the one body of every ALM form.  The reference's ``ConstrainedSQP``
+runs its inner as the XLA ``_alm_batched``, not a Pallas kernel, so the port
+runs that loop's torch form too (K5 is ``DeviceConstrainedSQP``'s inner).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +39,10 @@ from pint_tpu_torch.mpc.constrained import (
     _alm_loop,
     _word_space,
 )
-from pint_tpu_torch.mpc.ltv import _bmv
+from pint_tpu_torch.mpc.condensed import condense_ltv_batch
+from pint_tpu_torch.mpc.ltv import QuantizedSQP, _bmv, quantize_batch
 
-__all__ = []
+__all__ = ["ConstrainedSQP"]
 
 # static y-split shift: the worst-case |t| bound is layout-independent
 # (2**(_C_BITS-1) reachable c-pre + offset cap + multiplier cap), so the
@@ -156,3 +167,284 @@ def _alm_batched_cols_hqt(
         lo=lo_pre, hi=hi_pre, outer=outer, inners=inners, g_shift=g_shift,
         y_shift=y_shift, space=_word_space(),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstrainedSQP:
+    """SQP trajectory optimizer with hard per-step state constraints
+    ``lo <= F x_k <= hi`` (k = 1..T), on packed int8 plans.
+
+    The objective is ``sqp``'s (model, weights, target, iterations,
+    device); ``F`` is (Cs, n) over physical states, ``lo``/``hi`` scalar
+    or (Cs,).  Per SQP iteration: linearize + condense on the host, stack
+    the constraint rows from the same propagators, quantize per problem,
+    run ``alm_outer`` multiplier updates x ``sqp.pgd_iters`` PGD inners on
+    ``sqp.device``.  Multipliers persist across SQP iterations."""
+
+    sqp: QuantizedSQP
+    F: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([[0.0, 1.0, 0.0]])
+    )
+    lo: float | np.ndarray = -1.0
+    hi: float | np.ndarray = 1.0
+    rho: float = 50.0
+    alm_outer: int = 3
+    row_pad: int = 64
+
+    @functools.cached_property
+    def _F(self) -> np.ndarray:
+        return np.atleast_2d(np.asarray(self.F, float))
+
+    @functools.cached_property
+    def _bounds(self) -> Tuple[np.ndarray, np.ndarray]:
+        Cs = self._F.shape[0]
+        lo = np.broadcast_to(np.asarray(self.lo, float), (Cs,))
+        hi = np.broadcast_to(np.asarray(self.hi, float), (Cs,))
+        if np.any(lo >= hi):
+            raise ValueError("state constraint lo must be < hi per row")
+        T = self.sqp.horizon
+        return np.tile(lo, T), np.tile(hi, T)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sqp.device
+
+    @property
+    def n_rows(self) -> int:
+        return self._F.shape[0] * self.sqp.horizon
+
+    @functools.cached_property
+    def padded_rows(self) -> int:
+        return -(-self.n_rows // self.row_pad) * self.row_pad
+
+    def init_words(self, batch: int) -> torch.Tensor:
+        return self.sqp.init_words(batch)
+
+    def init_lam(self, batch: int) -> torch.Tensor:
+        return torch.zeros((batch, self.padded_rows), dtype=torch.int32,
+                           device=self.device)
+
+    # -- host-side per-iteration prep -----------------------------------------
+
+    def _condense_constrained(self, x0_f: np.ndarray, lanes: np.ndarray):
+        """Linearize/condense/stack/quantize for the whole batch (host
+        numpy, the reference's code).  The objective half matches
+        ``QuantizedSQP._condense_batch`` except alpha = 1/(lip + rho *
+        penalty_lip); the constraint half is the batched form of
+        ``quantize_constrained`` in lane units.  Returns (operands, c_unit
+        (B,))."""
+        s = self.sqp
+        T, m = s.horizon, s.n_ctrl
+        ls = s._lane_scales
+        batch = x0_f.shape[0]
+        u_phys = lanes.reshape(batch, T, m) * ls
+        traj = s.model.reference_rollout(x0_f, u_phys)
+        s._check_dims(traj.shape[-1])
+        n = traj.shape[-1]
+        if self._F.shape[1] != n:
+            raise ValueError(
+                f"F has {self._F.shape[1]} columns, state dim is {n}"
+            )
+        A_seq, B_seq = s.model.linearize(traj[:, :-1], u_phys)
+        c_seq = (
+            traj[:, 1:]
+            - np.einsum("bkij,bkj->bki", A_seq, traj[:, :-1])
+            - np.einsum("bkij,bkj->bki", B_seq, u_phys)
+        )
+        R_lane = ls[:, None] * np.asarray(s.R) * ls[None, :]
+        H, G, g_ref, lip, Abar, Bbar, Cbar = condense_ltv_batch(
+            A_seq, B_seq * ls, c_seq, np.asarray(s.Q), R_lane,
+            s.Qf_matrix, np.asarray(s.x_ref, float), return_propagators=True,
+        )
+        Fm = self._F
+        C, Tm, Tp, Cp = self.n_rows, T * m, s.padded, self.padded_rows
+        S_b = np.einsum("ci,bkin->bkcn", Fm, Bbar).reshape(batch, C, Tm)
+        P_b = np.einsum("ci,bkin->bkcn", Fm, Abar).reshape(batch, C, n)
+        r_b = np.einsum("ci,bki->bkc", Fm, Cbar).reshape(batch, C)
+
+        pen_lip = np.linalg.eigvalsh(
+            S_b @ np.swapaxes(S_b, 1, 2)
+        )[:, -1]
+        alpha = 1.0 / (lip + self.rho * pen_lip)
+        Hq, g_pre, hs_num, hs_den = quantize_batch(
+            H, G, g_ref, alpha, x0_f, Tp, s.g_shift
+        )
+
+        # constraint quantization (per problem)
+        s_scale = np.abs(S_b).max(axis=(1, 2)) / 127.0
+        if (s_scale == 0).any():
+            raise ValueError("constraint rows identically zero for a problem")
+        Sq = np.zeros((batch, Cp, Tp), np.int8)
+        Sq[:, :C, :Tm] = np.round(S_b / s_scale[:, None, None]).astype(
+            np.int8
+        )
+        lo_r, hi_r = self._bounds
+        row_amp = 127.0 * np.abs(S_b).sum(axis=2).max(axis=1)
+        b_amp = float(max(np.abs(lo_r).max(), np.abs(hi_r).max()))
+        c_unit = 2.0 * (row_amp + b_amp) / float(1 << _C_BITS)   # (B,)
+
+        cs_num, cs_den = _rational_vec(
+            s_scale / c_unit, 127 * 127 * Tp, 2**31 - 1, "cs"
+        )
+        base = (
+            self.rho * s_scale * float(1 << _Y_SHIFT) * c_unit * alpha
+        ) * float(1 << s.g_shift)
+        eh_num, eh_den = _rational_vec(
+            base * 128.0, 64 * 127 * Cp, 2**30 - 1, "eh"
+        )
+        el_num, el_den = _rational_vec(
+            base, 127 * 127 * Cp, 2**30 - 1, "el"
+        )
+
+        sent = np.int32(1 << 30)
+        lo_pre = np.full((batch, Cp), -sent, np.int32)
+        hi_pre = np.full((batch, Cp), sent, np.int32)
+        lo_pre[:, :C] = np.clip(
+            np.round(lo_r / c_unit[:, None]), -sent, sent
+        )
+        hi_pre[:, :C] = np.clip(
+            np.round(hi_r / c_unit[:, None]), -sent, sent
+        )
+        off = np.einsum("bn,bcn->bc", x0_f, P_b) + r_b
+        off = np.nan_to_num(
+            off / c_unit[:, None], posinf=_CX0_CAP, neginf=-_CX0_CAP
+        )
+        c_off = np.zeros((batch, Cp), np.int32)
+        c_off[:, :C] = np.clip(np.round(off), -_CX0_CAP, _CX0_CAP)
+        return dict(
+            Hq=Hq, g_pre=g_pre, hs_num=hs_num, hs_den=hs_den, Sq=Sq,
+            cs_num=cs_num, cs_den=cs_den, c_off=c_off, lo_pre=lo_pre,
+            hi_pre=hi_pre, eh_num=eh_num, eh_den=eh_den, el_num=el_num,
+            el_den=el_den,
+        ), c_unit
+
+    # -- public API ------------------------------------------------------------
+
+    def solve(
+        self,
+        x0_f: np.ndarray,
+        u_words: Optional[torch.Tensor] = None,
+        lam: Optional[torch.Tensor] = None,
+        track_costs: bool = True,
+    ):
+        """Run ``sqp.sqp_iters`` outer SQP iterations with the constrained
+        inner solve.  Returns (words (B, Tp/4), lam (B, Cp) int32, both on
+        the device, cost history or None)."""
+        x0_f = np.atleast_2d(np.asarray(x0_f, np.float64))
+        batch = x0_f.shape[0]
+        s = self.sqp
+        dev = self.device
+        u_words = self.init_words(batch) if u_words is None else u_words.to(dev)
+        lam = self.init_lam(batch) if lam is None else lam.to(dev)
+        costs = (
+            [s.true_cost(x0_f, s.lanes(u_words))] if track_costs else None
+        )
+        prev_c_unit = None
+        for _ in range(s.sqp_iters):
+            ops, c_unit = self._condense_constrained(x0_f, s.lanes(u_words))
+            if prev_c_unit is not None:
+                # the multiplier plane lives in c-pre units; relinearization
+                # changes the per-problem c_unit, so carried multipliers are
+                # rescaled to keep their physical value lam_pre * c_unit
+                lam_np = lam.cpu().numpy().astype(np.int64)
+                lam_np = np.clip(
+                    np.round(lam_np * (prev_c_unit / c_unit)[:, None]),
+                    -int(_LAM_CAP),
+                    int(_LAM_CAP),
+                ).astype(np.int32)
+                lam = torch.as_tensor(lam_np, device=dev)
+            prev_c_unit = c_unit
+            u_words, lam = _alm_batched(
+                u_words,
+                *(
+                    torch.as_tensor(ops[k], device=dev)
+                    for k in (
+                        "g_pre", "Hq", "hs_num", "hs_den", "Sq", "cs_num",
+                        "cs_den", "c_off", "lo_pre", "hi_pre", "eh_num",
+                        "eh_den", "el_num", "el_den",
+                    )
+                ),
+                lam,
+                outer=self.alm_outer,
+                inners=s.pgd_iters,
+                g_shift=s.g_shift,
+                y_shift=_Y_SHIFT,
+            )
+            if track_costs:
+                costs.append(s.true_cost(x0_f, s.lanes(u_words)))
+        return u_words, lam, (
+            np.stack(costs, axis=-1) if track_costs else None
+        )
+
+    # -- diagnostics -------------------------------------------------------------
+
+    def constraint_trajectory(self, x0_f: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+        """True (nonlinear-rollout) constraint values F x_k, (B, T, Cs)."""
+        s = self.sqp
+        u_phys = np.asarray(lanes).reshape(-1, s.horizon, s.n_ctrl) * s._lane_scales
+        traj = s.model.reference_rollout(np.atleast_2d(x0_f), u_phys)
+        return np.einsum("ci,bki->bkc", self._F, traj[:, 1:])
+
+    def violation(self, x0_f: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+        """Max true-trajectory constraint violation per problem."""
+        c = self.constraint_trajectory(x0_f, lanes)
+        Cs = self._F.shape[0]
+        lo = np.asarray(self._bounds[0]).reshape(-1, Cs)[0]
+        hi = np.asarray(self._bounds[1]).reshape(-1, Cs)[0]
+        return np.maximum(
+            np.maximum(c - hi, 0), np.maximum(lo - c, 0)
+        ).max(axis=(1, 2))
+
+    # -- float64 reference (same algorithm, no quantization) --------------------
+
+    def reference_solve(self, x0_f: np.ndarray):
+        """Float64 SQP+ALM with the identical structure: per SQP iteration,
+        linearize/condense/stack, then ``alm_outer`` x ``pgd_iters``
+        projected-gradient inners with projection-form multiplier updates.
+        Returns (lane plans (B, n_dec) float64, lam (B, C))."""
+        s = self.sqp
+        x0_f = np.atleast_2d(np.asarray(x0_f, np.float64))
+        batch = x0_f.shape[0]
+        T, m = s.horizon, s.n_ctrl
+        ls = s._lane_scales
+        lo_r, hi_r = self._bounds
+        U = np.zeros((batch, s.n_dec))
+        lam = np.zeros((batch, self.n_rows))
+        for _ in range(s.sqp_iters):
+            u_phys = U.reshape(batch, T, m) * ls
+            traj = s.model.reference_rollout(x0_f, u_phys)
+            A_seq, B_seq = s.model.linearize(traj[:, :-1], u_phys)
+            c_seq = (
+                traj[:, 1:]
+                - np.einsum("bkij,bkj->bki", A_seq, traj[:, :-1])
+                - np.einsum("bkij,bkj->bki", B_seq, u_phys)
+            )
+            R_lane = ls[:, None] * np.asarray(s.R) * ls[None, :]
+            H, G, g_ref, lip, Abar, Bbar, Cbar = condense_ltv_batch(
+                A_seq, B_seq * ls, c_seq, np.asarray(s.Q), R_lane,
+                s.Qf_matrix, np.asarray(s.x_ref, float),
+                return_propagators=True,
+            )
+            Fm = self._F
+            n = traj.shape[-1]
+            C = self.n_rows
+            S_b = np.einsum("ci,bkin->bkcn", Fm, Bbar).reshape(batch, C, s.n_dec)
+            P_b = np.einsum("ci,bkin->bkcn", Fm, Abar).reshape(batch, C, n)
+            r_b = np.einsum("ci,bki->bkc", Fm, Cbar).reshape(batch, C)
+            pen_lip = np.linalg.eigvalsh(S_b @ np.swapaxes(S_b, 1, 2))[:, -1]
+            alpha = 1.0 / (lip + self.rho * pen_lip)
+            g0 = np.einsum("bin,bn->bi", G, x0_f) + g_ref
+            cx0 = np.einsum("bn,bcn->bc", x0_f, P_b) + r_b
+            for _ in range(self.alm_outer):
+                for _ in range(s.pgd_iters):
+                    t = np.einsum("bcn,bn->bc", S_b, U) + cx0 + lam / self.rho
+                    y = t - np.clip(t, lo_r, hi_r)
+                    grad = (
+                        np.einsum("bij,bj->bi", H, U)
+                        + g0
+                        + self.rho * np.einsum("bc,bcn->bn", y, S_b)
+                    )
+                    U = np.clip(U - alpha[:, None] * grad, -127.0, 127.0)
+                t = np.einsum("bcn,bn->bc", S_b, U) + cx0 + lam / self.rho
+                lam = self.rho * (t - np.clip(t, lo_r, hi_r))
+        return U, lam

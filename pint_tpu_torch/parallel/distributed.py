@@ -49,7 +49,9 @@ def initialize(
 ) -> None:
     """Start the default process group from the arguments or the env.
 
-    ``coordinator_address`` is ``host:port`` of rank 0.  ``backend``
+    ``coordinator_address`` is ``host:port`` of rank 0, or a whole
+    ``init_method`` URL (``file:///shared/path`` rendezvous through a file
+    every rank can reach, no port to choose).  ``backend``
     defaults to ``nccl`` when CUDA is available (each process then takes
     device ``process_id % device_count``) and ``gloo`` otherwise.  A no-op
     when no address, count or id is given anywhere; raises when only some
@@ -68,8 +70,8 @@ def initialize(
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(pid % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=f"tcp://{addr}",
-                            world_size=n, rank=pid)
+    init = addr if "://" in addr else f"tcp://{addr}"
+    dist.init_process_group(backend, init_method=init, world_size=n, rank=pid)
 
 
 def is_multi_process() -> bool:

@@ -6,6 +6,9 @@ the CPU), on a machine with one the result lives on the card.  With
 ``device="cpu"`` each one builds on the host and runs the plain versions.
 """
 
+import ast
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,14 +19,23 @@ from pint_tpu_torch.mpc import (
     AcceleratedPGD,
     ConstrainedController,
     ConstrainedPGD,
+    ConstrainedSQP,
     DeviceSQP,
     FixedPointPGD,
     FusedPGD,
+    LTIController,
+    QuantizedMPPI,
+    QuantizedNonlinearPGD,
+    QuantizedSQP,
+    RecedingHorizonController,
+    SQPController,
     condense_double_integrator,
     constrain_states,
     quantize,
     quantize_constrained,
 )
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _qqp():
@@ -46,6 +58,8 @@ def _device_of(obj):
         return obj.device
     if isinstance(obj, pt.PackedArray):
         return obj.device
+    if isinstance(obj, SQPController):
+        return obj.sqp.device
     return torch.device(obj.device)
 
 
@@ -65,6 +79,21 @@ ENTRY_POINTS = {
     "DeviceSQP(Pendulum)": lambda **kw: DeviceSQP(
         model=pt.Pendulum(), horizon=8, sqp_iters=1, pgd_iters=2, Q=np.eye(2),
         R=np.eye(1), x_ref=np.zeros(2), propagate="scan", reduce="blocked", **kw),
+    "QuantizedSQP": lambda **kw: QuantizedSQP(horizon=8, sqp_iters=1, pgd_iters=2, **kw),
+    "SQPController": lambda **kw: SQPController(
+        QuantizedSQP(horizon=8, sqp_iters=1, pgd_iters=2, **kw)),
+    "ConstrainedSQP": lambda **kw: ConstrainedSQP(
+        QuantizedSQP(horizon=8, sqp_iters=1, pgd_iters=2, x_ref=np.array([1.0, 0.0, 0.0]),
+                     **kw), F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0),
+    "LTIController": lambda **kw: LTIController(
+        _qqp(), plant_step=lambda s, u: pt.DoubleIntegrator().step(s, u[..., 0]), **kw),
+    "LTIController(use_fused)": lambda **kw: LTIController(
+        _qqp(), plant_step=lambda s, u: pt.DoubleIntegrator().step(s, u[..., 0]),
+        use_fused=True, **kw),
+    "RecedingHorizonController": lambda **kw: RecedingHorizonController.build(
+        pt.DoubleIntegrator(u_shift=10), horizon=8, iters_per_tick=2, **kw),
+    "QuantizedMPPI": lambda **kw: QuantizedMPPI(horizon=8, samples=4, **kw),
+    "QuantizedNonlinearPGD": lambda **kw: QuantizedNonlinearPGD(horizon=8, iters=2, **kw),
     "PackedArray.zeros": lambda **kw: pt.PackedArray.zeros(
         pt.PackedLayout(8, 8, 8, 8), (3,), **kw),
     "words_from_numpy": lambda **kw: words_from_numpy(
@@ -101,3 +130,57 @@ def test_cpu_entry_points_run_the_plain_versions():
     states, lanes = ctrl.run(torch.tensor([[65536, 0], [-32768, 1000]], dtype=torch.int32), 3)
     assert states.device.type == "cpu" and lanes.shape == (2, 3, 1)
     assert K.launch_counts() == before
+
+
+def test_cpu_host_tier_and_planners_run_without_kernels():
+    """The slice's entry points run on the CPU when asked, with no kernel
+    launch: an SQP solve and two controller ticks, the LTI loops (fused and
+    not), an MPPI update and a planner solve."""
+    from pint_tpu_torch.ops import kernels as K
+
+    before = K.launch_counts()
+    x0 = np.array([[0.0, 0.0, 0.0], [-0.1, 0.05, 0.1]])
+    sqp = ENTRY_POINTS["QuantizedSQP"](device="cpu")
+    words, costs = sqp.solve(x0)
+    assert words.device.type == "cpu" and costs.shape == (2, 2)
+    states, lanes = SQPController(sqp).run(x0, 2)
+    assert states.shape == (2, 3, 3) and lanes.shape == (2, 2, 2)
+    w, lam, _ = ENTRY_POINTS["ConstrainedSQP"](device="cpu").solve(
+        np.array([[0.0, 0.0, np.pi / 2]]), track_costs=False)
+    assert lam.device.type == "cpu"
+    s0 = torch.tensor([[65536, 0], [-32768, 1000]], dtype=torch.int32)
+    runs = [ENTRY_POINTS[n](device="cpu").run(s0, 3)
+            for n in ("LTIController", "LTIController(use_fused)")]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    ENTRY_POINTS["RecedingHorizonController"](device="cpu").run(s0, 2)
+    z = torch.zeros((1, 3), dtype=torch.int32)
+    cost = pt.unicycle_goal_cost(pt.Unicycle(), np.array([[[0.5, 0.5]]]))
+    ENTRY_POINTS["QuantizedMPPI"](device="cpu").step(torch.Generator().manual_seed(0),
+                                                     torch.zeros((1, 4), dtype=torch.int32),
+                                                     z, cost)
+    from pint_tpu_torch.mpc.costs import goal_cost
+
+    ENTRY_POINTS["QuantizedNonlinearPGD"](device="cpu").solve(
+        z, goal_cost(pt.Unicycle(), np.array([[0.5, 0.5]])))
+    assert K.launch_counts() == before
+
+
+def _imports(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module)
+    return names
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    """No module under pint_tpu_torch/, and not chip_smoke.py, imports jax
+    or pint_tpu, at any depth of the file (function bodies included)."""
+    files = sorted((REPO / "pint_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        bad = {n for n in _imports(path)
+               if n.split(".")[0] in ("jax", "jaxlib", "pint_tpu")}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -28,7 +28,6 @@ from pint_tpu_torch.convert import (
 )
 from pint_tpu_torch.models.dynamics import unpack_controls
 from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
-from pint_tpu_torch.mpc.ltv import true_cost
 
 CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0)
 SMALL = dict(horizon=8, sqp_iters=2, pgd_iters=6, x_ref=np.array([1.0, 0.0, 0.0]))
@@ -98,8 +97,8 @@ def test_full_solve_cost_and_violation_parity(small_pair):
     assert w.shape == (6, 4) and lam.shape == (6, 64)
     lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
     lanes = _lanes(port, w)
-    np.testing.assert_allclose(true_cost(port.dev, x0, lanes),
-                               true_cost(port.dev, x0, lanes_j),
+    np.testing.assert_allclose(port.dev.true_cost(x0, lanes),
+                               port.dev.true_cost(x0, lanes_j),
                                rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(port.violation(x0, lanes),
                                ref.violation(x0, lanes_j), atol=5e-3)
@@ -154,8 +153,8 @@ def test_inactive_constraint_is_inert():
 def test_warm_start_improves_or_holds(big):
     w1, l1 = big.solve_words(big.init_words(2), X0)
     w2, _ = big.solve_words(w1, X0, l1)
-    c1 = true_cost(big.dev, X0, _lanes(big, w1))
-    c2 = true_cost(big.dev, X0, _lanes(big, w2))
+    c1 = big.dev.true_cost(X0, _lanes(big, w1))
+    c2 = big.dev.true_cost(X0, _lanes(big, w2))
     assert (c2 <= c1 * 1.02 + 1e-6).all(), (c1, c2)
 
 
@@ -261,8 +260,8 @@ def test_lipq_false_solve_parity(small_pair):
     w, lam = port.solve_words(port.init_words(6), x0)
     lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
     lanes = _lanes(port, w)
-    np.testing.assert_allclose(true_cost(port.dev, x0, lanes),
-                               true_cost(port.dev, x0, lanes_j), rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.dev.true_cost(x0, lanes),
+                               port.dev.true_cost(x0, lanes_j), rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(port.violation(x0, lanes),
                                ref_x.violation(x0, lanes_j), atol=5e-3)
     word = device_constrained_config(ref_x, fused=False, device="cpu")
@@ -285,8 +284,8 @@ def _long_horizon_parity(horizon, forms, Cp):
     lanes_j = _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))
     lanes = _lanes(port, w)
     assert lam.shape == (2, Cp)
-    np.testing.assert_allclose(true_cost(port.dev, X0, lanes),
-                               true_cost(port.dev, X0, lanes_j), rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.dev.true_cost(X0, lanes),
+                               port.dev.true_cost(X0, lanes_j), rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(port.violation(X0, lanes),
                                ref.violation(X0, lanes_j), atol=5e-3)
 

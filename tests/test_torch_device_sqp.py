@@ -46,7 +46,7 @@ from pint_tpu_torch.mpc import (
     pgd_hqt,
     pgd_hqt_plain,
 )
-from pint_tpu_torch.mpc.ltv import _pgd_batched_h, true_cost
+from pint_tpu_torch.mpc.ltv import _pgd_batched_h
 
 KW = dict(
     horizon=32, sqp_iters=4, pgd_iters=30,
@@ -207,7 +207,7 @@ def test_full_solve_cost_parity(pair):
     cost_ref = host.true_cost(x0, host.lanes(w_ref))
     np.testing.assert_allclose(cost, cost_ref, rtol=0.01, atol=1e-4)
     # the port's numpy cost helper is the reference's objective
-    np.testing.assert_allclose(true_cost(port, x0, lanes), cost, rtol=1e-12)
+    np.testing.assert_allclose(port.true_cost(x0, lanes), cost, rtol=1e-12)
 
 
 def test_solve_deterministic_and_plain_route_equal(pair):
@@ -317,8 +317,8 @@ def test_lipq_false_solve_cost_parity(pair):
     w, _ = port.solve(x0)
     lanes = unpack_controls(w)[:, : ref.n_dec].numpy()
     lanes_ref = unpack_controls(words_from_numpy(np.asarray(w_ref), device="cpu"))
-    cost = true_cost(port, x0, lanes)
-    cost_ref = true_cost(port, x0, lanes_ref[:, : ref.n_dec].numpy())
+    cost = port.true_cost(x0, lanes)
+    cost_ref = port.true_cost(x0, lanes_ref[:, : ref.n_dec].numpy())
     np.testing.assert_allclose(cost, cost_ref, rtol=0.01, atol=1e-4)
     # the word-space inner and K4's plain version agree on the torch form
     plain = device_sqp_config(ref, lipq=False, use_kernels=False, device="cpu")
@@ -340,8 +340,8 @@ def _long_horizon_parity(horizon, forms, seed):
     lanes = unpack_controls(w)[:, : port.n_dec].numpy()
     lanes_ref = unpack_controls(words_from_numpy(np.asarray(w_ref), device="cpu"))
     np.testing.assert_allclose(
-        true_cost(port, x0, lanes),
-        true_cost(port, x0, lanes_ref[:, : port.n_dec].numpy()), rtol=0.01, atol=1e-4)
+        port.true_cost(x0, lanes),
+        port.true_cost(x0, lanes_ref[:, : port.n_dec].numpy()), rtol=0.01, atol=1e-4)
 
 
 def test_long_horizon_solves_in_the_torch_form():

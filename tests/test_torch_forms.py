@@ -39,7 +39,6 @@ from pint_tpu_torch.models import Pendulum, PlanarQuadrotor
 from pint_tpu_torch.models.dynamics import unpack_controls
 from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
 from pint_tpu_torch.mpc.device_sqp import _assoc_scan, _inv_unrolled
-from pint_tpu_torch.mpc.ltv import true_cost
 
 UNI = dict(horizon=16, sqp_iters=2, pgd_iters=10, Q=np.diag([1.0, 1.0, 0.005]),
            R=np.diag([0.005, 0.005]), qf_scale=60.0, x_ref=np.array([0.2, 0.1, 0.0]))
@@ -183,7 +182,7 @@ def uni_default():
     x0, _ = _inputs("unicycle", 4, 41, ref)
     w, _ = ref.solve(x0.astype(np.float64))
     port = device_sqp_config(ref, device="cpu")
-    return ref, port, x0, true_cost(port, x0, _lanes(port, words_from_numpy(
+    return ref, port, x0, port.true_cost(x0, _lanes(port, words_from_numpy(
         np.asarray(w), device="cpu")))
 
 
@@ -195,7 +194,7 @@ def test_device_sqp_forms_at_cost_parity(uni_default, form):
     port = device_sqp_config(dataclasses.replace(ref, **form), device="cpu")
     w, plans = port.solve(x0)
     assert np.isfinite(plans).all()
-    np.testing.assert_allclose(true_cost(port, x0, _lanes(port, w)), cost_ref,
+    np.testing.assert_allclose(port.true_cost(x0, _lanes(port, w)), cost_ref,
                                rtol=0.01, atol=1e-4)
 
 
@@ -231,7 +230,7 @@ def con_default():
     w, _ = ref.solve_words(ref.init_words(3), x0)
     port = device_constrained_config(ref, device="cpu")
     lanes = _lanes(port.dev, words_from_numpy(np.asarray(w), device="cpu"))
-    return ref, x0, true_cost(port.dev, x0, lanes), port.violation(x0, lanes)
+    return ref, x0, port.dev.true_cost(x0, lanes), port.violation(x0, lanes)
 
 
 @pytest.mark.parametrize("form", FORMS, ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()))
@@ -243,7 +242,7 @@ def test_device_constrained_forms_at_parity(con_default, form):
         dataclasses.replace(ref, dev=dataclasses.replace(ref.dev, **form)), device="cpu")
     w, lam = port.solve_words(port.init_words(3), x0)
     lanes = _lanes(port.dev, w)
-    np.testing.assert_allclose(true_cost(port.dev, x0, lanes), cost_ref, rtol=0.01,
+    np.testing.assert_allclose(port.dev.true_cost(x0, lanes), cost_ref, rtol=0.01,
                                atol=1e-4)
     np.testing.assert_allclose(port.violation(x0, lanes), viol_ref, atol=5e-3)
 
@@ -325,8 +324,8 @@ def test_quadrotor_constrained_corridor():
     w_j, _ = ref.solve_words(ref.init_words(3), x0)
     lanes_j = _lanes(port.dev, words_from_numpy(np.asarray(w_j), device="cpu"))
     np.testing.assert_allclose(viol, port.violation(x0, lanes_j), atol=5e-3)
-    np.testing.assert_allclose(true_cost(port.dev, x0, _lanes(port.dev, w)),
-                               true_cost(port.dev, x0, lanes_j), rtol=0.01, atol=1e-4)
+    np.testing.assert_allclose(port.dev.true_cost(x0, _lanes(port.dev, w)),
+                               port.dev.true_cost(x0, lanes_j), rtol=0.01, atol=1e-4)
 
 
 def test_pendulum_device_tiers_at_parity():
@@ -344,14 +343,14 @@ def test_pendulum_device_tiers_at_parity():
     w, _ = port.solve(x0)
     w_j, _ = ref.solve(x0)
     np.testing.assert_allclose(
-        true_cost(port, x0, _lanes(port, w)),
-        true_cost(port, x0, _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))),
+        port.true_cost(x0, _lanes(port, w)),
+        port.true_cost(x0, _lanes(port, words_from_numpy(np.asarray(w_j), device="cpu"))),
         rtol=0.01, atol=1e-4)
     wc, _ = cport.solve_words(cport.init_words(3), x0)
     wc_j, _ = cref.solve_words(cref.init_words(3), x0)
     lanes, lanes_j = _lanes(port, wc), _lanes(port, words_from_numpy(np.asarray(wc_j),
                                                                      device="cpu"))
-    np.testing.assert_allclose(true_cost(port, x0, lanes), true_cost(port, x0, lanes_j),
+    np.testing.assert_allclose(port.true_cost(x0, lanes), port.true_cost(x0, lanes_j),
                                rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(cport.violation(x0, lanes), cport.violation(x0, lanes_j),
                                atol=5e-3)

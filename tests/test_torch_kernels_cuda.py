@@ -48,7 +48,6 @@ from pint_tpu_torch.mpc import (
     quantize,
 )
 from pint_tpu_torch.mpc.condense_fused import true_div
-from pint_tpu_torch.mpc.ltv import true_cost
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.ops import swar as S
@@ -286,7 +285,7 @@ def test_device_sqp_kernels_cost_parity(cuda):
     costs = []
     for sqp in (kern, plain):
         w = sqp.solve_words(sqp.init_words(64), torch.as_tensor(x0, device=cuda))
-        costs.append(true_cost(sqp, x0, unpack_controls(w).cpu().numpy()))
+        costs.append(sqp.true_cost(x0, unpack_controls(w).cpu().numpy()))
     np.testing.assert_allclose(costs[0], costs[1], rtol=0.01, atol=1e-4)
 
 
@@ -674,7 +673,7 @@ def test_device_constrained_kernels_cost_parity(cuda):
     for csqp in (kern, plain):
         w, lam = csqp.solve_words(csqp.init_words(64), torch.as_tensor(x0, device=cuda))
         lanes = unpack_controls(w)[:, : csqp.dev.n_dec].cpu().numpy()
-        out.append((true_cost(csqp.dev, x0, lanes), csqp.violation(x0, lanes)))
+        out.append((csqp.dev.true_cost(x0, lanes), csqp.violation(x0, lanes)))
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(out[0][1], out[1][1], atol=5e-3)
 
@@ -849,7 +848,7 @@ def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
     costs = []
     for sqp in (kern, plain):
         w = sqp.solve_words(sqp.init_words(64), torch.as_tensor(x0, device=cuda))
-        costs.append(true_cost(sqp, x0, unpack_controls(w)[:, : sqp.n_dec].cpu().numpy()))
+        costs.append(sqp.true_cost(x0, unpack_controls(w)[:, : sqp.n_dec].cpu().numpy()))
     assert np.isfinite(costs[0]).all()
     np.testing.assert_allclose(costs[0], costs[1], rtol=0.01, atol=1e-4)
 
@@ -877,7 +876,7 @@ def test_long_horizon_device_constrained_cost_parity(cuda, horizon, forms):
     for csqp in (kern, plain):
         w, lam = csqp.solve_words(csqp.init_words(64), torch.as_tensor(x0, device=cuda))
         lanes = unpack_controls(w)[:, : csqp.dev.n_dec].cpu().numpy()
-        out.append((true_cost(csqp.dev, x0, lanes), csqp.violation(x0, lanes)))
+        out.append((csqp.dev.true_cost(x0, lanes), csqp.violation(x0, lanes)))
         if csqp is kern:
             after = K.launch_counts()
             assert after["alm"] == before["alm"] + 2
@@ -1301,7 +1300,7 @@ def test_other_models_solve_at_cost_parity(cuda, model):
         wc, lam = csqp.solve_words(csqp.init_words(64), x)
         lanes = unpack_controls(w)[:, : sqp.n_dec].cpu().numpy()
         lc = unpack_controls(wc)[:, : sqp.n_dec].cpu().numpy()
-        out.append((w, wc, lam, true_cost(sqp, x0, lanes), true_cost(sqp, x0, lc),
+        out.append((w, wc, lam, sqp.true_cost(x0, lanes), sqp.true_cost(x0, lc),
                     csqp.violation(x0, lc)))
     torch.cuda.synchronize()
     (k, p) = out
@@ -1329,7 +1328,7 @@ def test_forms_on_the_card_at_cost_parity(cuda, form):
             SQP_KW, x_ref=np.array([1.0, 0.0, 0.0]), **f)), **CON)
         lanes = unpack_controls(sqp.solve_words(sqp.init_words(64), x))[:, :64].cpu().numpy()
         lc = unpack_controls(csqp.solve_words(csqp.init_words(64), x)[0])[:, :64].cpu().numpy()
-        costs.append((true_cost(sqp, x0, lanes), true_cost(csqp.dev, x0, lc),
+        costs.append((sqp.true_cost(x0, lanes), csqp.dev.true_cost(x0, lc),
                       csqp.violation(x0, lc)))
     for i in (0, 1):
         np.testing.assert_allclose(costs[1][i], costs[0][i], rtol=0.01, atol=1e-4)
@@ -1362,3 +1361,156 @@ def test_constrained_controller_on_the_card(cuda):
             assert K.launch_counts()["alm_shared"] == before + 30
     assert torch.equal(runs[0][0].cpu(), runs[1][0]) and torch.equal(runs[0][1].cpu(), runs[1][1])
     assert np.abs(runs[1][0].numpy()[..., 1] * 2.0**-16).max() < 0.15 + 0.01
+
+
+# -- the host SQP tier, the LTI controllers on K2, the planners (chip_smoke.py
+# phases 23-26 at small batches, the card against the CPU) ------------------------
+
+
+def test_quantized_sqp_on_the_card(cuda):
+    """QuantizedSQP (tests/test_ltv.py's unicycle, T = 32, 6 x 40) and its
+    SQPController (10 ticks): words, cost histories, states and applied
+    lanes bit-identical to the CPU's; no kernel launches (the reference's
+    inner here is its XLA loop, whose torch form runs)."""
+    import dataclasses
+
+    sqp = pt.QuantizedSQP(device=cuda, **dict(SQP_KW, sqp_iters=6, pgd_iters=40))
+    cpu = dataclasses.replace(sqp, device="cpu")
+    x0 = _x0(24, 200).astype(np.float64)
+    before = K.launch_counts()
+    w, costs = sqp.solve(x0)
+    assert w.device.type == torch.device(cuda).type and K.launch_counts() == before
+    wc, cc = cpu.solve(x0)
+    assert torch.equal(w.cpu(), wc) and np.array_equal(costs, cc)
+    s, a = pt.SQPController(sqp).run(x0[:8], 10)
+    sc, ac = pt.SQPController(cpu).run(x0[:8], 10)
+    assert np.array_equal(s, sc) and np.array_equal(a, ac)
+
+
+def test_constrained_sqp_on_the_card(cuda):
+    """ConstrainedSQP (tests/test_sqp_constrained.py's binding corridor, two
+    SQP iterations): words and multipliers bit-identical to the CPU's."""
+    import dataclasses
+
+    sqp = pt.QuantizedSQP(horizon=32, sqp_iters=2, pgd_iters=40,
+                          x_ref=np.array([1.0, 0.0, 0.0]), device=cuda)
+    csqp = pt.ConstrainedSQP(sqp, F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0,
+                             alm_outer=4)
+    ccpu = dataclasses.replace(csqp, sqp=dataclasses.replace(sqp, device="cpu"))
+    rng = np.random.default_rng(201)
+    x0 = np.stack([rng.uniform(-0.2, 0.2, 16), rng.uniform(-0.2, 0.2, 16),
+                   rng.uniform(-np.pi, np.pi, 16)], -1)
+    w, lam, costs = csqp.solve(x0)
+    wc, lc, cc = ccpu.solve(x0)
+    assert torch.equal(w.cpu(), wc) and torch.equal(lam.cpu(), lc)
+    assert np.array_equal(costs, cc)
+
+
+@pytest.mark.parametrize("B", [1, 17, 1000])
+def test_receding_horizon_k2_every_tick(cuda, B):
+    """RecedingHorizonController (double integrator, u_shift 10, T = 32, 12
+    iterations) for 20 ticks: fused (K2 once a tick) = word-space on the
+    card = the CPU's loop."""
+    import dataclasses
+
+    model = pt.DoubleIntegrator(u_shift=10)
+    rhc = pt.RecedingHorizonController.build(model, horizon=32, iters_per_tick=12, device=cuda)
+    fused = dataclasses.replace(rhc, use_fused=True)
+    rng = np.random.default_rng(202 + B)
+    x0 = model.to_fixed(np.stack([rng.uniform(-3, 3, B), rng.uniform(-1.5, 1.5, B)], -1))
+    x_d = torch.as_tensor(x0, device=cuda)
+    before = K.launch_counts()["fused_pgd"]
+    sf, lf = fused.run(x_d, 20)
+    assert K.launch_counts()["fused_pgd"] == before + 20
+    su, lu = rhc.run(x_d, 20)
+    sc, lc = dataclasses.replace(rhc, device="cpu").run(torch.as_tensor(x0), 20)
+    assert torch.equal(sf, su) and torch.equal(lf, lu)
+    assert torch.equal(sf.cpu(), sc) and torch.equal(lf.cpu(), lc)
+
+
+@pytest.mark.parametrize("fused, ef", [(False, True), (True, False)])
+def test_hover_lti_controller_on_the_card(cuda, fused, ef):
+    """The quadrotor hover LTIController (T = 40, n 6, m 2, 25 iterations)
+    for 40 ticks on 64 problems: with error feedback against the CPU's
+    loop, fused (K2 once a tick) against the CPU's word-space loop without
+    error feedback."""
+    quad = pt.PlanarQuadrotor()
+    A, Bm = quad.hover_lti()
+    Q = np.diag([4.0, 4.0, 2.0, 0.5, 0.5, 0.5])
+    qqp = quantize(pt.condense_lti(A, Bm, Q, 0.05, 10 * Q, 40, np.zeros(6), 100 * quad.f_scale))
+
+    def make(device, use_fused):
+        return pt.LTIController(qqp, plant_step=lambda s, u: quad.step(s, u[..., 0], u[..., 1]),
+                                inputs_per_step=2, iters_per_tick=25, use_fused=use_fused,
+                                error_feedback=ef, device=device)
+
+    rng = np.random.default_rng(203)
+    x0 = quad.to_fixed(rng.uniform(-0.3, 0.3, (64, 6)) * [1, 1, 0.1, 0.5, 0.5, 0.2])
+    before = K.launch_counts()["fused_pgd"]
+    s, lanes = make(cuda, fused).run(torch.as_tensor(x0, device=cuda), 40)
+    assert K.launch_counts()["fused_pgd"] == before + (40 if fused else 0)
+    sc, lc = make("cpu", False).run(torch.as_tensor(x0), 40)
+    assert torch.equal(s.cpu(), sc) and torch.equal(lanes.cpu(), lc)
+
+
+def test_mppi_on_the_card_at_cost_parity(cuda):
+    """QuantizedMPPI (H 50, K 512, B 4): a 4-update plan on the card and on
+    the CPU from the same seeded CPU generator (the same noise), at cost
+    parity (rtol 0.01, atol 1e-4); candidates and rollouts of one update
+    bit-identical."""
+    import dataclasses
+
+    model = pt.Unicycle(v_shift=10, w_shift=8)
+    goals = np.array([[1.5, 0.8], [-1.0, 1.2], [0.3, -0.4], [1.2, -1.0]], np.float32)
+    cost = pt.unicycle_goal_cost(model, goals[:, None, :])
+    mppi = pt.QuantizedMPPI(model, horizon=50, samples=512, noise_lanes=30, device=cuda)
+    cpu = dataclasses.replace(mppi, device="cpu")
+    s0 = torch.zeros((4, 3), dtype=torch.int32)
+    noise = mppi._sample_noise(torch.Generator().manual_seed(3), 4)
+    w0 = torch.zeros((4, 25), dtype=torch.int32)
+    got = mppi._rollouts(w0.to(cuda), noise, s0.to(cuda))
+    want = cpu._rollouts(w0, noise.cpu(), s0)
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+    w, _ = mppi.plan(torch.Generator().manual_seed(4), s0, cost, updates=4)
+    wc, _ = cpu.plan(torch.Generator().manual_seed(4), s0, cost, updates=4)
+
+    def plan_cost(words):
+        ctrl = unpack_controls(words.cpu()).reshape(4, 50, 2)
+        return cost(model.rollout(s0, ctrl), ctrl).numpy()
+
+    np.testing.assert_allclose(plan_cost(w), plan_cost(wc), rtol=0.01, atol=1e-4)
+
+
+def test_nonlinear_planner_on_the_card_at_cost_parity(cuda):
+    """QuantizedNonlinearPGD (H 48, 60 iterations, goal + obstacle) on 64
+    problems: the card's autograd gradient within rtol 1e-5 of the CPU's,
+    the solves at cost parity (rtol 0.01, atol 1e-4)."""
+    import dataclasses
+
+    from pint_tpu_torch.mpc import costs as C
+
+    model = pt.Unicycle(v_shift=10, w_shift=8)
+    rng = np.random.default_rng(204)
+    goals = np.stack([rng.uniform(1.2, 1.8, 64), rng.uniform(-0.4, 0.4, 64)], -1).astype(
+        np.float32)
+    cost = C.combine(C.goal_cost(model, goals),
+                     C.obstacle_cost(model, [(0.8, 0.06)], radius=0.3))
+    nl = pt.QuantizedNonlinearPGD(model, horizon=48, iters=60, device=cuda)
+    cpu = dataclasses.replace(nl, device="cpu")
+    u = (rng.uniform(-1, 1, (64, 48, 2)) * 127 * np.array([model.v_scale, model.w_scale])
+         ).astype(np.float32)
+    x0 = np.zeros((64, 3), np.float32)
+    g = nl.grad(torch.as_tensor(u, device=cuda), torch.as_tensor(x0, device=cuda), cost)
+    gc = cpu.grad(torch.as_tensor(u), torch.as_tensor(x0), cost)
+    np.testing.assert_allclose(g.cpu().numpy(), gc.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(gc.abs().max()))
+    s0 = torch.zeros((64, 3), dtype=torch.int32)
+    w, st = nl.solve(s0, cost)
+    wc, stc = cpu.solve(s0, cost)
+
+    def traj_cost(words, states):
+        ctrl = unpack_controls(words.cpu()).reshape(64, 48, 2).to(torch.float32)
+        return cost(states.cpu(), ctrl).numpy()
+
+    np.testing.assert_allclose(traj_cost(w, st), traj_cost(wc, stc), rtol=0.01, atol=1e-4)

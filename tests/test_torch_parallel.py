@@ -22,7 +22,6 @@ bounds, since the f32 condensations differ in the last ulps.
 
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 import textwrap
@@ -38,6 +37,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from pint_tpu.mpc import DeviceConstrainedSQP as JDeviceConstrainedSQP
 from pint_tpu.mpc import DeviceSQP as JDeviceSQP
 from pint_tpu.mpc import QuantizedSQP
+from pint_tpu.models.quadrotor import PlanarQuadrotor as JPlanarQuadrotor
 from pint_tpu.mpc import condense_double_integrator as j_condense
 from pint_tpu.mpc import quantize as j_quantize
 from pint_tpu.mpc.accelerated import AcceleratedPGD as JAccelerated
@@ -51,11 +51,11 @@ from pint_tpu.mpc.sqp_constrained import _alm_batched_cols_hqt as j_alm_cols_hqt
 from pint_tpu.parallel import ShardedConstrainedPGD as JShardedConstrained
 from pint_tpu.parallel import ShardedPGD as JShardedPGD
 from pint_tpu.parallel import make_mesh as j_make_mesh
-from pint_tpu_torch.convert import device_constrained_config
+from pint_tpu_torch.convert import device_constrained_config, device_sqp_config
 from pint_tpu_torch.models.dynamics import unpack_controls
 from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
 from pint_tpu_torch.mpc.fused_alm import pgd_matvec_cols, pgd_matvec_cols_plain
-from pint_tpu_torch.mpc.ltv import _pgd_batched_h, true_cost
+from pint_tpu_torch.mpc.ltv import _pgd_batched_h
 from pint_tpu_torch.mpc.sqp_constrained import _Y_SHIFT, _alm_batched
 from pint_tpu_torch.parallel import distributed as D
 from pint_tpu_torch.parallel import make_mesh
@@ -71,6 +71,11 @@ CON_SQP_KW = dict(horizon=8, sqp_iters=3, pgd_iters=12, x_ref=[1.0, 0.0, 0.0])
 CON_KW = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=2)
 PGD_ITERS, MOM_ITERS, ALM_OUTER, ALM_INNERS = 25, 15, 6, 20
 LTI_CON_T = 48
+# the planar quadrotor (n 6, m 2: Tm = 32 lanes over 8 words a problem) at
+# tests/test_quadrotor_device.py's configuration, on the 2-rank world
+QUAD_KW = dict(horizon=16, sqp_iters=4, pgd_iters=30, Q=[4.0, 4.0, 1.0, 0.2, 0.2, 0.1],
+               R=[0.05, 0.05], qf_scale=20.0, x_ref=[0.0] * 6)
+QUAD_MESHES = [(2, 1), (1, 2)]
 
 
 def _sqp_kw(kw):
@@ -94,10 +99,11 @@ WORKER = textwrap.dedent(
     import torch
 
     torch.set_num_threads(1)
-    rank, world, port, io = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    rank, world, init, io = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
     cfg = ast.literal_eval((io / "config.txt").read_text())
 
     from pint_tpu_torch import mpc as M
+    from pint_tpu_torch.models import PlanarQuadrotor
     from pint_tpu_torch.mpc.ltv import _pgd_batched_h_cols, _pgd_batched_h_cols_hqt
     from pint_tpu_torch.mpc.sqp_constrained import (
         _Y_SHIFT, _alm_batched_cols, _alm_batched_cols_hqt)
@@ -105,7 +111,7 @@ WORKER = textwrap.dedent(
         ShardedConstrainedPGD, ShardedPGD, distributed as D, host_local_mesh, make_mesh)
     from pint_tpu_torch.parallel.mesh import psum, shard, unshard
 
-    D.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    D.initialize(init, world, rank, backend="gloo")
     inp = dict(np.load(io / "inputs.npz"))
     t = {k: torch.from_numpy(v) for k, v in inp.items()}
     out = {"rate": np.float64(D.aggregate_rate(1.5 * (rank + 1))),
@@ -135,9 +141,12 @@ WORKER = textwrap.dedent(
     devc_word = M.DeviceConstrainedSQP(
         M.DeviceSQP(use_kernels=False, device="cpu", **sqp_kw(cfg["CON_SQP_KW"])),
         **cfg["CON_KW"])
+    devq = M.DeviceSQP(model=PlanarQuadrotor(), device="cpu", **sqp_kw(cfg["QUAD_KW"]))
     B = cfg["B"]
     if rank == 0:      # the single-device references (D4), same thread count
         out["ref/dsqp"] = dev.solve_words(dev.init_words(B), t["sqp_x0"]).numpy()
+        if world == 2:
+            out["ref/qsqp"] = devq.solve_words(devq.init_words(B), t["quad_x0"]).numpy()
         w, lam = devc.solve_words(devc.init_words(B), t["con_x0"])
         out["ref/dcon_words"], out["ref/dcon_lam"] = w.numpy(), lam.numpy()
 
@@ -212,6 +221,11 @@ WORKER = textwrap.dedent(
             out[f"{tag}/{name}_words"] = unshard(wl, mesh, ("dp", "tp")).numpy()
             out[f"{mine}/{name}_lam"] = ll.numpy()
 
+        if (dp, tp) in cfg["QUAD_MESHES"]:
+            wl = devq.sharded_solve_words(mesh)(shard(devq.init_words(B), mesh, ("dp", "tp")),
+                                                shard(t["quad_x0"], mesh, ("dp", None)))
+            out[tag + "/qsqp"] = unshard(wl, mesh, ("dp", "tp")).numpy()
+
         bad_dev = M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1, device="cpu")  # n_dec = 36
         bad_con = M.DeviceConstrainedSQP(M.DeviceSQP(horizon=18, sqp_iters=1, pgd_iters=1,
                                                      device="cpu"),
@@ -237,20 +251,23 @@ WORKER = textwrap.dedent(
     out["host_mesh"] = np.array(list(hm.ranks) + [
         int(psum(torch.tensor([rank + 1]), hm.group).item()), hm.r_dp, hm.r_tp])
     np.savez(io / f"out_w{world}_r{rank}.npz", **out)
+    # tear the group down before the interpreter exits: a gloo group left
+    # alive can abort the process at exit ("terminate called without an
+    # active exception") after its work is done
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
     print(f"rank {rank} of {world} OK", flush=True)
     """
 )
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _x0_lti(n, seed):
     rng = np.random.default_rng(seed)
     return np.stack([rng.uniform(-3, 3, n), rng.uniform(-1, 1, n)], -1)
+
+
+def _x0_quad(n, seed):
+    return (np.random.default_rng(seed).normal(size=(n, 6)) * 0.2).astype(np.float32)
 
 
 def _x0_sqp(n, seed, theta=(0.0, 1.0)):
@@ -292,10 +309,12 @@ def _operands():
 def _spawn(io, world):
     repo = pathlib.Path(__file__).resolve().parents[1]
     script = io / "worker.py"
-    port = _free_port()
+    # rendezvous through a file of this world's own: no port is chosen here
+    # and released before rank 0 binds it, where another process could take it
+    init = (io / f"rendezvous_w{world}").as_uri()
     env = {"PYTHONPATH": str(repo), "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": str(io), "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen([sys.executable, str(script), str(r), str(world), str(port), str(io)],
+    return [subprocess.Popen([sys.executable, str(script), str(r), str(world), init, str(io)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
             for r in range(world)]
 
@@ -331,6 +350,7 @@ def _jax_side(inp):
     res["mom_single"] = np.asarray(jax.jit(acc.solve_words)(acc.init_words(B), g))
     dev = JDeviceSQP(**_sqp_kw(SQP_KW))
     devc = JDeviceConstrainedSQP(JDeviceSQP(**_sqp_kw(CON_SQP_KW)), **CON_KW)
+    devq = JDeviceSQP(model=JPlanarQuadrotor(), **_sqp_kw(QUAD_KW))
     sqp_x0, con_x0 = inp["sqp_x0"], inp["con_x0"]
 
     u32 = {k: inp[k].view(np.uint32) for k in ("pgd_words", "alm_words")}
@@ -387,7 +407,11 @@ def _jax_side(inp):
             jax.device_put(devc.init_words(B), wts), jax.device_put(jnp.asarray(con_x0), row),
             jax.device_put(devc.init_lam(B), row))
         res[tag + "/dcon_words"], res[tag + "/dcon_lam"] = np.asarray(w), np.asarray(lam)
-    return res, dev, devc
+        if (dp, tp) in QUAD_MESHES:
+            res[tag + "/qsqp"] = np.asarray(devq.sharded_solve_words(mesh)(
+                jax.device_put(devq.init_words(B), wts),
+                jax.device_put(jnp.asarray(inp["quad_x0"]), row)))
+    return res, dev, devc, devq
 
 
 @pytest.fixture(scope="module")
@@ -395,23 +419,25 @@ def run(tmp_path_factory):
     """Spawn both worlds, compute JAX's side meanwhile, gather everything."""
     io = tmp_path_factory.mktemp("torch_parallel")
     inp = dict(lti_x0=_x0_lti(B, 0), lti_con_x0=_x0_lti(B, 7) * [0.5, 0.2],
-               sqp_x0=_x0_sqp(B, 5), con_x0=_x0_sqp(B, 7, (-np.pi, np.pi)), **_operands())
+               sqp_x0=_x0_sqp(B, 5), con_x0=_x0_sqp(B, 7, (-np.pi, np.pi)),
+               quad_x0=_x0_quad(B, 9), **_operands())
     np.savez(io / "inputs.npz", **inp)
     cfg = dict(SQP_KW=SQP_KW, CON_SQP_KW=CON_SQP_KW, CON_KW=CON_KW, PGD_ITERS=PGD_ITERS,
                MOM_ITERS=MOM_ITERS, ALM_OUTER=ALM_OUTER, ALM_INNERS=ALM_INNERS,
-               LTI_CON_T=LTI_CON_T, WORLD_MESHES=WORLD_MESHES, B=B)
+               LTI_CON_T=LTI_CON_T, WORLD_MESHES=WORLD_MESHES, B=B, QUAD_KW=QUAD_KW,
+               QUAD_MESHES=QUAD_MESHES)
     (io / "config.txt").write_text(repr(cfg))
     (io / "worker.py").write_text(WORKER)
     procs = {w: _spawn(io, w) for w in WORLD_MESHES}
     try:
-        jres, jdev, jdevc = _jax_side(inp)
+        jres, jdev, jdevc, jdevq = _jax_side(inp)
     finally:
         outs = {w: _wait(p, w) for w, p in procs.items()}
     for w, texts in outs.items():
         for r, text in enumerate(texts):
             assert f"rank {r} of {w} OK" in text, text[-3000:]
     port = {w: [dict(np.load(io / f"out_w{w}_r{r}.npz")) for r in range(w)] for w in WORLD_MESHES}
-    return dict(inp=inp, jax=jres, port=port, jdev=jdev, jdevc=jdevc)
+    return dict(inp=inp, jax=jres, port=port, jdev=jdev, jdevc=jdevc, jdevq=jdevq)
 
 
 def _rank0(run, dp, tp):
@@ -509,6 +535,23 @@ def test_device_sqp_sharded_bit_identical_and_cost_parity(run, dp, tp):
     assert cost.mean() < cold.mean()
 
 
+@pytest.mark.parametrize("dp,tp", QUAD_MESHES, ids=[f"dp{d}tp{t}" for d, t in QUAD_MESHES])
+def test_quadrotor_sharded_bit_identical_and_cost_parity(run, dp, tp):
+    """The planar quadrotor's DeviceSQP.sharded_solve_words (n 6, m 2, Tm
+    32 over 8 words a problem): D4, the sharded words equal the port's own
+    solve_words; against JAX's sharded solve on the same mesh, cost parity;
+    better than the zero (pure-hover) plan."""
+    tag, p, j = f"dp{dp}tp{tp}", _rank0(run, dp, tp), run["jax"]
+    np.testing.assert_array_equal(p[tag + "/qsqp"], p["ref/qsqp"])
+    port = device_sqp_config(run["jdevq"], device="cpu")
+    x0 = run["inp"]["quad_x0"]
+    lp = unpack_controls(torch.from_numpy(p[tag + "/qsqp"]))[:, :32].numpy()
+    lj = unpack_controls(torch.from_numpy(j[tag + "/qsqp"].view(np.int32).copy()))[:, :32].numpy()
+    cost = port.true_cost(x0, lp)
+    np.testing.assert_allclose(cost, port.true_cost(x0, lj), rtol=0.01, atol=1e-4)
+    assert cost.mean() < port.true_cost(x0, np.zeros((B, 32))).mean()
+
+
 @pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
 def test_device_constrained_sharded_bit_identical_and_parity(run, dp, tp):
     tag, j = f"dp{dp}tp{tp}", run["jax"]
@@ -526,7 +569,7 @@ def test_device_constrained_sharded_bit_identical_and_parity(run, dp, tp):
     x0 = run["inp"]["con_x0"]
     lp = unpack_controls(torch.from_numpy(ref_w))[:, :16].numpy()
     lj = unpack_controls(torch.from_numpy(j[tag + "/dcon_words"].view(np.int32)))[:, :16].numpy()
-    cost, cost_j = true_cost(port.dev, x0, lp), true_cost(port.dev, x0, lj)
+    cost, cost_j = port.dev.true_cost(x0, lp), port.dev.true_cost(x0, lj)
     np.testing.assert_allclose(cost, cost_j, rtol=0.01, atol=1e-4)
     np.testing.assert_allclose(port.violation(x0, lp), port.violation(x0, lj), atol=5e-3)
 

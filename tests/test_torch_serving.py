@@ -225,7 +225,6 @@ def test_constrained_rti_cost_parity():
     from pint_tpu.serving import ConstrainedRTIService as JConstrainedRTIService
 
     from pint_tpu_torch import ConstrainedRTIService
-    from pint_tpu_torch.mpc.ltv import true_cost
 
     ref, port = _crti_pair(lipq=True, fused=False, lipq_block=8)
     b = 6
@@ -239,8 +238,8 @@ def test_constrained_rti_cost_parity():
         tw, tl, tu0 = tsvc._tick(tw, tl, torch.as_tensor(x0, dtype=torch.float32))
         jplan = _rti_plan(ju0, jw, j_unpack, port.dev.n_dec, m)
         tplan = _rti_plan(tu0, tw, unpack_controls, port.dev.n_dec, m)
-        np.testing.assert_allclose(true_cost(port.dev, x0, tplan),
-                                   true_cost(port.dev, x0, jplan),
+        np.testing.assert_allclose(port.dev.true_cost(x0, tplan),
+                                   port.dev.true_cost(x0, jplan),
                                    rtol=0.01, atol=1e-4)
     u = tsvc.solve(x0)
     assert u.shape == (b, 2) and np.isfinite(u).all()
