@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SWAR substrate, serving path, state-constrained
 tier, multi-device tier, the other model families, every condensation
-form, the host SQP tier, the LTI controllers and the planners once on one
-H100.
+form, the host SQP tier, the LTI controllers, the planners, the native host
+tier and checkpoints once on one H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
 1. device check: a CUDA card of compute capability 9.0, its name and power
    limit from nvidia-smi; TF32 off;
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
-   source; from the build's -Xptxas -v report, the registers of every K2,
+   source, and meanwhile the native host library with g++; from the
+   build's -Xptxas -v report, the registers of every K2,
    K2p, K3, K4, K5, K6, K7 and K10 kernel (none may spill) and any kernel
    that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
@@ -87,8 +88,11 @@ Phases (any failure raises and the script exits non-zero):
     host.  The same solves; the ranks' K3 slabs must agree (a checksum
     all-reduced), their joined words and their multipliers must equal
     phase 15's one-process results bit for bit, and K10 must have launched
-    on both ranks in both SQP solves.  Wall ms are the rehearsal's, not a
-    rate of the tier;
+    on both ranks in both SQP solves.  Each rank then save_sharded's its
+    block of the DeviceSQP plan, passes a barrier and load_sharded's the
+    rows it holds under ("dp", None); the parent's load_full of the two
+    files must equal the one-process words.  Wall ms are the rehearsal's,
+    not a rate of the tier;
 17. long horizons, 2 SQP iterations each: DeviceSQP and
     DeviceConstrainedSQP at T = 128, B = 4096 (K3 with rows in registers,
     K6's cluster kernel, K4's and K5's cluster kernels), DeviceConstrainedSQP
@@ -138,16 +142,30 @@ Phases (any failure raises and the script exits non-zero):
     the differing lanes counted; rollouts/s, solves/s, device time;
 26. examples/swingup.py's flow (phase_swingup): a pendulum QuantizedSQP
     plan at T = 128 bit-identical to the CPU's, then an SQPController
-    tracker (T = 16) for 192 ticks, ending with |theta| < 0.02 turns.
+    tracker (T = 16) for 192 ticks, ending with |theta| < 0.02 turns;
+27. the native host tier (phase_native): NativeOps (host C++, built with
+    g++) on phase 3's layouts at 1Mi full-range words, every binop and
+    shift bit-identical to K1 and K9 on the card (K11a and K11b for u64),
+    pack and both unpacks equal to ops/word on the card; its host ms for
+    add_unsigned_saturate at the headline's 16Mi words beside K1's queued
+    ms, with the card and the host CPU named;
+28. checkpoints (phase_checkpoint): save_packed/load_packed of the
+    headline's 16Mi words round trip bit-identical; FusedPGD 15 iterations
+    against 7 + save_solver_state/load_solver_state + 8 at B = 8192, Tp =
+    64, bit-identical, K2 launched in each solve; the flagship DeviceSQP
+    (T 32, B 4096, 4 x 30) with fused=False (K3, then the word-space inner)
+    bit-identical to fused=None (K3, then K4), K4 launched only by the
+    latter.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
 phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels,
 phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick,
-phase 21 K3 and K4 (K3, K6 and K5) in each solve, and phase 24 K2 once a
+phase 21 K3 and K4 (K3, K6 and K5) in each solve, phase 24 K2 once a
 tick in both fused LTI loops (K2's launches in the kernels line add the
-MPCService ticks and these).
+MPCService ticks and these), and phase 28 K2 in each resumed solve and K3
+(and K4 for fused=None) in each flagship solve.
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
@@ -261,6 +279,7 @@ def phase_device(torch):
     say(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi
 
 
 def ptxas_kernels(report):
@@ -281,12 +300,23 @@ def ptxas_kernels(report):
 
 
 def phase_build(K):
+    import threading
+
+    from pint_tpu_torch import native
+
+    # the native host library (phase 27) compiles with g++ meanwhile
+    host = {}
+    thread = threading.Thread(target=lambda: host.update(ok=native.native_available()))
     t0 = time.perf_counter()
+    thread.start()
     so = K.build()
     K.library()
     sec = time.perf_counter() - t0
+    thread.join()
+    both = time.perf_counter() - t0
     rows = ptxas_kernels(so.with_suffix(".ptxas.txt").read_text())
-    say(f"build: {so.name} in {sec:.2f} s; ptxas: {len(rows)} kernels")
+    say(f"build: {so.name} in {sec:.2f} s; ptxas: {len(rows)} kernels; native host "
+        f"library {'built' if host.get('ok') else 'FAILED'}, both done in {both:.2f} s")
     shown = [r for r in rows if r[0] in NO_SPILL_SOURCES or r[3] or r[4]]
     for src, fn, regs, st, ld in shown:
         say(f"  ptxas {src} {fn}: {regs} registers, {st} bytes spill stores, "
@@ -2066,6 +2096,191 @@ def phase_swingup(torch, P):
     return rec
 
 
+def host_cpu() -> str:
+    """The host CPU's model name as /proc/cpuinfo gives it, with the
+    machine type and the count of logical CPUs where it names none."""
+    import os
+    import platform
+
+    model = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if model.lower() in ("", "unknown"):
+        return f"model not reported ({platform.machine()}, {os.cpu_count()} logical CPUs)"
+    return model
+
+
+def phase_native(torch, P, k1_queued_ms, smi):
+    """Phase 27, the native host SWAR tier (pint_tpu_torch.native, host
+    C++) against the card: on the substrate phase's layouts at N_CHECK
+    full-range words, every NativeOps binop and shift bit-identical to K1
+    and K9 on the same words (and, for u64 layouts, to K11a and K11b), its
+    pack and both unpacks equal to ops/word on the card; then its host ms
+    for add_unsigned_saturate at the headline's 16Mi <8,8,8,8> words, beside
+    K1's queued ms from the headline."""
+    from pint_tpu_torch.convert import words_to_numpy
+    from pint_tpu_torch.native import NativeOps, _so_path
+    from pint_tpu_torch.ops import swar as S
+    from pint_tpu_torch.ops import word as W
+    from pint_tpu_torch.ops.split64 import merge_u64, split_u64
+
+    def held(what, got, want):
+        if not np.array_equal(words_to_numpy(got), want):
+            raise AssertionError(f"native {what}: NativeOps differs from the card")
+
+    t0 = time.perf_counter()
+    NativeOps(P.PackedLayout(8, 8, 8, 8))
+    build_sec = time.perf_counter() - t0
+    checks = 0
+    for seed, widths in enumerate(SWAR_LAYOUTS):
+        lay = P.PackedLayout(*widths)
+        nat = NativeOps(lay)
+        wide = lay.word_bits == 64
+        a = rand_words(torch, W, lay, (N_CHECK,), 10 * seed + 300)
+        b = rand_words(torch, W, lay, (N_CHECK,), 10 * seed + 301)
+        na, nb = words_to_numpy(a), words_to_numpy(b)
+        pa, pb = (split_u64(a), split_u64(b)) if wide else (None, None)
+        for op in S.BINOP_NAMES:
+            want = getattr(nat, op)(na, nb)
+            held(f"{op} {widths} vs K1", S.binop(lay, op)(a, b), want)
+            checks += 1
+            if wide:
+                held(f"{op} {widths} vs K11a", merge_u64(S.binop_pair(lay, op)(pa, pb)), want)
+                checks += 1
+        for op in S.SHIFT_NAMES:
+            for amt in SHIFT_AMOUNTS:
+                want = getattr(nat, op)(na, amt)
+                held(f"{op}({amt}) {widths} vs K9", S.shift(lay, op)(a, amt), want)
+                checks += 1
+                if wide:
+                    held(f"{op}({amt}) {widths} vs K11b",
+                         merge_u64(S.shift_pair(lay, op)(pa, amt)), want)
+                    checks += 1
+        lanes = nat.unpack(na, signed=True)
+        held(f"pack {widths}", W.pack(lay, torch.as_tensor(lanes, device=DEVICE)),
+             nat.pack(lanes))
+        for signed, fn in ((False, W.unpack), (True, W.unpack_signed)):
+            got = fn(lay, a).to(torch.int64).cpu().numpy()
+            if not np.array_equal(got, nat.unpack(na, signed=signed)):
+                raise AssertionError(f"native unpack signed={signed} {widths}: differs "
+                                     "from ops/word on the card")
+        checks += 3
+    lay = P.PackedLayout(8, 8, 8, 8)
+    nat = NativeOps(lay)
+    a = rand_words(torch, W, lay, (N_HEADLINE,), 100)        # the headline's words
+    b = rand_words(torch, W, lay, (N_HEADLINE,), 101)
+    na, nb = words_to_numpy(a), words_to_numpy(b)
+    held("add_unsigned_saturate at the headline's words",
+         S.binop(lay, "add_unsigned_saturate")(a, b), nat.add_unsigned_saturate(na, nb))
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        nat.add_unsigned_saturate(na, nb)
+        host.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(layouts=[list(w) for w in SWAR_LAYOUTS], words=N_CHECK, checks=checks,
+               library=_so_path().name, build_and_load_sec=build_sec,
+               headline_words=N_HEADLINE, native_host_ms=median(host),
+               native_host_ms_readings=host, k1_queued_ms=k1_queued_ms,
+               native_Gwords_per_s=N_HEADLINE / (median(host) / 1e3) / 1e9,
+               card=smi, host_cpu=host_cpu())
+    say(f"native: {checks} checks on {len(SWAR_LAYOUTS)} layouts x {N_CHECK} full-range "
+        f"words, NativeOps bit-identical to K1/K9 (K11a/K11b for u64) and ops/word pack "
+        f"and unpacks on the card; add_unsigned_saturate <8,8,8,8> at {N_HEADLINE} words: "
+        f"host {median(host):.3f} ms ({host_cpu()}), K1 queued {k1_queued_ms:.4f} ms "
+        f"({smi})")
+    return rec
+
+
+def phase_checkpoint(torch, P, K, timing):
+    """Phase 28, checkpoints on the card: save_packed/load_packed of the
+    headline's 16Mi words round trip bit-identical; the resume claim on K2
+    at the LTI serving shape (FusedPGD 15 iterations against 7, a
+    save_solver_state/load_solver_state and 8 more, momentum off), K2
+    launched in each solve; the flagship DeviceSQP with fused=False (K3,
+    then the word-space inner) bit-identical to fused=None (K3, then K4)."""
+    import tempfile
+
+    from pint_tpu_torch.convert import words_from_numpy
+    from pint_tpu_torch.ops import word as W
+    from pint_tpu_torch.utils import checkpoint as C
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lay = P.PackedLayout(8, 8, 8, 8)
+        arr = P.PackedArray(rand_words(torch, W, lay, (N_HEADLINE,), 100), lay)
+        t0 = time.perf_counter()
+        C.save_packed(f"{tmp}/words.npz", arr)
+        t1 = time.perf_counter()
+        back = C.load_packed(f"{tmp}/words.npz", device=DEVICE)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if back.layout != lay or back.device.type != "cuda":
+            raise AssertionError("load_packed: layout or device lost")
+        same(torch, "save_packed/load_packed round trip", back.word, arr.word)
+        rec.update(packed_words=N_HEADLINE, save_packed_ms=(t1 - t0) * 1e3,
+                   load_packed_ms=(t2 - t1) * 1e3)
+
+        qqp = P.quantize(P.condense_double_integrator(T=50))
+        g = torch.as_tensor(qqp.g_lane_fixed(lti_states(np.random.default_rng(28), LTI_BATCH)),
+                            device=DEVICE)
+        launches = []
+
+        def solve(iters, words):
+            K.reset_launch_counts()             # this solve's path starts here
+            out = P.FusedPGD(qqp, iters=iters, device=DEVICE).solve_words(words, g)
+            torch.cuda.synchronize()
+            launches.append(K.launch_counts()["fused_pgd"])   # and ends here
+            if launches[-1] < 1:
+                raise AssertionError(f"resume: K2 never launched in the {iters}-iteration solve")
+            return out
+
+        cold = P.FusedPGD(qqp, device=DEVICE).init_words(LTI_BATCH)
+        want = solve(15, cold)
+        part = solve(7, cold)
+        C.save_solver_state(f"{tmp}/state.npz", part, g, iters_done=7, meta={"T": 50})
+        u, g2, done, meta = C.load_solver_state(f"{tmp}/state.npz")
+        got = solve(15 - done, words_from_numpy(u, device=DEVICE))
+        if torch.equal(part, want):
+            raise AssertionError("resume: 7 iterations already give the 15-iteration words")
+        same(torch, "K2 resumed after save/load vs uninterrupted", got, want)
+        if meta != {"T": 50} or not np.array_equal(g2, g.cpu().numpy()):
+            raise AssertionError("resume: the state file lost its linear term or metadata")
+        rec.update(resume=dict(B=LTI_BATCH, Tp=qqp.padded, iters=(15, 7, 15 - done),
+                               k2_launches=launches))
+
+    x0 = torch.as_tensor(rti_states(np.random.default_rng(0), RTI_BATCH), dtype=torch.float32,
+                         device=DEVICE)
+    words, counts, ms = {}, {}, {}
+    for fused in (None, False):
+        sqp = P.DeviceSQP(sqp_iters=4, fused=fused, device=DEVICE, **SQP_KW)
+        u0 = sqp.init_words(RTI_BATCH)
+        K.reset_launch_counts()                 # this solve's path starts here
+        words[fused] = sqp.solve_words(u0, x0)
+        torch.cuda.synchronize()
+        counts[fused] = {k: K.launch_counts()[k] for k in ("lipq", "pgd_hqt")}
+        ms[fused] = median(timing.host_ms(lambda: sqp.solve_words(u0, x0), reps=5))
+    if counts[None]["lipq"] < 1 or counts[None]["pgd_hqt"] < 1 or counts[False]["lipq"] < 1:
+        raise AssertionError(f"flagship fused=None/False: kernels not launched {counts}")
+    if counts[False]["pgd_hqt"]:
+        raise AssertionError("flagship fused=False launched K4")
+    same(torch, "flagship DeviceSQP fused=False vs fused=None", words[False], words[None])
+    rec.update(flagship_fused=dict(B=RTI_BATCH, launches={str(k): v for k, v in counts.items()},
+                                   ms={str(k): v for k, v in ms.items()}))
+    say(f"checkpoint: {N_HEADLINE} words save/load round trip bit-identical "
+        f"({rec['save_packed_ms']:.1f} / {rec['load_packed_ms']:.1f} ms); K2 resume "
+        f"(B={LTI_BATCH}, 15 = 7 + save/load + 8) bit-identical, K2 launches {launches}; "
+        f"flagship DeviceSQP fused=False bit-identical to fused=None (launches "
+        f"{json.dumps(rec['flagship_fused']['launches'])}; host ms "
+        f"{ms[None]:.2f} with K4, {ms[False]:.2f} with the word-space inner)")
+    return rec
+
+
 def free_port():
     import socket
 
@@ -2122,6 +2337,7 @@ def sharded_solves(torch, P, mesh, pr):
     w = run("device_sqp", lambda: d.sharded_solve_words(mesh)(
         shard(d.init_words(RTI_BATCH), mesh, ("dp", "tp")), shard(pr["x_rti"], mesh, ("dp", None))))
     out["dsqp"] = unshard(w, mesh, ("dp", "tp")).cpu()
+    out["dsqp_block"] = w                       # this rank's block, on the card
     w, lam = run("device_constrained", lambda: c.sharded_solve_words(mesh)(
         shard(c.init_words(CON_BATCH), mesh, ("dp", "tp")), shard(pr["x_con"], mesh, ("dp", None))))
     out["dcon_words"], out["dcon_lam_local"] = unshard(w, mesh, ("dp", "tp")).cpu(), lam.cpu()
@@ -2225,10 +2441,11 @@ def rehearsal_worker(rank, port, out_dir):
         raise SystemExit("rehearsal worker: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     import pint_tpu_torch as P
-    from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.models.dynamics import CONTROL_LAYOUT, unpack_controls
     from pint_tpu_torch.ops import kernels as K
     from pint_tpu_torch.parallel import distributed as D
     from pint_tpu_torch.parallel import make_mesh
+    from pint_tpu_torch.utils.checkpoint import load_sharded, save_sharded
 
     K.library()                                 # built by the parent: same sources
     D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
@@ -2251,6 +2468,17 @@ def rehearsal_worker(rank, port, out_dir):
         K.reset_launch_counts()                 # the rehearsal's main path starts here
         got, wall, k10 = sharded_solves(torch, P, mesh, pr)
         counts = K.launch_counts()              # and ends here
+        # each rank saves its own block of the plan, then every rank loads
+        # the rows it holds under ("dp", None): the whole plan at dp = 1
+        prefix = str(Path(out_dir) / "dsqp")
+        save_sharded(prefix, P.PackedArray(got.pop("dsqp_block"), CONTROL_LAYOUT), mesh,
+                     ("dp", "tp"))
+        dist.barrier()
+        back, widths = load_sharded(prefix, mesh, ("dp", None))
+        if (widths != CONTROL_LAYOUT.widths or back.device.type != mesh.device.type
+                or not torch.equal(back.cpu(), got["dsqp"])):
+            raise AssertionError(f"rank {rank}: load_sharded of the saved blocks differs "
+                                 "from the joined plan")
     finally:
         dist.destroy_process_group()
     np.savez(Path(out_dir) / f"rank{rank}.npz",
@@ -2263,8 +2491,13 @@ def rehearsal_worker(rank, port, out_dir):
 def phase_rehearsal(torch, ref):
     """Two ranks on the one card (dp=1, tp=2; gloo carries the collectives
     of CUDA tensors through the host, since NCCL refuses two ranks on one
-    device): the sharded solves, joined, equal the one-process results."""
+    device): the sharded solves, joined, equal the one-process results, and
+    so does ``load_full`` of the blocks the ranks saved with
+    ``save_sharded``."""
     import tempfile
+
+    from pint_tpu_torch.convert import words_to_numpy
+    from pint_tpu_torch.utils.checkpoint import load_full
 
     with tempfile.TemporaryDirectory() as tmp:
         port = free_port()
@@ -2286,6 +2519,13 @@ def phase_rehearsal(torch, ref):
                     p.communicate()
         res = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(2)]
         meta = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+        ckpt_files = sorted(p.name for p in Path(tmp).glob("dsqp.proc*.npz"))
+        ckpt_full, ckpt_widths = load_full(str(Path(tmp) / "dsqp"))
+    if ckpt_files != ["dsqp.proc0.npz", "dsqp.proc1.npz"] or ckpt_widths != (8, 8, 8, 8):
+        raise AssertionError(f"rehearsal checkpoint: files {ckpt_files}, widths {ckpt_widths}")
+    if not np.array_equal(ckpt_full, words_to_numpy(ref["dsqp"])):
+        raise AssertionError("rehearsal checkpoint: load_full of the ranks' files differs "
+                             "from the one-process solve")
     for r, m in enumerate(meta):
         for name in ("device_sqp", "device_constrained"):
             if m["k10"][name] < 1:
@@ -2303,7 +2543,9 @@ def phase_rehearsal(torch, ref):
                launches=sum(m["counts"]["pgd_matvec_cols"] for m in meta))
     say(f"rehearsal dp=1 tp=2 (gloo over CUDA tensors through the host, both ranks on one "
         f"card; not a rate of the tier): joined words and lam bit-identical to the "
-        f"one-process solves, K3 slabs equal across ranks; K10 launches per solve "
+        f"one-process solves, K3 slabs equal across ranks; each rank's saved block of the "
+        f"DeviceSQP plan reloads onto ('dp', None) and load_full of {ckpt_files} equals the "
+        f"one-process words; K10 launches per solve "
         f"{json.dumps(rec['k10_launches'])}; wall ms per rank {json.dumps(rec['wall_ms'])}")
     return rec
 
@@ -2314,7 +2556,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import torch
 
-    phase_device(torch)
+    smi = phase_device(torch)
     import pint_tpu_torch as P
     from pint_tpu_torch.ops import kernels as K
     from pint_tpu_torch.utils import timing
@@ -2358,10 +2600,15 @@ def main():
     t3 = time.perf_counter()
     swingup = phase_swingup(torch, P)
     t4 = time.perf_counter()
+    native = phase_native(torch, P, swar_times["swar_binop"][2], smi)
+    t5 = time.perf_counter()
+    ckpt = phase_checkpoint(torch, P, K, timing)
+    t6 = time.perf_counter()
     phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
-                     swingup=t4 - t3)
+                     swingup=t4 - t3, native=t5 - t4, checkpoint=t6 - t5)
     say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
-        f"{phase_sec['planners']:.1f} s, {phase_sec['swingup']:.1f} s ({t4 - t0:.1f} s in all)")
+        f"{phase_sec['planners']:.1f} s, {phase_sec['swingup']:.1f} s ({t4 - t0:.1f} s in all); "
+        f"phases 27-28: {phase_sec['native']:.1f} s, {phase_sec['checkpoint']:.1f} s")
 
     from pint_tpu_torch.utils.profiling import bound_ms, kernel_cost
 
@@ -2495,7 +2742,8 @@ def main():
     say(json.dumps({"wide": wide, "rollouts": rollouts, "controller": controller,
                     "models": models, "forms": forms}))
     say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
-                    "swingup": swingup, "phase_sec": phase_sec}))
+                    "swingup": swingup, "native": native, "checkpoint": ckpt,
+                    "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -17,8 +17,12 @@ ALM solvers, and the sharded SQP solves), with hand-written CUDA kernels
 for the SWAR binops, shifts and saturating accumulate (K1, K9, K8,
 K11a-c), FusedPGD with lane and packed-word I/O (K2, K2p), lipq (K3), the
 per-problem PGD inner (K4), the per-problem and shared-operand ALM inners
-(K5, K7), the penalty power iteration (K6) and the tp column matvec (K10).
-ROADMAP.md lists what is still to port.
+(K5, K7), the penalty power iteration (K6) and the tp column matvec (K10),
+checkpoints of words, solver state and sharded blocks
+(:mod:`pint_tpu_torch.utils.checkpoint`, files the reference reads and
+writes too) and the native host SWAR tier (:mod:`pint_tpu_torch.native`).
+That is everything ``pint_tpu`` does; ROADMAP.md lists what was left out on
+purpose (TPU and JAX plumbing).
 """
 
 from pint_tpu_torch import convert, parallel

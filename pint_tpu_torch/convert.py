@@ -90,8 +90,8 @@ def model_config(m):
 def device_sqp_config(ref, **overrides) -> DeviceSQP:
     """The port's :class:`DeviceSQP` with a reference ``DeviceSQP``'s
     problem fields (model, horizon, Q, R, Qf, x_ref, iterations, g_shift,
-    power_iters, propagate, reduce); ``overrides`` sets the port's own
-    (``device``, ...)."""
+    power_iters, propagate, reduce) and its form flags ``lipq`` and
+    ``fused``; ``overrides`` sets the port's own (``device``, ...)."""
     kw = dict(
         model=model_config(ref.model),
         horizon=int(ref.horizon),
@@ -102,6 +102,7 @@ def device_sqp_config(ref, **overrides) -> DeviceSQP:
         sqp_iters=int(ref.sqp_iters), pgd_iters=int(ref.pgd_iters),
         g_shift=int(ref.g_shift), power_iters=int(ref.power_iters),
         propagate=ref.propagate, reduce=ref.reduce,
+        lipq=ref.lipq, fused=ref.fused,
     )
     kw.update(overrides)
     return DeviceSQP(**kw)
@@ -129,8 +130,9 @@ def quantized_constrained_qp_from_arrays(ref) -> QuantizedConstrainedQP:
 
 def device_constrained_config(ref, **overrides) -> DeviceConstrainedSQP:
     """The port's :class:`DeviceConstrainedSQP` with a reference one's
-    fields; ``dev`` through :func:`device_sqp_config`.  The reference's
-    TPU-only ``fused_block`` and ``lipq_block`` are dropped.
+    fields; ``dev`` through :func:`device_sqp_config` (so ``dev`` keeps the
+    reference's ``dev.lipq`` and ``dev.fused``).  The reference's TPU-only
+    ``fused_block`` and ``lipq_block`` are dropped.
     ``overrides`` sets fields of either: the constrained solver's own
     (``fused``, ``rho``, ...) and the rest on ``dev`` (``device``,
     ``use_kernels``, ...)."""

@@ -24,9 +24,9 @@ only.  Each SQP iteration, for a batch of problems at once:
   :meth:`DeviceSQP._quantize_phase`);
 * the fixed-point PGD inner with error feedback: K4
   (:func:`~pint_tpu_torch.mpc.fused_alm.pgd_fused_words_pre`) where
-  :func:`~pint_tpu_torch.mpc.fused_alm.pgd_fits` takes the horizon,
-  otherwise the word-space ``ltv._pgd_batched_h``, the reference's XLA
-  inner.
+  :func:`~pint_tpu_torch.mpc.fused_alm.pgd_fits` takes the horizon and
+  ``fused`` is not False, otherwise the word-space ``ltv._pgd_batched_h``,
+  the reference's XLA inner.
 
 Each choice is made once, at construction, from the shapes
 (:attr:`DeviceSQP.forms`), as the reference's ``_use_lipq`` and
@@ -179,6 +179,7 @@ class DeviceSQP:
     propagate: str = "auto"
     reduce: str = "sym"
     lipq: "bool | None" = None
+    fused: "bool | None" = None
     device: object = "cuda"
     use_kernels: bool = True
 
@@ -212,15 +213,17 @@ class DeviceSQP:
         ``use_kernels=False`` or on the CPU) where ``lipq`` is not False and
         :func:`lipq_fits` takes ``n_dec``, else "torch"
         (:meth:`_lipschitz_phase` and :meth:`_quantize_phase`); ``inner`` is
-        "pgd_hqt" (K4, or its plain version) where :func:`pgd_fits` takes
-        ``n_dec``, else "pgd_batched_h" (the word-space
-        ``ltv._pgd_batched_h``).  ``lipq=True`` past K3's fit takes the
-        torch form, as the reference's ``_use_lipq`` does past
-        ``lipq_viable``."""
+        "pgd_hqt" (K4, or its plain version) where ``fused`` is not False
+        and :func:`pgd_fits` takes ``n_dec``, else "pgd_batched_h" (the
+        word-space ``ltv._pgd_batched_h``).  ``lipq=True`` past K3's fit
+        takes the torch form, as the reference's ``_use_lipq`` does past
+        ``lipq_viable``; ``fused=True`` past K4's fit takes the word-space
+        inner, as its ``_use_fused`` does past ``pgd_viable``."""
         return dict(
             condense="lipq" if self.lipq is not False and lipq_fits(self.n_dec)
             else "torch",
-            inner="pgd_hqt" if pgd_fits(self.n_dec) else "pgd_batched_h",
+            inner="pgd_hqt" if self.fused is not False and pgd_fits(self.n_dec)
+            else "pgd_batched_h",
         )
 
     # -- geometry (the problem definition is QuantizedSQP's, so are these
@@ -607,8 +610,10 @@ class DeviceSQP:
         int32 all-reduce every iteration (:func:`~pint_tpu_torch.mpc.ltv.
         _pgd_batched_h_cols_hqt`; the plain column dot
         :func:`~pint_tpu_torch.mpc.ltv._pgd_batched_h_cols` with
-        ``use_kernels=False``).  With tp == 1 each shard runs
-        :meth:`solve_words`'s iteration with no collective.
+        ``use_kernels=False`` or ``fused=False``, as the reference's
+        ``resolve_tp_fused(False, ...)`` takes its XLA dot).  With tp == 1
+        each shard runs :meth:`solve_words`'s iteration, in the inner
+        ``forms["inner"]`` names, with no collective.
 
         Bit-identical to :meth:`solve_words` on every mesh shape as long as
         every tp rank computes the same f32 condensation and quantization
@@ -618,11 +623,12 @@ class DeviceSQP:
         def cols_inner(cols, block):
             kw = dict(iters=self.pgd_iters, g_shift=self.g_shift,
                       group=mesh.tp_group, rank=mesh.r_tp, block=block)
+            kernel = self.use_kernels and self.fused is not False
 
             def inner(words, x0_f, lanes):
                 hqt, g_pre, hs_num, hs_den = self._condense(x0_f, lanes)
                 g_r = g_pre[:, cols].contiguous()
-                if self.use_kernels:
+                if kernel:
                     return _pgd_batched_h_cols_hqt(words, g_r, hqt, hs_num, hs_den, **kw)
                 return _pgd_batched_h_cols(words, g_r, hqt.permute(2, 1, 0), hs_num,
                                            hs_den, **kw)

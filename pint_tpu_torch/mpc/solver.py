@@ -48,6 +48,16 @@ class FixedPointPGD:
             np.asarray(qqp.Hq, np.float64).T, device=self.device
         )
 
+    @property
+    def Hq_dev(self) -> torch.Tensor:
+        """The int8 Hessian (Tp, Tp) on the solver's device."""
+        return torch.as_tensor(np.asarray(self.qqp.Hq, np.int8), device=self.device)
+
+    @property
+    def lower_words(self) -> torch.Tensor:
+        """(1,) int32: the packed word of four -127 lanes, the box floor."""
+        return torch.full((1,), _lower_words(), dtype=torch.int32, device=self.device)
+
     def init_words(self, batch: int) -> torch.Tensor:
         return torch.zeros(
             (batch, self.qqp.padded // 4), dtype=torch.int32, device=self.device
@@ -85,3 +95,14 @@ class FixedPointPGD:
         words = self.solve_words(self.init_words(g_pre.shape[0]), g_pre)
         lanes = unpack_controls(words)[:, : self.qqp.horizon]
         return words, lanes.to(torch.float32) * float(np.float32(self.qqp.u_scale))
+
+    def cost(self, lanes_phys: np.ndarray, x0_phys: np.ndarray) -> np.ndarray:
+        """Float64 QP objective of a (batch of) control sequences, numpy in
+        and out: the reference's own body."""
+        qp = self.qqp.qp
+        U = np.asarray(lanes_phys, np.float64)
+        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
+        g = x0 @ qp.G.T + qp.g_ref
+        return 0.5 * np.einsum("bi,ij,bj->b", U, qp.H, U) + np.einsum(
+            "bi,bi->b", g, U
+        )

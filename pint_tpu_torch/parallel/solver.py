@@ -67,6 +67,20 @@ class ShardedPGD:
         # this rank's columns of Hq, transposed: (block, Tp)
         self._HcT = torch.as_tensor(Hq[:, self._cols].T.copy(), device=mesh.device)
 
+    @property
+    def tp(self) -> int:
+        return self.mesh.tp
+
+    @property
+    def Hq_dev(self) -> torch.Tensor:
+        """The whole int8 Hessian (Tp, Tp) on the mesh's device."""
+        return torch.as_tensor(np.asarray(self.qqp.Hq, np.int8), device=self.mesh.device)
+
+    @property
+    def lower_words(self) -> torch.Tensor:
+        """(1,) int32: the packed word of four -127 lanes, the box floor."""
+        return torch.full((1,), _lower_words(), dtype=torch.int32, device=self.mesh.device)
+
     @functools.cached_property
     def beta_num(self) -> int:
         return beta_num(self.qqp, self.beta_den)
@@ -153,6 +167,10 @@ class ShardedConstrainedPGD:
         self._Sc = torch.as_tensor(Sq[:, cols].copy(), device=dev)      # (Cp, block)
         self._lo = torch.as_tensor(np.asarray(qcqp.lo_pre, np.int32), device=dev)
         self._hi = torch.as_tensor(np.asarray(qcqp.hi_pre, np.int32), device=dev)
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.tp
 
     def solve_words(self, u_words, g_pre, c_off, lam0=None):
         """``outer`` x ``inners`` ALM iterations on this rank's shards:

@@ -98,7 +98,21 @@ ENTRY_POINTS = {
         pt.PackedLayout(8, 8, 8, 8), (3,), **kw),
     "words_from_numpy": lambda **kw: words_from_numpy(
         np.arange(6, dtype=np.uint32), **kw),
+    "load_packed": lambda **kw: _load_packed(**kw),
 }
+
+
+def _load_packed(**kw):
+    """A checkpoint written from the CPU, loaded with ``kw``."""
+    import tempfile
+
+    from pint_tpu_torch.utils.checkpoint import load_packed, save_packed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/words.npz"
+        save_packed(path, pt.PackedArray.from_words(pt.PackedLayout(8, 8, 8, 8),
+                                                    np.arange(6, dtype=np.uint32)))
+        return load_packed(path, **kw)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

@@ -325,6 +325,53 @@ def test_lipq_false_solve_cost_parity(pair):
     np.testing.assert_array_equal(plain.solve(x0)[0].numpy(), w.numpy())
 
 
+def test_converted_lipq_false_takes_the_torch_form():
+    """``device_sqp_config`` copies ``lipq`` (and ``fused``): a reference
+    ``DeviceSQP(lipq=False)`` converts to the torch form, not K3, and
+    solves at cost parity with JAX's."""
+    ref = JDeviceSQP(propagate="unroll", lipq=False, **KW)
+    port = device_sqp_config(ref, device="cpu")
+    assert port.lipq is False and port.fused is None
+    assert port.forms == dict(condense="torch", inner="pgd_hqt")
+    x0 = _x0(6, 77)
+    w_ref, _ = ref.solve(x0)
+    w, _ = port.solve(x0)
+    lanes = unpack_controls(w)[:, : ref.n_dec].numpy()
+    lanes_ref = unpack_controls(words_from_numpy(np.asarray(w_ref), device="cpu"))
+    np.testing.assert_allclose(port.true_cost(x0, lanes),
+                               port.true_cost(x0, lanes_ref[:, : ref.n_dec].numpy()),
+                               rtol=0.01, atol=1e-4)
+    for fused in (False, True):
+        conv = device_sqp_config(JDeviceSQP(fused=fused, **KW), device="cpu")
+        assert conv.fused is fused and conv.lipq is None
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+@pytest.mark.parametrize("horizon", [32, 316, 318])
+def test_fused_selects_the_inner(horizon, fused):
+    """``fused`` None or True: K4 where ``pgd_fits`` takes Tm (to 632,
+    horizon 316), the word-space inner past it, as the reference's
+    ``_use_fused`` returns False past ``pgd_viable``; False: the word-space
+    inner at every horizon."""
+    sqp = DeviceSQP(**dict(KW, horizon=horizon), fused=fused, device="cpu")
+    kernel = fused is not False and horizon <= 316
+    assert sqp.forms["inner"] == ("pgd_hqt" if kernel else "pgd_batched_h")
+    assert sqp.forms["condense"] == ("lipq" if horizon <= 143 else "torch")
+
+
+def test_fused_false_bit_identical_to_fused_none(pair):
+    """``fused=False`` (the word-space ``_pgd_batched_h``) and the default
+    (K4's plain version here) give the same words, in both condense
+    forms."""
+    ref, port = pair
+    x0 = _x0(5, 79)
+    for lipq in (None, False):
+        base = device_sqp_config(ref, lipq=lipq, device="cpu")
+        word = device_sqp_config(ref, lipq=lipq, fused=False, device="cpu")
+        assert word.forms["inner"] == "pgd_batched_h"
+        np.testing.assert_array_equal(word.solve(x0)[0].numpy(), base.solve(x0)[0].numpy())
+
+
 def _long_horizon_parity(horizon, forms, seed):
     """One SQP iteration at ``horizon`` resolves to ``forms`` and is at cost
     parity with JAX's (scan propagation; on the CPU its lipq=False form and

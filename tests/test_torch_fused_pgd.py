@@ -199,3 +199,64 @@ def test_cuda_request_without_cuda_raises(qqps):
     with pytest.raises(RuntimeError, match="cuda"):
         FixedPointPGD(port, device="cuda")
 
+
+
+def test_fixed_point_pgd_members_match_jax(qqps):
+    """``Hq_dev`` and ``lower_words`` hold the reference's values: the int8
+    Hessian, and the (1,) box-floor word in the signed container."""
+    ref, port = qqps
+    j, p = JFixed(ref, iters=3), FixedPointPGD(port, iters=3, device="cpu")
+    assert p.Hq_dev.dtype == torch.int8 and p.Hq_dev.device.type == "cpu"
+    np.testing.assert_array_equal(p.Hq_dev.numpy(), np.asarray(j.Hq_dev))
+    assert p.lower_words.shape == (1,) and p.lower_words.dtype == torch.int32
+    np.testing.assert_array_equal(words_to_numpy(p.lower_words), np.asarray(j.lower_words))
+
+
+def test_cost_bit_equal_to_jax(qqps, problem):
+    """``FixedPointPGD.cost`` is the reference's float64 objective, bit for
+    bit, on the solver's own plans, on random plans and on one state."""
+    ref, port = qqps
+    x0, _, _ = problem
+    j, p = JFixed(ref, iters=20), FixedPointPGD(port, iters=20, device="cpu")
+    _, u = p.solve(x0)
+    rng = np.random.default_rng(31)
+    for U, x in ((u.numpy(), x0), (rng.normal(size=(BATCH, ref.horizon)), x0),
+                 (np.zeros((1, ref.horizon)), x0[0])):
+        got = p.cost(U, x)
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, j.cost(U, x))
+
+
+def test_fixed_point_matches_float_reference_by_cost():
+    """tests/test_mpc.py:58-80 on the port's solver: within a quantization
+    margin of the float64 PGD by ``cost``."""
+    from pint_tpu_torch.mpc import condense_double_integrator, quantize
+
+    qp = condense_double_integrator(T=50)
+    solver = FixedPointPGD(quantize(qp), iters=60, device="cpu")
+    rng = np.random.default_rng(0)
+    x0 = np.stack([rng.uniform(-3, 3, size=16), rng.uniform(-1, 1, size=16)], axis=-1)
+    got = solver.solve(x0)[1].numpy()
+    u_ref = qp.solve_pgd(x0, iters=60)
+    c_got, c_ref = solver.cost(got, x0), solver.cost(u_ref, x0)
+    c0 = solver.cost(np.zeros_like(got), x0)
+    assert np.all(c_got - c_ref <= 0.02 * (c0 - c_ref + 1e-9))
+
+
+def test_multi_input_solve_by_cost():
+    """tests/test_mpc.py:122-146 on the port: the 2-D double integrator (n
+    4, m 2) with error feedback, within the margin of the float64 PGD."""
+    from pint_tpu_torch.mpc import condense_lti, quantize
+
+    dt = 1 / 32
+    A = np.block([[np.eye(2), dt * np.eye(2)], [np.zeros((2, 2)), np.eye(2)]])
+    Bm = np.vstack([0.5 * dt * dt * np.eye(2), dt * np.eye(2)])
+    Q = np.diag([1.0, 1.0, 0.1, 0.1])
+    lti = condense_lti(A, Bm, Q, 0.01, 10 * Q, 30, np.zeros(4), u_max=1.0)
+    solver = FixedPointPGD(quantize(lti), iters=60, error_feedback=True, device="cpu")
+    x0 = np.random.default_rng(7).uniform(-2, 2, size=(8, 4))
+    u = solver.solve(x0)[1].numpy()
+    u_ref = lti.solve_pgd(x0, iters=60)
+    c_got, c_ref = solver.cost(u, x0), solver.cost(u_ref, x0)
+    c0 = solver.cost(np.zeros_like(u_ref), x0)
+    assert np.all(c_got - c_ref <= 0.02 * (c0 - c_ref + 1e-9))

@@ -1514,3 +1514,86 @@ def test_nonlinear_planner_on_the_card_at_cost_parity(cuda):
         return cost(states.cpu(), ctrl).numpy()
 
     np.testing.assert_allclose(traj_cost(w, st), traj_cost(wc, stc), rtol=0.01, atol=1e-4)
+
+
+# -- the native host tier against the SWAR kernels; checkpoint resume on K2;
+# DeviceSQP's fused flag ------------------------------------------------------
+
+@pytest.mark.parametrize("widths", SWAR_LAYOUTS, ids=str)
+def test_native_ops_match_the_swar_kernels(cuda, widths):
+    """``NativeOps`` (host C++) bit-identical to K1 and K9 on the card on
+    the same full-range words, and for u64 layouts to K11a and K11b; its
+    pack and unpacks to ``ops/word`` on the card."""
+    from pint_tpu_torch.convert import words_to_numpy
+    from pint_tpu_torch.native import NativeOps
+    from pint_tpu_torch.ops.split64 import merge_u64
+
+    lay = PackedLayout(*widths)
+    nat = NativeOps(lay)
+    a, b = _words(lay, (4099,), 41, cuda), _words(lay, (4099,), 42, cuda)
+    na, nb = words_to_numpy(a), words_to_numpy(b)
+    for op in S.BINOP_NAMES:
+        want = getattr(nat, op)(na, nb)
+        np.testing.assert_array_equal(words_to_numpy(S.binop(lay, op)(a, b)), want)
+        if lay.word_bits == 64:
+            got = merge_u64(S.binop_pair(lay, op)(split_u64(a), split_u64(b)))
+            np.testing.assert_array_equal(words_to_numpy(got), want)
+    for op in S.SHIFT_NAMES:
+        for amount in (0, 1, 3, 7, 12, 100, -1):
+            want = getattr(nat, op)(na, amount)
+            np.testing.assert_array_equal(words_to_numpy(S.shift(lay, op)(a, amount)), want)
+            if lay.word_bits == 64:
+                got = merge_u64(S.shift_pair(lay, op)(split_u64(a), amount))
+                np.testing.assert_array_equal(words_to_numpy(got), want)
+    lanes = nat.unpack(na, signed=True)
+    np.testing.assert_array_equal(
+        words_to_numpy(W.pack(lay, torch.as_tensor(lanes, device=cuda))), nat.pack(lanes))
+    np.testing.assert_array_equal(W.unpack(lay, a).to(torch.int64).cpu().numpy(),
+                                  nat.unpack(na))
+    np.testing.assert_array_equal(W.unpack_signed(lay, a).to(torch.int64).cpu().numpy(), lanes)
+
+
+def test_k2_resume_from_solver_state(cuda, tmp_path):
+    """FusedPGD: 15 iterations against 7, ``save_solver_state``,
+    ``load_solver_state`` and 8 more, bit-identical, K2 launched in each
+    solve."""
+    from pint_tpu_torch.convert import words_from_numpy
+    from pint_tpu_torch.utils.checkpoint import load_solver_state, save_solver_state
+
+    qqp = quantize(condense_double_integrator(T=50))
+    rng = np.random.default_rng(43)
+    x0 = np.stack([rng.uniform(-3, 3, 1000), rng.uniform(-1, 1, 1000)], -1)
+    g = torch.as_tensor(qqp.g_lane_fixed(x0), device=cuda)
+
+    def solve(iters, words):
+        before = K.launch_counts()["fused_pgd"]
+        out = FusedPGD(qqp, iters=iters, device=cuda).solve_words(words, g)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["fused_pgd"] == before + 1
+        return out
+
+    zero = torch.zeros((1000, qqp.padded // 4), dtype=torch.int32, device=cuda)
+    want = solve(15, zero)
+    part = solve(7, zero)
+    save_solver_state(tmp_path / "s.npz", part, g, iters_done=7)
+    u, g2, done, _ = load_solver_state(tmp_path / "s.npz")
+    assert done == 7 and torch.equal(torch.as_tensor(g2, device=cuda), g)
+    got = solve(15 - done, words_from_numpy(u, device=cuda))
+    assert not torch.equal(part, want) and torch.equal(got, want)
+
+
+def test_device_sqp_fused_false_equals_fused_none(cuda):
+    """``fused=False`` (K3, then the word-space inner) bit-identical to the
+    default (K3, then K4), K4 launched only by the default."""
+    x0 = torch.as_tensor(_x0(512, 44), device=cuda)
+    words, k4 = [], []
+    for fused in (None, False):
+        sqp = DeviceSQP(sqp_iters=4, fused=fused, device=cuda, **SQP_KW)
+        before = K.launch_counts()
+        words.append(sqp.solve_words(sqp.init_words(512), x0))
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        assert after["lipq"] - before["lipq"] == 4
+        k4.append(after["pgd_hqt"] - before["pgd_hqt"])
+    assert k4 == [4, 0]
+    assert torch.equal(words[0], words[1])

@@ -51,6 +51,11 @@ from pint_tpu.mpc.sqp_constrained import _alm_batched_cols_hqt as j_alm_cols_hqt
 from pint_tpu.parallel import ShardedConstrainedPGD as JShardedConstrained
 from pint_tpu.parallel import ShardedPGD as JShardedPGD
 from pint_tpu.parallel import make_mesh as j_make_mesh
+from pint_tpu import PackedArray as JPackedArray
+from pint_tpu import PackedLayout as JPackedLayout
+from pint_tpu.utils.checkpoint import load_full as j_load_full
+from pint_tpu.utils.checkpoint import load_sharded as j_load_sharded
+from pint_tpu.utils.checkpoint import save_sharded as j_save_sharded
 from pint_tpu_torch.convert import device_constrained_config, device_sqp_config
 from pint_tpu_torch.models.dynamics import unpack_controls
 from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
@@ -110,6 +115,9 @@ WORKER = textwrap.dedent(
     from pint_tpu_torch.parallel import (
         ShardedConstrainedPGD, ShardedPGD, distributed as D, host_local_mesh, make_mesh)
     from pint_tpu_torch.parallel.mesh import psum, shard, unshard
+    from pint_tpu_torch import PackedArray, PackedLayout
+    from pint_tpu_torch.convert import words_from_numpy
+    from pint_tpu_torch.utils.checkpoint import load_full, load_sharded, save_sharded
 
     D.initialize(init, world, rank, backend="gloo")
     inp = dict(np.load(io / "inputs.npz"))
@@ -142,7 +150,24 @@ WORKER = textwrap.dedent(
         M.DeviceSQP(use_kernels=False, device="cpu", **sqp_kw(cfg["CON_SQP_KW"])),
         **cfg["CON_KW"])
     devq = M.DeviceSQP(model=PlanarQuadrotor(), device="cpu", **sqp_kw(cfg["QUAD_KW"]))
+    dev_word = M.DeviceSQP(fused=False, device="cpu", **sqp_kw(cfg["SQP_KW"]))
+    assert dev_word.forms["inner"] == "pgd_batched_h"
     B = cfg["B"]
+    lay = PackedLayout(8, 8, 8, 8)
+    ck_words = words_from_numpy(inp["ck_words"], device="cpu")
+    ck_vals = t["ck_vals"]
+
+    def barrier():
+        torch.distributed.barrier()
+
+    def message(fn):
+        try:
+            fn()
+            return ""
+        except ValueError as e:
+            return str(e)
+
+    prev_tag = None
     if rank == 0:      # the single-device references (D4), same thread count
         out["ref/dsqp"] = dev.solve_words(dev.init_words(B), t["sqp_x0"]).numpy()
         if world == 2:
@@ -158,11 +183,14 @@ WORKER = textwrap.dedent(
 
         w, u, res = ShardedPGD(qqp, mesh, iters=cfg["PGD_ITERS"]).solve(inp["lti_x0"])
         out[tag + "/pgd_words"], out[tag + "/pgd_res"] = w.numpy(), np.float64(res)
-        w, _, _ = ShardedPGD(qqp, mesh, iters=cfg["MOM_ITERS"], momentum=True).solve(inp["lti_x0"])
+        sp = ShardedPGD(qqp, mesh, iters=cfg["MOM_ITERS"], momentum=True)
+        w, _, _ = sp.solve(inp["lti_x0"])
         out[tag + "/mom_words"] = w.numpy()
-        w, _, lam = ShardedConstrainedPGD(
-            qcqp, mesh, outer=cfg["ALM_OUTER"], inners=cfg["ALM_INNERS"]).solve(inp["lti_con_x0"])
+        scp = ShardedConstrainedPGD(qcqp, mesh, outer=cfg["ALM_OUTER"], inners=cfg["ALM_INNERS"])
+        w, _, lam = scp.solve(inp["lti_con_x0"])
         out[tag + "/cpgd_words"], out[tag + "/cpgd_lam"] = w.numpy(), lam.numpy()
+        out[mine + "/tp"] = np.array([sp.tp, scp.tp])
+        out[mine + "/Hq_dev"], out[mine + "/lower_words"] = sp.Hq_dev.numpy(), sp.lower_words.numpy()
 
         fp = M.FusedPGD(qqp, iters=cfg["PGD_ITERS"], device="cpu")
         g = torch.as_tensor(qqp.g_lane_fixed(inp["lti_x0"]))
@@ -220,6 +248,40 @@ WORKER = textwrap.dedent(
                 shard(solver.init_words(B), mesh, ("dp", "tp")), shard(t["con_x0"], mesh, ("dp", None)))
             out[f"{tag}/{name}_words"] = unshard(wl, mesh, ("dp", "tp")).numpy()
             out[f"{mine}/{name}_lam"] = ll.numpy()
+
+        wl = dev_word.sharded_solve_words(mesh)(shard(dev_word.init_words(B), mesh, ("dp", "tp")),
+                                                shard(t["sqp_x0"], mesh, ("dp", None)))
+        out[tag + "/dsqp_fused_false"] = unshard(wl, mesh, ("dp", "tp")).numpy()
+
+        # checkpoints: this rank's block saved, then loaded back, resharded,
+        # from the previous mesh's files and from JAX's; a missing file
+        pre = str(io / f"ck_{tag}")
+        path = save_sharded(pre + "_plan", PackedArray(shard(ck_words, mesh, ("dp", "tp")), lay),
+                            mesh, ("dp", "tp"))
+        out[mine + "/ck_path"] = np.array(Path(path).name)
+        save_sharded(pre + "_state", shard(ck_vals, mesh, ("dp", None)), mesh, ("dp", None))
+        save_sharded(pre + "_half", shard(ck_vals, mesh, ("dp", "tp")), mesh, ("dp", "tp"))
+        barrier()
+        got, widths = load_sharded(pre + "_plan", mesh, ("dp", "tp"))
+        out[mine + "/ck_plan"], out[mine + "/ck_widths"] = got.numpy(), np.array(widths)
+        out[mine + "/ck_full"] = load_full(pre + "_plan")[0]
+        out[mine + "/ck_reshard"] = load_sharded(pre + "_state", mesh, ("dp", "tp"))[0].numpy()
+        out[mine + "/ck_whole"] = load_sharded(pre + "_state", mesh, (None, None))[0].numpy()
+        if prev_tag is not None:
+            out[mine + "/ck_cross"] = load_sharded(str(io / f"ck_{prev_tag}_plan"), mesh,
+                                                   ("dp", "tp"))[0].numpy()
+        got, widths = load_sharded(str(io / "jax_plan"), mesh, ("dp", "tp"))
+        out[mine + "/ck_jax_plan"], out[mine + "/ck_jax_widths"] = got.numpy(), np.array(widths)
+        out[mine + "/ck_jax_state"] = load_sharded(str(io / "jax_state"), mesh,
+                                                   ("dp", "tp"))[0].numpy()
+        barrier()
+        if rank == 0:
+            os.remove(f"{pre}_half.proc{world - 1}.npz")
+        barrier()
+        out[mine + "/ck_missing"] = np.array([
+            message(lambda: load_sharded(pre + "_half", mesh, ("dp", "tp"))),
+            message(lambda: load_full(pre + "_half"))])
+        prev_tag = tag
 
         if (dp, tp) in cfg["QUAD_MESHES"]:
             wl = devq.sharded_solve_words(mesh)(shard(devq.init_words(B), mesh, ("dp", "tp")),
@@ -367,9 +429,13 @@ def _jax_side(inp):
         res[tag + "/pgd_words"], res[tag + "/pgd_res"] = np.asarray(w), float(r)
         w, _, _ = JShardedPGD(qqp, mesh, iters=MOM_ITERS, momentum=True).solve(inp["lti_x0"])
         res[tag + "/mom_words"] = np.asarray(w)
-        w, _, lam = JShardedConstrained(qcqp, mesh, outer=ALM_OUTER,
-                                        inners=ALM_INNERS).solve(inp["lti_con_x0"])
+        jscp = JShardedConstrained(qcqp, mesh, outer=ALM_OUTER, inners=ALM_INNERS)
+        w, _, lam = jscp.solve(inp["lti_con_x0"])
         res[tag + "/cpgd_words"], res[tag + "/cpgd_lam"] = np.asarray(w), np.asarray(lam)
+        jsp = JShardedPGD(qqp, mesh, iters=MOM_ITERS, momentum=True)
+        res[tag + "/tp"] = np.array([jsp.tp, jscp.tp])
+        res[tag + "/Hq_dev"], res[tag + "/lower_words"] = (np.asarray(jsp.Hq_dev),
+                                                           np.asarray(jsp.lower_words))
 
         block = 16 // tp
         col = dict(axis_name="tp", block=block)
@@ -420,8 +486,16 @@ def run(tmp_path_factory):
     io = tmp_path_factory.mktemp("torch_parallel")
     inp = dict(lti_x0=_x0_lti(B, 0), lti_con_x0=_x0_lti(B, 7) * [0.5, 0.2],
                sqp_x0=_x0_sqp(B, 5), con_x0=_x0_sqp(B, 7, (-np.pi, np.pi)),
-               quad_x0=_x0_quad(B, 9), **_operands())
+               quad_x0=_x0_quad(B, 9), **_operands(),
+               ck_words=np.arange(16 * 8, dtype=np.uint32).reshape(16, 8) * np.uint32(2654435761),
+               ck_vals=np.arange(8 * 4, dtype=np.int32).reshape(8, 4) - 7)
     np.savez(io / "inputs.npz", **inp)
+    # checkpoints written by JAX on its virtual mesh, for the workers to load
+    j_save_sharded(str(io / "jax_plan"), JPackedArray.from_words(
+        JPackedLayout(8, 8, 8, 8), jax.device_put(jnp.asarray(inp["ck_words"]), NamedSharding(
+            j_make_mesh(dp=4, tp=2), P("dp", "tp")))))
+    j_save_sharded(str(io / "jax_state"), jax.device_put(jnp.asarray(inp["ck_vals"]), NamedSharding(
+        j_make_mesh(dp=2, tp=1, devices=jax.devices()[:2]), P("dp", None))))
     cfg = dict(SQP_KW=SQP_KW, CON_SQP_KW=CON_SQP_KW, CON_KW=CON_KW, PGD_ITERS=PGD_ITERS,
                MOM_ITERS=MOM_ITERS, ALM_OUTER=ALM_OUTER, ALM_INNERS=ALM_INNERS,
                LTI_CON_T=LTI_CON_T, WORLD_MESHES=WORLD_MESHES, B=B, QUAD_KW=QUAD_KW,
@@ -437,7 +511,7 @@ def run(tmp_path_factory):
         for r, text in enumerate(texts):
             assert f"rank {r} of {w} OK" in text, text[-3000:]
     port = {w: [dict(np.load(io / f"out_w{w}_r{r}.npz")) for r in range(w)] for w in WORLD_MESHES}
-    return dict(inp=inp, jax=jres, port=port, jdev=jdev, jdevc=jdevc, jdevq=jdevq)
+    return dict(inp=inp, jax=jres, port=port, jdev=jdev, jdevc=jdevc, jdevq=jdevq, io=io)
 
 
 def _rank0(run, dp, tp):
@@ -678,3 +752,109 @@ def test_matvec_cols_rejects_bad_operands():
     with pytest.raises(ValueError, match="int8"):
         pgd_matvec_cols(torch.zeros((4, 8), dtype=torch.int32),
                         torch.zeros((8, 16, 4), dtype=torch.int32))
+
+
+def _coords(run, dp, tp):
+    """Each rank's (r_dp, r_tp) on the mesh, with its results."""
+    return [(tuple(int(c) for c in o[f"dp{dp}tp{tp}/r{r}/coords"]), o)
+            for r, o in enumerate(run["port"][dp * tp])]
+
+
+def _block(a, dp, tp, c, spec=("dp", "tp")):
+    rows, cols = a.shape[0] // dp, a.shape[1] // (tp if spec[1] == "tp" else 1)
+    r = slice(c[0] * rows, (c[0] + 1) * rows) if spec[0] == "dp" else slice(None)
+    k = slice(c[1] * cols, (c[1] + 1) * cols) if spec[1] == "tp" else slice(None)
+    return a[r, k]
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_device_sqp_fused_false_sharded_bit_identical(run, dp, tp):
+    """``DeviceSQP(fused=False)``'s sharded solve (the word-space inner at
+    tp == 1, the plain column dot at tp > 1, no K10) equals the default
+    solver's one-device solve_words."""
+    tag, p = f"dp{dp}tp{tp}", _rank0(run, dp, tp)
+    np.testing.assert_array_equal(p[tag + "/dsqp_fused_false"], p["ref/dsqp"])
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_sharded_solver_members_match_jax(run, dp, tp):
+    """ShardedPGD's ``tp``, ``Hq_dev`` and ``lower_words`` and
+    ShardedConstrainedPGD's ``tp`` hold JAX's values on every rank."""
+    tag, j = f"dp{dp}tp{tp}", run["jax"]
+    for r, o in enumerate(run["port"][dp * tp]):
+        np.testing.assert_array_equal(o[f"{tag}/r{r}/tp"], j[tag + "/tp"])
+        assert o[f"{tag}/r{r}/Hq_dev"].dtype == np.int8
+        np.testing.assert_array_equal(o[f"{tag}/r{r}/Hq_dev"], j[tag + "/Hq_dev"])
+        np.testing.assert_array_equal(_u32(o[f"{tag}/r{r}/lower_words"]), j[tag + "/lower_words"])
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_sharded_checkpoint_roundtrip(run, dp, tp):
+    """tests/test_utils.py:47-69 on a real mesh: each rank writes its own
+    file, loads its own block back bit-exactly with the widths, and
+    ``load_full`` joins every rank's file."""
+    tag, words = f"dp{dp}tp{tp}", run["inp"]["ck_words"]
+    for c, o in _coords(run, dp, tp):
+        mine = f"{tag}/r{c[0] * tp + c[1]}"
+        assert str(o[mine + "/ck_path"]) == f"ck_{tag}_plan.proc{c[0] * tp + c[1]}.npz"
+        assert tuple(o[mine + "/ck_widths"]) == (8, 8, 8, 8)
+        np.testing.assert_array_equal(_u32(o[mine + "/ck_plan"]), _block(words, dp, tp, c))
+        np.testing.assert_array_equal(o[mine + "/ck_full"], words)
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_sharded_checkpoint_reshards(run, dp, tp):
+    """tests/test_utils.py:72-79: rows saved by dp (tp-replicated) restore
+    as (dp, tp) blocks and as the whole array; the first mesh's files of a
+    world restore on its second mesh."""
+    tag, vals = f"dp{dp}tp{tp}", run["inp"]["ck_vals"]
+    words = run["inp"]["ck_words"]
+    first = [m for m in WORLD_MESHES[dp * tp]][0]
+    for c, o in _coords(run, dp, tp):
+        mine = f"{tag}/r{c[0] * tp + c[1]}"
+        assert o[mine + "/ck_reshard"].dtype == np.int32
+        np.testing.assert_array_equal(o[mine + "/ck_reshard"], _block(vals, dp, tp, c))
+        np.testing.assert_array_equal(o[mine + "/ck_whole"], vals)
+        if (dp, tp) != first:
+            np.testing.assert_array_equal(_u32(o[mine + "/ck_cross"]), _block(words, dp, tp, c))
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_sharded_checkpoint_missing_shard_raises(run, dp, tp):
+    """tests/test_utils.py:84-105: with the last rank's file gone, that
+    rank's block and the whole array raise "cover only"; every other
+    rank's block still loads."""
+    tag, n = f"dp{dp}tp{tp}", dp * tp
+    for c, o in _coords(run, dp, tp):
+        r = c[0] * tp + c[1]
+        block_msg, full_msg = (str(m) for m in o[f"{tag}/r{r}/ck_missing"])
+        assert ("cover only" in block_msg) == (r == n - 1), block_msg
+        assert "cover only" in full_msg
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_jax_written_checkpoints_load_on_port_meshes(run, dp, tp):
+    """Files JAX's save_sharded wrote on its virtual mesh (8 shards of a
+    packed plan; 2 row shards of int32 values) load as each rank's block."""
+    tag, inp = f"dp{dp}tp{tp}", run["inp"]
+    for c, o in _coords(run, dp, tp):
+        mine = f"{tag}/r{c[0] * tp + c[1]}"
+        assert tuple(o[mine + "/ck_jax_widths"]) == (8, 8, 8, 8)
+        np.testing.assert_array_equal(_u32(o[mine + "/ck_jax_plan"]),
+                                      _block(inp["ck_words"], dp, tp, c))
+        np.testing.assert_array_equal(o[mine + "/ck_jax_state"], _block(inp["ck_vals"], dp, tp, c))
+
+
+@pytest.mark.parametrize("dp,tp", MESHES, ids=IDS)
+def test_port_written_checkpoints_load_in_jax(run, dp, tp):
+    """The ranks' files read by JAX's load_full and load_sharded (onto its
+    own 4 x 2 mesh): unsigned words, the widths, every value."""
+    prefix, inp = str(run["io"] / f"ck_dp{dp}tp{tp}"), run["inp"]
+    full, widths = j_load_full(prefix + "_plan")
+    assert widths == (8, 8, 8, 8) and full.dtype == np.uint32
+    np.testing.assert_array_equal(full, inp["ck_words"])
+    sharding = NamedSharding(j_make_mesh(dp=4, tp=2), P("dp", "tp"))
+    for name, want in (("_plan", inp["ck_words"]), ("_state", inp["ck_vals"])):
+        back, _ = j_load_sharded(prefix + name, sharding)
+        assert back.dtype == want.dtype
+        np.testing.assert_array_equal(np.asarray(back), want)
