@@ -212,6 +212,7 @@ CON_SQP_KW = dict(horizon=32, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]))
 CON_KW = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0, alm_outer=3)
 LTI_CON_T, LTI_CON_OUTER, LTI_CON_INNERS = 50, 12, 60
 LONG_T, LONG_BATCH, LONG_SQP = 128, 4096, 2
+K4_WIDEST = 632              # pgd_viable's widest horizon (phase_long_kernels)
 PEN_T, PEN_BATCH = 136, 1024      # C = Tm / 2 = 136: past K6's first gate (C, Tm <= 256)
 PAST_T, PAST_BATCH = 144, 1024    # past K3's fit, so (as in the reference) no K6
 # a 2-row constraint (the lateral offset, and the position along x) at T =
@@ -824,6 +825,26 @@ def device_kernels(torch, fn):
     return out
 
 
+def profile_call(torch, fn):
+    """One call of ``fn`` after a call to warm up, under torch.profiler:
+    (device ms summed over the kernels it ran -- device events only, not
+    the self device time the profiler also gives the operators that
+    launched them --, their names, the input shapes of its ``aten::copy_``
+    calls)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.events() if e.device_type == cuda]
+    copies = [e.input_shapes for e in prof.events()
+              if e.device_type != cuda and e.name == "aten::copy_"]
+    return (sum(e.time_range.elapsed_us() for e in kern) / 1e3, [e.name for e in kern],
+            copies)
+
+
 def phase_k3_k4(torch, P, K, timing):
     from pint_tpu_torch.models.dynamics import pack_controls
     from pint_tpu_torch.mpc import (lipq_fused, lipq_plain, pgd_fused_words_pre,
@@ -1253,17 +1274,32 @@ def phase_long(torch, P, K):
             if not torch.equal(lam_k, lam_p):
                 raise AssertionError(f"long horizon {name}: multipliers differ from the "
                                      "plain versions'")
+        # the handoff past 64 lanes: no batch-last copy of Ht (Tm, Tm, B) and
+        # no K6 transpose kernel in the solve
+        dev_ms, names, copies = profile_call(torch, lambda: kern.solve_words(u0, x0_t))
+        Tm = getattr(kern, "dev", kern).n_dec
+        long = Tm > K.LONG_LANES
+        transposes = sum("pen_transpose" in n for n in names)
+        ht_copies = sum(1 for shapes in copies if [Tm, Tm, B] in shapes)
+        if long and (transposes or ht_copies):
+            raise AssertionError(f"long horizon {name} T={T}: {transposes} K6 transpose "
+                                 f"kernels and {ht_copies} copies of Ht in a solve past "
+                                 "64 lanes")
         key = f"{name}_T{T}"
         rec[key] = dict(
             forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
             launches={k: counts[k] for k in launched}, kernels_ms=msk, plain_ms=msp,
+            device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(names)
+            / LONG_SQP, transpose_kernels=transposes, ht_copies=ht_copies,
             max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
             problems_differing=differ, mean_cost=float(ck.mean()))
         say(f"long horizon {name} T={T} B={B} {LONG_SQP} SQP: forms {kern.forms}; "
             f"launches {rec[key]['launches']}; cost parity with the plain versions (max "
             f"rel diff {rec[key]['max_rel_cost_diff']:.3e}"
             f"{', violation parity' if vk is not None else ''}), {differ} problems differ "
-            f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms")
+            f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms; "
+            f"{dev_ms / LONG_SQP:.3f} ms of device time an SQP iteration, "
+            f"{transposes} K6 transposes, {ht_copies} copies of Ht")
     return rec
 
 
@@ -1350,7 +1386,28 @@ def phase_long_kernels(torch, P, timing):
               lambda: alm_hqt_plain(*args, **kw), (("lanes", True), ("lam", True)),
               dict(B=B, Tp=d.n_dec, Cp=csqp.padded_rows, outer=csqp.alm_outer,
                    inners=d.pgd_iters))
+        if T == LONG_T:  # no iteration: the staging and the write-back alone
+            k0 = dict(kw, outer=1, inners=0)
+            timed(f"alm (K5) T={T} 1x0", lambda: alm_hqt(*args, **k0),
+                  lambda: alm_hqt_plain(*args, **k0), (("lanes", True), ("lam", True)),
+                  dict(B=B, Tp=d.n_dec, Cp=csqp.padded_rows, outer=1, inners=0))
         del o, args, pargs
+    # K4 at the reference's widest pgd_viable horizon, on random operands,
+    # hqt problem-major as the solvers hand it over
+    B, Tp = LONG_BATCH, K4_WIDEST
+    rng = np.random.default_rng(Tp)
+    wargs = (torch.as_tensor(rng.integers(-127, 128, (B, Tp), dtype=np.int8)
+                             .view(np.int32), device=DEVICE),
+             torch.as_tensor(rng.integers(-2**18, 2**18, (B, Tp), dtype=np.int32),
+                             device=DEVICE),
+             torch.randint(-127, 128, (B, Tp, Tp), dtype=torch.int8,
+                           device=DEVICE).permute(2, 1, 0),
+             torch.as_tensor(rng.integers(1, 300, (B,), dtype=np.int32), device=DEVICE),
+             torch.as_tensor(rng.integers(10, 16, (B,), dtype=np.int32), device=DEVICE))
+    pk = dict(iters=30, g_shift=12)
+    timed(f"pgd_hqt (K4) Tp={Tp}", lambda: (pgd_fused_words_pre(*wargs, **pk),),
+          lambda: (pgd_fused_words_pre_plain(*wargs, **pk),), (("words", True),),
+          dict(B=B, Tp=Tp, iters=30))
     return rec
 
 
@@ -2685,7 +2742,7 @@ def main():
     sqp_p, con_p = lc[f"device_sqp_T{PAST_T}"], lc[f"device_constrained_T{PAST_T}"]
     con_k6, con_2 = lc[f"device_constrained_T{PEN_T}"], lc[f"device_constrained_T{TWO_ROW_T}"]
     for key, name, kernel, source, line, launches in (
-            ("lipq (K3)", "lipq (K3, T=128, rows in registers)", "lipq", "lipq.cu",
+            ("lipq (K3)", "lipq (K3, T=128, long form, rows in registers)", "lipq", "lipq.cu",
              "condense_fused.py:77", sqp_l["lipq"] + con_l["lipq"]),
             ("pen (K6)", "pen (K6, T=128, cluster kernel)", "pen", "pen.cu",
              "condense_fused.py:198", con_l["pen"]),
@@ -2700,7 +2757,12 @@ def main():
             (f"pgd_hqt (K4) T={PAST_T}", "pgd_hqt (K4, T=144, cluster kernel)", "pgd_hqt",
              "alm.cu", "fused_alm.py:402", sqp_p["pgd_hqt"]),
             (f"alm (K5) T={PAST_T}", "alm (K5, T=144, cluster kernel)", "alm", "alm.cu",
-             "fused_alm.py:335", con_p["alm"])):
+             "fused_alm.py:335", con_p["alm"]),
+            (f"alm (K5) T={LONG_T} 1x0", "alm (K5, T=128, cluster kernel, 1 x 0: staging "
+             "and write-back alone)", "alm", "alm.cu", "fused_alm.py:335", con_l["alm"]),
+            (f"pgd_hqt (K4) Tp={K4_WIDEST}", f"pgd_hqt (K4, Tp={K4_WIDEST}, cluster kernel, "
+             "random operands)", "pgd_hqt", "alm.cu", "fused_alm.py:402",
+             sqp_l["pgd_hqt"])):
         r = long_kernels[key]
         shape = {k: r[k] for k in ("B", "Tm", "Tp", "Cp", "C", "iters", "power_iters",
                                    "outer", "inners") if k in r}

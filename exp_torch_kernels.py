@@ -49,13 +49,21 @@ first.  Prints one JSON line.
 
     python3 exp_torch_kernels.py --long [--root DIR] [--out FILE]
 
-instead times the long-horizon shapes on random operands at B = 4096 (queued
-device ms): K4 at Tp = 256 and 260 (30 iterations), K3 at Tm = 256 (16 power
-steps), K6 at C = 128, Tm = 256 at 0, 1, 4 and 16 power steps and at the
-card tests' other shapes (B = 1000, shapes the parent's package takes too)
-and at C, Tm <= 64 past C 32 (B = 4096: a 2-row constraint at T = 20 is
-40 x 40), K10 at the card tests' shapes (random int8 operands), and K5 at
-Tp = 256, Cp = 128 at 3 x 30 and 1 x 0 (staging and write-back only).
+instead times the long-horizon shapes on random operands at B = 4096
+(device ms queued and of one call between CUDA events), in the order the
+package's kernels take past 64 lanes (problem-major where the package has
+``ops.kernels.problem_major``, else batch-last): K4 at Tp = 256, 288 and 632
+(30 iterations, and 0: staging and write-back alone), K3 at Tm = 192, 256
+and 272 (16 power steps, and 0), K6 at C = 128, Tm = 256 at 0, 1, 4 and 16
+power steps (and the device time of its transpose kernel, where it has
+one) and at the card tests' other shapes (B = 1000) and at C, Tm <= 64
+past C 32 (B = 4096: a 2-row constraint at T = 20 is 40 x 40), K10 at the
+card tests' shapes (random int8 operands), and K5 at Tp x Cp = 256 x 128
+and 288 x 192 at 3 x 30 and 1 x 0 (staging and write-back only).  Then the
+device time of one SQP iteration of DeviceSQP and DeviceConstrainedSQP at T
+= 128, B = 4096 (torch.profiler, with the kernels that take most of it),
+and the queued device ms of the copies the problem-major handoff removes,
+as plain torch operations at the long path's shapes.
 
     python3 exp_torch_kernels.py --rehearsal [--root DIR] [--out FILE]
 
@@ -247,7 +255,115 @@ def k6_k10(P, timing):
     return rec
 
 
-def long_horizon(timing):
+LONG_K3 = (192, 256, 272)                  # Tm; 16 and 0 power steps
+LONG_K4 = (256, 288, 632)                  # Tp; 30 and 0 iterations
+LONG_K5 = ((256, 128), (288, 192))         # (Tp, Cp); 3 x 30 and 1 x 0
+
+
+def long_operands(P, B, seed):
+    """Random long-form operands in the order the measured package's
+    kernels take past 64 lanes: problem-major (each problem's slab one
+    contiguous run) where the package has ``ops.kernels.problem_major``,
+    else batch-last."""
+    from pint_tpu_torch.ops import kernels as K
+
+    pm = hasattr(K, "problem_major")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ht(Tm):            # (Tm, Tm, B) f32 with rows k along dim 0
+        if pm:
+            return torch.randn((B, Tm, Tm), generator=gen, device="cuda").permute(1, 2, 0)
+        return torch.randn((Tm, Tm, B), generator=gen, device="cuda")
+
+    def i8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def hqt(Tp):           # hqt[k, j, b] = Hq_b[j, k]
+        return i8((B, Tp, Tp)).permute(2, 1, 0) if pm else i8((Tp, Tp, B))
+
+    def sq(Tp, Cp):        # (sqj (Tp, Cp, B), sqc (Cp, Tp, B)), both Sq_b[c, j]
+        if pm:
+            bf = i8((B, Cp, Tp))
+            return bf.transpose(1, 2).contiguous().permute(1, 2, 0), bf.permute(1, 2, 0)
+        sqc = i8((Cp, Tp, B))
+        return sqc.transpose(0, 1).contiguous(), sqc
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    return pm, ht, hqt, sq, ints
+
+
+def long_solves(P, timing):
+    """Device time (torch.profiler) of one SQP iteration of DeviceSQP and
+    DeviceConstrainedSQP at T = 128, B = 4096, and the kernels that take
+    the most of it."""
+    rec = {}
+    B, T = CS.LONG_BATCH, CS.LONG_T
+    makers = (
+        ("device_sqp", lambda: P.DeviceSQP(sqp_iters=1, device="cuda",
+                                           **dict(CS.SQP_KW, horizon=T)), CS.rti_states),
+        ("device_constrained", lambda: P.DeviceConstrainedSQP(P.DeviceSQP(
+            sqp_iters=1, device="cuda", **dict(CS.CON_SQP_KW, horizon=T)), **CS.CON_KW),
+         CS.con_states))
+    for name, make, states in makers:
+        solver = make()
+        x0 = torch.as_tensor(states(np.random.default_rng(11), B), dtype=torch.float32,
+                             device="cuda")
+        u0 = solver.init_words(B)
+        ops = CS.device_kernels(torch, lambda: solver.solve_words(u0, x0))
+        by = {}
+        for key, us in ops:
+            by[key] = by.get(key, 0.0) + us / 1e3
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:10]
+        rec[f"{name}_T{T}_iteration"] = dict(
+            device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops),
+            top_ms={k[:90]: ms for k, ms in top})
+        if hasattr(CS, "profile_call"):  # kernels only, and the copies' shapes
+            ms, names, copies = CS.profile_call(torch, lambda: solver.solve_words(u0, x0))
+            Tm = solver.n_dec if hasattr(solver, "n_dec") else solver.dev.n_dec
+            rec[f"{name}_T{T}_iteration"].update(
+                kernel_device_ms=ms, kernels=len(names),
+                transpose_kernels=sum("pen_transpose" in n for n in names),
+                ht_copies=sum(1 for sh in copies if [Tm, Tm, B] in sh))
+        del solver, x0, u0
+    return rec
+
+
+def long_copies(timing):
+    """Device ms (queued) of the copies that the problem-major handoff
+    removes past 64 lanes, as plain torch operations at the long path's
+    shapes: the reduce's batch-last copy of Ht, the constraint rows' sqj
+    copy, the torch forms' batch-first copy of Ht and transposed copy of
+    hqt (T = 144, B = 1024) and pgd_fused_words' copy of Hq."""
+    def queued(fn):
+        return median(timing.queued_ms(fn, calls=3, reps=3))
+
+    rec = {}
+    Hb = torch.randn((4096, 256, 256), device="cuda")
+    rec["ht_batch_last_copy_Tm256_B4096_queued_ms"] = queued(
+        lambda: Hb.permute(1, 2, 0).contiguous())
+    del Hb
+    sqc = torch.randint(-127, 128, (128, 256, 4096), device="cuda", dtype=torch.int8)
+    rec["sqj_copy_C128_Tm256_B4096_queued_ms"] = queued(
+        lambda: sqc.transpose(0, 1).contiguous())
+    del sqc
+    Ht = torch.randn((288, 288, 1024), device="cuda")
+    rec["ht_batch_first_copy_Tm288_B1024_queued_ms"] = queued(
+        lambda: Ht.permute(2, 0, 1).contiguous())
+    hq = torch.randint(-127, 128, (288, 288, 1024), device="cuda", dtype=torch.int8)
+    rec["hqt_transpose_copy_Tm288_B1024_queued_ms"] = queued(
+        lambda: hq.transpose(0, 1).contiguous())
+    del Ht, hq
+    Hq = torch.randint(-127, 128, (4096, 256, 256), device="cuda", dtype=torch.int8)
+    rec["hq_kernel_orientation_copy_Tp256_B4096_queued_ms"] = queued(
+        lambda: Hq.permute(2, 1, 0).contiguous())
+    return rec
+
+
+def long_horizon(P, timing):
     """The long-horizon shapes of K3, K4, K5 and K6 on random operands."""
     from pint_tpu_torch.mpc import (lipq_fused, pen_fused, pen_plain, pgd_hqt,
                                     pgd_matvec_cols, pgd_matvec_cols_plain)
@@ -255,6 +371,8 @@ def long_horizon(timing):
 
     dev, B, rec = "cuda", 4096, {}
     rng = np.random.default_rng(0)
+    pm, ht, hqt, sq, ints = long_operands(P, B, 0)
+    rec["problem_major"] = pm
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -262,21 +380,28 @@ def long_horizon(timing):
     def queued(fn):
         return median(timing.queued_ms(fn, calls=3, reps=3))
 
-    for Tp in (256, 260):
-        args = (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
-                t(rng.integers(-2**18, 2**18, (B, Tp), dtype=np.int32)),
-                t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
-                t(rng.integers(1, 300, (B,), dtype=np.int32)),
-                t(rng.integers(10, 16, (B,), dtype=np.int32)))
-        rec[f"k4_Tp{Tp}_queued_ms"] = queued(lambda: pgd_hqt(*args, iters=30, g_shift=12))
+    def both(key, fn):  # queued, and one call between CUDA events
+        rec[f"{key}_queued_ms"] = queued(fn)
+        rec[f"{key}_call_ms"] = median(timing.cuda_ms(fn, reps=5))
+
+    for Tp in LONG_K4:
+        args = (ints(-128, 128, (B, Tp)), ints(-2**18, 2**18, (B, Tp)), hqt(Tp),
+                ints(1, 300, (B,)), ints(10, 16, (B,)))
+        for n in (30, 0):
+            both(f"k4_Tp{Tp}_iters{n}", lambda: pgd_hqt(*args, iters=n, g_shift=12))
         del args
-    Ht = torch.randn((256, 256, B), device=dev)
-    rec["k3_Tm256_queued_ms"] = queued(lambda: lipq_fused(Ht, power_iters=16))
-    del Ht
+    for Tm in LONG_K3:
+        H = ht(Tm)
+        for p in (16, 0):
+            both(f"k3_Tm{Tm}_power_iters{p}", lambda: lipq_fused(H, power_iters=p))
+        del H
     S_t = torch.randn((128, 256, B), device=dev)
     for p in (0, 1, 4, 16):
         rec[f"k6_C128_Tm256_power_iters_{p}_queued_ms"] = queued(
             lambda: pen_fused(S_t, power_iters=p))
+    ops = CS.device_kernels(torch, lambda: pen_fused(S_t, power_iters=16))
+    rec["k6_C128_Tm256_transpose_device_ms"] = sum(
+        us for k, us in ops if "transpose" in k) / 1e3
     del S_t
     for C, Tm in K6_SHAPES:  # the card tests' other K6 shapes, B = 1000
         S_t = torch.randn((C, Tm, 1000), device=dev)
@@ -294,20 +419,18 @@ def long_horizon(timing):
                 pgd_matvec_cols_plain(lanes, slab))
         rec[f"k10_K{k}_rows{rows}_B{b}_queued_ms"] = queued(lambda: pgd_matvec_cols(lanes, slab))
     del slab
-    Tp, Cp = 256, 128
-    sq = rng.integers(-127, 128, (Cp, Tp, B), dtype=np.int8)
-    sc = np.stack([rng.integers(1, 300, B), rng.integers(10, 16, B)] * 4).astype(np.int32)
-    args = (t(rng.integers(-128, 128, (B, Tp), dtype=np.int32)),
-            t(rng.integers(-2**16, 2**16, (B, Tp), dtype=np.int32)),
-            t(rng.integers(-127, 128, (Tp, Tp, B), dtype=np.int8)),
-            t(np.ascontiguousarray(sq.transpose(1, 0, 2))), t(sq),
-            t(rng.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
-            t(rng.integers(-2000, -100, (B, Cp), dtype=np.int32)),
-            t(rng.integers(100, 2000, (B, Cp), dtype=np.int32)),
-            t(rng.integers(0, 500, (B, Cp), dtype=np.int32)), t(sc))
-    for outer, inners in ((3, 30), (1, 0)):
-        rec[f"k5_256x128_{outer}x{inners}_queued_ms"] = queued(
-            lambda: alm_hqt(*args, outer=outer, inners=inners, g_shift=12, y_shift=9))
+    for Tp, Cp in LONG_K5:
+        sqj, sqc = sq(Tp, Cp)
+        sc = torch.stack([ints(1, 300, (B,)), ints(10, 16, (B,))] * 4)
+        args = (ints(-128, 128, (B, Tp)), ints(-2**16, 2**16, (B, Tp)), hqt(Tp), sqj, sqc,
+                ints(-3000, 3000, (B, Cp)), ints(-2000, -100, (B, Cp)),
+                ints(100, 2000, (B, Cp)), ints(0, 500, (B, Cp)), sc)
+        for outer, inners in ((3, 30), (1, 0)):
+            both(f"k5_{Tp}x{Cp}_{outer}x{inners}", lambda: alm_hqt(
+                *args, outer=outer, inners=inners, g_shift=12, y_shift=9))
+        del args, sqj, sqc
+    rec.update(long_solves(P, timing))
+    rec.update(long_copies(timing))
     return rec
 
 
@@ -401,7 +524,7 @@ def main():
     if args.long or args.rehearsal:
         rec = {"root": str(root), "card": torch.cuda.get_device_name(0)}
         if args.long:
-            rec.update(long_horizon(timing))
+            rec.update(long_horizon(P, timing))
         else:
             rec["rehearsal_ranks"] = rehearsal(root)
         print(json.dumps(rec), flush=True)

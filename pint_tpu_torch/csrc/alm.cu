@@ -77,15 +77,28 @@
 // the problem's rows.  Block r of the cluster holds slice r of the rows j of
 // Hq and of Sq by j (from sqj) and slice r of the rows c of Sq by c, one row
 // a thread, and the whole broadcast vectors u (two buffers) and y_hi, y_lo.
-// An iteration reads its rows by 16-byte loads (rows padded to an odd number
-// of 16 bytes: free of bank conflicts) against the broadcast vectors, and
-// each thread writes its y and then its new u into every block of the
-// cluster through distributed shared memory, with a cluster barrier after
-// each (one for K4).  This reaches the reference's own fits (pgd_viable Tp
-// <= 632, alm_viable), where one problem's rows outgrow one block.  Rows
-// are staged by byte loads out of the batch-last layout, one problem at a
-// time; neighbouring clusters read neighbouring problems of each 32-byte
-// sector, so the sectors come from L2.
+// An iteration reads its rows by 16-byte loads (rows padded to an odd
+// number of 16 bytes: free of bank conflicts) against the broadcast vectors
+// (both y halves in one pass over a row of Sq by j), and each thread writes
+// its y and then its new u into every block of the cluster through
+// distributed shared memory, with a cluster barrier after each (one for
+// K4).  This reaches the reference's own fits (pgd_viable Tp <= 632,
+// alm_viable), where one problem's rows outgrow one block.
+// Staging: each slab comes batch-last or problem-major (the solvers hand it
+// problem-major past 64 lanes or rows).  Problem-major, a block's rows of a
+// slab are one contiguous run, copied by 16-byte (else 4-byte) cp.async from
+// every thread, so every sector is read once and whole, and L2 prefetches
+// the cluster's next problem (one bulk prefetch a slab) while this one
+// iterates, so the copies come from L2.  A block holds one problem: where
+// its rows fit, several blocks share an SM (three at Tp 256, two at 288),
+// and one block's copies overlap another's iterations.  A second buffer a
+// block (the next problem landing while this one runs) took as long or
+// longer on one H100 80GB HBM3 (PERF.md), since it halves the blocks an SM;
+// so did the products on the s8 tensor cores (mma.sync with the vector as
+// one column of B) in place of __dp4a.  Batch-last, the rows are gathered a
+// byte at a time (one sector a byte, neighbouring clusters on neighbouring
+// problems of it): the first design, which took 10.73 ms for K5 at 256 x
+// 128, 3 x 30, B 4096, 5.63 of it with no iteration, on the same card.
 //
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
 #include <cooperative_groups.h>
@@ -829,25 +842,52 @@ int wide_cluster(int Tp, int Cp) {
   return 0;
 }
 
+__device__ __forceinline__ void dp4a16(const uint4 r, const uint4 x, int& s) {
+  s = __dp4a((int)r.x, (int)x.x, s);
+  s = __dp4a((int)r.y, (int)x.y, s);
+  s = __dp4a((int)r.z, (int)x.z, s);
+  s = __dp4a((int)r.w, (int)x.w, s);
+}
+
+__device__ __forceinline__ uint4 ld16(const int8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
 // int8 dot of a row and a broadcast vector, `chunks` 16-byte chunks each
-// (two partial sums: shorter chains; the int32 sum is exact)
+// (two partial sums: shorter chains; the int32 sum is exact, so its order
+// cannot change a bit).  Pairs of chunks go unguarded, so the loads of U
+// pairs are in flight at once.
+template <int U>
 __device__ __forceinline__ int dot16(const int8_t* row, const int8_t* v, int chunks) {
-  int a = 0, b = 0;
-  for (int ch = 0; ch < chunks; ++ch) {
-    const uint4 r = *reinterpret_cast<const uint4*>(row + 16 * ch);
-    const uint4 x = *reinterpret_cast<const uint4*>(v + 16 * ch);
-    int& s = ch & 1 ? b : a;
-    s = __dp4a((int)r.x, (int)x.x, s);
-    s = __dp4a((int)r.y, (int)x.y, s);
-    s = __dp4a((int)r.z, (int)x.z, s);
-    s = __dp4a((int)r.w, (int)x.w, s);
+  int a = 0, b = 0, ch = 0;
+#pragma unroll(U)
+  for (; ch + 1 < chunks; ch += 2) {
+    const uint4 r = ld16(row + 16 * ch), r2 = ld16(row + 16 * ch + 16);
+    dp4a16(r, ld16(v + 16 * ch), a);
+    dp4a16(r2, ld16(v + 16 * ch + 16), b);
   }
+  if (ch < chunks) dp4a16(ld16(row + 16 * ch), ld16(v + 16 * ch), a);
   return a + b;
 }
 
-// Stage n bytes: byte i from src[from(i)] (no byte where from(i) < 0) to
-// dst[to(i)], the block's threads each keeping kStageLoads loads in flight
-// (the gathers out of the batch-last layout are one sector a byte).
+// The dots of one row with two broadcast vectors (y_hi and y_lo), reading
+// the row once, U chunks in flight.
+template <int U>
+__device__ __forceinline__ void dot16x2(const int8_t* row, const int8_t* v1,
+                                        const int8_t* v2, int chunks, int& s1, int& s2) {
+  int a = 0, b = 0;
+#pragma unroll(U)
+  for (int ch = 0; ch < chunks; ++ch) {
+    const uint4 r = ld16(row + 16 * ch);
+    dp4a16(r, ld16(v1 + 16 * ch), a);
+    dp4a16(r, ld16(v2 + 16 * ch), b);
+  }
+  s1 = a, s2 = b;
+}
+
+// Stage n bytes out of a batch-last slab: byte i from src[from(i)] (no byte
+// where from(i) < 0) to dst[to(i)], the block's threads each keeping
+// kStageLoads loads in flight (each gather is one sector a byte).
 constexpr int kStageLoads = 8;
 
 template <typename From, typename To>
@@ -868,9 +908,35 @@ __device__ __forceinline__ void stage_bytes(int8_t* dst, const int8_t* __restric
   }
 }
 
+// Copy `rows` contiguous rows of `len` bytes (a problem-major slab's run)
+// into shared-memory rows of stride `stride`: 16-byte or 4-byte cp.async
+// from every thread (cw 16 or 4: len and src aligned to cw), else bytes.
+__device__ __forceinline__ void copy_rows(int8_t* dst, const int8_t* src, int rows,
+                                          int len, int stride, int cw) {
+  if (cw == 1) {
+    for (int i = threadIdx.x; i < rows * len; i += blockDim.x) {
+      const int r = i / len;
+      dst[r * stride + i - r * len] = src[i];
+    }
+    return;
+  }
+  const int per = len / cw;
+  for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
+    const int r = i / per, o = (i - r * per) * cw;
+    if (cw == 16)
+      pint::cp_async16(dst + r * stride + o, src + (size_t)r * len + o, true);
+    else
+      pint::cp_async4(dst + r * stride + o, src + (size_t)r * len + o, true);
+  }
+}
+
 // The operands of alm_wide_kernel.  K5: sc the (8, B) rationals, Cp > 0.
 // K4: Cp = 0, sqc = sqj = sc = nullptr, rationals hs_num, hs_den (B,), one
-// outer block of `inners` = iters steps.
+// outer block of `inners` = iters steps.  orders: bits 0, 1, 2 set when hqt,
+// sqc, sqj are problem-major (hqt[b Tp^2 + j Tp + k], sqc[b Cp Tp + c Tp +
+// j], sqj[b Tp Cp + j Cp + c]), else batch-last; cw their copy widths (16,
+// 4 or 1 bytes), a byte each (hqt in the lowest); prefetch: bits of the
+// problem-major slabs that L2 may prefetch whole (16-byte aligned).
 template <typename L>
 struct WideArgs {
   const L* lanes;
@@ -880,11 +946,17 @@ struct WideArgs {
   L* out_lanes;
   int* out_lam;
   int B, Tp, Cp, outer, inners, g_shift, y_shift;
+  int orders, prefetch, cw;
 };
 
 // L: int (lanes) or int8_t (K4's packed words, read and written as bytes).
-template <typename L>
-__global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L> a) {
+// U: pairs of 16-byte chunks a dot keeps in flight: 4 for K5, which reads
+// three row stacks an iteration with one block an SM at 256 x 128; 2 for
+// K4, whose fewer registers leave room for more blocks an SM (on one H100
+// 80GB HBM3 K4 took 0.51 ms at Tp 256 with 4, 0.48 with 2; PERF.md).  Up to
+// 128 registers a thread: at 64 both spill.
+template <typename L, int U>
+__global__ void __launch_bounds__(kWideThreads, 1) alm_wide_kernel(const WideArgs<L> a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -905,6 +977,10 @@ __global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L
   const int half = 1 << (a.g_shift - 1);
   const int y_half = (1 << a.y_shift) >> 1;
   const int negg = -(1 << a.g_shift), negys = -(1 << a.y_shift);
+  // this block's rows of each slab
+  const int nj = max(0, min(lay.rj, Tp - rank * lay.rj));
+  const int nrc = max(0, min(lay.rc, Cp - rank * lay.rc));
+  const size_t hh = (size_t)Tp * Tp, ss = (size_t)Cp * Tp;
 
   // pad bytes stay zero: the staging writes only real rows and columns
   for (size_t i = (size_t)tid * 16; i < lay.bytes; i += (size_t)blockDim.x * 16)
@@ -929,28 +1005,49 @@ __global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L
   const int nclusters = gridDim.x / nc;
   for (int b = blockIdx.x / nc; b < B; b += nclusters) {
     __syncthreads();  // the last problem's readers are done
-    // Hq rows j, Sq rows c and Sq rows j of this block's slices
-    stage_bytes(
-        H, a.hqt, lay.rj * Tp,
-        [&](int i) -> long long {
-          const int jl = i / Tp, k = i - jl * Tp, jj = rank * lay.rj + jl;
-          return jj < Tp ? ((long long)k * Tp + jj) * B + b : -1;
-        },
-        [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
-    stage_bytes(
-        Sc, a.sqc, lay.rc * Tp,
-        [&](int i) -> long long {
-          const int cc = rank * lay.rc + i / Tp;
-          return cc < Cp ? ((long long)cc * Tp + i % Tp) * B + b : -1;
-        },
-        [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
-    stage_bytes(
-        Sj, a.sqj, lay.rj * Cp,
-        [&](int i) -> long long {
-          const int jj = rank * lay.rj + i / Cp;
-          return jj < Tp ? ((long long)jj * Cp + i % Cp) * B + b : -1;
-        },
-        [&](int i) { return (i / Cp) * lay.js + i % Cp; });
+    // the problem-major slabs: this block's rows, one contiguous run each,
+    // by cp.async; L2 fetches the cluster's next problem meanwhile
+    if (a.orders & 1)
+      copy_rows(H, a.hqt + b * hh + (size_t)rank * lay.rj * Tp, nj, Tp, lay.hs,
+                a.cw & 0xff);
+    if (a.orders & 2)
+      copy_rows(Sc, a.sqc + b * ss + (size_t)rank * lay.rc * Tp, nrc, Tp, lay.hs,
+                a.cw >> 8 & 0xff);
+    if (a.orders & 4)
+      copy_rows(Sj, a.sqj + b * ss + (size_t)rank * lay.rj * Cp, nj, Cp, lay.js,
+                a.cw >> 16);
+    pint::cp_async_commit();
+    const int bn = b + nclusters;
+    if (bn < B && rank == 0 && tid == 0) {
+      if (a.prefetch & 1) pint::prefetch_l2(a.hqt + bn * hh, (uint32_t)hh);
+      if (a.prefetch & 2) pint::prefetch_l2(a.sqc + bn * ss, (uint32_t)ss);
+      if (a.prefetch & 4) pint::prefetch_l2(a.sqj + bn * ss, (uint32_t)ss);
+    }
+    // the batch-last slabs, gathered a byte at a time
+    if (!(a.orders & 1))
+      stage_bytes(
+          H, a.hqt, lay.rj * Tp,
+          [&](int i) -> long long {
+            const int jl = i / Tp, k = i - jl * Tp, jj = rank * lay.rj + jl;
+            return jj < Tp ? ((long long)k * Tp + jj) * B + b : -1;
+          },
+          [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
+    if (Cp && !(a.orders & 2))
+      stage_bytes(
+          Sc, a.sqc, lay.rc * Tp,
+          [&](int i) -> long long {
+            const int cc = rank * lay.rc + i / Tp;
+            return cc < Cp ? ((long long)cc * Tp + i % Tp) * B + b : -1;
+          },
+          [&](int i) { return (i / Tp) * lay.hs + i % Tp; });
+    if (Cp && !(a.orders & 4))
+      stage_bytes(
+          Sj, a.sqj, lay.rj * Cp,
+          [&](int i) -> long long {
+            const int jj = rank * lay.rj + i / Cp;
+            return jj < Tp ? ((long long)jj * Cp + i % Cp) * B + b : -1;
+          },
+          [&](int i) { return (i / Cp) * lay.js + i % Cp; });
     const size_t bt = (size_t)b * Tp, bc = (size_t)b * Cp;
     for (int i = tid; i < Tp; i += blockDim.x) ubuf[i] = (int8_t)a.lanes[bt + i];
     const Rationals r =
@@ -961,26 +1058,24 @@ __global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L
     int x = jv ? (int)a.lanes[bt + j] : 0, gj = jv ? a.g[bt + j] : 0, ch = half;
     int co = 0, clo = 0, chi = 0, lam = 0, eyh = y_half;
     if (cv) co = a.coff[bc + c], clo = a.lo[bc + c], chi = a.hi[bc + c], lam = a.lam0[bc + c];
+    pint::cp_async_wait<0>();
     __syncthreads();
 
     int p = 0;  // the u buffer this iteration reads
     for (int o = 0; o < a.outer; ++o) {
       for (int it = 0; it < a.inners; ++it) {
         const int8_t* u = ubuf + p * lay.tp16;
-        const int acc = jv ? dot16(H + tid * lay.hs, u, tch) : 0;
+        const int acc = jv ? dot16<U>(H + tid * lay.hs, u, tch) : 0;
         int eh = 0, el = 0;
         if (Cp) {
           if (cv) {
-            const int y14 = constraint_step(dot16(Sc + tid * lay.hs, u, tch), co, lam, clo,
+            const int y14 = constraint_step(dot16<U>(Sc + tid * lay.hs, u, tch), co, lam, clo,
                                             chi, eyh, r, negys, a.y_shift);
             put(yh, c, (int8_t)(y14 >> 7));
             put(yl, c, (int8_t)(y14 & 0x7F));
           }
           sync();  // y complete in every block
-          if (jv) {
-            eh = dot16(Sj + tid * lay.js, yh, cch);
-            el = dot16(Sj + tid * lay.js, yl, cch);
-          }
+          if (jv) dot16x2<U>(Sj + tid * lay.js, yh, yl, cch, eh, el);
         }
         if (jv) {
           objective_step(acc, eh, el, gj, ch, x, r, negg, a.g_shift);
@@ -991,7 +1086,7 @@ __global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L
       }
       // multiplier update from the exact int32 violation at the inner solution
       if (cv)
-        lam = lam_update(dot16(Sc + tid * lay.hs, ubuf + p * lay.tp16, tch), co, lam, clo,
+        lam = lam_update(dot16<U>(Sc + tid * lay.hs, ubuf + p * lay.tp16, tch), co, lam, clo,
                          chi, r);
     }
     if (jv) a.out_lanes[bt + j] = (L)x;
@@ -1000,12 +1095,29 @@ __global__ void __launch_bounds__(kWideThreads) alm_wide_kernel(const WideArgs<L
   cluster.sync();  // no block leaves while another may still write to it
 }
 
+// Copy width of a problem-major slab whose rows are `len` bytes: 16 or 4
+// when its rows start so aligned, else 1.
+int copy_width(const void* p, int len) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  return len % 16 == 0 && at % 16 == 0 ? 16 : len % 4 == 0 && at % 4 == 0 ? 4 : 1;
+}
+
 template <typename L>
-cudaError_t launch_wide(const WideArgs<L>& args, cudaStream_t stream) {
-  const int nc = wide_cluster(args.Tp, args.Cp);
+cudaError_t launch_wide(WideArgs<L> args, cudaStream_t stream) {
+  const int Tp = args.Tp, Cp = args.Cp;
+  const int nc = wide_cluster(Tp, Cp);
   if (nc == 0) return cudaErrorInvalidValue;
-  const WideLayout lay = wide_layout(args.Tp, args.Cp, nc);
-  auto kernel = alm_wide_kernel<L>;
+  const void* slab[3] = {args.hqt, args.sqc, args.sqj};
+  const int len[3] = {Tp, Tp, Cp};
+  args.prefetch = 0;
+  args.cw = 0;
+  for (int i = 0; i < 3; ++i) {
+    args.cw |= copy_width(slab[i], len[i]) << (8 * i);
+    if ((args.orders >> i & 1) && reinterpret_cast<uintptr_t>(slab[i]) % 16 == 0)
+      args.prefetch |= 1 << i;
+  }
+  const WideLayout lay = wide_layout(Tp, Cp, nc);
+  auto kernel = Cp ? alm_wide_kernel<L, 4> : alm_wide_kernel<L, 2>;
   cudaError_t err = pint_allow_smem(kernel, lay.bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -1023,7 +1135,9 @@ cudaError_t launch_wide(const WideArgs<L>& args, cudaStream_t stream) {
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  // as many clusters as may be resident at once, and no more than problems
+  // as many clusters as may be resident at once (several blocks an SM where
+  // their rows fit, so that one block's copies overlap another's
+  // iterations), and no more than problems
   cfg.gridDim = dim3(nc * sms);
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
@@ -1126,21 +1240,22 @@ bool k5_takes(int Tp, int Cp) {
 
 // K4 past 64 lanes (csrc/pgd_hqt.cu's entries): the cluster kernel with no
 // constraint rows.  words: lanes and out are (B, Tp) int8 packed control
-// words, else (B, Tp) int32 lanes.
+// words, else (B, Tp) int32 lanes; hqt_pm: hqt problem-major.
 cudaError_t pint_pgd_wide(const void* lanes, const int* g, const int8_t* hqt,
                           const int* hs_num, const int* hs_den, void* out, int B,
-                          int Tp, int iters, int g_shift, bool words,
+                          int Tp, int iters, int g_shift, bool words, bool hqt_pm,
                           cudaStream_t stream) {
   if (words) {
     const WideArgs<int8_t> a{static_cast<const int8_t*>(lanes), g, hqt, nullptr, nullptr,
                              nullptr, nullptr, nullptr, nullptr, nullptr, hs_num, hs_den,
                              static_cast<int8_t*>(out), nullptr, B, Tp, 0, 1, iters,
-                             g_shift, 0};
+                             g_shift, 0, (int)hqt_pm};
     return launch_wide(a, stream);
   }
   const WideArgs<int> a{static_cast<const int*>(lanes), g, hqt, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, hs_num, hs_den,
-                        static_cast<int*>(out), nullptr, B, Tp, 0, 1, iters, g_shift, 0};
+                        static_cast<int*>(out), nullptr, B, Tp, 0, 1, iters, g_shift, 0,
+                        (int)hqt_pm};
   return launch_wide(a, stream);
 }
 
@@ -1149,8 +1264,12 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
                         const void* lo, const void* hi, const void* lam,
                         const void* sc, void* out_lanes, void* out_lam, int B,
                         int Tp, int Cp, int outer, int inners, int g_shift,
-                        int y_shift, void* stream) {
-  if (bad_loop(B, outer, inners, g_shift, y_shift) || !k5_takes(Tp, Cp))
+                        int y_shift, int orders, void* stream) {
+  const int m = Tp > Cp ? Tp : Cp;
+  // orders (bits 0-2: hqt, sqc, sqj problem-major) only past 64, where the
+  // cluster kernel takes either order of each slab
+  if (bad_loop(B, outer, inners, g_shift, y_shift) || !k5_takes(Tp, Cp) ||
+      (orders & ~7) || (orders && m <= 64))
     return (int)cudaErrorInvalidValue;
   const int* l = static_cast<const int*>(lanes);
   const int* gg = static_cast<const int*>(g);
@@ -1165,7 +1284,6 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
   int* ol = static_cast<int*>(out_lanes);
   int* om = static_cast<int*>(out_lam);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m = Tp > Cp ? Tp : Cp;
   if (m <= 32)
     return (int)launch_alm_reg<1>(l, gg, h, scc, co, lo_, hi_, la, rat, ol, om, B,
                                   Tp, Cp, outer, inners, g_shift, y_shift, s);
@@ -1174,7 +1292,7 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
                                   Tp, Cp, outer, inners, g_shift, y_shift, s);
   const WideArgs<int> a{l,  gg,      h,       scc,     sj, co, lo_, hi_, la, rat,
                         nullptr, nullptr, ol, om, B,  Tp, Cp,  outer, inners,
-                        g_shift, y_shift};
+                        g_shift, y_shift, orders};
   return (int)launch_wide(a, s);
 }
 

@@ -132,6 +132,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int x, i
       : "memory");
 }
 
+// bulk copy of `bytes` contiguous bytes (a multiple of 16; both addresses
+// 16-byte aligned) from global to shared memory; its bytes complete on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ask L2 to fetch `bytes` contiguous bytes (a multiple of 16, src 16-byte
+// aligned) ahead of their use; no thread waits for it
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes)
+               : "memory");
+}
+
 // wait for the completion of the barrier's phase of parity `parity`
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   uint32_t done = 0;
@@ -167,10 +185,11 @@ constexpr size_t kPintMaxSmem = 232448;
 
 // K4 past 64 lanes (defined in alm.cu, launched by pgd_hqt.cu's entries):
 // one problem a cluster of blocks.  words: lanes and out are the (B, Tp/4)
-// packed control words, else (B, Tp) int32 lanes.
+// packed control words, else (B, Tp) int32 lanes; hqt_pm: hqt problem-major
+// (hqt[b Tp^2 + j Tp + k]), else batch-last.
 cudaError_t pint_pgd_wide(const void* lanes, const int* g, const int8_t* hqt,
                           const int* hs_num, const int* hs_den, void* out, int B,
-                          int Tp, int iters, int g_shift, bool words,
+                          int Tp, int iters, int g_shift, bool words, bool hqt_pm,
                           cudaStream_t stream);
 
 // Blocks of `kernel` (`threads` threads, `smem` bytes) for a grid that

@@ -42,19 +42,23 @@
 //   and written with one 16-byte store a row kj (B % 16 == 0), else bytes,
 //   spread over the next octet's power steps so the stores drain while the
 //   warps compute.
-// For 64 < Tm <= 224 (lipq_kernel): quads of 4 problems (or single
-// problems past Tm = 118) in a ring of up to 3 shared-memory slots with 2
-// groups of warps, thread j holding row j of the quad, so the next quad lands
-// while both groups iterate on theirs.  For 224 < Tm <= 286 (the reference's
-// lipq_viable; T = 128 at two controls is Tm = 256, the long-horizon path)
-// one problem's f32 slab no longer fits the 227 KB a block may hold: the
-// first krows rows k of the slab land in one shared-memory slot as before and
-// thread j holds H[k][j] for the remaining k (at most kRegRows) in registers,
-// loaded once a problem; the matvec adds the shared rows and then the
-// register rows, k still in order, so the result stays bit-identical.
+// For 64 < Tm <= 286 (the reference's lipq_viable; T = 128 at two controls
+// is Tm = 256, the long-horizon path; lipq_long_kernel) Ht arrives
+// problem-major, each problem's slab one contiguous run (the reduce hands
+// over the batch-first Hb as it is), and hqt leaves problem-major with rows
+// j.  The first design here gathered Ht batch-last, one 4-byte copy of each
+// float from its own 32-byte sector, with one slot and no overlap: 9.39 ms
+// at Tm 256 and B 4096 on one H100 80GB HBM3, 8.72 of it with no power step.
+// Now a group of warps takes one problem, thread j owning column j; its
+// rows land in a slot by bulk copies that read every sector once and whole,
+// into a ring that overlaps the next problem's copy where two or more slabs
+// fit (Tm <= 160), else behind an L2 prefetch of the next slab; past Tm =
+// 224 the slot holds the first krows rows and thread j the others of its
+// column in registers.  The matvec adds the slot's rows and then the
+// register rows, k in order, so the result stays bit-identical.
 //
-// What holds it above the bound (PERF.md): at 0 power steps the kernel
-// already takes three quarters of its time at 16, so staging, moving the
+// What holds the register kernel above the bound (PERF.md): at 0 power
+// steps it already takes three quarters of its time at 16, so staging, moving the
 // slab into registers (4-way bank conflicts: a warp reads one word of 32
 // rows of 32 bytes) and the int8 stores cost more than the 17 dependent
 // matvecs.  The first octet's load is not hidden, and it reads each
@@ -66,48 +70,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 448;  // 2 groups of 7 warps (Tm = 224)
-constexpr int kMaxTm = 286;       // the reference's lipq_viable
-constexpr int kRegRows = 96;      // rows k a thread may hold past the slot
-
-template <int G>
-__device__ __forceinline__ void load_g(const float* p, float (&x)[G]) {
-  if constexpr (G == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) x[g] = p[g];
-  }
-}
-
-// acc[g] = sum_k H[k][j][g] * v[k][g], k in order, rounding each product
-// and sum; with MAX also hm[g] = max(hm[g], |H[k][j][g]|)
-// (rows k < krows of the slab H, row length Tm)
-template <int G, bool MAX>
-__device__ __forceinline__ void matvec(const float* H, const float* v, int Tm,
-                                       int krows, int j, float (&acc)[G],
-                                       float (&hm)[G]) {
-  float h[G], x[G];
-  load_g<G>(H + j * G, h);
-  load_g<G>(v, x);
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    acc[g] = __fmul_rn(h[g], x[g]);
-    if (MAX) hm[g] = pint::nan_max(hm[g], fabsf(h[g]));
-  }
-  const float* hp = H + (size_t)(Tm + j) * G;
-#pragma unroll 4
-  for (int k = 1; k < krows; ++k, hp += (size_t)Tm * G) {
-    load_g<G>(hp, h);
-    load_g<G>(v + k * G, x);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      acc[g] = __fadd_rn(acc[g], __fmul_rn(h[g], x[g]));
-      if (MAX) hm[g] = pint::nan_max(hm[g], fabsf(h[g]));
-    }
-  }
-}
+constexpr int kMaxTm = 286;  // the reference's lipq_viable
 
 // clip(round_half_even(h * scale), -127, 127).  Clipping first is the same
 // (|x| > 127 rounds to beyond 127 either way; NaN clips to -127 as before),
@@ -118,198 +81,274 @@ __device__ __forceinline__ int8_t q8(float h, float scale) {
   return (int8_t)(__float_as_int(__fadd_rn(x, 12582912.0f)) - 0x4B400000);
 }
 
-struct Geometry {
-  int nq;             // warps a group: ceil(Tm / 32)
-  size_t slab;        // floats a slot: rows k < krows
-  size_t per_group;   // floats a group: v, red, scale
+// -- 64 < Tm <= 286: problem-major slabs ------------------------------------
+
+constexpr int kLongThreads = 448;  // groups x ceil(Tm / 32) warps, all groups
+constexpr int kMaxSlots = 8;       // slots of the ring
+constexpr int kRegRows = 96;       // rows k a thread may hold past the slot
+constexpr uint32_t kBulkChunk = 32768;  // bytes a bulk copy
+
+// Shared memory of lipq_long_kernel: `slots` slots of krows rows k of one
+// problem's slab ([k][j] f32, as it lies in problem-major Ht), then a
+// group's v [tm4], red [nq][32] and scale, then an mbarrier a slot.
+struct LongGeometry {
+  int nq;            // warps a group: ceil(Tm / 32)
+  int tm4;           // Tm rounded up to 4 (v in float4s)
+  size_t slab;       // floats a slot: krows Tm, rounded up to 128 bytes
+  size_t per_group;  // floats a group
 };
 
-__host__ __device__ inline Geometry geometry(int Tm, int G, int krows) {
-  Geometry g;
+__host__ __device__ inline LongGeometry long_geometry(int Tm, int krows) {
+  LongGeometry g;
   g.nq = (Tm + 31) / 32;
-  g.slab = ((size_t)krows * Tm * G + 31) & ~(size_t)31;
-  g.per_group = ((size_t)Tm * G + (size_t)G * g.nq * 32 + 4 + 3) & ~(size_t)3;
+  g.tm4 = (Tm + 3) & ~3;
+  g.slab = ((size_t)krows * Tm + 31) & ~(size_t)31;
+  g.per_group = ((size_t)g.tm4 + (size_t)g.nq * 32 + 4 + 3) & ~(size_t)3;
   return g;
 }
 
-inline size_t smem_bytes(const Geometry& geo, int slots, int groups) {
-  return (slots * geo.slab + groups * geo.per_group) * sizeof(float) +
+inline size_t long_smem(const LongGeometry& g, int slots, int groups) {
+  return (slots * g.slab + groups * g.per_group) * sizeof(float) +
          slots * sizeof(uint64_t);
 }
 
-// G problems a slot (4, or 1 for large Tm); vec: B % 4 == 0 and G == 4,
-// so every row of a quad is one aligned 16-byte copy.  R = 0: the slot holds
-// the whole slab (krows = Tm).  R > 0 (G = 1, one slot, one group): rows
-// k >= krows, at most R, live in the registers of thread j.
-template <int G, int R>
-__global__ void __launch_bounds__(R ? 320 : kMaxThreads)
-lipq_kernel(const float* __restrict__ ht, int8_t* __restrict__ hqt,
-            float* __restrict__ lip, float* __restrict__ hmax, int B, int Tm,
-            int power_iters, float inv_sqrt, int slots, int groups, int vec,
-            int krows) {
-  static_assert(R == 0 || G == 1, "register rows hold one problem");
+// sum_k H[k][j] v[k] over the slot's rows k < krows, k in order, each product
+// and sum rounded (the first product alone, then +); with MAX also
+// hm = max(hm, |H[k][j]|).  Eight rows at a time, the next eight loaded
+// while this eight's products are added (the adds are one dependent chain,
+// so the loads must run ahead of it), v read as broadcast float4s.
+template <bool MAX>
+__device__ __forceinline__ float column_dot(const float* H, const float* v, int Tm,
+                                            int krows, int j, float& hm) {
+  const float* col = H + j;
+  const int full = krows & ~7;  // rows in whole groups of eight
+  float acc = 0.0f, h[8];
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = col[i * Tm];
+  }
+  for (int k0 = 0; k0 < full; k0 += 8) {
+    float hn[8];
+    const int kn = k0 + 8 < full ? k0 + 8 : k0;  // the next group (this one at the end)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) hn[i] = col[(kn + i) * Tm];
+    const float4 xa = *reinterpret_cast<const float4*>(v + k0);
+    const float4 xb = *reinterpret_cast<const float4*>(v + k0 + 4);
+    const float xs[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float p = __fmul_rn(h[i], xs[i]);
+      acc = k0 + i == 0 ? p : __fadd_rn(acc, p);
+      if (MAX) hm = pint::nan_max(hm, fabsf(h[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = hn[i];
+  }
+  for (int k = full; k < krows; ++k) {
+    const float hk = col[k * Tm];
+    const float p = __fmul_rn(hk, v[k]);
+    acc = k == 0 ? p : __fadd_rn(acc, p);
+    if (MAX) hm = pint::nan_max(hm, fabsf(hk));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ uint32_t q8x4(float a, float b, float c, float d, float s) {
+  return (uint32_t)(uint8_t)q8(a, s) | (uint32_t)(uint8_t)q8(b, s) << 8 |
+         (uint32_t)(uint8_t)q8(c, s) << 16 | (uint32_t)(uint8_t)q8(d, s) << 24;
+}
+
+// The register rows hr[0..R) of a thread, by template recursion so that
+// every index is a constant (a loop over R that the compiler does not
+// unroll whole would put hr in local memory).  Rows r >= n are not real.
+template <int I, int R>
+__device__ __forceinline__ void load_rows(float (&hr)[R], const float* src, int Tm, int n) {
+  if constexpr (I < R) {
+    hr[I] = I < n ? src[(size_t)I * Tm] : 0.0f;
+    load_rows<I + 1, R>(hr, src, Tm, n);
+  }
+}
+
+template <int I, int R>
+__device__ __forceinline__ void max_rows(const float (&hr)[R], float& hm) {
+  if constexpr (I < R) {
+    hm = pint::nan_max(hm, fabsf(hr[I]));
+    max_rows<I + 1, R>(hr, hm);
+  }
+}
+
+// acc += hr[r] v[r] for r < n, in order
+template <int I, int R>
+__device__ __forceinline__ void add_rows(const float (&hr)[R], const float* v, int n,
+                                         float& acc) {
+  if constexpr (I < R) {
+    if (I < n) acc = __fadd_rn(acc, __fmul_rn(hr[I], v[I]));
+    add_rows<I + 1, R>(hr, v, n, acc);
+  }
+}
+
+// row[r] = q8(hr[r]) for r < n: words of 4 (n % 4 == 0, row 4-byte
+// aligned: words) or bytes
+template <int I, int R>
+__device__ __forceinline__ void store_rows(const float (&hr)[R], int8_t* row, int n,
+                                           float s, bool words) {
+  if constexpr (I < R) {
+    if (I < n) {
+      if (words)
+        *reinterpret_cast<uint32_t*>(row + I) = q8x4(hr[I], hr[I + 1], hr[I + 2], hr[I + 3], s);
+      else
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (I + i < n) row[I + i] = q8(hr[I + i], s);
+    }
+    store_rows<I + 4, R>(hr, row, n, s, words);
+  }
+}
+
+// 64 < Tm <= 286 (the long-horizon path: T = 128 at two controls is Tm =
+// 256).  Ht problem-major: problem b's slab is the contiguous run
+// ht[b Tm^2 + k Tm + j]; hqt is written problem-major with rows j,
+// hqt[b Tm^2 + j Tm + k].  A group of ceil(Tm / 32) warps takes one
+// problem at a time, thread j owning column j.  Its first krows rows k land
+// in a slot of the ring by bulk copies (one thread, whole 32 KB runs that
+// count their bytes down on the slot's mbarrier; 4-byte cp.async from every
+// thread of the group when Tm is odd or Ht is not 16-byte aligned), so every
+// sector is read once and whole.  With 2 or more slots (Tm <= 160) `groups`
+// = slots - 1 groups iterate while the last slot fills.  One slot (Tm > 160)
+// cannot overlap the next problem's copy, so the group asks L2 to prefetch
+// the next slab (one bulk prefetch) when it starts a problem, and the copy
+// then comes from L2.  Past Tm = 224 (R > 0) the slot holds krows < Tm rows
+// (a multiple of 16) and thread j holds H[k][j] of the other rows, at most
+// R, in registers, loaded once a problem by coalesced loads.
+template <int R>
+__global__ void __launch_bounds__(R ? 320 : kLongThreads)
+lipq_long_kernel(const float* __restrict__ ht, int8_t* __restrict__ hqt,
+                 float* __restrict__ lip, float* __restrict__ hmax, int B, int Tm,
+                 int power_iters, float inv_sqrt, int slots, int groups, int krows,
+                 int bulk, int ow) {
   extern __shared__ __align__(1024) float fsm[];  // lipq_reg_kernel's symbol
-  const Geometry geo = geometry(Tm, G, krows);
+  const LongGeometry geo = long_geometry(Tm, krows);
   const int nt = geo.nq * 32;
   const int group = threadIdx.x / nt;
-  const int tid = threadIdx.x - group * nt;  // = the row j this thread owns
+  const int tid = threadIdx.x - group * nt;  // = the column j this thread owns
   const int q = tid >> 5;
   const int lane = tid & 31;
-  const int mm = krows * Tm;  // slab values a problem in the slot
-  float* v = fsm + slots * geo.slab + group * geo.per_group;  // [Tm][G]
-  float* red = v + Tm * G;                                    // [G][nq][32]
-  float* s_scale = red + G * geo.nq * 32;                     // [G]
+  const size_t mm = (size_t)Tm * Tm;
+  const int kk = krows * Tm;  // floats a slot takes
+  float* v = fsm + slots * geo.slab + group * geo.per_group;  // [tm4]
+  float* red = v + geo.tm4;                                   // [nq][32]
+  float* s_scale = red + geo.nq * 32;
   uint64_t* full = reinterpret_cast<uint64_t*>(fsm + slots * geo.slab +
                                                groups * geo.per_group);
-  const int nquads = (B + G - 1) / G;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < slots; ++s) pint::mbar_init(&full[s], nt);
+    for (int s = 0; s < slots; ++s) pint::mbar_init(&full[s], bulk ? 1 : nt);
     pint::mbar_init_fence();
   }
   __syncthreads();
 
-  // this group's threads copy the block's t-th quad into slot t % slots
+  // this group copies the block's t-th problem's first krows rows into
+  // slot t % slots
   auto issue = [&](int t) {
-    const int quad = blockIdx.x + t * gridDim.x;
-    if (quad >= nquads) return;
+    const int b = blockIdx.x + t * gridDim.x;
+    if (b >= B) return;
     float* dst = fsm + (t % slots) * geo.slab;
-    const int b0 = quad * G;
-    if (G == 4 && vec) {
-      for (int kj = tid; kj < mm; kj += nt)
-        pint::cp_async16(dst + kj * 4, ht + (size_t)kj * B + b0, true);
-    } else {
-      for (int i = tid; i < mm * G; i += nt) {
-        const int kj = i / G;
-        const int b = b0 + i - kj * G;
-        pint::cp_async4(dst + i, b < B ? ht + (size_t)kj * B + b : ht, b < B);
+    const float* src = ht + (size_t)b * mm;
+    uint64_t* bar = &full[t % slots];
+    if (bulk) {
+      if (tid == 0) {
+        const uint32_t bytes = (uint32_t)kk * sizeof(float);
+        pint::mbar_expect_tx(bar, bytes);
+        for (uint32_t off = 0; off < bytes; off += kBulkChunk)
+          pint::bulk_load(dst + off / 4, src + off / 4, min(kBulkChunk, bytes - off), bar);
       }
+      return;
     }
-    pint::cp_async_arrive(&full[t % slots]);
+    for (int i = tid; i < kk; i += nt) pint::cp_async4(dst + i, src + i, true);
+    pint::cp_async_arrive(bar);
   };
 
   for (int t = group; t < slots; t += groups) issue(t);
 
   const int bar = 1 + group;
   for (int t = group;; t += groups) {
-    const int quad = blockIdx.x + t * gridDim.x;
-    if (quad >= nquads) break;
-    const int b0 = quad * G;
+    const int b = blockIdx.x + t * gridDim.x;
+    if (b >= B) break;
     const float* H = fsm + (t % slots) * geo.slab;
-    if (tid < Tm) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) v[tid * G + g] = inv_sqrt;
-    }
-    float hm[G], acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) hm[g] = 0.0f, acc[g] = 0.0f;
+    if (slots == 1 && bulk && tid == 0 && b + (int)gridDim.x < B)
+      pint::prefetch_l2(ht + (size_t)(b + gridDim.x) * mm, (uint32_t)(mm * sizeof(float)));
+    if (tid < Tm) v[tid] = inv_sqrt;
+    float hm = 0.0f, acc = 0.0f;
     float hr[R ? R : 1];  // H[krows + r][tid] (R > 0)
-    if constexpr (R > 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const bool in = tid < Tm && krows + r < Tm;
-        hr[r] = in ? ht[((size_t)(krows + r) * Tm + tid) * B + b0] : 0.0f;
-        hm[0] = pint::nan_max(hm[0], fabsf(hr[r]));
-      }
+    if constexpr (R > 0) {  // every load in flight before the first max
+      load_rows<0, R>(hr, ht + (size_t)b * mm + (size_t)krows * Tm + tid, Tm,
+                      tid < Tm ? Tm - krows : 0);
+      max_rows<0, R>(hr, hm);
     }
     pint::mbar_wait(&full[t % slots], (t / slots) & 1);
     pint::named_sync(bar, nt);
 
     for (int it = 0;; ++it) {
-      float c[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) c[g] = 0.0f;
+      float c = 0.0f;
       if (tid < Tm) {
-        if (it == 0)
-          matvec<G, true>(H, v, Tm, krows, tid, acc, hm);
-        else
-          matvec<G, false>(H, v, Tm, krows, tid, acc, hm);
-        if constexpr (R > 0) {
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (krows + r < Tm)
-              acc[0] = __fadd_rn(acc[0], __fmul_rn(hr[r], v[krows + r]));
-        }
-        float vj[G];
-        load_g<G>(v + tid * G, vj);
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          c[g] = it < power_iters ? __fmul_rn(acc[g], acc[g])
-                                  : __fmul_rn(vj[g], acc[g]);
+        acc = it == 0 ? column_dot<true>(H, v, Tm, krows, tid, hm)
+                      : column_dot<false>(H, v, Tm, krows, tid, hm);
+        if constexpr (R > 0) add_rows<0, R>(hr, v + krows, Tm - krows, acc);
+        c = it < power_iters ? __fmul_rn(acc, acc) : __fmul_rn(v[tid], acc);
       }
-#pragma unroll
-      for (int g = 0; g < G; ++g) red[(g * geo.nq + q) * 32 + lane] = c[g];
+      red[q * 32 + lane] = c;
       pint::named_sync(bar, nt);
-      float sum[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float part = 0.0f;  // lane's rows in order, then the butterfly
-        for (int r = 0; r < geo.nq; ++r)
-          part = __fadd_rn(part, red[(g * geo.nq + r) * 32 + lane]);
-        sum[g] = pint::warp_sum(part);
-      }
+      float part = 0.0f;  // the lane's rows in order, then the butterfly
+      for (int r = 0; r < geo.nq; ++r) part = __fadd_rn(part, red[r * 32 + lane]);
+      const float sum = pint::warp_sum(part);
       if (it == power_iters) {
-        if (tid == 0) {
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            if (b0 + g < B) lip[b0 + g] = __fmul_rn(sum[g], 1.05f);
-        }
+        if (tid == 0) lip[b] = __fmul_rn(sum, 1.05f);
         break;
       }
-      if (tid < Tm) {
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          v[tid * G + g] =
-              __fdiv_rn(acc[g], __fadd_rn(__fsqrt_rn(sum[g]), 1e-30f));
-      }
+      if (tid < Tm) v[tid] = __fdiv_rn(acc, __fadd_rn(__fsqrt_rn(sum), 1e-30f));
       pint::named_sync(bar, nt);
     }
 
     pint::named_sync(bar, nt);  // every warp has read red
-#pragma unroll
-    for (int g = 0; g < G; ++g) red[(g * geo.nq + q) * 32 + lane] = hm[g];
+    red[q * 32 + lane] = hm;
     pint::named_sync(bar, nt);
     if (q == 0) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float m = 0.0f;
-        for (int r = 0; r < geo.nq; ++r)
-          m = pint::nan_max(m, red[(g * geo.nq + r) * 32 + lane]);
-        m = pint::warp_max(m);
-        if (lane == 0) {
-          if (b0 + g < B) hmax[b0 + g] = m;
-          const float den = m != m ? m : fmaxf(m, 1e-30f);
-          s_scale[g] = __fdiv_rn(127.0f, den);
-        }
+      float m = 0.0f;
+      for (int r = 0; r < geo.nq; ++r) m = pint::nan_max(m, red[r * 32 + lane]);
+      m = pint::warp_max(m);
+      if (lane == 0) {
+        hmax[b] = m;
+        s_scale[0] = __fdiv_rn(127.0f, m != m ? m : fmaxf(m, 1e-30f));
       }
     }
     pint::named_sync(bar, nt);
 
-    if (G == 4 && vec) {
-      const float s0 = s_scale[0], s1 = s_scale[1 % G], s2 = s_scale[2 % G],
-                  s3 = s_scale[3 % G];
-      for (int kj = tid; kj < mm; kj += nt) {
-        const float4 h = *reinterpret_cast<const float4*>(H + kj * 4);
-        const uint32_t word = (uint32_t)(uint8_t)q8(h.x, s0) |
-                              (uint32_t)(uint8_t)q8(h.y, s1) << 8 |
-                              (uint32_t)(uint8_t)q8(h.z, s2) << 16 |
-                              (uint32_t)(uint8_t)q8(h.w, s3) << 24;
-        *reinterpret_cast<uint32_t*>(hqt + (size_t)kj * B + b0) = word;
+    // row j of the problem's int8 slab, problem-major: 16-byte stores (ow
+    // 16: Tm % 16 == 0), words (ow 4: Tm % 4 == 0) or bytes
+    if (tid < Tm) {
+      const float s = s_scale[0];
+      int8_t* row = hqt + (size_t)b * mm + (size_t)tid * Tm;
+      const float* col = H + tid;
+      if (ow == 16) {
+        for (int k = 0; k < krows; k += 16) {
+          const float* h = col + (size_t)k * Tm;
+          *reinterpret_cast<uint4*>(row + k) = make_uint4(
+              q8x4(h[0], h[Tm], h[2 * Tm], h[3 * Tm], s),
+              q8x4(h[4 * Tm], h[5 * Tm], h[6 * Tm], h[7 * Tm], s),
+              q8x4(h[8 * Tm], h[9 * Tm], h[10 * Tm], h[11 * Tm], s),
+              q8x4(h[12 * Tm], h[13 * Tm], h[14 * Tm], h[15 * Tm], s));
+        }
+      } else if (ow == 4) {
+        for (int k = 0; k < krows; k += 4) {
+          const float* h = col + (size_t)k * Tm;
+          *reinterpret_cast<uint32_t*>(row + k) =
+              q8x4(h[0], h[Tm], h[2 * Tm], h[3 * Tm], s);
+        }
+      } else {
+        for (int k = 0; k < krows; ++k) row[k] = q8(col[(size_t)k * Tm], s);
       }
-    } else {
-      for (int i = tid; i < mm * G; i += nt) {
-        const int kj = i / G;
-        const int g = i - kj * G;
-        if (b0 + g < B) hqt[(size_t)kj * B + b0 + g] = q8(H[i], s_scale[g]);
-      }
-    }
-    if constexpr (R > 0) {
-      if (tid < Tm) {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (krows + r < Tm)
-            hqt[((size_t)(krows + r) * Tm + tid) * B + b0] = q8(hr[r], s_scale[0]);
-      }
+      if constexpr (R > 0)  // krows % 16 == 0: words stay aligned
+        store_rows<0, R>(hr, row + krows, Tm - krows, s, ow > 1);
     }
     pint::named_sync(bar, nt);  // the slot, v and s_scale are free
     issue(t + slots);
@@ -570,47 +609,59 @@ cudaError_t launch_reg(const float* ht, int8_t* hqt, float* lip, float* hmax,
   return cudaGetLastError();
 }
 
-// A ring of up to 3 slots with 2 groups, else 2 slots with 1 group (double
-// buffer), else 1 slot (one stage).  Returns false when no slot fits.
-bool ring(const Geometry& geo, int* slots, int* groups) {
-  for (int s = 3; s >= 1; --s) {
-    const int g = s == 3 ? 2 : 1;
-    if (smem_bytes(geo, s, g) <= kPintMaxSmem) {
-      *slots = s, *groups = g;
+// The ring of the long form: the most whole slabs (at most kMaxSlots) that
+// fit with slots - 1 groups iterating, else one whole slab, else one slot of
+// krows rows (a multiple of 16) with the rest, at most kRegRows, in
+// registers.  False when nothing fits.
+struct LongPlan {
+  int krows, slots, groups;
+};
+
+bool long_plan(int Tm, LongPlan* p) {
+  const LongGeometry g = long_geometry(Tm, Tm);
+  const int nt = g.nq * 32;
+  for (int s = kMaxSlots; s >= 2; --s) {
+    if ((s - 1) * nt <= kLongThreads && long_smem(g, s, s - 1) <= kPintMaxSmem) {
+      *p = LongPlan{Tm, s, s - 1};
       return true;
     }
   }
-  return false;
+  if (long_smem(g, 1, 1) <= kPintMaxSmem) {
+    *p = LongPlan{Tm, 1, 1};
+    return true;
+  }
+  int k = Tm / 16 * 16;
+  while (k > 0 && long_smem(long_geometry(Tm, k), 1, 1) > kPintMaxSmem) k -= 16;
+  if (k <= 0 || Tm - k > kRegRows) return false;
+  *p = LongPlan{k, 1, 1};
+  return true;
 }
 
-// The rows k of one problem's slab that fit one slot beside one group's
-// vectors: Tm when the whole slab fits.
-int slot_rows(int Tm) {
-  int k = Tm;
-  while (k > 1 && smem_bytes(geometry(Tm, 1, k), 1, 1) > kPintMaxSmem) --k;
-  return k;
-}
-
-template <int G, int R>
-cudaError_t launch(const float* ht, int8_t* hqt, float* lip, float* hmax,
-                   int B, int Tm, int power_iters, float inv_sqrt,
-                   cudaStream_t stream) {
-  const int krows = R ? slot_rows(Tm) : Tm;
-  if (Tm - krows > R) return cudaErrorInvalidValue;
-  const Geometry geo = geometry(Tm, G, krows);
-  int slots = 1, groups = 1;
-  if (!R && !ring(geo, &slots, &groups)) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(geo, slots, groups);
-  const int threads = groups * geo.nq * 32;
-  auto kernel = lipq_kernel<G, R>;
+cudaError_t launch_long(const float* ht, int8_t* hqt, float* lip, float* hmax, int B,
+                        int Tm, int power_iters, float inv_sqrt, cudaStream_t stream) {
+  LongPlan pl;
+  if (!long_plan(Tm, &pl)) return cudaErrorInvalidValue;
+  const LongGeometry geo = long_geometry(Tm, pl.krows);
+  const size_t smem = long_smem(geo, pl.slots, pl.groups);
+  const int threads = pl.groups * geo.nq * 32;
+  // whole bulk copies: every slab starts 16-byte aligned (Tm even)
+  const int bulk = Tm % 2 == 0 && aligned16(ht);
+  const int ow = Tm % 16 == 0 && aligned16(hqt)                                 ? 16
+                 : Tm % 4 == 0 && reinterpret_cast<uintptr_t>(hqt) % 4 == 0 ? 4
+                                                                               : 1;
+  // as few register rows as cover Tm - krows (32 at Tm 256, 64 at 272)
+  const int rr = Tm - pl.krows;
+  auto kernel = rr == 0    ? lipq_long_kernel<0>
+                : rr <= 32 ? lipq_long_kernel<32>
+                : rr <= 64 ? lipq_long_kernel<64>
+                           : lipq_long_kernel<kRegRows>;
   cudaError_t err = pint_allow_smem(kernel, smem);
   int grid = 0;
-  if (err == cudaSuccess)
-    err = pint_persistent_grid(kernel, threads, smem, (B + G - 1) / G, &grid);
+  if (err == cudaSuccess) err = pint_persistent_grid(kernel, threads, smem, B, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(
-      ht, hqt, lip, hmax, B, Tm, power_iters, inv_sqrt, slots, groups,
-      G == 4 && B % 4 == 0 && aligned16(ht), krows);
+  kernel<<<grid, threads, smem, stream>>>(ht, hqt, lip, hmax, B, Tm, power_iters,
+                                          inv_sqrt, pl.slots, pl.groups, pl.krows, bulk,
+                                          ow);
   return cudaGetLastError();
 }
 
@@ -627,15 +678,6 @@ extern "C" int pint_lipq(const void* ht, void* hqt, void* lip, void* hmax,
   float* l = static_cast<float*>(lip);
   float* m = static_cast<float*>(hmax);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int slots, groups;
-  cudaError_t err;
-  if (Tm <= 64)
-    err = launch_reg(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
-  else if (ring(geometry(Tm, 4, Tm), &slots, &groups))
-    err = launch<4, 0>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
-  else if (ring(geometry(Tm, 1, Tm), &slots, &groups))
-    err = launch<1, 0>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
-  else
-    err = launch<1, kRegRows>(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
-  return (int)err;
+  if (Tm <= 64) return (int)launch_reg(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
+  return (int)launch_long(h, q, l, m, B, Tm, power_iters, inv_sqrt, s);
 }

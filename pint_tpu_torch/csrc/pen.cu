@@ -58,8 +58,11 @@
 // sums passed on in j order and its w sent to all, S^T w local, the norm's
 // lane partials passed on in j order), a cluster barrier between the steps.
 // Each block writes its int8 rows batch-first into scratch, a warp's 32
-// bytes contiguous, and pen_transpose_kernel turns them batch-last: 8 bytes
-// of a sector written by each of 4 clusters took as long as the power steps.
+// bytes contiguous (8 bytes of a sector written by each of 4 clusters took
+// as long as the power steps).  Past 64 rows or columns they stay there and
+// the caller hands them to K5 problem-major (batch_first); else
+// pen_transpose_kernel turns them batch-last (0.486 ms at 128 x 256, B
+// 4096, on one H100 80GB HBM3, before that shape stopped needing it).
 //
 // Rounding: products and sums use __fmul_rn/__fadd_rn, which nvcc never
 // contracts into FMA, and every sum is added in a fixed order (S v and S^T w
@@ -980,10 +983,13 @@ pen_transpose_kernel(const int8_t* __restrict__ x0, int8_t* __restrict__ y0,
   }
 }
 
-// scratch: 2 B C Tm bytes for the batch-first int8 rows
+// scratch: 2 B C Tm bytes for the batch-first int8 rows, which stay there
+// (batch_first: the caller hands them over problem-major) or which
+// pen_transpose_kernel writes batch-last into sqc and sqj
 cudaError_t launch_wide(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
                         float* sscale, float* rowamp, int8_t* scratch, int B, int C,
-                        int Tm, int power_iters, float inv_sqrt, cudaStream_t stream) {
+                        int Tm, int power_iters, float inv_sqrt, bool batch_first,
+                        cudaStream_t stream) {
   if (scratch == nullptr) return cudaErrorInvalidValue;
   const WideLayout L = wide_choice(C, Tm);
   if (L.ns == 0) return cudaErrorInvalidValue;
@@ -1022,7 +1028,7 @@ cudaError_t launch_wide(const float* st, int8_t* sqc, int8_t* sqj, float* lip,
   if (grid.y > 65535) return cudaErrorInvalidValue;
   cfg.gridDim = dim3(kCluster * (rounds < active ? rounds : active));
   err = cudaLaunchKernelEx(&cfg, pen_wide_kernel, args);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || batch_first) return err;
   pen_transpose_kernel<<<grid, 256, 0, stream>>>(args.qcb, sqc, args.qjb, sqj, B, (int)mm);
   return cudaGetLastError();
 }
@@ -1048,12 +1054,16 @@ extern "C" long long pint_pen_scratch(int B, int C, int Tm) {
   return pen_path(C, Tm) == PenPath::wide ? 2LL * B * C * Tm : 0;
 }
 
-// The reference's pen_viable: 2 (C Tm 128 6) <= 100 MiB.
+// The reference's pen_viable: 2 (C Tm 128 6) <= 100 MiB.  batch_first
+// (the cluster kernel only): the int8 rows stay batch-first in scratch, sqc
+// = scratch (B, C, Tm) and sqj = scratch + B C Tm (B, Tm, C), which the
+// caller hands over problem-major; else they are written batch-last.
 extern "C" int pint_pen(const void* st, void* sqc, void* sqj, void* lip,
                         void* sscale, void* rowamp, void* scratch, int B, int C, int Tm,
-                        int power_iters, void* stream) {
+                        int power_iters, int batch_first, void* stream) {
   if (B <= 0 || C <= 0 || Tm <= 0 || power_iters < 0 ||
-      (long long)C * Tm * 1536 > 100LL * (1 << 20))
+      (long long)C * Tm * 1536 > 100LL * (1 << 20) ||
+      (batch_first && pen_path(C, Tm) != PenPath::wide))
     return (int)cudaErrorInvalidValue;
   // the same f32 constant as np.float32(1.0 / np.sqrt(Tm))
   const float inv_sqrt = (float)(1.0 / sqrt((double)Tm));
@@ -1070,5 +1080,5 @@ extern "C" int pint_pen(const void* st, void* sqc, void* sqj, void* lip,
   if (path == PenPath::warp)
     return (int)launch_warp(s, qc, qj, l, sc, ra, B, C, Tm, power_iters, inv_sqrt, strm);
   return (int)launch_wide(s, qc, qj, l, sc, ra, static_cast<int8_t*>(scratch), B, C, Tm,
-                          power_iters, inv_sqrt, strm);
+                          power_iters, inv_sqrt, batch_first != 0, strm);
 }

@@ -44,7 +44,7 @@
 // Past 64 lanes, up to the reference's pgd_viable (Tp <= 632), a lane's
 // rows no longer fit its registers: the entries launch alm.cu's cluster
 // kernel (pint_pgd_wide), a problem a block (or a cluster of blocks past
-// Tp = 464), a row a thread.  An earlier design here ran one warp a problem
+// Tp = 464), a row a thread or two, on hqt batch-last or problem-major.  An earlier design here ran one warp a problem
 // over rows in shared memory, a lane 8 rows at Tp = 256: 11.91 ms at B =
 // 4096 and 30 iterations on one H100 80GB HBM3, where the cluster kernel
 // takes 4.41 ms at Tp = 260.
@@ -273,14 +273,16 @@ cudaError_t launch(const L* lanes, const int* g, const int8_t* hqt,
   return cudaGetLastError();
 }
 
+// orders: bit 0 set when hqt is problem-major (hqt[b Tp^2 + j Tp + k]),
+// which only the cluster kernel (Tp > 64) reads; else batch-last.
 template <typename L>
 int dispatch(const void* lanes, const void* g, const void* hqt,
              const void* hs_num, const void* hs_den, void* out, int B, int Tp,
-             int iters, int g_shift, void* stream) {
+             int iters, int g_shift, int orders, void* stream) {
   // the reference's pgd_viable: the int8 working set of 128 problems
   // within 100 MiB
   if (B <= 0 || Tp <= 0 || Tp % 4 || (long)Tp * Tp + 16L * Tp > 409600 || iters < 0 ||
-      g_shift < 1 || g_shift > 30)
+      g_shift < 1 || g_shift > 30 || (orders & ~1) || (orders && Tp <= 64))
     return (int)cudaErrorInvalidValue;
   const L* l = static_cast<const L*>(lanes);
   const int* gg = static_cast<const int*>(g);
@@ -291,7 +293,7 @@ int dispatch(const void* lanes, const void* g, const void* hqt,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tp > 64)
     return (int)pint_pgd_wide(lanes, gg, h, num, den, out, B, Tp, iters, g_shift,
-                              sizeof(L) == 1, s);
+                              sizeof(L) == 1, orders & 1, s);
   if (Tp <= 32) return (int)launch<1, L>(l, gg, h, num, den, o, B, Tp, iters, g_shift, s);
   return (int)launch<2, L>(l, gg, h, num, den, o, B, Tp, iters, g_shift, s);
 }
@@ -301,17 +303,17 @@ int dispatch(const void* lanes, const void* g, const void* hqt,
 // lanes, out: (B, Tp) int32 lanes
 extern "C" int pint_pgd_hqt(const void* lanes, const void* g, const void* hqt,
                             const void* hs_num, const void* hs_den, void* out,
-                            int B, int Tp, int iters, int g_shift,
+                            int B, int Tp, int iters, int g_shift, int orders,
                             void* stream) {
   return dispatch<int>(lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters,
-                       g_shift, stream);
+                       g_shift, orders, stream);
 }
 
 // words, out: (B, Tp/4) packed control words, read and written as bytes
 extern "C" int pint_pgd_hqt_words(const void* words, const void* g,
                                   const void* hqt, const void* hs_num,
                                   const void* hs_den, void* out, int B, int Tp,
-                                  int iters, int g_shift, void* stream) {
+                                  int iters, int g_shift, int orders, void* stream) {
   return dispatch<int8_t>(words, g, hqt, hs_num, hs_den, out, B, Tp, iters,
-                          g_shift, stream);
+                          g_shift, orders, stream);
 }

@@ -6,6 +6,17 @@ condensed Hessian; CUDA kernel ``csrc/lipq.cu``, plain version
 kernel ``csrc/pen.cu``, plain version :func:`pen_plain`).  Each runs its
 kernel for a CUDA tensor and its plain version for a CPU tensor.
 
+Memory order: to :data:`~pint_tpu_torch.ops.kernels.LONG_LANES` (64) rows
+the slabs are batch-last and contiguous, as the reference lays them out.
+Past it the kernels take and give them problem-major
+(:func:`~pint_tpu_torch.ops.kernels.problem_major`): K3 reads ``Ht`` as
+``Hb.permute(1, 2, 0)`` of the batch-first (B, Tm, Tm) condensed Hessian
+and writes ``hqt`` as ``Hq.permute(2, 1, 0)`` of a batch-first (B, Tm, Tm)
+``Hq``; K6 (where ``C`` or ``Tm`` is past 64) hands over ``sqc`` and
+``sqj`` as ``permute(1, 2, 0)`` views of its batch-first rows.  The plain
+versions give the same orders, so values, indices and bits are the same
+either way; only the memory a kernel reads differs.
+
 Contract (each kernel against its plain version on the same input): the
 int8 outputs, ``h_max`` and ``s_scale`` bit-identical, ``lip``, ``pen_lip``
 and ``row_amp`` to f32 roundoff at least.  The kernels round every product
@@ -25,7 +36,7 @@ import torch
 from pint_tpu_torch.ops import kernels as K
 
 __all__ = ["lipq_fits", "lipq_fused", "lipq_plain", "pen_fits", "pen_fused",
-           "pen_plain", "quantize_hqt", "true_div"]
+           "pen_long", "pen_plain", "quantize_hqt", "true_div"]
 
 _SMEM_BYTES = 232448
 """Shared memory a block may use on the H100 (``kPintMaxSmem``)."""
@@ -93,10 +104,19 @@ def _warp_order_sum(x: torch.Tensor) -> torch.Tensor:
     return part[:1]
 
 
+def _hqt_order(hqt: torch.Tensor) -> torch.Tensor:
+    """``hqt`` (Tm, Tm, B) in the order K3 writes it: problem-major with
+    rows j past 64 rows (a copy only where it is not), else as it is."""
+    if hqt.shape[0] <= K.LONG_LANES or K.problem_major(hqt, 1):
+        return hqt
+    return hqt.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+
+
 def lipq_plain(
     Ht: torch.Tensor, *, power_iters: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`lipq_fused` (any device)."""
+    """Plain PyTorch version of :func:`lipq_fused` (any device, either
+    memory order of ``Ht``; ``hqt`` in K3's order)."""
     Tm = Ht.shape[0]
     v = torch.full(
         (Tm, Ht.shape[2]), float(np.float32(1.0 / np.sqrt(Tm))),
@@ -114,19 +134,23 @@ def lipq_plain(
         v = w / (torch.sqrt(_warp_order_sum(w * w)) + 1e-30)
     lip = _warp_order_sum(v * matvec(v))[0] * 1.05
     h_max = torch.amax(torch.abs(Ht), dim=(0, 1))
-    return quantize_hqt(Ht, h_max), lip, h_max
+    return _hqt_order(quantize_hqt(Ht, h_max)), lip, h_max
 
 
 def lipq_fused(
     Ht: torch.Tensor, *, power_iters: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Power-iteration Lipschitz + int8 quantization of the batch-last
-    condensed Hessian ``Ht`` (Tm, Tm, B) f32.
+    """Power-iteration Lipschitz + int8 quantization of the condensed
+    Hessian ``Ht`` (Tm, Tm, B) f32.
 
     Returns ``(hqt (Tm, Tm, B) int8, lip (B,) f32 with the 1.05 safety
     factor, h_max (B,) f32)``; ``hqt[k, j, b] = q(Ht[k, j, b])`` is the
     orientation :func:`pint_tpu_torch.mpc.fused_alm.pgd_fused_words_pre`
-    consumes.  Kernel for a CUDA tensor, plain version for a CPU tensor.
+    consumes.  To Tm = 64 ``Ht`` and ``hqt`` are batch-last and
+    contiguous; past it ``Ht`` must be problem-major with rows k
+    (``Hb.permute(1, 2, 0)``) and ``hqt`` comes problem-major with rows j
+    (module docstring).  The kernel raises on any other order.  Kernel for
+    a CUDA tensor, plain version for a CPU tensor.
     """
     if Ht.dim() != 3 or Ht.shape[0] != Ht.shape[1]:
         raise ValueError(f"Ht must be (Tm, Tm, B), got {tuple(Ht.shape)}")
@@ -134,14 +158,20 @@ def lipq_fused(
         raise ValueError(f"Ht must be float32, got {Ht.dtype}")
     if Ht.device.type == "cpu":
         return lipq_plain(Ht, power_iters=power_iters)
-    K.require_cuda("lipq_fused", Ht)
+    K.require_cuda("lipq_fused", slabs=(Ht,))
     Tm, _, B = Ht.shape
     if not lipq_fits(Tm):
         raise ValueError(
             f"lipq_fused: Tm={Tm} is past 286, the reference's lipq_viable "
             "(lipq_fits; the solvers take the torch form past it)"
         )
-    hqt = torch.empty(Ht.shape, dtype=torch.int8, device=Ht.device)
+    long = Tm > K.LONG_LANES
+    K.require_order("lipq_fused", "Ht", Ht, 0,
+                    ("problem_major",) if long else ("batch_last",))
+    if long:
+        hqt = torch.empty((B, Tm, Tm), dtype=torch.int8, device=Ht.device).permute(2, 1, 0)
+    else:
+        hqt = torch.empty(Ht.shape, dtype=torch.int8, device=Ht.device)
     lip = torch.empty((B,), dtype=torch.float32, device=Ht.device)
     h_max = torch.empty((B,), dtype=torch.float32, device=Ht.device)
     with torch.cuda.device(Ht.device):
@@ -213,8 +243,24 @@ def pen_plain(
     scale = true_div(127.0, torch.clamp_min(sm, 1e-30))
     q = torch.clamp(torch.round(S_t * scale), -127, 127)
     sqc = torch.where(q.isnan(), 0.0, q).to(torch.int8)
-    return (sqc, sqc.transpose(0, 1).contiguous(), lip, sm * INV_127,
-            127.0 * ra)
+    return (*_rows_order(sqc), lip, sm * INV_127, 127.0 * ra)
+
+
+def pen_long(C: int, Tm: int) -> bool:
+    """True when K6 hands ``sqc`` and ``sqj`` over problem-major: past 64
+    rows or columns, where K5 runs its cluster kernel (which takes either
+    order) and K6 its cluster kernel (which writes them batch-first)."""
+    return max(C, Tm) > K.LONG_LANES
+
+
+def _rows_order(sqc: torch.Tensor):
+    """(sqc, sqj) from the int8 rows ``sqc`` (C, Tm, B) in the order K6
+    gives them: problem-major views of batch-first copies past 64 rows or
+    columns (:func:`pen_long`), else batch-last and contiguous."""
+    if not pen_long(sqc.shape[0], sqc.shape[1]):
+        return sqc, sqc.transpose(0, 1).contiguous()
+    bf = sqc.permute(2, 0, 1).contiguous()                     # (B, C, Tm)
+    return bf.permute(1, 2, 0), bf.transpose(1, 2).contiguous().permute(1, 2, 0)
 
 
 def pen_fused(
@@ -224,7 +270,8 @@ def pen_fused(
     batch-last constraint stack ``S_t`` (C, Tm, B) f32.
 
     Returns ``(sqc (C, Tm, B) int8, sqj (Tm, C, B) int8, pen_lip (B,) f32,
-    s_scale (B,) f32, row_amp (B,) f32)``: ``sqc[c, j, b] =
+    s_scale (B,) f32, row_amp (B,) f32)``, both row stacks batch-last, or
+    problem-major past 64 rows or columns (:func:`pen_long`): ``sqc[c, j, b] =
     clip(round(S_t[c, j, b] * 127 / max|S_t[..., b]|))`` in both
     orientations :func:`~pint_tpu_torch.mpc.fused_alm.alm_hqt` consumes,
     ``pen_lip ~ 1.05 * lambda_max(S S^T)``, ``s_scale = max|S| * INV_127``
@@ -245,19 +292,26 @@ def pen_fused(
             "pen_viable (pen_fits; the solvers take the torch form past it)"
         )
     dev = S_t.device
-    sqc = torch.empty((C, Tm, B), dtype=torch.int8, device=dev)
-    sqj = torch.empty((Tm, C, B), dtype=torch.int8, device=dev)
     lip, s_scale, row_amp = (
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(3))
     lib = K.library()
-    # past the register kernel the int8 rows pass batch-first through scratch
+    # past the register and warp kernels the int8 rows go out batch-first
+    # into scratch; past 64 rows or columns they stay there, handed over
+    # problem-major, else a transpose kernel writes them batch-last
     scratch = torch.empty((lib.pint_pen_scratch(B, C, Tm),), dtype=torch.int8,
                           device=dev)
+    long = pen_long(C, Tm)
+    if long:
+        sqc = scratch[: B * C * Tm].view(B, C, Tm).permute(1, 2, 0)
+        sqj = scratch[B * C * Tm:].view(B, Tm, C).permute(1, 2, 0)
+    else:
+        sqc = torch.empty((C, Tm, B), dtype=torch.int8, device=dev)
+        sqj = torch.empty((Tm, C, B), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = lib.pint_pen(
             S_t.data_ptr(), sqc.data_ptr(), sqj.data_ptr(), lip.data_ptr(),
-            s_scale.data_ptr(), row_amp.data_ptr(), scratch.data_ptr(), B, C, Tm,
-            power_iters, K.stream_of(S_t),
+            s_scale.data_ptr(), row_amp.data_ptr(),
+            scratch.data_ptr(), B, C, Tm, power_iters, int(long), K.stream_of(S_t),
         )
     K.check(err, "pen_fused")
     K.count_launch("pen")

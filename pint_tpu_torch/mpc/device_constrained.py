@@ -103,6 +103,22 @@ def _rational_traced(val: torch.Tensor, acc_max: int, budget: int):
     return num, den
 
 
+def _pad_rows(x, dim, n):
+    """The int8 rows ``x`` (d0, d1, B) zero-padded along ``dim`` (0 or 1)
+    to ``n``, in x's own memory order: ``x`` itself when nothing is
+    padded, batch-last stays batch-last, problem-major stays
+    problem-major."""
+    if x.shape[dim] == n:
+        return x
+    if x.is_contiguous():
+        pad = [0] * 6
+        pad[5 - 2 * dim] = n - x.shape[dim]
+        return torch.nn.functional.pad(x, pad)
+    pad = [0] * 4                                 # on the (B, d0, d1) stack
+    pad[3 - 2 * dim] = n - x.shape[dim]
+    return torch.nn.functional.pad(x.permute(2, 0, 1), pad).permute(1, 2, 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceConstrainedSQP:
     """On-device SQP with hard per-step state constraints on packed plans.
@@ -253,8 +269,11 @@ class DeviceConstrainedSQP:
         forms ``forms["condense"]`` (K3, or the torch phases) and
         ``forms["constraints"]`` (K6, or the torch phases) name, the
         rationals, bounds and offsets.  Returns (ops dict, c_unit (B,)
-        f32); ops carries the batch-last kernel-orientation int8 matrices
-        ``hqt``/``sqj``/``sqc`` (constraint rows zero-padded to Cp)."""
+        f32); ops carries the kernel-orientation int8 matrices
+        ``hqt``/``sqj``/``sqc`` (constraint rows zero-padded to Cp) in the
+        order their stage hands over: batch-last, or problem-major past 64
+        lanes (K3's and the torch phases' ``hqt``) and past 64 rows or
+        columns (K6's rows)."""
         d = self.dev
         Tp = d.n_dec
         C, Cp = self.n_rows, self.padded_rows
@@ -289,8 +308,7 @@ class DeviceConstrainedSQP:
             hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
         else:
             hqt, g_pre, hs_num, hs_den = d._quantize_phase(Ht, g, lip_total)
-        sqc = torch.nn.functional.pad(sqc, (0, 0, 0, 0, 0, Cp - C))
-        sqj = torch.nn.functional.pad(sqj, (0, 0, 0, Cp - C))
+        sqc, sqj = _pad_rows(sqc, 0, Cp), _pad_rows(sqj, 1, Cp)
 
         c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))
         cs_num, cs_den = _rational_traced(

@@ -386,7 +386,7 @@ class DeviceSQP:
         BQ, BT, BQT, Cx = self._weighted(Bbar, Cbar)
         Hb = torch.einsum("btjn,btjm->bnm", BQ, Bbar)
         Hb = Hb + torch.einsum("bjn,bjm->bnm", BQT, BT) + self._consts["R_kron"]
-        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+        return self._hand_over(Hb), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
 
     def _reduce_blocked(self, Abar, Bbar, Cbar, x0_f):
         """``reduce="blocked"``: the einsum form as a 2 x 2 block-triangular
@@ -407,7 +407,7 @@ class DeviceSQP:
         top = torch.cat([H_ll, H_lh], dim=2)
         bot = torch.cat([H_lh.transpose(1, 2), H_hh], dim=2)
         Hb = torch.cat([top, bot], dim=1) + self._consts["R_kron"]
-        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+        return self._hand_over(Hb), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
 
     def _reduce_btrans(self, Abar, Bbar, Cbar, x0_f):
         """``reduce="btrans"``: the einsum form as one batched GEMM over the
@@ -417,7 +417,7 @@ class DeviceSQP:
         BQ, BT, BQT, Cx = self._weighted(Bbar, Cbar)
         Hb = torch.bmm(BQ.reshape(Bn, T * n, Tm).transpose(1, 2), Bbar.reshape(Bn, T * n, Tm))
         Hb = Hb + torch.bmm(BQT.transpose(1, 2), BT) + self._consts["R_kron"]
-        return Hb.permute(1, 2, 0).contiguous(), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
+        return self._hand_over(Hb), self._reduce_linear(BQ, BQT, Abar, Cx, x0_f)
 
     def _reduce_sym(self, Abar, Bbar, Cbar, x0_f):
         """``reduce="sym"``: Ht = W^T W + BQT^T B_T + R_kron with
@@ -442,7 +442,7 @@ class DeviceSQP:
         g_ref = torch.einsum("btln,btl->bn", W, LCx)
         g_ref = g_ref + torch.einsum("bjn,bj->bn", BQT, Cx[:, T - 1])
         g = (G * x0_f[:, None, :]).sum(-1) + g_ref
-        return Hb.permute(1, 2, 0).contiguous(), g
+        return self._hand_over(Hb), g
 
     def _propagate_mode(self) -> str:
         """The propagation form an iteration runs: "allpairs", or the
@@ -461,6 +461,18 @@ class DeviceSQP:
         faster at T = 64 (23.10 against 24.40; PERF.md section 5)."""
         return "allpairs" if self.propagate == "allpairs" else "unroll"
 
+    def _hand_over(self, Hb):
+        """Ht (Tm, Tm, B), ``Ht[k, j, b] = Hb[b, k, j]``, from the
+        batch-first condensed Hessian Hb (B, Tm, Tm) that every form
+        computes, in the order the kernels at Tm take: past 64 rows
+        (:data:`~pint_tpu_torch.ops.kernels.LONG_LANES`) Hb's problem-major
+        view, which K3's long form and the torch phases read without a copy
+        (a batch-last copy reads and writes 1.07 GB at Tm 256, B 4096); to 64
+        one batch-last copy, which K3's register kernel stages by TMA boxes
+        of 8 problems."""
+        Ht = Hb.contiguous().permute(1, 2, 0)
+        return Ht if self.n_dec > K.LONG_LANES else Ht.contiguous()
+
     def _reduce(self, Abar, Bbar, Cbar, x0_f):
         """The contraction ``reduce`` names: (Ht (Tm, Tm, B), g (B, Tm))."""
         red = {"einsum": self._reduce_phase, "blocked": self._reduce_blocked,
@@ -473,7 +485,7 @@ class DeviceSQP:
         A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
         if self._propagate_mode() == "allpairs":
             H, g = self._condense_allpairs(A_seq, B_lane, c_seq, x0_f)
-            return H.permute(1, 2, 0).contiguous(), g
+            return self._hand_over(H), g
         return self._reduce(*self._propagate_unrolled(A_seq, B_lane, c_seq), x0_f)
 
     def _condense_hg(self, x0_f, lanes):
@@ -500,14 +512,15 @@ class DeviceSQP:
 
     def _lipschitz_phase(self, Ht):
         """Power iteration for lambda_max(H) (PSD) with the 1.05 safety
-        factor, on the batch-last Ht (Tm, Tm, B): the torch form of the
+        factor, on Ht (Tm, Tm, B) in either order: the torch form of the
         reference's ``_lipschitz_phase`` (``pint_tpu/mpc/device_sqp.py:
-        645-667``).  One batch-first copy of Ht, then each step is one
+        645-667``).  Ht's batch-first view (one copy where Ht is batch-last,
+        to 64 rows), then each step is one
         batched f32 product that allocates only (B, Tm) vectors.  Sums run
         in the GEMM's order, not XLA's: against JAX ``lip`` agrees to f32
         roundoff.  Returns lip (B,)."""
         Tm, _, B = Ht.shape
-        Hb = Ht.permute(2, 0, 1).contiguous()                    # (B, k, j)
+        Hb = Ht.permute(2, 0, 1).contiguous()  # (B, k, j): a view past 64 rows
         v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
                        dtype=torch.float32, device=Ht.device)
         for _ in range(self.power_iters):
@@ -516,21 +529,27 @@ class DeviceSQP:
         return (v * torch.bmm(Hb, v)).sum((1, 2)) * float(np.float32(1.05))
 
     def _quantize_phase(self, Ht, g, lip):
-        """int8 Hessian, int32 linear term and step rationals from the
-        batch-last Ht (Tm, Tm, B), g (B, Tm) and lip (B,): the torch form of
+        """int8 Hessian, int32 linear term and step rationals from Ht
+        (Tm, Tm, B), g (B, Tm) and lip (B,): the torch form of
         the reference's ``_quantize_phase`` (``pint_tpu/mpc/device_sqp.py:
         759-780``), bit for bit given the same Ht, g and lip.  ``1.0 / lip``
         and ``127.0 / h_max`` are IEEE divisions; XLA compiles ``alpha *
         h_max / 127.0`` as a multiply by f32(1/127).  Returns (hqt
         (Tm, Tm, B) int8 in the kernel orientation, ``hqt[k, j, b] =
-        Hq_b[j, k] = q(Ht[j, k, b])``, g_pre, hs_num, hs_den)."""
+        Hq_b[j, k] = q(Ht[j, k, b])``, problem-major past 64 rows and
+        batch-last to it, g_pre, hs_num, hs_den)."""
         alpha = true_div(1.0, lip)
-        h_max = torch.amax(torch.abs(Ht), dim=(0, 1))
-        q = Ht * true_div(127.0, h_max)
+        long = Ht.shape[0] > K.LONG_LANES
+        Hb = Ht.permute(2, 0, 1)                                 # (B, k, j)
+        if long:        # the problem-major view the reduce hands over
+            Hb = Hb.contiguous()
+        h_max = torch.amax(torch.abs(Hb), dim=(1, 2))
+        q = Hb * true_div(127.0, h_max)[:, None, None]
         hq = q.round_().clamp_(-127, 127).to(torch.int8)
-        del q  # a GiB of f32 at T = 128, B = 4096: free it before the transpose
+        del q  # a GiB of f32 at T = 128, B = 4096: free it first
         hs_num, hs_den = self._step_rationals(alpha * h_max * INV_127)
-        return (hq.transpose(0, 1).contiguous(), self._g_pre_from(g, alpha),
+        hqt = hq.permute(2, 1, 0)   # past 64 rows problem-major with rows j
+        return ((hqt if long else hqt.contiguous()), self._g_pre_from(g, alpha),
                 hs_num, hs_den)
 
     def _condense(self, x0_f, lanes):

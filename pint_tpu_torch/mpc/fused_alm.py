@@ -120,19 +120,29 @@ def alm_fits(Tp: int, Cp: int) -> bool:
             and Tp * Tp + 2 * Tp * Cp + 8 * (Tp + Cp) <= _VMEM_WORDS)
 
 
+def _slab_orders(lanes):
+    """The memory orders a kernel takes its int8 slabs in at ``lanes``
+    (K4's Tp, K5's larger of Tp and Cp): batch-last to
+    :data:`~pint_tpu_torch.ops.kernels.LONG_LANES`; past it the cluster
+    kernel, which takes each slab batch-last or problem-major."""
+    return (("batch_last", "problem_major") if lanes > K.LONG_LANES
+            else ("batch_last",))
+
+
 def _launch_pgd_hqt(entry, x, g_pre, hqt, hs_num, hs_den, iters, g_shift):
     """One K4 launch through C entry ``entry``; counts as ``pgd_hqt``."""
     B, Tp = g_pre.shape
-    K.require_cuda("pgd_hqt", x, g_pre, hqt, hs_num, hs_den)
+    K.require_cuda("pgd_hqt", x, g_pre, hs_num, hs_den, slabs=(hqt,))
     if not pgd_fits(Tp):
         raise ValueError(f"pgd_hqt: Tp={Tp} must be a multiple of 4 within the "
                          "reference's pgd_viable, Tp <= 632 (pgd_fits)")
+    pm = K.require_order("pgd_hqt", "hqt", hqt, 1, _slab_orders(Tp))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = getattr(K.library(), entry)(
             x.data_ptr(), g_pre.data_ptr(), hqt.data_ptr(),
             hs_num.data_ptr(), hs_den.data_ptr(), out.data_ptr(),
-            B, Tp, iters, g_shift, K.stream_of(x),
+            B, Tp, iters, g_shift, int(pm), K.stream_of(x),
         )
     K.check(err, "pgd_hqt")
     K.count_launch("pgd_hqt")
@@ -143,9 +153,11 @@ def pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """``iters`` error-feedback PGD steps with per-problem Hessians.
 
     lanes, g_pre (B, Tp) int32 (lanes in [-128, 127]); hqt (Tp, Tp, B) int8
-    with ``hqt[k, j, b] = Hq_b[j, k]``; hs_num, hs_den (B,) int32.  Returns
-    the final lanes (B, Tp) int32.  Kernel for CUDA tensors, plain version
-    for CPU tensors."""
+    with ``hqt[k, j, b] = Hq_b[j, k]``, batch-last and contiguous, or past
+    64 lanes also problem-major (``Hq.permute(2, 1, 0)`` of a contiguous
+    batch-first ``Hq``; the kernel raises on any other order); hs_num,
+    hs_den (B,) int32.  Returns the final lanes (B, Tp) int32.  Kernel for
+    CUDA tensors, plain version for CPU tensors."""
     _check_pgd_hqt("pgd_hqt", lanes, 1, g_pre, hqt, hs_num, hs_den)
     if lanes.device.type == "cpu":
         return pgd_hqt_plain(
@@ -166,8 +178,9 @@ def pgd_fused_words_pre_plain(u_words, g_pre, hqt, hs_num, hs_den, *, iters,
 
 def pgd_fused_words_pre(u_words, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
     """Packed words in, packed words out: u_words (B, Tp/4) int32 words,
-    hqt already batch-last in the kernel orientation (what
-    :func:`pint_tpu_torch.mpc.condense_fused.lipq_fused` emits).
+    hqt already in the kernel orientation, in an order :func:`pgd_hqt`
+    takes (what :func:`pint_tpu_torch.mpc.condense_fused.lipq_fused`
+    emits).
 
     For CUDA tensors one K4 launch on the words themselves: the (B, Tp/4)
     int32 words are the (B, Tp) int8 lanes in memory, so there is no unpack
@@ -183,9 +196,12 @@ def pgd_fused_words_pre(u_words, g_pre, hqt, hs_num, hs_den, *, iters, g_shift):
 
 
 def pgd_fused_words(u_words, g_pre, Hq, hs_num, hs_den, *, iters, g_shift):
-    """:func:`pgd_fused_words_pre` from a batch-first Hessian Hq (B, Tp, Tp)
-    (one int8 transpose to the kernel orientation)."""
-    hqt = Hq.permute(2, 1, 0).contiguous()
+    """:func:`pgd_fused_words_pre` from a batch-first Hessian Hq (B, Tp, Tp):
+    past 64 lanes its problem-major view, else one int8 transpose to the
+    batch-last kernel orientation."""
+    hqt = Hq.permute(2, 1, 0)
+    if Hq.shape[-1] <= K.LONG_LANES:
+        hqt = hqt.contiguous()
     return pgd_fused_words_pre(
         u_words, g_pre, hqt, hs_num, hs_den, iters=iters, g_shift=g_shift
     )
@@ -368,9 +384,13 @@ def alm_hqt(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc, *,
     int8 with ``hqt[k, j, b] = Hq_b[j, k]``; sqj (Tp, Cp, B) and sqc
     (Cp, Tp, B) int8, both ``Sq_b[c, j]``; c_off, lo_pre, hi_pre, lam
     (B, Cp) int32; sc (8, B) int32, the rationals in
-    :data:`~pint_tpu_torch.mpc.constrained.RATIONALS` order.  Returns
-    (lanes (B, Tp), lam (B, Cp)) int32.  Kernel for CUDA tensors, plain
-    version for CPU tensors."""
+    :data:`~pint_tpu_torch.mpc.constrained.RATIONALS` order.  The slabs
+    are batch-last and contiguous; past 64 lanes or rows (the cluster
+    kernel) each may instead be problem-major (``hqt`` as
+    ``Hq.permute(2, 1, 0)``, ``sqc`` and ``sqj`` as ``permute(1, 2, 0)`` of
+    contiguous batch-first stacks), and the kernel raises on any other
+    order.  Returns (lanes (B, Tp), lam (B, Cp)) int32.  Kernel for CUDA
+    tensors, plain version for CPU tensors."""
     B, Tp = g_pre.shape
     Cp = c_off.shape[-1]
     i32, i8 = torch.int32, torch.int8
@@ -386,16 +406,21 @@ def alm_hqt(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc, *,
         return alm_hqt_plain(lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre,
                              hi_pre, lam, sc, **kw)
     ops = (lanes, g_pre, hqt, sqj, sqc, c_off, lo_pre, hi_pre, lam, sc)
-    K.require_cuda("alm_hqt", *ops)
+    K.require_cuda("alm_hqt", lanes, g_pre, c_off, lo_pre, hi_pre, lam, sc,
+                   slabs=(hqt, sqj, sqc))
     if not alm_fits(Tp, Cp):
         raise ValueError(f"alm_hqt: Tp={Tp}, Cp={Cp} must be multiples of 4 within "
                          "the reference's alm_viable (alm_fits)")
+    allowed = _slab_orders(max(Tp, Cp))
+    orders = (int(K.require_order("alm_hqt", "hqt", hqt, 1, allowed))
+              | int(K.require_order("alm_hqt", "sqc", sqc, 0, allowed)) << 1
+              | int(K.require_order("alm_hqt", "sqj", sqj, 0, allowed)) << 2)
     out_lanes = torch.empty_like(lanes)
     out_lam = torch.empty_like(lam)
     with torch.cuda.device(lanes.device):
         err = K.library().pint_alm(
             *(t.data_ptr() for t in ops), out_lanes.data_ptr(),
-            out_lam.data_ptr(), B, Tp, Cp, outer, inners, g_shift, y_shift,
+            out_lam.data_ptr(), B, Tp, Cp, outer, inners, g_shift, y_shift, orders,
             K.stream_of(lanes),
         )
     K.check(err, "alm_hqt")
@@ -424,11 +449,18 @@ def alm_fused_words(u_words, g_pre, Hq, hs_num, hs_den, Sq, cs_num, cs_den,
                     c_off, lo_pre, hi_pre, eh_num, eh_den, el_num, el_den,
                     lam0, *, outer, inners, g_shift, y_shift):
     """:func:`alm_fused_words_pre` from batch-first Hq (B, Tp, Tp) and Sq
-    (B, Cp, Tp): one int8 transpose to each kernel orientation."""
+    (B, Cp, Tp): past 64 lanes or rows the problem-major views of Hq and Sq
+    and one batch-first transpose of Sq for sqj; else one int8 transpose
+    to each batch-last kernel orientation."""
+    Tp, Cp = Hq.shape[-1], Sq.shape[1]
+    if max(Tp, Cp) > K.LONG_LANES:
+        hqt, sqc = Hq.permute(2, 1, 0), Sq.permute(1, 2, 0)
+        sqj = Sq.transpose(1, 2).contiguous().permute(1, 2, 0)
+    else:
+        hqt, sqc = Hq.permute(2, 1, 0).contiguous(), Sq.permute(1, 2, 0).contiguous()
+        sqj = Sq.permute(2, 1, 0).contiguous()
     return alm_fused_words_pre(
-        u_words, g_pre, Hq.permute(2, 1, 0).contiguous(), hs_num, hs_den,
-        Sq.permute(2, 1, 0).contiguous(), Sq.permute(1, 2, 0).contiguous(),
-        cs_num, cs_den, c_off, lo_pre, hi_pre, eh_num, eh_den, el_num,
-        el_den, lam0, outer=outer, inners=inners, g_shift=g_shift,
-        y_shift=y_shift,
+        u_words, g_pre, hqt, hs_num, hs_den, sqj, sqc, cs_num, cs_den, c_off,
+        lo_pre, hi_pre, eh_num, eh_den, el_num, el_den, lam0, outer=outer,
+        inners=inners, g_shift=g_shift, y_shift=y_shift,
     )

@@ -171,14 +171,16 @@ def _pgd_batched_h_cols_hqt(u_words, g_r, hqt, hs_num, hs_den, *, iters, g_shift
     """:func:`_pgd_batched_h_cols` with the rank's matvec as K10
     (:func:`~pint_tpu_torch.mpc.fused_alm.pgd_matvec_cols`), launched once
     an iteration with the int32 all-reduce between launches.  hqt
-    (Tm, Tm, B) int8 is the full batch-last slab that K3 emits
-    (``Hq = hqt.permute(2, 1, 0)``); this rank reads its k-slice.
-    Bit-identical to :func:`_pgd_batched_h_cols` (int32 sums are exact)."""
+    (Tm, Tm, B) int8 is the full slab that K3 emits (``Hq =
+    hqt.permute(2, 1, 0)``); this rank reads its k-slice, which K10 takes
+    batch-last: a view of K3's batch-last slab to 64 rows, one int8 copy of
+    its problem-major slab past them.  Bit-identical to
+    :func:`_pgd_batched_h_cols` (int32 sums are exact)."""
     from pint_tpu_torch.mpc.fused_alm import pgd_matvec_cols
     from pint_tpu_torch.parallel.mesh import psum
 
     cols = slice(rank * block, (rank + 1) * block)
-    hqt_r = hqt[cols]                       # (block, Tm, B), contiguous
+    hqt_r = hqt[cols].contiguous()          # (block, Tm, B)
 
     def acc_of(lanes):
         return psum(pgd_matvec_cols(lanes, hqt_r), group)[:, cols]

@@ -32,13 +32,16 @@ import torch
 
 __all__ = [
     "KERNELS",
+    "LONG_LANES",
     "SWAR_KERNELS",
     "build",
     "check",
     "count_launch",
     "launch_counts",
     "library",
+    "problem_major",
     "require_cuda",
+    "require_order",
     "resolve_device",
     "reset_launch_counts",
     "stream_of",
@@ -66,18 +69,21 @@ _SIGNATURES = {
     "pint_fused_pgd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # lanes, hqt, out, B, K, rows, stream
     "pint_matvec_cols": [_P, _P, _P, _I, _I, _I, _P],
-    # lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, stream
-    "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # words, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, stream
-    "pint_pgd_hqt_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, orders,
+    # stream (orders: bit 0, hqt problem-major)
+    "pint_pgd_hqt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # words, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, orders,
+    # stream
+    "pint_pgd_hqt_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ht, hqt, lip, hmax, B, Tm, power_iters, stream
     "pint_lipq": [_P, _P, _P, _P, _I, _I, _I, _P],
     # st, sqc, sqj, lip, s_scale, row_amp, scratch, B, C, Tm, power_iters,
-    # stream
-    "pint_pen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # batch_first (the rows stay in scratch), stream
+    "pint_pen": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # lanes, g, hqt, sqj, sqc, c_off, lo, hi, lam, sc, out_lanes, out_lam,
-    # B, Tp, Cp, outer, inners, g_shift, y_shift, stream
-    "pint_alm": [_P] * 12 + [_I] * 7 + [_P],
+    # B, Tp, Cp, outer, inners, g_shift, y_shift, orders, stream (orders:
+    # bits 0, 1, 2 for hqt, sqc, sqj problem-major)
+    "pint_alm": [_P] * 12 + [_I] * 8 + [_P],
     # lanes, g, c_off, lam, hq, sq, lo, hi, out_lanes, out_lam, scratch, B,
     # Tp, Cp, outer, inners, g_shift, y_shift, hs_num, hs_den, cs_num,
     # cs_den, eh_num, eh_den, el_num, el_den, stream
@@ -238,13 +244,50 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """The common device of ``tensors``; raises unless all are on one
-    CUDA device and contiguous."""
-    dev = tensors[0].device
-    for t in tensors:
+LONG_LANES = 64
+"""Past this many lanes (K3's Tm, K4's Tp, K5's larger of Tp and Cp) the
+long-form kernels run, and the solvers hand them their per-problem slabs
+problem-major (:func:`problem_major`); to it, batch-last and contiguous."""
+
+
+def problem_major(t: torch.Tensor, rows: int) -> bool:
+    """True when the (d0, d1, B) tensor ``t`` lies problem-major: each
+    problem's d0 x d1 slab one contiguous run, a row along dim ``rows`` (0
+    or 1) after another, the other dim the fastest.  ``rows=0`` is
+    ``x.permute(1, 2, 0)`` of a contiguous (B, d0, d1) ``x`` (Ht, sqc,
+    sqj); ``rows=1`` is ``x.permute(2, 1, 0)`` of a contiguous (B, d1, d0)
+    ``x`` (hqt, whose rows j are ``Hq_b[j, :]``).  Strides of dims of size
+    1 do not count."""
+    d0, d1, _ = t.shape
+    want = (d1, 1, d0 * d1) if rows == 0 else (1, d0, d0 * d1)
+    return all(n == 1 or st == w for n, st, w in zip(t.shape, t.stride(), want))
+
+
+def require_order(name: str, what: str, t: torch.Tensor, rows: int,
+                  orders: tuple) -> bool:
+    """Whether ``t`` lies problem-major (:func:`problem_major` with
+    ``rows``) for a kernel built for ``orders`` (``"batch_last"``, the
+    contiguous (d0, d1, B) layout, and/or ``"problem_major"``); raises on
+    any other memory order, and never copies."""
+    if "problem_major" in orders and problem_major(t, rows):
+        return True
+    if "batch_last" in orders and t.is_contiguous():
+        return False
+    said = {"batch_last": "batch-last and contiguous", "problem_major": "problem-major"}
+    raise ValueError(f"{name}: {what} {tuple(t.shape)} with strides {t.stride()} is not "
+                     f"{' or '.join(said[o] for o in orders)}, the order this kernel "
+                     "takes at this shape")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor, slabs=()) -> torch.device:
+    """The common device of ``tensors`` and ``slabs``; raises unless all
+    are on one CUDA device and each of ``tensors`` is contiguous (the
+    memory order of ``slabs`` is for :func:`require_order`)."""
+    dev = (*tensors, *slabs)[0].device
+    for t in (*tensors, *slabs):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     if dev.type != "cuda":

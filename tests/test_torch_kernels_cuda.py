@@ -172,14 +172,16 @@ def test_k3_bit_identical_at_every_path(cuda, B, Tm):
     kernel (16, 32, 48: the ones built for any Tm; 48 takes six boxes):
     B = 4096 takes TMA boxes and 16-byte stores, B = 4100 TMA boxes past the
     batch (zero-filled) and byte stores, B = 37 and 4099 the ragged 4-byte
-    copies and byte stores.  64 < Tm <= 224, the shared-memory ring: quads
-    of problems in 3 slots with 2 groups of warps (66), 2 slots (80) and 1
-    slot (100), with 16-byte copies and word stores when B % 4 == 0 (4096,
-    4100); single problems past Tm = 118 in 3 slots (128), 2 (160) and 1
-    (224); past 224 one slot holds the first rows and registers the rest
-    (228, 256, 286: 4 to 85 rows in registers)."""
+    copies and byte stores.  Past Tm = 64 the long form on problem-major
+    slabs, one problem a group of warps: a ring of 5 slots with 4 groups
+    (66, 80), 4 slots (100), 3 (128), 2 (160) and 1 (224); past 224 one
+    slot holds the first rows and registers the rest (228, 256, 286: 36 to
+    94 rows in registers)."""
     gen = torch.Generator(device=cuda).manual_seed(B + Tm)
-    Ht = torch.randn((Tm, Tm, B), generator=gen, device=cuda)
+    if Tm > K.LONG_LANES:
+        Ht = torch.randn((B, Tm, Tm), generator=gen, device=cuda).permute(1, 2, 0)
+    else:
+        Ht = torch.randn((Tm, Tm, B), generator=gen, device=cuda)
     got = lipq_fused(Ht, power_iters=16)
     ref = lipq_plain(Ht, power_iters=16)
     torch.cuda.synchronize()
@@ -806,7 +808,7 @@ def test_lipq_fits_is_where_k3_accepts(cuda, Tm):
 def test_pen_fits_is_where_k6_accepts(cuda, C, Tm):
     from pint_tpu_torch.mpc import pen_fits
 
-    assert _entry_accepts(cuda, "pint_pen", 7, 1, C, Tm, 2) == pen_fits(C, Tm)
+    assert _entry_accepts(cuda, "pint_pen", 7, 1, C, Tm, 2, 0) == pen_fits(C, Tm)
 
 
 @pytest.mark.parametrize("Tp", [4, 64, 254, 256, 260, 632, 636])
@@ -814,7 +816,7 @@ def test_pgd_fits_is_where_k4_accepts(cuda, Tp):
     from pint_tpu_torch.mpc import pgd_fits
 
     for entry in ("pint_pgd_hqt", "pint_pgd_hqt_words"):
-        assert _entry_accepts(cuda, entry, 6, 1, Tp, 2, 12) == pgd_fits(Tp)
+        assert _entry_accepts(cuda, entry, 6, 1, Tp, 2, 12, 0) == pgd_fits(Tp)
 
 
 @pytest.mark.parametrize("Tp, Cp", [(64, 64), (256, 256), (260, 64), (64, 260),
@@ -826,7 +828,7 @@ def test_alm_fits_is_where_k5_and_k7_accept(cuda, Tp, Cp):
     from pint_tpu_torch.mpc import alm_fits
 
     fits = alm_fits(Tp, Cp)
-    assert _entry_accepts(cuda, "pint_alm", 12, 1, Tp, Cp, 1, 2, 12, 9) == fits
+    assert _entry_accepts(cuda, "pint_alm", 12, 1, Tp, Cp, 1, 2, 12, 9, 0) == fits
     k7 = Tp % 4 == 0 and Cp % 4 == 0 and max(Tp, Cp) <= 4096
     assert _entry_accepts(cuda, "pint_alm_shared", 11, 1, Tp, Cp, 1, 2, 12, 9,
                           1, 0, 1, 0, 1, 0, 1, 0) == k7
@@ -1597,3 +1599,144 @@ def test_device_sqp_fused_false_equals_fused_none(cuda):
         k4.append(after["pgd_hqt"] - before["pgd_hqt"])
     assert k4 == [4, 0]
     assert torch.equal(words[0], words[1])
+
+
+# -- the long forms on problem-major slabs: K3 past Tm 64, K4 and K5's cluster
+# kernel -----------------------------------------------------------------------
+
+LONG_BATCHES = [1, 7, 33, 1000, 4096, 4097]
+SLAB_ORDERS = ["batch_last", "problem_major", "mixed"]
+
+
+def _pm_rows0(x):
+    """The (d0, d1, B) tensor ``x`` problem-major with rows along dim 0."""
+    return x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+
+
+def _pm_hqt(hqt):
+    """``hqt`` (Tp, Tp, B) problem-major with rows j (dim 1)."""
+    return hqt.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+
+
+@pytest.mark.parametrize("Tm", [67, 68, 192, 224, 228, 256, 272, 286])
+@pytest.mark.parametrize("B", LONG_BATCHES)
+def test_k3_long_form_bit_identical(cuda, B, Tm):
+    """K3 past Tm 64 reads Ht problem-major (whole-slab bulk copies; 4-byte
+    copies at the odd Tm 67) and writes hqt problem-major with rows j
+    (16-byte stores where Tm % 16 == 0: 192, 224, 256, 272; words at 68 and
+    228; bytes at 67 and 286): hqt, lip and h_max bit-identical to
+    lipq_plain on the same view and on its batch-last copy."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * B + Tm)
+    Ht = torch.randn((B, Tm, Tm), generator=gen, device=cuda).permute(1, 2, 0)
+    got = lipq_fused(Ht, power_iters=16)
+    torch.cuda.synchronize()
+    assert K.problem_major(got[0], 1)
+    for ref in (lipq_plain(Ht, power_iters=16), lipq_plain(Ht.contiguous(), power_iters=16)):
+        for name, a, b in zip(("hqt", "lip", "h_max"), got, ref):
+            assert torch.equal(a, b), name
+
+
+def _orders(k5_args, order):
+    """K5's operands with hqt, sqj, sqc in ``order``: all batch-last, all
+    problem-major, or hqt problem-major and the rows batch-last (what the
+    torch forms hand over at T = 144)."""
+    a = list(k5_args)
+    if order != "batch_last":
+        a[2] = _pm_hqt(a[2])
+    if order == "problem_major":
+        a[3], a[4] = _pm_rows0(a[3]), _pm_rows0(a[4])
+    return a
+
+
+@pytest.mark.parametrize("order", ["batch_last", "problem_major"])
+@pytest.mark.parametrize("Tp", [68, 256, 288, 632])
+@pytest.mark.parametrize("B", LONG_BATCHES)
+def test_k4_cluster_kernel_both_orders(cuda, B, Tp, order):
+    """K4 past 64 lanes on hqt batch-last (byte gathers) and problem-major
+    (16-byte copies at 256 and 288, 4-byte at 68 and 632; a second buffer
+    at 68, 256 and 288, an L2 prefetch at 632, a cluster of 2), both
+    entries against their plain versions."""
+    from pint_tpu_torch.mpc import pgd_fused_words_pre, pgd_fused_words_pre_plain
+
+    lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, B, Tp, 3 * B + Tp)
+    if order == "problem_major":
+        hqt = _pm_hqt(hqt)
+    kw = dict(iters=20, g_shift=12)
+    got_lanes = pgd_hqt(lanes, g_pre, hqt, hs_num, hs_den, **kw)
+    words = pack_controls(lanes)
+    got_words = pgd_fused_words_pre(words, g_pre, hqt, hs_num, hs_den, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_lanes, pgd_hqt_plain(lanes, g_pre, hqt, hs_num, hs_den, **kw))
+    assert torch.equal(got_words,
+                       pgd_fused_words_pre_plain(words, g_pre, hqt, hs_num, hs_den, **kw))
+
+
+@pytest.mark.parametrize("order", SLAB_ORDERS)
+@pytest.mark.parametrize("Tp, Cp", [(256, 128), (288, 192), (632, 4), (16, 1600)])
+@pytest.mark.parametrize("B", LONG_BATCHES)
+def test_k5_cluster_kernel_both_orders(cuda, B, Tp, Cp, order):
+    """K5's cluster kernel on slabs batch-last, problem-major and mixed:
+    one block a problem with two threads a row (256 x 128), one thread a
+    row (288 x 192), clusters of two (632 x 4) and four (16 x 1600, 4-byte
+    copies of the 16-byte rows of hqt); lanes and multipliers against
+    alm_hqt_plain."""
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt, alm_hqt_plain
+
+    args = _orders(_k5_operands(cuda, B, Tp, Cp, 5 * B + Tp + Cp), order)
+    kw = dict(outer=2, inners=8, g_shift=12, y_shift=9)
+    got = alm_hqt(*args, **kw)
+    ref = alm_hqt_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_long_forms_refuse_other_orders(cuda):
+    """Each wrapper raises on a memory order its kernel was not built for,
+    and copies nothing: K3 past 64 on batch-last Ht and at 64 on
+    problem-major Ht; K4 and K5 on a transposed view past 64 and on a
+    problem-major slab at 64."""
+    from pint_tpu_torch.mpc.fused_alm import alm_hqt
+
+    B = 33
+    with pytest.raises(ValueError, match="problem-major"):
+        lipq_fused(torch.zeros((96, 96, B), device=cuda), power_iters=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lipq_fused(_pm_rows0(torch.zeros((64, 64, B), device=cuda)), power_iters=1)
+    for Tp in (64, 256):
+        lanes, g_pre, hqt, hs_num, hs_den = _k4_operands(cuda, B, Tp, Tp)
+        bad = hqt.transpose(0, 1) if Tp > 64 else _pm_hqt(hqt)
+        with pytest.raises(ValueError, match="hqt"):
+            pgd_hqt(lanes, g_pre, bad, hs_num, hs_den, iters=1, g_shift=12)
+    for Tp, Cp in ((64, 64), (256, 128)):
+        args = list(_k5_operands(cuda, B, Tp, Cp, Tp + Cp))
+        args[4] = args[4].transpose(0, 1).contiguous().transpose(0, 1) if Tp > 64 \
+            else _pm_rows0(args[4])
+        with pytest.raises(ValueError, match="sqc"):
+            alm_hqt(*args, outer=1, inners=1, g_shift=12, y_shift=9)
+
+
+def test_long_solves_hand_over_problem_major(cuda):
+    """At T = 128 the condensation hands K3 the problem-major view of Hb
+    (no batch-last copy), K3 and K6 hand K4 and K5 problem-major slabs, and
+    K6's cluster kernel runs no transpose kernel; at T = 32 everything stays
+    batch-last (K6's register kernel writes it so)."""
+    from pint_tpu_torch.mpc import DeviceConstrainedSQP
+
+    for T, pm in ((128, True), (32, False)):
+        csqp = DeviceConstrainedSQP(DeviceSQP(
+            horizon=T, sqp_iters=1, pgd_iters=30, x_ref=np.array([1.0, 0.0, 0.0]),
+            device=cuda), **CON)
+        d, B = csqp.dev, 33
+        x0 = torch.as_tensor(_con_x0(B, 31), device=cuda)
+        lanes = torch.zeros((B, d.n_dec), dtype=torch.int32, device=cuda)
+        Ht, _ = d._condense_ht(x0, lanes)
+        assert K.problem_major(Ht, 0) == pm and Ht.is_contiguous() != pm
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            ops, _ = csqp._condense_constrained_dev(x0, lanes)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert not any("pen_transpose" in n for n in names)
+        assert K.problem_major(ops["hqt"], 1) == pm
+        for k in ("sqc", "sqj"):
+            assert K.problem_major(ops[k], 0) == pm
