@@ -1433,12 +1433,16 @@ def wide_operands(torch, B, Tp, seed):
 
 def phase_wide(torch, P, K, timing):
     """K2, K2p (momentum off and on for K2) and K7 past 256 lanes (the wide
-    forms: B fragments from L2): the users' path, FusedPGD (K2, K2p) and
-    ConstrainedPGD (K7) solves at T = 260, counts set to 0 before and read
-    after, equal to the word-space solvers; then each public wrapper at Tp
-    = 260, 512 and 2048 (K7 also at (Tp, Cp) = (512, 256), (512, 512)) on
-    B = 4096 random operands, bit-identical to its plain version, timed
-    queued, one call between CUDA events, and the plain version."""
+    forms: each pass one product across the batch in tiles of 64 problems
+    x 128 columns, K7's second pass 64 x 64, one cooperative launch a
+    call): the users' path, FusedPGD
+    (K2, K2p) and ConstrainedPGD (K7) solves at T = 260, counts set to 0
+    before and read after, equal to the word-space solvers; then each
+    public wrapper at Tp = 260, 512 and 2048 (K7 also at (Tp, Cp) = (512,
+    256), (512, 512)) on B = 4096 random operands, bit-identical to its
+    plain version, timed queued, one call between CUDA events, and the
+    plain version, and queued with no iteration (staging and write-back
+    alone: ``staging_queued_ms``)."""
     from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
     from pint_tpu_torch.mpc import (alm_shared, alm_shared_plain, fused_pgd,
                                     fused_pgd_packed, fused_pgd_packed_plain,
@@ -1491,7 +1495,7 @@ def phase_wide(torch, P, K, timing):
 
     rec = {}
 
-    def timed(key, fn, plain, shape):
+    def timed(key, fn, plain, shape, staging):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
@@ -1500,24 +1504,29 @@ def phase_wide(torch, P, K, timing):
                                      f"({int((a != b).sum())})")
         rec[key] = dict(shape, max_abs_err=0.0, ms=median(timing.cuda_ms(fn, reps=3)),
                         queued_ms=median(timing.queued_ms(fn, calls=3, reps=3)),
-                        plain_ms=median(timing.cuda_ms(plain, reps=1, warmup=0)))
+                        plain_ms=median(timing.cuda_ms(plain, reps=1, warmup=0)),
+                        staging_queued_ms=median(timing.queued_ms(staging, calls=3, reps=3)))
         say(f"{key} {shape}: bit-identical to the plain version; kernel "
-            f"{rec[key]['queued_ms']:.4f} ms queued, plain {rec[key]['plain_ms']:.2f} ms")
+            f"{rec[key]['queued_ms']:.4f} ms queued ({rec[key]['staging_queued_ms']:.4f} "
+            f"with no iteration), plain {rec[key]['plain_ms']:.2f} ms")
 
     for Tp in WIDE_TP:
         lanes, g, hq = wide_operands(torch, B, Tp, Tp)
         words = pack_controls(lanes)
         kw = dict(hs_num=33, hs_den=9, g_shift=12, iters=WIDE_ITERS)
+        kw0 = dict(kw, iters=0)
         for mom in (False, True):
             mkw = dict(kw, momentum=mom, beta_num=150 if mom else 0)
             timed(f"fused_pgd (K2) Tp={Tp} momentum={int(mom)}",
                   lambda: (fused_pgd(lanes, g, hq, **mkw),),
                   lambda: (fused_pgd_plain(lanes, g, hq, **mkw),),
-                  dict(B=B, Tp=Tp, iters=WIDE_ITERS))
+                  dict(B=B, Tp=Tp, iters=WIDE_ITERS),
+                  lambda: fused_pgd(lanes, g, hq, **dict(mkw, iters=0)))
         timed(f"fused_pgd_packed (K2p) Tp={Tp}",
               lambda: (fused_pgd_packed(words, g, hq, **kw),),
               lambda: (fused_pgd_packed_plain(words, g, hq, **kw),),
-              dict(B=B, Tp=Tp, iters=WIDE_ITERS, packed=True))
+              dict(B=B, Tp=Tp, iters=WIDE_ITERS, packed=True),
+              lambda: fused_pgd_packed(words, g, hq, **kw0))
         del lanes, g, hq, words
     akw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
                el_num=23, el_den=11, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS,
@@ -1536,7 +1545,8 @@ def phase_wide(torch, P, K, timing):
                 t(r.integers(100, 2000, (Cp,), dtype=np.int32)))
         timed(f"alm_shared (K7) Tp={Tp} Cp={Cp}", lambda: alm_shared(*args, **akw),
               lambda: alm_shared_plain(*args, **akw),
-              dict(B=B, Tp=Tp, Cp=Cp, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS))
+              dict(B=B, Tp=Tp, Cp=Cp, outer=WIDE_K7_OUTER, inners=WIDE_K7_INNERS),
+              lambda: alm_shared(*args, **dict(akw, outer=0, inners=0)))
         del args, lanes, g, hq
     return rec, path
 

@@ -65,6 +65,18 @@ device time of one SQP iteration of DeviceSQP and DeviceConstrainedSQP at T
 and the queued device ms of the copies the problem-major handoff removes,
 as plain torch operations at the long path's shapes.
 
+    python3 exp_torch_kernels.py --wide [--root DIR] [--out FILE]
+
+instead times the wide forms (past 256 lanes) at chip_smoke.py's WIDE_TP
+and WIDE_K7 shapes on its random operands (``wide_operands``, B =
+WIDE_BATCH): K2 with momentum off and on and K2p at WIDE_ITERS and at 0
+iterations (staging and write-back alone), K7 at WIDE_K7_OUTER x
+WIDE_K7_INNERS and at 0 x 0, device ms queued and of one call between CUDA
+events, each held bit-identical to its plain version first; and phase 18's
+solves at T = 260 (FusedPGD with momentum off and on and with packed_io,
+ConstrainedPGD 3 x 10, B = WIDE_BATCH): device ms of one solve, the sum
+of its kernel events (``chip_smoke.profile_call``).
+
     python3 exp_torch_kernels.py --rehearsal [--root DIR] [--out FILE]
 
 instead runs chip_smoke.py's two-rank rehearsal (dp = 1 x tp = 2 over gloo,
@@ -434,6 +446,76 @@ def long_horizon(P, timing):
     return rec
 
 
+def wide(P, timing):
+    """The wide forms of K2, K2p and K7 at chip_smoke.py's shapes, old or
+    new package alike (entry points the port has had since its first wide
+    forms)."""
+    from pint_tpu_torch.mpc import (alm_shared, alm_shared_plain, fused_pgd,
+                                    fused_pgd_packed, fused_pgd_packed_plain,
+                                    fused_pgd_plain)
+    B, dev, rec = CS.WIDE_BATCH, "cuda", {}
+    T, dt = CS.WIDE_TP[0], 1.0 / 32.0
+    qp = P.condense_double_integrator(T=T, dt=dt, q_pos=4.0)
+    qqp = P.quantize(qp, pad_to=4)
+    A = np.array([[1.0, dt], [0.0, 1.0]])
+    Bm = np.array([[0.5 * dt * dt], [dt]])
+    qc = P.quantize_constrained(P.constrain_states(
+        qp, np.broadcast_to(A, (T, 2, 2)), np.broadcast_to(Bm, (T, 2, 1)), None,
+        F=[[0.0, 1.0]], lo=-0.25, hi=0.25), rho=50.0, pad_to=4)
+    x0 = CS.lti_states(np.random.default_rng(60), B)
+    solvers = dict(
+        fused=P.FusedPGD(qqp, iters=CS.WIDE_ITERS, device=dev),
+        fused_momentum=P.FusedPGD(qqp, iters=CS.WIDE_ITERS, momentum=True, device=dev),
+        fused_packed_io=P.FusedPGD(qqp, iters=CS.WIDE_ITERS, packed_io=True, device=dev),
+        constrained=P.ConstrainedPGD(qc, outer=CS.WIDE_K7_OUTER, inners=CS.WIDE_K7_INNERS,
+                                     device=dev))
+    for name, solver in solvers.items():
+        ms = [CS.profile_call(torch, lambda: solver.solve(x0))[0] for _ in range(3)]
+        rec[f"solve_{name}_T{T}_device_ms"] = median(ms)
+
+    def both(key, fn, ref, n):  # bit-identical first; queued, and one call
+        if n:
+            for a, b in zip(fn(), ref()):
+                CS.same(torch, key, a, b)
+        rec[f"{key}_queued_ms"] = median(timing.queued_ms(fn, calls=3, reps=3))
+        if n:
+            rec[f"{key}_call_ms"] = median(timing.cuda_ms(fn, reps=3))
+
+    for Tp in CS.WIDE_TP:
+        lanes, g, hq = CS.wide_operands(torch, B, Tp, Tp)
+        words = P.pack_controls(lanes)
+        for n in (CS.WIDE_ITERS, 0):
+            kw = dict(hs_num=33, hs_den=9, g_shift=12, iters=n)
+            for mom in (0, 1):
+                mkw = dict(kw, momentum=bool(mom), beta_num=150 * mom)
+                both(f"k2_Tp{Tp}_momentum{mom}_iters{n}",
+                     lambda: (fused_pgd(lanes, g, hq, **mkw),),
+                     lambda: (fused_pgd_plain(lanes, g, hq, **mkw),), n)
+            both(f"k2p_Tp{Tp}_iters{n}", lambda: (fused_pgd_packed(words, g, hq, **kw),),
+                 lambda: (fused_pgd_packed_plain(words, g, hq, **kw),), n)
+        del lanes, g, hq, words
+    for Tp, Cp in CS.WIDE_K7:
+        lanes, g, hq = CS.wide_operands(torch, B, Tp, Tp + Cp)
+        r = np.random.default_rng(Cp)
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
+        args = (lanes, g, t(r.integers(-3000, 3000, (B, Cp), dtype=np.int32)),
+                t(r.integers(0, 500, (B, Cp), dtype=np.int32)), hq,
+                t(r.integers(-127, 128, (Cp, Tp), dtype=np.int8)),
+                t(r.integers(-2000, -100, (Cp,), dtype=np.int32)),
+                t(r.integers(100, 2000, (Cp,), dtype=np.int32)))
+        for outer, inners in ((CS.WIDE_K7_OUTER, CS.WIDE_K7_INNERS), (0, 0)):
+            akw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
+                       el_num=23, el_den=11, outer=outer, inners=inners, g_shift=12,
+                       y_shift=9)
+            both(f"k7_{Tp}x{Cp}_{outer}x{inners}", lambda: alm_shared(*args, **akw),
+                 lambda: alm_shared_plain(*args, **akw), outer * inners)
+        del args, lanes, g, hq
+    return rec
+
+
 def rehearsal_rank(rank, port, out, P):
     """One rank of the rehearsal: gloo, mesh dp = 1 x tp = 2 on the one
     card; K10's device time in one profiled solve of each sharded solver."""
@@ -500,6 +582,8 @@ def main():
     ap.add_argument("--out", type=Path, help="also write the JSON record here")
     ap.add_argument("--long", action="store_true",
                     help="time the long-horizon shapes of K3-K6 instead")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the wide forms of K2, K2p and K7 (past 256 lanes) instead")
     ap.add_argument("--rehearsal", action="store_true",
                     help="profile K10 in the two-rank rehearsal's sharded solves instead")
     ap.add_argument("--rehearsal-rank", nargs=3, metavar=("RANK", "PORT", "OUT"),
@@ -521,10 +605,12 @@ def main():
 
     if root not in Path(P.__file__).resolve().parents:
         raise SystemExit(f"imported {P.__file__}, not the package under {root}")
-    if args.long or args.rehearsal:
+    if args.long or args.wide or args.rehearsal:
         rec = {"root": str(root), "card": torch.cuda.get_device_name(0)}
         if args.long:
             rec.update(long_horizon(P, timing))
+        elif args.wide:
+            rec.update(wide(P, timing))
         else:
             rec["rehearsal_ranks"] = rehearsal(root)
         print(json.dumps(rec), flush=True)

@@ -105,6 +105,7 @@
 
 #include "common.cuh"
 #include "mma_tile.cuh"
+#include "wide_gemm.cuh"
 
 namespace {
 
@@ -367,211 +368,340 @@ alm_mma_kernel(const int* __restrict__ lanes, const int* __restrict__ g,
   }
 }
 
-// -- K7 past W = 256: B fragments from L2, state in memory --------------------
+// -- K7 past 256: the batch products (csrc/wide_gemm.cuh) ---------------------
 //
-// Past 256 lanes or rows the three B-operand sets (Tp^2 + 2 Tp Cp bytes)
-// no longer fit beside the tiles, and the state (four int32 per lane or row
-// and problem: 640 KB a tile at Tp = Cp = 2048) fits neither registers nor
-// shared memory.  As in K2's wide form (csrc/fused_pgd.cu), the B fragments
-// of Hq, Sq and Sq^T are read from global memory each iteration
-// (pint::frag_word): one set for every block, resident in L2.  Sq^T is a
-// row-major (Tp, Cp) copy that transpose_kernel writes into the caller's
-// scratch before the loop, so every fragment word is one 4-byte load.
-// Shared memory holds the three A tiles u (16 x Tp), y_hi and y_lo
-// (16 x Cp).  Each thread keeps its own elements' state in global memory
-// (L2), read and written only by that thread: carry + half in out_lanes
-// (overwritten by the lanes at the end), the multipliers in out_lam, ey +
-// y_half in the scratch.  Each warp walks the column groups w, w + 16, ...
-// An inner iteration is two passes with a barrier after each: pass 1 reads
-// u and, for each of the thread's groups, computes (Sq u)[c] and the
-// constraint step (writing y_hi, y_lo) and (Hq u)[j], folding -pre into the
-// stored carry (every sum wraps, so the order is free); pass 2 computes
-// (Sq^T y_hi)[j] and (Sq^T y_lo)[j], finishes the objective step and
-// writes the new u over its own elements (no other thread reads them in
-// pass 2).  Padded lanes and rows compute with zero operands and are never
-// stored; A columns past Tp or Cp meet zero B rows.  Exact in int32:
-// |acc| <= 128 * 128 * max(Tp, Cp) < 2^31 below 131,072.  The limit this
-// form states is Tp, Cp <= 4096 (tiles 193 KB of shared memory).
+// The same TPU kernel (pint_tpu/mpc/fused_alm.py:176 -> :312) past 256
+// lanes or rows.  Bound at phase 18's shapes (B = 4096, 3 x 10;
+// kernel_cost "operations"): 0.0344 / 0.0830 / 0.1335 / 2.136 ms at (Tp,
+// Cp) = 260² / 512 x 256 / 512² / 2048².  Past 256 the int32 state (carry,
+// multipliers, error feedback: 12 bytes a lane or row and problem) fits on
+// chip nowhere at B 4096, so each pass also moves it through L2 and HBM:
+// about 290 MiB an inner iteration at 2048², ~2.6 ms over 30 inners, which
+// kernel_cost does not count.  The first design gave a block one tile of 16
+// problems for the whole loop and read the B fragments of Hq, Sq and Sq^T
+// from L2 a 4-byte word at a time every pass (each byte fed 16 problems;
+// ~1.8 TB/s of word loads set the pace): 1.453 / 2.630 / 4.144 / 52.98 ms
+// queued on one H100 80GB HBM3 at 700 W.  Here each pass is one product
+// across the batch on wgmma, tiles of 64 problems bulk-copied through the
+// shared-memory ring, the elementwise step its epilogue (4 lanes a load
+// through shared memory, wide_gemm.cuh) and a grid barrier after it.  At
+// the narrow shapes each pass is one or two rounds of tiles and their
+// chains of latencies (61 barriers at 3 x 10) bound it; at 2048² the
+// products and the state traffic:
+//   pass 1: u (B x Tp) . [Hq; Sq]^T, one product with Tp + Cp columns in
+//     tiles of 64 x 128 (Hq's rows padded to 128, so a tile is all objective
+//     or all constraint):
+//     objective columns fold -pre into the stored carry, constraint columns
+//     run constraint_step and write y_hi and y_lo;
+//   pass 2: [y_hi; y_lo] (the same 64 problems of each) . (Sq^T)^T in tiles
+//     of 64 x 64 (ceil(Tp / 64) of them across), one B tile for both
+//     halves, so the epilogue finds (Sq^T y_hi)[j] and (Sq^T y_lo)[j] of the
+//     same problem and lane side by side:
+//     objective_step, the new u (the last pass 2 writes the lanes over the
+//     carries);
+//   the multiplier update: (Sq u)[c] at the inner solution is the first
+//     pass 1 of the next outer iteration's product, so that pass 1 applies
+//     lam_update before its constraint step (exact: u has not changed); the
+//     last outer's update is a pass of the Sq columns alone (with no inner
+//     iteration, `outer` such passes on u as staged).
+// The scratch (pint_alm_shared_scratch) holds [Hq; Sq] padded ((nh + nc) x
+// kj), Sq^T padded (nh x kc, written by pass 0 from Sq), u (bp x kj), y_hi,
+// y_lo (bp x kc) as int8 in the tiled layout, and ey + y_half (B x Cp
+// int32); the carry + half
+// lives in out_lanes and the multipliers in out_lam.  Padded columns meet
+// zero B rows; padded rows and columns are never stored.  Exact in int32:
+// |acc| <= 128 * 128 * max(Tp, Cp) < 2^31 below 131,072.  Tp, Cp <= 4096.
 constexpr int kMmaMaxW = 4096;
-
-__global__ void transpose_kernel(const int8_t* __restrict__ sq, int8_t* __restrict__ sqt,
-                                 int Cp, int Tp) {
-  const long n = (long)Cp * Tp;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    const int j = (int)(i / Cp), c = (int)(i - (long)j * Cp);
-    sqt[i] = sq[(size_t)c * Tp + j];
-  }
-}
 
 struct MmaWideArgs {
   const int *lanes, *g, *coff, *lam0;
-  const int8_t *hq, *sq, *sqt;
+  const int8_t *hq, *sq;
   const int *lo, *hi;
-  int *out_lanes, *out_lam, *eyh;
+  int *out_lanes, *out_lam;  // the carry + half, then the lanes; the multipliers
+  int8_t* scratch;
   int B, Tp, Cp, outer, inners, g_shift, y_shift;
-  int al4;  // bit 0: hq, bit 1: sq 4-byte aligned (sqt always is)
+  int vec;  // bit 0: the int32 arrays 16-byte aligned; bit 1: hq, bit 2: sq 4-byte aligned
   Rationals r;
 };
 
-__global__ void __launch_bounds__(pint::kWideWarps * 32)
-alm_mma_wide_kernel(const MmaWideArgs a) {
-  constexpr int NW = pint::kWideWarps;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Tp = a.Tp, Cp = a.Cp;
-  const int KJ = (Tp + 31) / 32, KY = (Cp + 31) / 32;
-  const int RSU = 32 * KJ + 16, RSY = 32 * KY + 16;
-  const int GJ = (Tp + 7) / 8, GC = (Cp + 7) / 8, GM = max(GJ, GC);
-  unsigned char* s_u = smem;
-  unsigned char* s_yh = s_u + 16 * RSU;
-  unsigned char* s_yl = s_yh + 16 * RSY;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int half = 1 << (a.g_shift - 1);
-  const int y_half = (1 << a.y_shift) >> 1;
-  const int negg = -(1 << a.g_shift), negys = -(1 << a.y_shift);
-  const bool hq4 = a.al4 & 1, sq4 = a.al4 & 2;
-  const Rationals& r = a.r;
-  const int ntiles = (a.B + 15) / 16;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * 16, rows = min(16, a.B - row0);
-    __syncthreads();  // every read of the last tile's u is done
-    const int* src = a.lanes + (size_t)row0 * Tp;
-    for (int u = threadIdx.x; u < 16 * Tp; u += blockDim.x) {
-      const int rr = u / Tp, c = u - rr * Tp;
-      s_u[rr * RSU + c] = (unsigned char)(rr < rows ? src[u] : 0);
-    }
-    // element e of a thread's group grp: row gq + 8 (e >> 1), column
-    // 8 grp + 2 tq + (e & 1); its state's index in a (B, W) array, or -1
-    auto at = [&](int grp, int e, int W) -> long {
-      const int rr = gq + 8 * (e >> 1), c = 8 * grp + 2 * tq + (e & 1);
-      return rr < rows && c < W ? (long)(row0 + rr) * W + c : -1;
-    };
-    for (int grp = warp; grp < GM; grp += NW)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long j = at(grp, e, Tp), c = at(grp, e, Cp);
-        if (grp < GJ && j >= 0) a.out_lanes[j] = half;
-        if (grp < GC && c >= 0) {
-          a.out_lam[c] = a.lam0[c];
-          a.eyh[c] = y_half;
-        }
-      }
-    __syncthreads();  // u is staged
+// The scratch: [Hq; Sq] at 0, then Sq^T, u, y_hi, y_lo in the tiled layout
+// (wide_gemm.cuh: 8 KB blocks of 128 rows x 64 bytes), then ey + y_half
+// (B x Cp int32).
+struct MmaWidePlan {
+  int nh, nc, kj, kc;  // Hq's and Sq's rows padded; k of u (Tp) and of y (Cp) padded
+  int nkj, nkc, bp;    // their chunks; the batch padded to 128
+  size_t sqt, u, yh, yl, eyh, bytes;
+};
 
-    for (int o = 0; o < a.outer; ++o) {
-      for (int it = 0; it < a.inners; ++it) {
-        // pass 1: y from (Sq u)[c]; the carry takes -pre from (Hq u)[j]
-        for (int grp = warp; grp < GM; grp += NW) {
-          const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
-          if (grp < GC) {
-            int ds[4] = {0, 0, 0, 0};
-#pragma unroll 4
-            for (int kc = 0; kc < KJ; ++kc) {
-              uint32_t av[4];
-              pint::load_a(s_u, RSU, gq, tq, kc, av);
-              const int k0 = 32 * kc + 4 * tq;
-              mma_s8(ds, av, pint::frag_word(a.sq, Tp, n, k0, Cp, Tp, sq4),
-                     pint::frag_word(a.sq, Tp, n, k0 + 16, Cp, Tp, sq4));
-            }
-            int yh[4], yl[4];
+__host__ __device__ inline MmaWidePlan mma_wide_plan(int B, int Tp, int Cp) {
+  using namespace pint::wide;
+  MmaWidePlan p;
+  p.nh = round_up(Tp, kTileN);
+  p.nc = round_up(Cp, kTileN);
+  p.kj = round_up(Tp, kTileK);
+  p.kc = round_up(Cp, kTileK);
+  p.nkj = p.kj / kTileK;
+  p.nkc = p.kc / kTileK;
+  p.bp = round_up(B, 128);  // whole row blocks of the tiled layout
+  p.sqt = (size_t)(p.nh + p.nc) * p.kj;
+  p.u = p.sqt + (size_t)p.nh * p.kc;
+  p.yh = p.u + (size_t)p.bp * p.kj;
+  p.yl = p.yh + (size_t)p.bp * p.kc;
+  p.eyh = p.yl + (size_t)p.bp * p.kc;
+  p.bytes = p.eyh + (size_t)4 * B * Cp;
+  return p;
+}
+
+// passes of a call: staging, two a step of the outer x inners loop, and the
+// last multiplier update (with no inner step, `outer` updates on u as staged)
+__host__ __device__ inline int mma_wide_passes(int outer, int inners) {
+  return 1 + 2 * outer * inners + (inners > 0 ? (outer > 0 ? 1 : 0) : outer);
+}
+
+__device__ void mma_wide_stage(const MmaWideArgs& a, const MmaWidePlan& pl) {
+  using pint::wide::grid_copy;
+  const int B = a.B, Tp = a.Tp, Cp = a.Cp;
+  const bool hq4 = a.vec & 2, sq4 = a.vec & 4, steps = a.outer * a.inners > 0;
+  int8_t* s = a.scratch;
+  const int kjw = pl.kj / 4, kcw = pl.kc / 4;
+  grid_copy<4, uint32_t>(
+      (long)(pl.nh + pl.nc) * kjw,
+      [&](long u) {
+        const int n = (int)(u / kjw), k = (int)(u - (long)n * kjw) * 4;
+        if (k < Tp && n < Tp) return pint::wide::ld4(a.hq + (size_t)n * Tp + k, hq4);
+        if (k < Tp && n >= pl.nh && n - pl.nh < Cp)
+          return pint::wide::ld4(a.sq + (size_t)(n - pl.nh) * Tp + k, sq4);
+        return 0u;
+      },
+      [&](long u, uint32_t w) {
+        const int n = (int)(u / kjw), k = (int)(u - (long)n * kjw) * 4;
+        *reinterpret_cast<uint32_t*>(s + pint::wide::tiled(n, k, pl.nkj)) = w;
+      });
+  grid_copy<4, uint32_t>(  // Sq^T[j][c] = Sq[c][j]
+      (long)pl.nh * kcw,
+      [&](long u) {
+        const int j = (int)(u / kcw), c = (int)(u - (long)j * kcw) * 4;
+        uint32_t w = 0;
+        if (j < Tp)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const long i = at(grp, e, Cp);
-              const int c = c0 + (e & 1);
-              const int lo = c < Cp ? a.lo[c] : 0, hi = c < Cp ? a.hi[c] : 0;
-              int eyh = i >= 0 ? a.eyh[i] : y_half;
-              const int y14 = constraint_step(ds[e], i >= 0 ? a.coff[i] : 0,
-                                              i >= 0 ? a.out_lam[i] : 0, lo, hi, eyh, r,
-                                              negys, a.y_shift);
-              if (i >= 0) a.eyh[i] = eyh;
-              yh[e] = y14 >> 7;
-              yl[e] = y14 & 0x7F;
-            }
-            pint::store_pairs(s_yh, RSY, gq, c0, yh);
-            pint::store_pairs(s_yl, RSY, gq, c0, yl);
-          }
-          if (grp < GJ) {
-            int dh[4] = {0, 0, 0, 0};
-#pragma unroll 4
-            for (int kc = 0; kc < KJ; ++kc) {
-              uint32_t av[4];
-              pint::load_a(s_u, RSU, gq, tq, kc, av);
-              const int k0 = 32 * kc + 4 * tq;
-              mma_s8(dh, av, pint::frag_word(a.hq, Tp, n, k0, Tp, Tp, hq4),
-                     pint::frag_word(a.hq, Tp, n, k0 + 16, Tp, Tp, hq4));
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const long i = at(grp, e, Tp);
-              if (i >= 0)
-                a.out_lanes[i] = pint::wrap_sub(a.out_lanes[i], shr_mul(dh[e], r.hs_num, r.hs_den));
-            }
-          }
+          for (int q = 0; q < 4; ++q)
+            if (c + q < Cp)
+              w |= (uint32_t)(uint8_t)__ldg(a.sq + (size_t)(c + q) * Tp + j) << (8 * q);
+        return w;
+      },
+      [&](long u, uint32_t w) {
+        const int j = (int)(u / kcw), c = (int)(u - (long)j * kcw) * 4;
+        *reinterpret_cast<uint32_t*>(s + pl.sqt + pint::wide::tiled(j, c, pl.nkc)) = w;
+      });
+  const int half = 1 << (a.g_shift - 1);
+  grid_copy<4, int4>(  // u from the lanes; the carries (or, with no step, the lanes)
+      (long)B * kjw,
+      [&](long u) {
+        const int b = (int)(u / kjw), k = (int)(u - (long)b * kjw) * 4;
+        return k < Tp ? pint::wide::ld_lanes4(a.lanes + (size_t)b * Tp + k, false)
+                      : make_int4(0, 0, 0, 0);
+      },
+      [&](long u, int4 v) {
+        const int b = (int)(u / kjw), k = (int)(u - (long)b * kjw) * 4;
+        *reinterpret_cast<uint32_t*>(s + pl.u + pint::wide::tiled(b, k, pl.nkj)) =
+            pint::wide::bytes4(v);
+        if (k < Tp) {
+          int* o = a.out_lanes + (size_t)b * Tp + k;
+          if (steps)
+            o[0] = o[1] = o[2] = o[3] = half;
+          else
+            o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
         }
-        __syncthreads();  // y_hi, y_lo complete; every read of u is done
-        // pass 2: the penalty gradient, the step and the new u
-        for (int grp = warp; grp < GJ; grp += NW) {
-          const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
-          int de[4] = {0, 0, 0, 0}, dl[4] = {0, 0, 0, 0};
-#pragma unroll 2
-          for (int kc = 0; kc < KY; ++kc) {
-            const int k0 = 32 * kc + 4 * tq;
-            const uint32_t b0 = pint::frag_word(a.sqt, Cp, n, k0, Tp, Cp, true);
-            const uint32_t b1 = pint::frag_word(a.sqt, Cp, n, k0 + 16, Tp, Cp, true);
-            uint32_t av[4];
-            pint::load_a(s_yh, RSY, gq, tq, kc, av);
-            mma_s8(de, av, b0, b1);
-            pint::load_a(s_yl, RSY, gq, tq, kc, av);
-            mma_s8(dl, av, b0, b1);
-          }
-          int xn[4];
+      });
+  int* eyh = reinterpret_cast<int*>(s + pl.eyh);
+  const int y_half = (1 << a.y_shift) >> 1;
+  grid_copy<4, int>((long)B * Cp, [&](long u) { return __ldg(a.lam0 + u); },
+                    [&](long u, int v) {
+                      a.out_lam[u] = v;
+                      eyh[u] = y_half;
+                    });
+}
+
+// Pass 1 of a step (update: lam_update first, in the first step of an
+// outer iteration past the first), or with constraint_step_too false a
+// multiplier update alone (the Sq columns only).
+__device__ void mma_wide_pass1(const MmaWideArgs& a, const MmaWidePlan& pl,
+                               bool constraint_step_too, bool update, pint::wide::Ring& ring,
+                               int* accs) {
+  using namespace pint::wide;
+  const int B = a.B, Tp = a.Tp, Cp = a.Cp, nkj = pl.nkj;
+  const int8_t* u = a.scratch + pl.u;
+  int8_t* yh = a.scratch + pl.yh;
+  int8_t* yl = a.scratch + pl.yl;
+  int* eyh = reinterpret_cast<int*>(a.scratch + pl.eyh);
+  const bool v16 = a.vec & 1;
+  const Rationals& r = a.r;
+  const int negys = -(1 << a.y_shift);
+  const int nfirst = constraint_step_too ? 0 : pl.nh / kTileN;
+  const int nt = (pl.nh + pl.nc) / kTileN - nfirst;
+  auto tile = [&](int t) {  // 64 problems: half mt & 1 of row block mt / 2
+    const int mt = t / nt;
+    return Tile{u + (size_t)(mt >> 1) * nkj * kChunk + (mt & 1) * kHalf, nullptr,
+                a.scratch + (size_t)(nfirst + t % nt) * nkj * kChunk, nkj};
+  };
+  auto epilogue = [&](int t, int (&acc)[64]) {
+    const int m0 = (t / nt) * kTileM, n0 = (nfirst + t % nt) * kTileN;
+    acc_to_smem(acc, accs);
+    // a thread's groups: rows rows8() + 8 k, lanes lanes4() + 64 m (k < 8, m < 2)
+    if (n0 < pl.nh) {  // objective columns: the carry takes -pre, two rounds of 8
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const long i = at(grp, e, Tp);
-            const int rr = gq + 8 * (e >> 1), c = c0 + (e & 1);
-            int ch = i >= 0 ? a.out_lanes[i] : half;
-            int x = (int)(int8_t)s_u[rr * RSU + c];
-            // pre is already in ch: objective_step with acc = 0
-            objective_step(0, de[e], dl[e], i >= 0 ? a.g[i] : 0, ch, x, r, negg,
-                           a.g_shift);
-            if (i >= 0) a.out_lanes[i] = ch;
-            xn[e] = c < Tp ? x : 0;
-          }
-          pint::store_pairs(s_u, RSU, gq, c0, xn);
+      for (int rd = 0; rd < 2; ++rd) {
+        int4 ch[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int row = m0 + rows8() + 8 * (4 * rd + (q >> 1)), c = n0 + 64 * (q & 1) + lanes4();
+          if (row < B && c < Tp) ch[q] = ld4cg(a.out_lanes + (size_t)row * Tp + c, v16);
         }
-        __syncthreads();  // u is new; every read of y_hi, y_lo is done
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int rr = rows8() + 8 * (4 * rd + (q >> 1)), cc = 64 * (q & 1) + lanes4();
+          const int row = m0 + rr, c = n0 + cc;
+          if (row >= B || c >= Tp) continue;
+          int4 av = *reinterpret_cast<const int4*>(accs + rr * kAccRow + cc);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            lane(ch[q], k) =
+                pint::wrap_sub(lane(ch[q], k), shr_mul(lane(av, k), r.hs_num, r.hs_den));
+          st4(a.out_lanes + (size_t)row * Tp + c, v16, ch[q]);
+        }
       }
-      // multiplier update from the exact int32 violation at the inner solution
-      for (int grp = warp; grp < GC; grp += NW) {
-        const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
-        int ds[4] = {0, 0, 0, 0};
-#pragma unroll 4
-        for (int kc = 0; kc < KJ; ++kc) {
-          uint32_t av[4];
-          pint::load_a(s_u, RSU, gq, tq, kc, av);
-          const int k0 = 32 * kc + 4 * tq;
-          mma_s8(ds, av, pint::frag_word(a.sq, Tp, n, k0, Cp, Tp, sq4),
-                 pint::frag_word(a.sq, Tp, n, k0 + 16, Cp, Tp, sq4));
+    } else {  // constraint columns: four rounds of 4 groups, loads first (no spill)
+      const int cb = n0 - pl.nh;
+      int4 lo[2], hi[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int c = cb + 64 * m + lanes4();
+        if (c < Cp) lo[m] = ld_lanes4(a.lo + c, v16), hi[m] = ld_lanes4(a.hi + c, v16);
+      }
+#pragma unroll
+      for (int rd = 0; rd < 4; ++rd) {
+        int4 co[4], lam[4], ey[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = m0 + rows8() + 8 * (2 * rd + (q >> 1)), c = cb + 64 * (q & 1) + lanes4();
+          if (row >= B || c >= Cp) continue;
+          const size_t e = (size_t)row * Cp + c;
+          co[q] = ld_lanes4(a.coff + e, v16);
+          lam[q] = ld4cg(a.out_lam + e, v16);
+          if (constraint_step_too) ey[q] = ld4cg(eyh + e, true);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const long i = at(grp, e, Cp);
-          const int c = c0 + (e & 1);
-          if (i >= 0)
-            a.out_lam[i] = lam_update(ds[e], a.coff[i], a.out_lam[i], c < Cp ? a.lo[c] : 0,
-                                      c < Cp ? a.hi[c] : 0, r);
+        for (int q = 0; q < 4; ++q) {
+          const int rr = rows8() + 8 * (2 * rd + (q >> 1)), cc = 64 * (q & 1) + lanes4();
+          const int row = m0 + rr, c = cb + cc;
+          if (row >= B || c >= Cp) continue;
+          const size_t e = (size_t)row * Cp + c;
+          int4 av = *reinterpret_cast<const int4*>(accs + rr * kAccRow + cc), y14;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int v = lane(av, k);
+            if (update)
+              lane(lam[q], k) = lam_update(v, lane(co[q], k), lane(lam[q], k),
+                                           lane(lo[q & 1], k), lane(hi[q & 1], k), r);
+            if (constraint_step_too)
+              lane(y14, k) = constraint_step(v, lane(co[q], k), lane(lam[q], k),
+                                             lane(lo[q & 1], k), lane(hi[q & 1], k),
+                                             lane(ey[q], k), r, negys, a.y_shift);
+          }
+          if (update) st4(a.out_lam + e, v16, lam[q]);
+          if (constraint_step_too) {
+            st4(eyh + e, true, ey[q]);
+            *reinterpret_cast<uint32_t*>(yh + tiled(row, c, pl.nkc)) = bytes4(make_int4(
+                y14.x >> 7, y14.y >> 7, y14.z >> 7, y14.w >> 7));
+            *reinterpret_cast<uint32_t*>(yl + tiled(row, c, pl.nkc)) = bytes4(make_int4(
+                y14.x & 0x7F, y14.y & 0x7F, y14.z & 0x7F, y14.w & 0x7F));
+          }
         }
       }
     }
-    // the lanes over the carries: each thread its own elements
-    for (int grp = warp; grp < GJ; grp += NW)
+    __syncthreads();  // every read of accs is done before the next tile's copy
+  };
+  for_tiles(((B + kTileM - 1) / kTileM) * nt, tile, epilogue, ring);
+}
+
+// Pass 2: the penalty gradient of both y halves, the step and the new u.
+__device__ void mma_wide_pass2(const MmaWideArgs& a, const MmaWidePlan& pl, bool last,
+                               pint::wide::Ring& ring, int* accs) {
+  using namespace pint::wide;
+  const int B = a.B, Tp = a.Tp, nkc = pl.nkc;
+  int8_t* u = a.scratch + pl.u;
+  const int8_t* yh = a.scratch + pl.yh;
+  const int8_t* yl = a.scratch + pl.yl;
+  const bool v16 = a.vec & 1;
+  const int negg = -(1 << a.g_shift);
+  const int nt = (Tp + 63) / 64;  // tiles of 64 problems x 64 lanes
+  auto tile = [&](int t) {  // halves mt & 1 and nn & 1 of row blocks mt / 2 and nn / 2
+    const int mt = t / nt, nn = t % nt;
+    const size_t off = (size_t)(mt >> 1) * nkc * kChunk + (mt & 1) * kHalf;
+    return Tile{yh + off, yl + off,
+                a.scratch + pl.sqt + (size_t)(nn >> 1) * nkc * kChunk + (nn & 1) * kHalf, nkc};
+  };
+  auto epilogue = [&](int t, int (&acc)[64]) {
+    const int m0 = (t / nt) * 64, n0 = (t % nt) * 64;
+    // columns 0-63 of accs: (Sq^T y_hi)[j], 64-127: (Sq^T y_lo)[j] of the
+    // same problem and lane; round rd's group q: row rows8() + 8 (4 rd + q)
+    acc_to_smem(acc, accs);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long i = at(grp, e, Tp);
-        const int rr = gq + 8 * (e >> 1), c = 8 * grp + 2 * tq + (e & 1);
-        if (i >= 0) a.out_lanes[i] = (int)(int8_t)s_u[rr * RSU + c];
+    for (int rd = 0; rd < 2; ++rd) {  // two rounds of 4 groups, loads first
+      int4 ch[4], gj[4];
+      uint32_t uv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = m0 + rows8() + 8 * (4 * rd + q), c = n0 + lanes4();
+        if (row >= B || c >= Tp) continue;
+        const size_t e = (size_t)row * Tp + c;
+        ch[q] = ld4cg(a.out_lanes + e, v16);
+        gj[q] = ld_lanes4(a.g + e, v16);
+        uv[q] = ld8x4(u + tiled(row, c, pl.nkj));
       }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int rr = rows8() + 8 * (4 * rd + q), row = m0 + rr, c = n0 + lanes4();
+        if (row >= B || c >= Tp) continue;
+        const size_t e = (size_t)row * Tp + c;
+        int4 eh = *reinterpret_cast<const int4*>(accs + rr * kAccRow + lanes4());
+        int4 el = *reinterpret_cast<const int4*>(accs + rr * kAccRow + 64 + lanes4()), x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // pre is already in the carry: acc = 0
+          lane(x, k) = lane8(uv[q], k);
+          objective_step(0, lane(eh, k), lane(el, k), lane(gj[q], k), lane(ch[q], k), lane(x, k),
+                         a.r, negg, a.g_shift);
+        }
+        *reinterpret_cast<uint32_t*>(u + tiled(row, c, pl.nkj)) = bytes4(x);
+        st4(a.out_lanes + e, v16, last ? x : ch[q]);
+      }
+    }
+    __syncthreads();  // every read of accs is done before the next tile's copy
+  };
+  for_tiles<true>(((B + 63) / 64) * nt, tile, epilogue, ring);
+}
+
+__global__ void __launch_bounds__(pint::wide::kThreads, pint::wide::kBlocksPerSm)
+alm_mma_wide_kernel(const MmaWideArgs a) {
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  const MmaWidePlan pl = mma_wide_plan(a.B, a.Tp, a.Cp);
+  pint::wide::Ring ring(wide_smem);
+  int* accs = reinterpret_cast<int*>(wide_smem + pint::wide::kSmem);
+  const int steps = a.outer * a.inners;
+  const int passes = mma_wide_passes(a.outer, a.inners);
+  for (int ph = 0; ph < passes; ++ph) {
+    if (ph > 0) pint::wide::grid_sync();
+    if (ph == 0) {
+      mma_wide_stage(a, pl);
+    } else if (ph <= 2 * steps) {
+      const int s = (ph - 1) / 2;
+      if ((ph - 1) % 2 == 0)  // the first pass 1 of an outer > 0 updates lam first
+        mma_wide_pass1(a, pl, true, s % a.inners == 0 && s > 0, ring, accs);
+      else
+        mma_wide_pass2(a, pl, s == steps - 1, ring, accs);
+    } else {
+      mma_wide_pass1(a, pl, false, true, ring, accs);
+    }
   }
 }
 
@@ -1195,31 +1325,11 @@ cudaError_t launch_mma(const int* lanes, const int* g, const int* coff,
   return cudaGetLastError();
 }
 
-// Sq^T's bytes at the front of K7's scratch, rounded to 16; then ey (B, Cp)
-size_t sqt_bytes(int Tp, int Cp) { return ((size_t)Tp * Cp + 15) / 16 * 16; }
-
-cudaError_t launch_mma_wide(MmaWideArgs a, int8_t* scratch, cudaStream_t stream) {
-  int8_t* sqt = scratch;
-  a.sqt = sqt;
-  a.eyh = reinterpret_cast<int*>(scratch + sqt_bytes(a.Tp, a.Cp));
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  transpose_kernel<<<4 * sms, 256, 0, stream>>>(a.sq, sqt, a.Cp, a.Tp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto kernel = alm_mma_wide_kernel;
-  constexpr int threads = pint::kWideWarps * 32;
-  const size_t bytes = 16 * (size_t)(32 * ((a.Tp + 31) / 32) + 16) +
-                       32 * (size_t)(32 * ((a.Cp + 31) / 32) + 16);
-  err = pint_allow_smem(kernel, bytes);
-  int grid = 0;
-  if (err == cudaSuccess)
-    err = pint_persistent_grid(kernel, threads, bytes, (a.B + 15) / 16, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t launch_mma_wide(MmaWideArgs a, cudaStream_t stream) {
+  if (a.scratch == nullptr || reinterpret_cast<uintptr_t>(a.scratch) % 16 ||
+      (reinterpret_cast<uintptr_t>(a.out_lanes) | reinterpret_cast<uintptr_t>(a.out_lam)) % 8)
+    return cudaErrorInvalidValue;
+  return pint::wide::launch(alm_mma_wide_kernel, a, pint::wide::kSmemAcc, stream);
 }
 
 bool bad_loop(int B, int outer, int inners, int g_shift, int y_shift) {
@@ -1296,11 +1406,13 @@ extern "C" int pint_alm(const void* lanes, const void* g, const void* hqt,
   return (int)launch_wide(a, s);
 }
 
-// The scratch K7 needs at (B, Tp, Cp): none to W = 256, past it Sq^T and
-// the error feedback of every problem's rows.
+// The scratch K7 needs at (B, Tp, Cp): none to W = 256, past it the wide
+// form's padded [Hq; Sq] and Sq^T, u, y_hi, y_lo and the error feedback.
 extern "C" long long pint_alm_shared_scratch(int B, int Tp, int Cp) {
-  if (B <= 0 || Tp <= 0 || Cp <= 0 || (Tp <= 256 && Cp <= 256)) return 0;
-  return (long long)(sqt_bytes(Tp, Cp) + 4 * (size_t)B * Cp);
+  if (B <= 0 || Tp <= 0 || Cp <= 0 || (Tp <= 256 && Cp <= 256) || Tp > kMmaMaxW ||
+      Cp > kMmaMaxW)
+    return 0;
+  return (long long)mma_wide_plan(B, Tp, Cp).bytes;
 }
 
 // K7's shapes: Tp and Cp multiples of 4 in [4, 4096]; past 256 the wide
@@ -1342,10 +1454,14 @@ extern "C" int pint_alm_shared(const void* lanes, const void* g,
   if (m <= 64) return run(launch_mma<64>);
   if (m <= 128) return run(launch_mma<128>);
   if (m <= 256) return run(launch_mma<256>);
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const int al4 = ((reinterpret_cast<uintptr_t>(h) & 3) == 0 ? 1 : 0) |
-                  ((reinterpret_cast<uintptr_t>(sqq) & 3) == 0 ? 2 : 0);
-  const MmaWideArgs a{l,  gg, co, la, h,  sqq,    nullptr, lo_, hi_, ol,    om,      nullptr,
-                      B,  Tp, Cp, outer, inners, g_shift, y_shift, al4, r};
-  return (int)launch_mma_wide(a, static_cast<int8_t*>(scratch), s);
+  const uintptr_t i32 = reinterpret_cast<uintptr_t>(gg) | reinterpret_cast<uintptr_t>(co) |
+                        reinterpret_cast<uintptr_t>(lo_) | reinterpret_cast<uintptr_t>(hi_) |
+                        reinterpret_cast<uintptr_t>(ol) | reinterpret_cast<uintptr_t>(om);
+  const int vec = (i32 % 16 == 0 ? 1 : 0) |
+                  ((reinterpret_cast<uintptr_t>(h) & 3) == 0 ? 2 : 0) |
+                  ((reinterpret_cast<uintptr_t>(sqq) & 3) == 0 ? 4 : 0);
+  const MmaWideArgs a{l,  gg, co,    la,     h,       sqq,     lo_, hi_, ol, om,
+                      static_cast<int8_t*>(scratch), B, Tp, Cp, outer, inners,
+                      g_shift, y_shift, vec, r};
+  return (int)launch_mma_wide(a, s);
 }

@@ -51,12 +51,13 @@
 // barrier, ~4 warps an SM), took 0.0176 ms.
 //
 // Past Tp 256 Hq no longer fits beside the tile: the wide form below
-// (fused_pgd_wide_kernel) reads its B fragments from L2 each iteration and
-// keeps the state in shared memory, to Tp 4096.
+// (fused_pgd_wide_kernel, to Tp 4096) runs each iteration as one product
+// across the whole batch in tiles of 64 problems (csrc/wide_gemm.cuh).
 //
 // Input lanes must lie in [-128, 127] (unpacked int8 control lanes).
 #include "common.cuh"
 #include "mma_tile.cuh"
+#include "wide_gemm.cuh"
 
 namespace {
 
@@ -306,130 +307,237 @@ fused_pgd_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
   }
 }
 
-// -- K2 and K2p past Tp 256 ----------------------------------------------------
+// -- K2 and K2p past Tp 256: the batch product (csrc/wide_gemm.cuh) ----------
 //
-// Hq (Tp^2 bytes, 256 KB at Tp = 512) no longer fits beside the tile, so its
-// B fragments are read from global memory each iteration (pint::frag_word):
-// Hq is one matrix for every block and stays resident in the 50 MB L2 (4 MB
-// at Tp = 2048).  A block of kWideWarps warps owns a tile of 16 problems;
-// each warp walks the column groups w, w + 16, ... of the (16 x Tp) product,
-// one group's whole k-loop at a time, and updates that group's lanes at
-// once.  Tp pads to KC = ceil(Tp / 32) k-chunks; A columns past Tp meet zero
-// B rows, so what they hold is never read into a sum.  The state lives in
-// shared memory: two 16 x (32 KC + 16) byte tiles of y (iteration it reads
-// tile it & 1 and writes y of the next iteration into the other, so one
-// barrier an iteration) and, with momentum, x as int8 (16 x Tp); half - g
-// is re-read from g (L2) at each update.  The same int32 exactness holds:
-// |acc| <= 128 * 128 * Tp < 2^31 for Tp < 131,072.  Shared memory is
-// 32 (32 KC + 16) + 16 Tp bytes: 193 KB at Tp = 4096, the limit this form
-// states (Hq 16 MB).
-template <bool MOM, typename L>
-__global__ void __launch_bounds__(pint::kWideWarps * 32)
-fused_pgd_wide_kernel(const L* __restrict__ lanes, const int* __restrict__ g,
-                      const int8_t* __restrict__ hq, L* __restrict__ out, int B, int Tp,
-                      int iters, int hs_num, int hs_den, int g_shift, int beta_num,
-                      int beta_den) {
-  constexpr bool PACKED = sizeof(L) == 1;
-  constexpr int NW = pint::kWideWarps;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int KC = (Tp + 31) / 32, RS = 32 * KC + 16, G = (Tp + 7) / 8;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem + 32 * RS);  // MOM: x, 16 x Tp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int half = 1 << (g_shift - 1);
-  const bool hq4 = (reinterpret_cast<uintptr_t>(hq) & 3) == 0;
-  const int ntiles = (B + 15) / 16;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * 16, rows = min(16, B - row0);
-    __syncthreads();  // every read of the last tile's state is done
-    // tile 0 holds y of iteration 0: the lanes, or with momentum clip(x)
+// The same TPU kernels (pint_tpu/mpc/fused.py:119 -> :256, :136 -> :215)
+// past 256 lanes.  Bound at phase 18's shapes (B = 4096, 15 iterations;
+// utils/profiling.kernel_cost): the products, 2 B Tp^2 int8 operations an
+// iteration, 0.0042 / 0.0163 / 0.2604 ms at Tp 260 / 512 / 2048 at 1,979
+// TOP/s; each iteration also re-reads g (B Tp 4 bytes: 32 MiB at 2048).
+// The first design gave a block one tile of 16 problems for the whole loop
+// and read Hq's B fragments from L2 a 4-byte word at a time every
+// iteration, so each byte of Hq fed 16 problems and the word loads set the
+// pace (~1.9 TB/s of them): 0.1468 / 0.5560 / 8.2354 ms queued on one H100
+// 80GB HBM3 at 700 W.  Here an iteration is the batch product y (B x Tp) .
+// Hq^T over output tiles of 64 problems x 128 lanes on wgmma, the operands
+// bulk-copied into the shared-memory ring, the PGD step the epilogue; a
+// grid barrier separates the iterations (one cooperative launch a call).
+// At Tp 260 and 512 an iteration is one round of tiles, so what bounds it
+// is one tile's chain: the barrier, the chunks' copies and products, then
+// the epilogue, which runs on 8 warps an SM and so is bound by its
+// instructions' latency.  An epilogue that stepped each thread's wgmma
+// fragment pairs where they lie (2-byte loads and stores, an address a
+// pair) took 0.148 / 0.174 / 1.154 ms, with momentum 0.219 / 0.275 / 1.59,
+// slower than the first design at Tp 260 with momentum (0.154).  So the
+// epilogue goes through shared memory (wide_iterate) and steps 4 lanes a
+// load (times in PERF.md; at 2048 the products' L2 traffic
+// bounds it).  The state lives in the scratch (pint_fused_pgd_scratch): Hq
+// and two buffers of y as int8 in the tiled layout (iteration it reads one
+// and writes the other) and, with momentum, x as int8 (B x Tp).  Each
+// element of the epilogue reads its y, g (and x) and writes its next y;
+// the last iteration writes the lanes (K2: int32; K2p: the output words'
+// bytes).  Pass 0 writes the padded copies: Hq, y0 from the lanes (clipped
+// with momentum) and x.  |acc| <= 128 * 128 * 4096 < 2^31: exact in int32
+// in any order, so the tiling cannot move a bit.
+struct WideArgs {
+  const void* lanes;  // K2: (B, Tp) int32 lanes; K2p: (B, Tp/4) words
+  const int* g;
+  const int8_t* hq;
+  void* out;
+  int8_t* scratch;
+  int B, Tp, iters, hs_num, hs_den, g_shift, beta_num, beta_den;
+  int vec;  // bit 0: g 16-byte aligned; bit 1: hq 4-byte; bit 2: lanes, out 16-byte
+};
+
+// The scratch: Hq padded to np x kp, y0 and y1 (bp x kp), all three in the
+// tiled layout (wide_gemm.cuh: 8 KB blocks of 128 rows x 64 bytes), then x
+// (momentum, B x Tp row-major).
+struct WidePlan {
+  int np, kp, nkc, bp;
+  size_t y0, y1, x, bytes;
+};
+
+__host__ __device__ inline WidePlan wide_plan(int B, int Tp, bool mom) {
+  using namespace pint::wide;
+  WidePlan p;
+  p.np = round_up(Tp, kTileN);
+  p.kp = round_up(Tp, kTileK);
+  p.nkc = p.kp / kTileK;
+  p.bp = round_up(B, 128);  // whole row blocks of the tiled layout
+  p.y0 = (size_t)p.np * p.kp;
+  p.y1 = p.y0 + (size_t)p.bp * p.kp;
+  p.x = p.y1 + (size_t)p.bp * p.kp;
+  p.bytes = p.x + (mom ? round16((size_t)B * Tp) : 0);
+  return p;
+}
+
+// pass 0: the padded copies, or with no iteration the output itself
+template <bool MOM, bool PACKED>
+__device__ void wide_stage(const WideArgs& a, const WidePlan& pl) {
+  using pint::wide::bytes4;
+  using pint::wide::grid_copy;
+  using pint::wide::ld_lanes4;
+  const int B = a.B, Tp = a.Tp, kw = pl.kp / 4, tw = Tp / 4;
+  const bool vec16 = a.vec & 4;
+  if (a.iters == 0) {  // the lanes as they came
     if constexpr (PACKED) {
-      const int wpr = Tp / 4;  // words a row
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(lanes) + (size_t)row0 * wpr;
-      for (int u = threadIdx.x; u < 16 * wpr; u += blockDim.x) {
-        const int r = u / wpr, q = u - r * wpr;
-        *reinterpret_cast<uint32_t*>(smem + r * RS + 4 * q) = r < rows ? src[u] : 0u;
-      }
+      const uint32_t* src = static_cast<const uint32_t*>(a.lanes);
+      uint32_t* dst = static_cast<uint32_t*>(a.out);
+      grid_copy<4, uint32_t>((long)B * tw, [&](long u) { return __ldg(src + u); },
+                             [&](long u, uint32_t v) { dst[u] = v; });
     } else {
-      const int* src = reinterpret_cast<const int*>(lanes) + (size_t)row0 * Tp;
-      for (int u = threadIdx.x; u < 16 * Tp; u += blockDim.x) {
-        const int r = u / Tp, c = u - r * Tp;
-        const int v = r < rows ? src[u] : 0;
-        smem[r * RS + c] = (unsigned char)(MOM ? clampi(v, -127, 127) : v);
-        if constexpr (MOM) xs[u] = (int8_t)v;
-      }
+      const int* src = static_cast<const int*>(a.lanes);
+      int4* dst = static_cast<int4*>(a.out);
+      grid_copy<4, int4>(
+          (long)B * tw, [&](long u) { return ld_lanes4(src + 4 * u, vec16); },
+          [&](long u, int4 v) {
+            if (vec16) {
+              dst[u] = v;
+            } else {
+              int* d = reinterpret_cast<int*>(dst) + 4 * u;
+              d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+            }
+          });
     }
-    __syncthreads();
-    for (int it = 0; it < iters; ++it) {
-      const unsigned char* cur = smem + (it & 1) * 16 * RS;
-      unsigned char* nxt = smem + ((it + 1) & 1) * 16 * RS;
-      for (int grp = warp; grp < G; grp += NW) {
-        const int n = 8 * grp + gq, c0 = 8 * grp + 2 * tq;
-        int acc[4] = {0, 0, 0, 0};
-#pragma unroll 4
-        for (int kc = 0; kc < KC; ++kc) {
-          uint32_t a[4];
-          pint::load_a(cur, RS, gq, tq, kc, a);
-          const int k0 = 32 * kc + 4 * tq;
-          pint::mma_s8(acc, a, pint::frag_word(hq, Tp, n, k0, Tp, Tp, hq4),
-                       pint::frag_word(hq, Tp, n, k0 + 16, Tp, Tp, hq4));
-        }
-        int yn[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = gq + 8 * (e >> 1), c = c0 + (e & 1);
-          yn[e] = 0;
-          if (c >= Tp) continue;  // a padded lane: no g, no x
-          const int gv = r < rows ? g[(size_t)(row0 + r) * Tp + c] : 0;
-          const int pre = wrap_mul(acc[e], hs_num) >> hs_den;
-          const int delta = clampi(wrap_sub(wrap_sub(half, gv), pre) >> g_shift, -128, 127);
-          const int x = clampi((int)(int8_t)cur[r * RS + c] + delta, -127, 127);
+    return;
+  }
+  const bool hq4 = a.vec & 2;
+  grid_copy<4, uint32_t>(
+      (long)pl.np * kw,
+      [&](long u) {
+        const int n = (int)(u / kw), k = (int)(u - (long)n * kw) * 4;
+        return n < Tp && k < Tp ? pint::wide::ld4(a.hq + (size_t)n * Tp + k, hq4) : 0u;
+      },
+      [&](long u, uint32_t w) {
+        const int n = (int)(u / kw), k = (int)(u - (long)n * kw) * 4;
+        *reinterpret_cast<uint32_t*>(a.scratch + pint::wide::tiled(n, k, pl.nkc)) = w;
+      });
+  // y0 (and x) from the lanes; the padding of y0's rows is zeros
+  grid_copy<4, int4>(
+      (long)B * kw,
+      [&](long u) {
+        const int b = (int)(u / kw), k = (int)(u - (long)b * kw) * 4;
+        if (k >= Tp) return make_int4(0, 0, 0, 0);
+        if constexpr (PACKED)
+          return make_int4((int)__ldg(static_cast<const uint32_t*>(a.lanes) + (size_t)b * tw + k / 4),
+                           0, 0, 0);
+        else
+          return ld_lanes4(static_cast<const int*>(a.lanes) + (size_t)b * Tp + k, vec16);
+      },
+      [&](long u, int4 v) {
+        const int b = (int)(u / kw), k = (int)(u - (long)b * kw) * 4;
+        uint32_t* y0 = reinterpret_cast<uint32_t*>(a.scratch + pl.y0 + pint::wide::tiled(b, k, pl.nkc));
+        if constexpr (PACKED) {
+          *y0 = (uint32_t)v.x;
+        } else {
           if constexpr (MOM) {
-            const int xo = xs[r * Tp + c];
-            xs[r * Tp + c] = (int8_t)x;
-            yn[e] = clampi(x + (wrap_mul(beta_num, x - xo) >> beta_den), -127, 127);
-          } else {
-            yn[e] = x;
+            if (k < Tp) *reinterpret_cast<uint32_t*>(a.scratch + pl.x + (size_t)b * Tp + k) = bytes4(v);
+            v = make_int4(clampi(v.x, -127, 127), clampi(v.y, -127, 127), clampi(v.z, -127, 127),
+                          clampi(v.w, -127, 127));
           }
+          *y0 = bytes4(v);
         }
-        pint::store_pairs(nxt, RS, gq, c0, yn);
-      }
-      __syncthreads();  // nxt holds y; every read of cur is done
+      });
+}
+
+// iteration `it`: y_next = step(y . Hq^T) over the tiles this block takes;
+// the epilogue in groups of 4 lanes (wide_gemm.cuh), 16 a thread
+template <bool MOM, bool PACKED>
+__device__ void wide_iterate(const WideArgs& a, const WidePlan& pl, int it,
+                             pint::wide::Ring& ring, int* accs) {
+  using namespace pint::wide;
+  const int B = a.B, Tp = a.Tp, nkc = pl.nkc;
+  const int8_t* cur = a.scratch + ((it & 1) ? pl.y1 : pl.y0);
+  int8_t* nxt = a.scratch + ((it & 1) ? pl.y0 : pl.y1);
+  int8_t* xs = a.scratch + pl.x;
+  const bool last = it == a.iters - 1, g16 = a.vec & 1, out16 = a.vec & 4;
+  const int half = 1 << (a.g_shift - 1);
+  const int nt = pl.np / kTileN;
+  auto tile = [&](int t) {  // 64 problems: half mt & 1 of row block mt / 2
+    const int mt = t / nt;
+    return Tile{cur + (size_t)(mt >> 1) * nkc * kChunk + (mt & 1) * kHalf, nullptr,
+                a.scratch + (size_t)(t % nt) * nkc * kChunk, nkc};
+  };
+  auto epilogue = [&](int t, int (&acc)[64]) {
+    const int m0 = (t / nt) * kTileM, n0 = (t % nt) * kTileN;
+    acc_to_smem(acc, accs);
+    // group q: row rows8() + 8 (q / 2), lanes lanes4() + 64 (q % 2)
+    int4 gv[16];
+    uint32_t yv[16], xo[16];
+    bool ok[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int r = m0 + rows8() + 8 * (q >> 1), c = n0 + 64 * (q & 1) + lanes4();
+      ok[q] = r < B && c < Tp;  // Tp % 4 == 0: a group is all in or all out
+      if (!ok[q]) continue;
+      const size_t e = (size_t)r * Tp + c;
+      gv[q] = ld_lanes4(a.g + e, g16);
+      yv[q] = ld8x4(cur + tiled(r, c, nkc));
+      if constexpr (MOM) xo[q] = ld8x4(xs + e);
     }
-    // the lanes: x (momentum), else the last y, in tile iters & 1
-    const unsigned char* fin = smem + (iters & 1) * 16 * RS;
-    if constexpr (PACKED) {
-      const int wpr = Tp / 4;
-      uint32_t* dst = reinterpret_cast<uint32_t*>(out) + (size_t)row0 * wpr;
-      for (int u = threadIdx.x; u < rows * wpr; u += blockDim.x) {
-        const int r = u / wpr, q = u - r * wpr;
-        dst[u] = *reinterpret_cast<const uint32_t*>(fin + r * RS + 4 * q);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      if (!ok[q]) continue;
+      const int rr = rows8() + 8 * (q >> 1), cc = 64 * (q & 1) + lanes4();
+      const int r = m0 + rr, c = n0 + cc;
+      const size_t e = (size_t)r * Tp + c;
+      int4 av = *reinterpret_cast<const int4*>(accs + rr * kAccRow + cc), x, yn;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int pre = wrap_mul(lane(av, k), a.hs_num) >> a.hs_den;
+        const int delta =
+            clampi(wrap_sub(wrap_sub(half, lane(gv[q], k)), pre) >> a.g_shift, -128, 127);
+        lane(x, k) = clampi(lane8(yv[q], k) + delta, -127, 127);
+        lane(yn, k) = lane(x, k);
+        if constexpr (MOM)
+          lane(yn, k) = clampi(
+              lane(x, k) + (wrap_mul(a.beta_num, lane(x, k) - lane8(xo[q], k)) >> a.beta_den),
+              -127, 127);
       }
-    } else {
-      int* dst = reinterpret_cast<int*>(out) + (size_t)row0 * Tp;
-      for (int u = threadIdx.x; u < rows * Tp; u += blockDim.x) {
-        const int r = u / Tp, c = u - r * Tp;
-        dst[u] = MOM ? (int)xs[u] : (int)(int8_t)fin[r * RS + c];
+      if (last) {
+        if constexpr (PACKED)
+          *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(a.out) + e) = bytes4(x);
+        else
+          st4(static_cast<int*>(a.out) + e, out16, x);
+      } else {
+        if constexpr (MOM) *reinterpret_cast<uint32_t*>(xs + e) = bytes4(x);
+        *reinterpret_cast<uint32_t*>(nxt + tiled(r, c, nkc)) = bytes4(yn);
       }
     }
+    __syncthreads();  // every read of accs is done before the next tile's copy
+  };
+  for_tiles(((B + kTileM - 1) / kTileM) * nt, tile, epilogue, ring);
+}
+
+template <bool MOM, bool PACKED>
+__global__ void __launch_bounds__(pint::wide::kThreads, pint::wide::kBlocksPerSm)
+fused_pgd_wide_kernel(const WideArgs a) {
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  const WidePlan pl = wide_plan(a.B, a.Tp, MOM);
+  pint::wide::Ring ring(wide_smem);
+  int* accs = reinterpret_cast<int*>(wide_smem + pint::wide::kSmem);
+  wide_stage<MOM, PACKED>(a, pl);
+  for (int it = 0; it < a.iters; ++it) {
+    pint::wide::grid_sync();
+    wide_iterate<MOM, PACKED>(a, pl, it, ring, accs);
   }
 }
 
 template <bool MOM, typename L>
-cudaError_t launch_wide(const L* lanes, const int* g, const int8_t* hq, L* out, int B,
-                        int Tp, int iters, int hs_num, int hs_den, int g_shift,
-                        int beta_num, int beta_den, cudaStream_t stream) {
-  auto kernel = fused_pgd_wide_kernel<MOM, L>;
-  constexpr int threads = pint::kWideWarps * 32;
-  const size_t bytes = 32 * (size_t)(32 * ((Tp + 31) / 32) + 16) + (MOM ? 16 * (size_t)Tp : 0);
-  cudaError_t err = pint_allow_smem(kernel, bytes);
-  int grid = 0;
-  if (err == cudaSuccess)
-    err = pint_persistent_grid(kernel, threads, bytes, (B + 15) / 16, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, bytes, stream>>>(lanes, g, hq, out, B, Tp, iters, hs_num, hs_den,
-                                           g_shift, beta_num, beta_den);
-  return cudaGetLastError();
+cudaError_t launch_wide(const L* lanes, const int* g, const int8_t* hq, L* out, void* scratch,
+                        int B, int Tp, int iters, int hs_num, int hs_den, int g_shift,
+                        int beta_num, int beta_den, cudaStream_t stream, int extra_blocks = 0) {
+  constexpr bool PACKED = sizeof(L) == 1;
+  if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16) return cudaErrorInvalidValue;
+  const bool g16 = (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  const bool hq4 = (reinterpret_cast<uintptr_t>(hq) & 3) == 0;
+  const bool vec16 = ((reinterpret_cast<uintptr_t>(lanes) | reinterpret_cast<uintptr_t>(out)) &
+                      15) == 0;
+  const WideArgs a{lanes, g, hq, out, static_cast<int8_t*>(scratch), B, Tp, iters, hs_num,
+                   hs_den, g_shift, beta_num, beta_den,
+                   (g16 ? 1 : 0) | (hq4 ? 2 : 0) | (vec16 ? 4 : 0)};
+  return pint::wide::launch(fused_pgd_wide_kernel<MOM, PACKED>, a, pint::wide::kSmemAcc,
+                            stream, extra_blocks);
 }
 
 template <int W, bool MOM, typename L>
@@ -449,12 +557,13 @@ cudaError_t launch(const L* lanes, const int* g, const int8_t* hq, L* out, int B
   return cudaGetLastError();
 }
 
-// The widest Tp the wide form takes (Hq 16 MB, shared memory 193 KB).
+
+// The widest Tp the wide form takes (Hq 16 MB).
 constexpr int kMaxTp = 4096;
 
 template <bool MOM, typename L>
-int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B, int Tp,
-             int iters, int hs_num, int hs_den, int g_shift, int beta_num, int beta_den,
+int dispatch(const void* lanes, const void* g, const void* hq, void* out, void* scratch, int B,
+             int Tp, int iters, int hs_num, int hs_den, int g_shift, int beta_num, int beta_den,
              void* stream) {
   if (B <= 0 || Tp <= 0 || Tp % 4 || Tp > kMaxTp || iters < 0 || g_shift < 1 ||
       g_shift > 30 || hs_den < 0 || hs_den > 31 || beta_den < 0 || beta_den > 30)
@@ -478,29 +587,53 @@ int dispatch(const void* lanes, const void* g, const void* hq, void* out, int B,
     err = launch<256, MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
                               beta_den, s);
   else
-    err = launch_wide<MOM, L>(l, gg, h, o, B, Tp, iters, hs_num, hs_den, g_shift, beta_num,
-                              beta_den, s);
+    err = launch_wide<MOM, L>(l, gg, h, o, scratch, B, Tp, iters, hs_num, hs_den, g_shift,
+                              beta_num, beta_den, s);
   return (int)err;
 }
 
 }  // namespace
 
-extern "C" int pint_fused_pgd(const void* lanes, const void* g, const void* hq,
-                              void* out, int B, int Tp, int iters, int hs_num,
-                              int hs_den, int g_shift, int momentum,
-                              int beta_num, int beta_den, void* stream) {
-  return momentum ? dispatch<true, int>(lanes, g, hq, out, B, Tp, iters, hs_num, hs_den,
-                                        g_shift, beta_num, beta_den, stream)
-                  : dispatch<false, int>(lanes, g, hq, out, B, Tp, iters, hs_num, hs_den,
-                                         g_shift, beta_num, beta_den, stream);
+// The scratch K2 and K2p need at (B, Tp): none to 256, past it the wide
+// form's padded Hq, two y buffers and (momentum) x.
+extern "C" long long pint_fused_pgd_scratch(int B, int Tp, int momentum) {
+  if (B <= 0 || Tp <= 256 || Tp > kMaxTp) return 0;
+  return (long long)wide_plan(B, Tp, momentum != 0).bytes;
 }
 
-// words, out: (B, Tp/4) packed control words, the (B, Tp) int8 lanes in memory
+// For the card tests alone, not a solver's entry: K2's wide form (momentum
+// off) on a cooperative grid extra_blocks larger than the card holds at
+// once; returns the runtime's refusal (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int pint_fused_pgd_wide_oversized(const void* lanes, const void* g, const void* hq,
+                                             void* out, void* scratch, int B, int Tp,
+                                             int iters, int extra_blocks, void* stream) {
+  if (B <= 0 || Tp <= 256 || Tp % 4 || Tp > kMaxTp || iters < 0 || extra_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_wide<false, int>(
+      static_cast<const int*>(lanes), static_cast<const int*>(g), static_cast<const int8_t*>(hq),
+      static_cast<int*>(out), scratch, B, Tp, iters, 1, 0, 12, 0, 0,
+      static_cast<cudaStream_t>(stream), extra_blocks);
+}
+
+// scratch: pint_fused_pgd_scratch(B, Tp, momentum) bytes, 16-byte aligned
+// (null to Tp 256)
+extern "C" int pint_fused_pgd(const void* lanes, const void* g, const void* hq,
+                              void* out, void* scratch, int B, int Tp, int iters,
+                              int hs_num, int hs_den, int g_shift, int momentum,
+                              int beta_num, int beta_den, void* stream) {
+  return momentum ? dispatch<true, int>(lanes, g, hq, out, scratch, B, Tp, iters, hs_num,
+                                        hs_den, g_shift, beta_num, beta_den, stream)
+                  : dispatch<false, int>(lanes, g, hq, out, scratch, B, Tp, iters, hs_num,
+                                         hs_den, g_shift, beta_num, beta_den, stream);
+}
+
+// words, out: (B, Tp/4) packed control words, the (B, Tp) int8 lanes in
+// memory; scratch: pint_fused_pgd_scratch(B, Tp, 0) bytes
 extern "C" int pint_fused_pgd_packed(const void* words, const void* g,
-                                     const void* hq, void* out, int B, int Tp,
-                                     int iters, int hs_num, int hs_den,
+                                     const void* hq, void* out, void* scratch, int B,
+                                     int Tp, int iters, int hs_num, int hs_den,
                                      int g_shift, void* stream) {
-  return dispatch<false, int8_t>(words, g, hq, out, B, Tp, iters, hs_num, hs_den,
+  return dispatch<false, int8_t>(words, g, hq, out, scratch, B, Tp, iters, hs_num, hs_den,
                                  g_shift, 0, 0, stream);
 }
 

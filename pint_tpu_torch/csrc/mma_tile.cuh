@@ -1,5 +1,5 @@
-// Tiles of 16 problems on the s8 tensor cores (K2, K2p and K7, and their
-// wide forms past 256 lanes, which read B fragments from L2: frag_word).
+// Tiles of 16 problems on the s8 tensor cores (K2, K2p and K7 to 256 lanes;
+// past 256 their wide forms run csrc/wide_gemm.cuh's tiles of 64 problems).
 //
 // A product across the batch, (16 problems x W) int8 times a W x W int8
 // matrix shared by every problem, runs as mma.sync m16n8k32 s8 -> s32: a
@@ -49,45 +49,6 @@ __device__ __forceinline__ void store_pairs(unsigned char* t, int gq, int col,
   *reinterpret_cast<uint16_t*>(t + (gq + 8) * RS + col) =
       (uint16_t)__byte_perm(v[2], v[3], 0x0040);
 }
-
-// The same two at a row stride known only at run time (the wide forms of
-// K2, K2p and K7, past W = 256).
-__device__ __forceinline__ void load_a(const unsigned char* t, int rs, int gq, int tq,
-                                       int kc, uint32_t (&a)[4]) {
-  const unsigned char* p = t + gq * rs + kc * 32 + tq * 4;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * rs);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * rs + 16);
-}
-
-__device__ __forceinline__ void store_pairs(unsigned char* t, int rs, int gq, int col,
-                                            const int (&v)[4]) {
-  *reinterpret_cast<uint16_t*>(t + gq * rs + col) = (uint16_t)__byte_perm(v[0], v[1], 0x0040);
-  *reinterpret_cast<uint16_t*>(t + (gq + 8) * rs + col) =
-      (uint16_t)__byte_perm(v[2], v[3], 0x0040);
-}
-
-// Word h of a B fragment read from global memory (the wide forms, whose
-// matrices no longer fit in registers or shared memory beside the tiles:
-// one matrix for every block stays resident in L2): bytes k0..k0+3 of row
-// n of the row-major int8 matrix m (ld bytes a row), k0 = 32 kc + 16 h +
-// 4 tq, zero past N rows or K columns (K % 4 == 0, so a word is all in or
-// all out).  al4: m and ld are 4-byte aligned, one 4-byte load.
-__device__ __forceinline__ uint32_t frag_word(const int8_t* m, int ld, int n, int k0,
-                                              int N, int K, bool al4) {
-  if (n >= N || k0 >= K) return 0u;
-  const int8_t* p = m + (size_t)n * ld + k0;
-  if (al4) return __ldg(reinterpret_cast<const uint32_t*>(p));
-  uint32_t w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) w |= (uint32_t)(uint8_t)__ldg(p + b) << (8 * b);
-  return w;
-}
-
-// Warps a block of the wide forms: each warp walks the column groups w,
-// w + 16, ... of every product.
-constexpr int kWideWarps = 16;
 
 // A tile's shape at width W (32, 64, 128 or 256) with NG column groups of 8
 // a warp: KC k-chunks of 32 bytes, the tile's row stride RS and NW warps a

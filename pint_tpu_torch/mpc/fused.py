@@ -2,7 +2,8 @@
 
 PyTorch port of ``pint_tpu/mpc/fused.py``.  :func:`fused_pgd` runs the CUDA
 kernel ``csrc/fused_pgd.cu`` (to Tp 256 with Hq's B fragments on chip,
-past it to :data:`FUSED_MAX_TP` reading them from L2) for CUDA tensors and
+past it to :data:`FUSED_MAX_TP` as one product across the batch an
+iteration, in one cooperative launch) for CUDA tensors and
 :func:`fused_pgd_plain`,
 the plain PyTorch version of the same lane-space loop, for CPU tensors;
 words are unpacked once before the loop and packed once after it.
@@ -39,7 +40,18 @@ __all__ = ["FusedPGD", "fused_pgd", "fused_pgd_packed", "fused_pgd_packed_plain"
 
 FUSED_MAX_TP = 4096
 """The widest Tp K2 and K2p take (``csrc/fused_pgd.cu``: to 256 Hq's B
-fragments stay on chip; past it they come from L2, 16 MB at 4096)."""
+fragments stay on chip; past it each iteration is one product across the
+batch, ``csrc/wide_gemm.cuh``, with Hq 16 MB at 4096)."""
+
+
+def _scratch(lib, B, Tp, momentum, device):
+    """The wide form's scratch past Tp 256 (padded Hq, two y buffers and,
+    with momentum, x: ``pint_fused_pgd_scratch`` bytes); None to 256, where
+    the kernel takes none."""
+    if Tp <= 256:
+        return None
+    return torch.empty((lib.pint_fused_pgd_scratch(B, Tp, int(momentum)),),
+                       dtype=torch.int8, device=device)
 
 
 def fused_pgd_plain(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
@@ -86,9 +98,12 @@ def fused_pgd(lanes, g, hq, *, hs_num, hs_den, g_shift, iters,
         raise ValueError(f"fused_pgd: Tp={Tp} must be a multiple of 4, <= "
                          f"{FUSED_MAX_TP} (K2's limit)")
     out = torch.empty_like(lanes)
+    lib = K.library()
+    scratch = _scratch(lib, B, Tp, momentum, lanes.device)
     with torch.cuda.device(lanes.device):
-        err = K.library().pint_fused_pgd(
+        err = lib.pint_fused_pgd(
             lanes.data_ptr(), g.data_ptr(), hq.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, Tp, iters, hs_num, hs_den, g_shift, int(momentum), beta_num,
             beta_den, K.stream_of(lanes),
         )
@@ -131,9 +146,12 @@ def fused_pgd_packed(words, g, hq, *, hs_num, hs_den, g_shift, iters):
         raise ValueError(f"fused_pgd_packed: Tp={Tp} must be <= {FUSED_MAX_TP} "
                          "(K2p's limit)")
     out = torch.empty_like(words)
+    lib = K.library()
+    scratch = _scratch(lib, B, Tp, False, words.device)
     with torch.cuda.device(words.device):
-        err = K.library().pint_fused_pgd_packed(
+        err = lib.pint_fused_pgd_packed(
             words.data_ptr(), g.data_ptr(), hq.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, Tp, iters, hs_num, hs_den, g_shift, K.stream_of(words),
         )
     K.check(err, "fused_pgd_packed")

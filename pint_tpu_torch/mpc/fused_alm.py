@@ -14,7 +14,7 @@ PyTorch port of ``pint_tpu/mpc/fused_alm.py``:
 * K7, the shared-operand ALM of the LTI ConstrainedPGD
   (``alm_shared_fused_words``): :func:`alm_shared`, CUDA kernel
   ``csrc/alm.cu`` (``alm_mma_kernel`` on the tensor cores to 256 lanes and
-  rows, ``alm_mma_wide_kernel`` past them, its B fragments from L2), plain
+  rows, ``alm_mma_wide_kernel`` past them, a batch product a pass), plain
   version :func:`alm_shared_plain`;
 * K10, one tp rank's column matvec, launched once an iteration by the
   column-sharded inners with the int32 all-reduce between launches
@@ -267,8 +267,8 @@ def _check(name, specs):
 
 ALM_SHARED_MAX = 4096
 """The widest Tp and Cp K7 takes (``csrc/alm.cu``: to 256 the B fragments
-stay on chip; past it they come from L2 and the tiles take 193 KB of shared
-memory at 4096)."""
+stay on chip; past it each pass is one product across the batch,
+``csrc/wide_gemm.cuh``, in one cooperative launch a call)."""
 
 
 def alm_shared_plain(lanes, g_pre, c_off, lam, hq, sq, lo_pre, hi_pre, *,

@@ -62,11 +62,11 @@ _L = ctypes.c_int64
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
-    # lanes, g, hq, out, B, Tp, iters, hs_num, hs_den, g_shift,
+    # lanes, g, hq, out, scratch, B, Tp, iters, hs_num, hs_den, g_shift,
     # momentum, beta_num, beta_den, stream
-    "pint_fused_pgd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # words, g, hq, out, B, Tp, iters, hs_num, hs_den, g_shift, stream
-    "pint_fused_pgd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pint_fused_pgd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # words, g, hq, out, scratch, B, Tp, iters, hs_num, hs_den, g_shift, stream
+    "pint_fused_pgd_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # lanes, hqt, out, B, K, rows, stream
     "pint_matvec_cols": [_P, _P, _P, _I, _I, _I, _P],
     # lanes, g, hqt, hs_num, hs_den, out, B, Tp, iters, g_shift, orders,
@@ -103,6 +103,8 @@ _SIZES = {
     "pint_pen_scratch": [_I, _I, _I],
     # B, Tp, Cp -> the scratch pint_alm_shared needs (0 to 256 lanes and rows)
     "pint_alm_shared_scratch": [_I, _I, _I],
+    # B, Tp, momentum -> the scratch pint_fused_pgd(_packed) needs (0 to Tp 256)
+    "pint_fused_pgd_scratch": [_I, _I, _I],
 }
 
 SWAR_KERNELS = ("swar_binop", "swar_shift", "swar_sat_accum",

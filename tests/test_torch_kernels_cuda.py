@@ -1014,12 +1014,15 @@ def test_k2p_bit_identical(cuda, B, T, pad_to, iters, g_kind):
     assert torch.equal(solver.solve_words(words, g), got)
 
 
-# K2 and K2p past Tp 256 (the wide form: Hq's B fragments from L2): Tp 260
-# (a half column group and a half k-chunk of padding), 384, 512 from the
-# QP, 2048 on a random symmetric Hq (the QP's condensation takes minutes
-# there); B ragged around the tile of 16 and across the grid
-K2_WIDE_TP = [260, 384, 512, 2048]
-K2_WIDE_BATCHES = [1, 17, 1000, 4096]
+# K2 and K2p past Tp 256 (the wide form: an iteration is one product across
+# the batch in tiles of 64 problems x 128 lanes, k in chunks of 64 bytes,
+# the operands in blocks of 128 rows): Tp 260 and 388 (ragged around the
+# lane tile and the k-chunk), 384, 512 from the QP, 2048 on a random
+# symmetric Hq (the QP's condensation takes minutes there); B ragged around
+# the 64-problem tile (63, 65) and the 128-row block (127, 129) and across
+# the grid (4099)
+K2_WIDE_TP = [260, 384, 388, 512, 2048]
+K2_WIDE_BATCHES = [1, 17, 63, 65, 127, 129, 1000, 4096, 4099]
 K2_WIDE_ITERS = [0, 1, 40]
 
 
@@ -1088,6 +1091,25 @@ def test_k2p_wide_bit_identical(cuda, Tp, B, iters, g_kind):
     assert torch.equal(got, pack_controls(fused_pgd(unpack_controls(words), g, hq, **kw)))
 
 
+@pytest.mark.parametrize("iters", K2_WIDE_ITERS)
+@pytest.mark.parametrize("B", [1, 3])
+def test_k2_wide_at_the_limit(cuda, B, iters):
+    """K2 (momentum off and on) and K2p at Tp 4096, the widest they take,
+    against their plain versions."""
+    from pint_tpu_torch.mpc import fused_pgd_packed, fused_pgd_packed_plain
+
+    kw, lanes, g, hq = _k2_wide_operands(cuda, B, 4096, "extreme", B + iters)
+    kw.update(iters=iters)
+    for mom in (False, True):
+        mkw = dict(kw, momentum=mom, beta_num=150 if mom else 0)
+        got = fused_pgd(lanes, g, hq, **mkw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused_pgd_plain(lanes, g, hq, **mkw))
+    words = pack_controls(lanes)
+    assert torch.equal(fused_pgd_packed(words, g, hq, **kw),
+                       fused_pgd_packed_plain(words, g, hq, **kw))
+
+
 def test_fused_pgd_solve_at_tp512(cuda):
     """FusedPGD (K2, momentum off and on, and K2p) at Tp = 512 on the card
     equals the word-space FixedPointPGD."""
@@ -1107,13 +1129,24 @@ def test_fused_pgd_solve_at_tp512(cuda):
     assert torch.equal(solver.solve_words(solver.init_words(33), g), pack_controls(lanes))
 
 
-@pytest.mark.parametrize("Tp, Cp", [(260, 64), (384, 384), (512, 256), (512, 512),
-                                    (64, 300), (2048, 128)])
-@pytest.mark.parametrize("B", [1, 17, 1000])
+# K7 past 256: pass 1 in tiles of 64 problems x 128 columns over Tp + Cp,
+# pass 2 in tiles of 64 problems (y_hi and y_lo) x 64 lanes over Tp; B
+# ragged around the tile and the 128-row block
+K7_WIDE_SHAPES = [(260, 64), (384, 384), (512, 256), (512, 512), (64, 300), (2048, 128),
+                  (388, 260)]
+
+
+K7_WIDE_CASES = ([(B, Tp, Cp) for Tp, Cp in K7_WIDE_SHAPES
+                  for B in (1, 17, 63, 65, 127, 129, 1000, 4099)]
+                 + [(B, Tp, Cp) for Tp, Cp in ((2048, 2048), (260, 1024)) for B in (17, 1000)])
+
+
+@pytest.mark.parametrize("B, Tp, Cp", K7_WIDE_CASES)
 def test_k7_wide_bit_identical(cuda, B, Tp, Cp):
-    """K7's wide form (B fragments from L2, state in memory) against
+    """K7's wide form (a batch product a pass, state in memory) against
     alm_shared_plain on random operands with warm lanes (so -128 occurs)
-    and multipliers, one launch a call."""
+    and multipliers, one launch a call; also with no inner iteration (the
+    multiplier updates alone) and with no outer one."""
     from pint_tpu_torch.mpc import alm_shared, alm_shared_plain
 
     args = _k7_operands(cuda, B, Tp, Cp, B + Tp + Cp)
@@ -1148,6 +1181,77 @@ def test_constrained_pgd_solve_at_tp512(cuda):
     assert K.launch_counts()["alm_shared"] == before + 1
     w_x, l_x = word.solve_words(kern.init_words(33), g, co)
     assert torch.equal(w_k, w_x) and torch.equal(l_k, l_x)
+
+
+def _wide_calls(cuda, B=129, Tp=388, Cp=260):
+    """One call of each wide form on random operands: name -> function."""
+    from pint_tpu_torch.mpc import alm_shared, fused_pgd_packed
+
+    kw, lanes, g, hq = _k2_wide_operands(cuda, B, Tp, "real", 5)
+    words = pack_controls(lanes)
+    args = _k7_operands(cuda, B, Tp, Cp, 6)
+    akw = dict(hs_num=37, hs_den=14, cs_num=91, cs_den=12, eh_num=55, eh_den=16,
+               el_num=23, el_den=11, outer=2, inners=3, g_shift=12, y_shift=9)
+    return {
+        "fused_pgd": lambda: (fused_pgd(lanes, g, hq, iters=7, **kw),),
+        "fused_pgd momentum": lambda: (fused_pgd(lanes, g, hq, iters=7, momentum=True,
+                                                 beta_num=150, **kw),),
+        "fused_pgd_packed": lambda: (fused_pgd_packed(words, g, hq, iters=7, **kw),),
+        "alm_shared": lambda: alm_shared(*args, **akw),
+    }
+
+
+def test_wide_refused_cooperative_launch_raises(cuda):
+    """A cooperative grid the card cannot hold at once is refused by the
+    runtime (cudaErrorCooperativeLaunchTooLarge, 720): the wide launch
+    returns the refusal, the wrappers' check raises on it, nothing runs in
+    its place, and the card stays usable.  The grid is enlarged through the
+    C entry that exists for this check alone."""
+    import ctypes
+
+    from pint_tpu_torch.mpc.fused import _scratch
+
+    B, Tp = 129, 388
+    kw, lanes, g, hq = _k2_wide_operands(cuda, B, Tp, "real", 5)
+    lib = K.library()
+    f = lib.pint_fused_pgd_wide_oversized
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = torch.full_like(lanes, 7)
+    scratch = _scratch(lib, B, Tp, False, lanes.device)
+    err = f(lanes.data_ptr(), g.data_ptr(), hq.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, Tp, 7, 1, K.stream_of(lanes))
+    assert err == 720
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        K.check(err, "fused_pgd")
+    torch.cuda.synchronize()
+    assert bool((out == 7).all())  # nothing ran
+    for call in _wide_calls(cuda).values():  # the card is still usable
+        call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1, 129, 4099])
+@pytest.mark.parametrize("Tp, Cp", [(256, 256), (260, 64), (64, 300), (388, 260),
+                                    (4096, 4096)])
+def test_wide_scratch_sizes(cuda, B, Tp, Cp):
+    """The scratch the wide forms ask for is their plan's: padded Hq
+    (Tp to 128 rows x 64 bytes) and two y buffers (the batch to 128 rows),
+    and x (momentum) for K2; [Hq; Sq] and Sq^T padded, u, y_hi, y_lo and
+    the int32 error feedback for K7; nothing to 256."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    lib = K.library()
+    bp = up(B, 128)
+    for mom in (0, 1):
+        want = 0 if Tp <= 256 else (up(Tp, 128) * up(Tp, 64) + 2 * bp * up(Tp, 64)
+                                    + (up(B * Tp, 16) if mom else 0))
+        assert lib.pint_fused_pgd_scratch(B, Tp, mom) == want
+    want = 0 if max(Tp, Cp) <= 256 else (
+        (up(Tp, 128) + up(Cp, 128)) * up(Tp, 64) + up(Tp, 128) * up(Cp, 64)
+        + bp * up(Tp, 64) + 2 * bp * up(Cp, 64) + 4 * B * Cp)
+    assert lib.pint_alm_shared_scratch(B, Tp, Cp) == want
 
 
 def test_wide_forms_raise_past_their_limit(cuda):
