@@ -20,10 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    PyTorch version on 1Mi full-range random words and against the per-lane
    Oracle on 2048 canonical words, on the layouts <8,8,8,8>,
    <1,2,3,4,5,6,11>, <5,6,5> (u16), <3,3> (u8), <8 x 8> (u64) and
-   <20,20,24> (u64); bit-identical.  Then a user's PackedArray flow on the
-   card (pack, add/sub saturate, min/max, shifts, get_signed, slice_lanes,
-   lanes, the fused accumulate and the pair entries), equal to the same
-   flow on the CPU;
+   <20,20,24> (u64); bit-identical.  Then a user's PackedArray flow as the
+   reference's quickstart writes it, Python lanes and numpy words with no
+   device named, every result on the card (pack, add/sub saturate, min/max,
+   shifts, get_signed, slice_lanes, lanes, the fused accumulate and the pair
+   entries), equal to the same flow with device="cpu";
 4. headline (bench.py:_run_headline): raw int32 add, K1
    add_unsigned_saturate on <8,8,8,8> at 16Mi words, raw add again, by CUDA
    events, K1 at no less than 0.9 of the raw add's word rate; the u64
@@ -76,12 +77,12 @@ Phases (any failure raises and the script exits non-zero):
     tp = 2 and 4 (K = 32 and 16 columns, rows 64 and 128), bit-identical to
     its plain version, CUDA-event ms of both;
 15. the multi-device tier at world size 1 over NCCL (make_mesh(dp=1, tp=1)
-    on the card): DeviceSQP.sharded_solve_words (4 x 30, B = 4096) and
-    DeviceConstrainedSQP.sharded_solve_words (4 x (3 x 30)) bit-identical to
-    solve_words in words and multipliers, ShardedPGD (LTI serving, 15
-    iterations) to FixedPointPGD and FusedPGD, ShardedConstrainedPGD (phase
-    7's configuration) to ConstrainedPGD, FusedPGD.dp_sharded to
-    solve_words;
+    with no device named, on the card): DeviceSQP.sharded_solve_words (4 x
+    30, B = 4096) and DeviceConstrainedSQP.sharded_solve_words (4 x (3 x
+    30)) bit-identical to solve_words in words and multipliers, ShardedPGD
+    (LTI serving, 15 iterations) to FixedPointPGD and FusedPGD,
+    ShardedConstrainedPGD (phase 7's configuration) to ConstrainedPGD,
+    FusedPGD.dp_sharded to solve_words;
 16. a two-rank rehearsal on the one card (dp = 1, tp = 2), two processes of
     this script (``--rehearsal-rank``): NCCL refuses two ranks on one
     device, so gloo carries the collectives of CUDA tensors through the
@@ -429,25 +430,28 @@ def phase_substrate(torch, P):
     say("substrate checks: " + ", ".join(f"{k} {v}" for k, v in checked.items()))
 
 
-def packed_flow(torch, P, device):
-    """What a user of the library does (examples/quickstart.py:18-35), on
-    ``device``; returns every result on the host."""
+def packed_flow(torch, P, device=None):
+    """What a user of the library does (examples/quickstart.py:18-35), as
+    the reference writes it: Python lanes and numpy words with no device
+    named, which land on the card.  ``device="cpu"`` runs it on the host.
+    Returns every result on the host and the set of devices they lived on."""
     from pint_tpu_torch.ops import swar as S
     from pint_tpu_torch.ops.split64 import merge_u64, split_u64
 
+    on = {} if device is None else {"device": device}
     out = {}
     lay = P.PackedLayout(5, 6, 5)
-    a = P.PackedArray.pack(lay, 1, 20, 10, device=device)
-    b = P.PackedArray.pack(lay, 30, 60, 20, device=device)
+    a = P.PackedArray.pack(lay, 1, 20, 10, **on)
+    b = P.PackedArray.pack(lay, 30, 60, 20, **on)
     out["wrap"] = P.add_wrap(a, b).lanes()
     out["sat_u"] = P.add_unsigned_saturate(a, b).lanes()
     out["min_u"] = P.min_unsigned(a, b).lanes()
     out["shl2"] = P.shift_left(a, 2).lanes()
-    words = torch.arange(1 << 16, dtype=torch.int32, device=device) * 40503
-    x = P.PackedArray.from_words(P.PackedLayout(8, 8, 8, 8), words)
+    words = np.arange(1 << 16, dtype=np.uint32) * np.uint32(40503)
+    x = P.PackedArray.from_words(P.PackedLayout(8, 8, 8, 8), words, **on)
     y = P.add_signed_saturate(x, x)
     z = P.max_signed(P.sub_signed_saturate(y, x), P.min_unsigned(x, y))
-    z = P.shift_right_unsigned(z, torch.tensor(3, device=device))
+    z = P.shift_right_unsigned(z, torch.tensor(3, device=x.device))
     z = P.sub_unsigned_saturate(P.add_wrap(z, x), P.sub_wrap(x, y))
     out["get_signed"] = P.get_signed(z, 3)
     out["slice"] = P.slice_lanes(z, 1, 3).lanes()
@@ -455,25 +459,29 @@ def packed_flow(torch, P, device):
     acc = S.saturating_accumulate(x.layout, signed=True, steps=4)(z.word, deltas)
     out["accumulate"] = P.PackedArray(acc, x.layout).lanes_signed()
     lay64 = P.PackedLayout(20, 20, 24)
-    w64 = P.PackedArray.from_words(lay64, words.to(torch.int64) * 0x9E3779B97F4A7C15)
+    w64 = P.PackedArray.from_words(lay64, x.word.to(torch.int64) * 0x9E3779B97F4A7C15)
     v64 = P.shift_left(P.add_signed_saturate(w64, w64), 5)
     p = split_u64(v64.word)
     q = S.binop_pair(lay64, "min_signed")(p, split_u64(w64.word))
     q = S.shift_pair(lay64, "shift_right_unsigned")(q, 7)
     q = S.saturating_accumulate(lay64, signed=False, steps=2)(q, torch.stack([p, q], 1))
     out["u64"] = P.PackedArray(merge_u64(q), lay64).lanes()
-    return {k: v.cpu() for k, v in out.items()}
+    return {k: v.cpu() for k, v in out.items()}, {v.device.type for v in out.values()}
 
 
 def phase_packed_flow(torch, P, K):
     K.reset_launch_counts()                     # main path starts here
-    got = packed_flow(torch, P, DEVICE)
+    got, where = packed_flow(torch, P)          # no device named: the card
     torch.cuda.synchronize()
     counts = K.launch_counts()                  # main path ends here
+    if where != {"cuda"}:
+        raise AssertionError(f"PackedArray flow with no device named ran on {where}")
     for name in K.SWAR_KERNELS:
         if counts[name] < 1:
             raise AssertionError(f"kernel {name} never launched on the PackedArray flow")
-    ref = packed_flow(torch, P, "cpu")
+    ref, where = packed_flow(torch, P, "cpu")
+    if where != {"cpu"}:
+        raise AssertionError(f"PackedArray flow with device='cpu' ran on {where}")
     for k in ref:
         if not torch.equal(got[k], ref[k]):
             raise AssertionError(f"PackedArray flow: {k} on the card differs from the CPU")
@@ -482,8 +490,9 @@ def phase_packed_flow(torch, P, K):
     for k, v in quick.items():
         if got[k].tolist() != v:
             raise AssertionError(f"PackedArray flow: {k} = {got[k].tolist()}, not {v}")
-    say("PackedArray flow on the card equals the CPU flow and quickstart's values; "
-        "launches: " + ", ".join(f"{k} {counts[k]}" for k in K.SWAR_KERNELS))
+    say("PackedArray flow with no device named: every result on the card, equal "
+        "to the CPU flow and quickstart's values; launches: "
+        + ", ".join(f"{k} {counts[k]}" for k in K.SWAR_KERNELS))
     return {k: counts[k] for k in K.SWAR_KERNELS}
 
 
@@ -2436,7 +2445,9 @@ def phase_world1(torch, P, K, timing):
     try:
         if dist.get_backend() != "nccl":
             raise AssertionError(f"world size 1 on {dist.get_backend()}, not nccl")
-        mesh = make_mesh(dp=1, tp=1, device=DEVICE)
+        mesh = make_mesh(dp=1, tp=1)            # the reference's call: no device
+        if mesh.device.type != "cuda":
+            raise AssertionError(f"make_mesh with no device built on {mesh.device}")
         K.reset_launch_counts()                 # the tier's main path starts here
         got, wall, _ = sharded_solves(torch, P, mesh, pr)
         counts = K.launch_counts()              # and ends here

@@ -440,6 +440,9 @@ class ConstrainedPGD:
     outer: int = 10
     inners: int = 40
     fused: Optional[bool] = None
+    # keyword-only from here: the reference's next position is block_rows,
+    # a TPU knob
+    _: dataclasses.KW_ONLY
     device: object = "cuda"
 
     def __post_init__(self):

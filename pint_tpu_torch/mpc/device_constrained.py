@@ -139,6 +139,9 @@ class DeviceConstrainedSQP:
     alm_outer: int = 3
     row_pad: int = 64
     fused: Optional[bool] = None
+    # keyword-only from here: the reference's next position is fused_block,
+    # a TPU knob
+    _: dataclasses.KW_ONLY
     lipq: Optional[bool] = None
 
     def __post_init__(self):

@@ -129,7 +129,7 @@ def sharded_program(cache, mesh, dev, whole_inner, cols_inner, make_prog):
         return prog
     from pint_tpu_torch.parallel.mesh import all_gather_cols, column_block
 
-    if mesh.device != dev.device:
+    if not K.same_device(mesh.device, dev.device):
         raise ValueError(f"mesh on {mesh.device}, solver on {dev.device}")
     block = column_block(dev.n_dec, mesh.tp, "horizon*n_ctrl =")
     if mesh.tp == 1:
@@ -178,6 +178,9 @@ class DeviceSQP:
     power_iters: int = 16
     propagate: str = "auto"
     reduce: str = "sym"
+    # keyword-only from here: the reference's next positions are
+    # fused, fused_block (a TPU knob), lipq, lipq_block (one too)
+    _: dataclasses.KW_ONLY
     lipq: "bool | None" = None
     fused: "bool | None" = None
     device: object = "cuda"

@@ -167,9 +167,11 @@ class FusedPGD:
     ``beta = beta_num / 2**beta_den`` from the QP's condition number, as
     ``pint_tpu``'s ``FusedPGD`` does.  ``packed_io`` runs K2p on the words
     themselves; it has no momentum branch, and where the reference quietly
-    drops ``momentum`` with ``packed_io`` the port raises."""
+    drops ``momentum`` with ``packed_io`` the port raises.  Past ``iters``
+    the parameters are keyword-only: the reference's third position is
+    ``block_rows``, a TPU knob the port does not take."""
 
-    def __init__(self, qqp: QuantizedQP, iters: int = 40,
+    def __init__(self, qqp: QuantizedQP, iters: int = 40, *,
                  momentum: bool = False, beta_den: int = 8, device="cuda",
                  packed_io: bool = False):
         if packed_io and momentum:
@@ -211,7 +213,7 @@ class FusedPGD:
         shard (u_words (B_loc, Tp/4), g_pre (B_loc, Tp), rows cut by dp)
         through :meth:`solve_words`; no communication, bit-identical.  For
         tp sharding use :class:`pint_tpu_torch.parallel.ShardedPGD`."""
-        if mesh.device != self.device:
+        if not K.same_device(mesh.device, self.device):
             raise ValueError(f"mesh on {mesh.device}, solver on {self.device}")
         return self.solve_words
 

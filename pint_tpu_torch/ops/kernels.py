@@ -151,6 +151,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device; a bare ``"cuda"`` is the
+    current CUDA device."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type or None not in (a.index, b.index) or a.index == b.index:
+        return a == b
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
 def _nvcc() -> str:
     cand = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"

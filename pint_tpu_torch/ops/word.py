@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from pint_tpu_torch.layout import PackedLayout
+from pint_tpu_torch.ops import kernels as K
 
 __all__ = [
     "container_dtype",
@@ -87,11 +88,14 @@ def _shr(layout: PackedLayout, x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def _as_word(layout: PackedLayout, x, device=None) -> torch.Tensor:
-    """``x`` in the layout's container on ``device`` (default: a tensor's
-    own device, else the CPU).  Unsigned numpy or torch words of the
+    """``x`` in the layout's container on ``device``.  With no ``device`` a
+    tensor keeps its own and host data (numpy, Python values) goes to the
+    card, as ``jnp.asarray`` puts it on the default device in ``pint_tpu``;
+    without a card that raises.  Unsigned numpy or torch words of the
     container's size keep their bits; anything else converts by value,
     wrapping modulo 2**word_bits."""
     if not isinstance(x, torch.Tensor):
+        device = "cuda" if device is None else device
         if isinstance(x, (np.ndarray, np.generic)):
             a = np.asarray(x)
         else:  # Python values: ints up to 2**64 - 1 stay exact
@@ -105,7 +109,7 @@ def _as_word(layout: PackedLayout, x, device=None) -> torch.Tensor:
     dt = container_dtype(layout)
     if _UNSIGNED.get(x.dtype) == dt:
         x = x.view(dt)
-    x = x if device is None else x.to(device)
+    x = x if device is None else x.to(K.resolve_device(device))
     return x if x.dtype == dt else x.to(dt)
 
 
@@ -117,9 +121,10 @@ def _as_word(layout: PackedLayout, x, device=None) -> torch.Tensor:
 def pack(layout: PackedLayout, *lanes) -> torch.Tensor:
     """Pack per-lane tensors into words, truncating each lane to its width
     (``make_truncate``, pint.hpp:592-601).  Accepts one tensor per lane or a
-    single stacked tensor whose last axis is the lane axis."""
+    single stacked tensor whose last axis is the lane axis.  Host lanes go
+    where :func:`_as_word` puts them."""
     if len(lanes) == 1 and not isinstance(lanes[0], (list, tuple)):
-        stacked = torch.as_tensor(lanes[0])
+        stacked = _as_word(layout, lanes[0])
         if stacked.dim() and stacked.shape[-1] == layout.num_lanes:
             lanes = tuple(stacked[..., i] for i in range(layout.num_lanes))
     if len(lanes) != layout.num_lanes:

@@ -6,8 +6,8 @@ plus a :class:`PackedLayout`.  The free functions mirror the reference's
 public op surface (pint.hpp:799-1029) by name::
 
     lay = PackedLayout(5, 6, 5)                               # <5,6,5>
-    a = PackedArray.pack(lay, [1, 20, 10], device="cuda")
-    b = PackedArray.pack(lay, [3, 2, 1], device="cuda")
+    a = PackedArray.pack(lay, [1, 20, 10])                    # on the card
+    b = PackedArray.pack(lay, [3, 2, 1])
     s = add_wrap(a, b)                                        # pint::add_wrap
     s.lanes()                                                 # ToArray / get<I>
 
@@ -50,10 +50,6 @@ __all__ = [
 ]
 
 
-def _device(device):
-    return None if device is None else K.resolve_device(device)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedArray:
     """A tensor of packed words plus the lane layout describing them."""
@@ -68,22 +64,21 @@ class PackedArray:
         """Wrap raw words (the ``packed_int(value)`` ctor, pint.hpp:768).
         Unsigned numpy or torch words keep their bits; other values convert
         by value, wrapping.  ``device`` defaults to a tensor's own device,
-        else the CPU."""
-        return cls(W._as_word(layout, words, _device(device)), layout)
+        else the card."""
+        return cls(W._as_word(layout, words, device), layout)
 
     @classmethod
     def pack(cls, layout: PackedLayout, *lanes, device=None) -> "PackedArray":
         """Pack per-lane values with truncation (pint.hpp:770-774).
 
         Accepts one array per lane, a single lanes-last stacked array, or a
-        flat python sequence of scalars (one per lane)."""
+        flat python sequence of scalars (one per lane).  ``device`` defaults
+        to the first tensor lane's device, else the card."""
         if len(lanes) == 1 and isinstance(lanes[0], (list, tuple)):
             lanes = tuple(lanes[0])
-        dev = _device(device)
-        if dev is None:
-            dev = next((x.device for x in lanes if isinstance(x, torch.Tensor)),
-                       torch.device("cpu"))
-        return cls(W.pack(layout, *[W._as_word(layout, x, dev) for x in lanes]),
+        if device is None:
+            device = next((x.device for x in lanes if isinstance(x, torch.Tensor)), "cuda")
+        return cls(W.pack(layout, *[W._as_word(layout, x, device) for x in lanes]),
                    layout)
 
     @classmethod

@@ -81,9 +81,21 @@ def _build(blocks: Sequence[Sequence[int]], dp: int, tp: int, device) -> Mesh:
         if me in ranks:
             index = list(ranks).index(me)
             mine = Mesh(dp=dp, tp=tp, ranks=tuple(ranks), index=index,
-                        device=K.resolve_device(device), group=group,
+                        device=_rank_device(device), group=group,
                         tp_group=tp_groups[index // tp])
     return mine
+
+
+def _rank_device(device) -> torch.device:
+    """``device`` resolved; a bare ``"cuda"`` is this rank's card, one
+    process a card: ``cuda:LOCAL_RANK`` where the launcher sets it, else
+    the current CUDA device (which :func:`~pint_tpu_torch.parallel.
+    distributed.initialize` sets for NCCL)."""
+    dev = K.resolve_device(device)
+    local = os.environ.get("LOCAL_RANK")
+    if dev == torch.device("cuda") and local is not None:
+        return torch.device("cuda", int(local))
+    return dev
 
 
 def _world() -> int:
@@ -105,16 +117,17 @@ def _dims(n: int, dp: Optional[int], tp: int):
     return dp, tp
 
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, *, device) -> Mesh:
+def make_mesh(dp: Optional[int] = None, tp: int = 1, *, device="cuda") -> Mesh:
     """A (dp, tp) mesh over every process of the initialized world, one
-    device a process.  ``dp=None`` takes all the processes tp leaves.
+    device a process, on this rank's card unless ``device`` names another
+    (:func:`_rank_device`).  ``dp=None`` takes all the processes tp leaves.
     Raises when ``dp * tp`` is not the world size."""
     n = _world()
     dp, tp = _dims(n, dp, tp)
     return _build([list(range(n))], dp, tp, device)
 
 
-def host_local_mesh(tp: int = 1, *, device) -> Mesh:
+def host_local_mesh(tp: int = 1, *, device="cuda") -> Mesh:
     """A mesh over this host's processes only: the ``LOCAL_WORLD_SIZE``
     consecutive ranks that torchrun starts on one host (the whole world
     when it is not set)."""

@@ -58,7 +58,7 @@ def test_packed_checkpoint_roundtrip(tmp_path):
     lay = PackedLayout(8, 8, 8, 8)
     words = np.arange(64, dtype=np.uint32)
     p = tmp_path / "ckpt.npz"
-    C.save_packed(p, PackedArray.from_words(lay, words))
+    C.save_packed(p, PackedArray.from_words(lay, words, device="cpu"))
     back = C.load_packed(p, device="cpu")
     assert back.layout == lay and back.device.type == "cpu"
     np.testing.assert_array_equal(words_to_numpy(back.word), words)
@@ -92,7 +92,7 @@ def test_packed_files_cross_both_ways(tmp_path, widths):
     unsigned word dtype) and values; each package loads the other's."""
     lay, words = _words(widths, (6, 5), 1)
     jl = JPackedLayout(*widths)
-    C.save_packed(tmp_path / "port.npz", PackedArray.from_words(lay, words))
+    C.save_packed(tmp_path / "port.npz", PackedArray.from_words(lay, words, device="cpu"))
     J.save_packed(tmp_path / "jax.npz", JPackedArray.from_words(jl, jnp.asarray(words)))
     _same_file(tmp_path / "port.npz", tmp_path / "jax.npz")
     with np.load(tmp_path / "port.npz") as z:
@@ -129,7 +129,8 @@ def test_whole_array_sharded_files_cross_both_ways(tmp_path, widths):
     ``load_sharded`` puts the port's file on its 8-device mesh."""
     lay, words = _words(widths, (16, 8), 4)
     jl = JPackedLayout(*widths)
-    p_port = C.save_sharded(str(tmp_path / "port"), PackedArray.from_words(lay, words))
+    p_port = C.save_sharded(str(tmp_path / "port"),
+                            PackedArray.from_words(lay, words, device="cpu"))
     one = jax.device_put(jnp.asarray(words), jax.devices()[0])
     p_jax = J.save_sharded(str(tmp_path / "jax"), JPackedArray.from_words(jl, one))
     assert p_port.endswith("port.proc0.npz")

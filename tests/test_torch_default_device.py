@@ -34,6 +34,7 @@ from pint_tpu_torch.mpc import (
     quantize,
     quantize_constrained,
 )
+from pint_tpu_torch.parallel import host_local_mesh, make_mesh
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -99,7 +100,35 @@ ENTRY_POINTS = {
     "words_from_numpy": lambda **kw: words_from_numpy(
         np.arange(6, dtype=np.uint32), **kw),
     "load_packed": lambda **kw: _load_packed(**kw),
+    # host data, as the reference's quickstart gives it
+    "PackedArray.pack(scalars)": lambda **kw: pt.PackedArray.pack(
+        pt.PackedLayout(5, 6, 5), 1, 20, 10, **kw),
+    "PackedArray.pack(list)": lambda **kw: pt.PackedArray.pack(
+        pt.PackedLayout(5, 6, 5), [1, 20, 10], **kw),
+    "PackedArray.pack(numpy lanes)": lambda **kw: pt.PackedArray.pack(
+        pt.PackedLayout(5, 6, 5), np.arange(4), np.arange(4) + 20, np.arange(4) + 10, **kw),
+    "PackedArray.pack(numpy stacked)": lambda **kw: pt.PackedArray.pack(
+        pt.PackedLayout(5, 6, 5), np.array([[1, 20, 10], [3, 2, 1]]), **kw),
+    "PackedArray.from_words": lambda **kw: pt.PackedArray.from_words(
+        pt.PackedLayout(8, 8, 8, 8), np.arange(8, dtype=np.uint32), **kw),
+    "make_mesh": lambda **kw: _in_one_rank_world(lambda: make_mesh(1, 1, **kw)),
+    "host_local_mesh": lambda **kw: _in_one_rank_world(lambda: host_local_mesh(**kw)),
 }
+
+
+def _in_one_rank_world(build):
+    """``build()`` in a one-rank gloo world that rendezvouses through a
+    file and is torn down before this returns, raised or not."""
+    import tempfile
+
+    from pint_tpu_torch.parallel import distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/rendezvous", 1, 0, backend="gloo")
+        try:
+            return build()
+        finally:
+            torch.distributed.destroy_process_group()
 
 
 def _load_packed(**kw):
@@ -111,7 +140,8 @@ def _load_packed(**kw):
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/words.npz"
         save_packed(path, pt.PackedArray.from_words(pt.PackedLayout(8, 8, 8, 8),
-                                                    np.arange(6, dtype=np.uint32)))
+                                                    np.arange(6, dtype=np.uint32),
+                                                    device="cpu"))
         return load_packed(path, **kw)
 
 
@@ -128,6 +158,74 @@ def test_default_device_is_the_card(name):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_cpu_when_asked(name):
     assert _device_of(ENTRY_POINTS[name](device="cpu")) == torch.device("cpu")
+
+
+def test_host_data_keeps_its_bits_on_the_cpu():
+    """``device="cpu"`` packs host data as before: truncated lanes, unsigned
+    words kept bit for bit, other values wrapped."""
+    lay = pt.PackedLayout(5, 6, 5)
+    want = 1 | (20 << 5) | (10 << 11)
+    for make in ("PackedArray.pack(scalars)", "PackedArray.pack(list)"):
+        assert int(ENTRY_POINTS[make](device="cpu").word) == want
+    lanes = ENTRY_POINTS["PackedArray.pack(numpy lanes)"](device="cpu").lanes()
+    np.testing.assert_array_equal(lanes.numpy(), np.stack(
+        [np.arange(4), (np.arange(4) + 20) & 63, (np.arange(4) + 10) & 31], -1))
+    stacked = ENTRY_POINTS["PackedArray.pack(numpy stacked)"](device="cpu")
+    assert stacked.lanes().tolist() == [[1, 20, 10], [3, 2, 1]]
+    words = pt.PackedArray.from_words(pt.PackedLayout(8, 8, 8, 8),
+                                      np.array([2**32 - 1, 7], np.uint32), device="cpu")
+    assert words.word.tolist() == [-1, 7]
+    assert int(pt.PackedArray.pack(lay, 33, -1, 234, device="cpu").word) == \
+        (33 & 31) | (63 << 5) | ((234 & 31) << 11)
+    if not torch.cuda.is_available():   # a CPU tensor asked for the CPU
+        assert pt.PackedArray.pack(lay, torch.tensor(1), 20, 10).device.type == "cpu"
+
+
+def test_mesh_device_is_this_ranks_card(monkeypatch):
+    """A bare ``"cuda"`` names this rank's card: ``cuda:LOCAL_RANK`` where
+    the launcher sets it, else the current device; a mesh and a solver on
+    one card compare equal however each named it."""
+    from pint_tpu_torch.ops import kernels as K
+    from pint_tpu_torch.parallel import mesh as M
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert M._rank_device("cuda") == torch.device("cuda", 3)
+    assert M._rank_device("cuda:1") == torch.device("cuda", 1)
+    assert M._rank_device("cpu") == torch.device("cpu")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert M._rank_device("cuda") == torch.device("cuda")
+    assert K.same_device("cuda", "cuda:0") and not K.same_device("cuda", "cuda:3")
+    assert K.same_device("cuda:3", "cuda:3") and not K.same_device("cuda:3", "cuda:1")
+    assert K.same_device("cpu", torch.device("cpu")) and not K.same_device("cpu", "cuda")
+
+
+def test_fused_pgd_takes_no_tpu_knob_by_position():
+    """``FusedPGD(qqp, 8, 512)`` is ``block_rows=512`` to the reference; the
+    port has no such knob and refuses the call rather than read 512 as
+    ``momentum``.  Spelled with keywords, the momentum solve is bit-identical
+    to the reference's (Pallas in interpret mode)."""
+    import jax.numpy as jnp
+
+    from pint_tpu.mpc import condense_double_integrator as j_condense
+    from pint_tpu.mpc import quantize as j_quantize
+    from pint_tpu.mpc.fused import FusedPGD as JFused
+    from pint_tpu_torch.convert import quantized_qp_from_arrays, words_to_numpy
+
+    ref = j_quantize(j_condense(T=16))
+    port = quantized_qp_from_arrays(ref)
+    with pytest.raises(TypeError):
+        FusedPGD(port, 8, 512, device="cpu")
+    rng = np.random.default_rng(7)
+    x0 = np.stack([rng.uniform(-3, 3, 8), rng.uniform(-1, 1, 8)], -1)
+    g = ref.g_lane_fixed(x0)
+    u0 = np.zeros((8, ref.padded // 4), np.uint32)
+    expect = JFused(ref, 8, block_rows=8, momentum=True, interpret=True).solve_words(
+        jnp.asarray(u0), jnp.asarray(g))
+    solver = FusedPGD(port, 8, momentum=True, device="cpu")
+    got = solver.solve_words(solver.init_words(8), torch.from_numpy(g))
+    np.testing.assert_array_equal(words_to_numpy(got), np.asarray(expect))
 
 
 def test_cpu_entry_points_run_the_plain_versions():

@@ -22,7 +22,7 @@ from pint_tpu_torch.utils import Oracle as TOracle
 def _both(widths, *lanes):
     """The same packed value in both packages."""
     return (jt.PackedArray.pack(jt.PackedLayout(*widths), *[jnp.asarray(v) for v in lanes]),
-            pt.PackedArray.pack(pt.PackedLayout(*widths), *lanes))
+            pt.PackedArray.pack(pt.PackedLayout(*widths), *lanes, device="cpu"))
 
 
 def _same(j, t):
@@ -129,10 +129,10 @@ def test_shift_case(op, widths, value, amount, expected):
 
 def test_pack_get_slice():
     lay = pt.PackedLayout(5, 6, 5)
-    assert int(pt.PackedArray.pack(lay, 1, 20, 10).word) == 1 | (20 << 5) | (10 << 11)
-    r = pt.PackedArray.pack(lay, 33, 66, 234)
+    assert int(pt.PackedArray.pack(lay, 1, 20, 10, device="cpu").word) == 1 | (20 << 5) | (10 << 11)
+    r = pt.PackedArray.pack(lay, 33, 66, 234, device="cpu")
     assert int(r.word) == (33 & 0x1F) | ((66 & 0x3F) << 5) | ((234 & 0x1F) << 11)
-    r = pt.PackedArray.pack(lay, [1, -3, -10])
+    r = pt.PackedArray.pack(lay, [1, -3, -10], device="cpu")
     assert [int(pt.get_signed(r, i)) for i in range(3)] == [1, -3, -10]
     assert [int(pt.get(r, i)) for i in range(3)] == [1, 61, 22]
     jv, tv = _both((1, 2, 3, 4, 5), 1, 2, 3, 4, 5)
@@ -173,8 +173,8 @@ def test_broadcast_operands():
     rng = np.random.default_rng(3)
     a = rng.integers(0, 2**32, (4, 1), dtype=np.uint32)
     b = rng.integers(0, 2**32, (1, 5), dtype=np.uint32)
-    got = pt.sub_signed_saturate(pt.PackedArray.from_words(tl, a),
-                                 pt.PackedArray.from_words(tl, b))
+    got = pt.sub_signed_saturate(pt.PackedArray.from_words(tl, a, device="cpu"),
+                                 pt.PackedArray.from_words(tl, b, device="cpu"))
     ref = jt.sub_signed_saturate(jt.PackedArray.from_words(jl, jnp.asarray(a)),
                                  jt.PackedArray.from_words(jl, jnp.asarray(b)))
     assert got.shape == (4, 5)
@@ -183,20 +183,20 @@ def test_broadcast_operands():
 
 def test_operator_overloads():
     lay = pt.PackedLayout(4, 4)
-    a = pt.PackedArray.pack(lay, 3, 5)
-    b = pt.PackedArray.pack(lay, 1, 4)
+    a = pt.PackedArray.pack(lay, 3, 5, device="cpu")
+    b = pt.PackedArray.pack(lay, 1, 4, device="cpu")
     assert int((a | b).word) == (int(a.word) | int(b.word))
     assert int((a & b).word) == (int(a.word) & int(b.word))
     assert int((a ^ b).word) == (int(a.word) ^ int(b.word))
     assert int((~a).word) & 0xFF == ~int(a.word) & 0xFF
-    assert bool(a.equal(pt.PackedArray.pack(lay, 3, 5)))
-    assert not bool(a.not_equal(pt.PackedArray.pack(lay, 3, 5)))
+    assert bool(a.equal(pt.PackedArray.pack(lay, 3, 5, device="cpu")))
+    assert not bool(a.not_equal(pt.PackedArray.pack(lay, 3, 5, device="cpu")))
     assert bool(a.not_equal(b))
-    batch = pt.PackedArray.from_words(lay, np.array([0x35, 0x14], np.uint8))
-    both = pt.PackedArray.from_words(lay, np.array([0x35, 0x99], np.uint8))
+    batch = pt.PackedArray.from_words(lay, np.array([0x35, 0x14], np.uint8), device="cpu")
+    both = pt.PackedArray.from_words(lay, np.array([0x35, 0x99], np.uint8), device="cpu")
     np.testing.assert_array_equal(batch.not_equal(both).numpy(), [False, True])
     np.testing.assert_array_equal(batch.equal(both).numpy(), [True, False])
-    other = pt.PackedArray.pack(pt.PackedLayout(4, 5), 1, 1)
+    other = pt.PackedArray.pack(pt.PackedLayout(4, 5), 1, 1, device="cpu")
     with pytest.raises(ValueError):
         a.not_equal(other)
     with pytest.raises(ValueError):
@@ -207,16 +207,17 @@ def test_operator_overloads():
 
 def test_constructors_and_repr():
     lay = pt.PackedLayout(32, 32)
-    w = pt.PackedArray.from_words(lay, [2**64 - 1, 5])
+    w = pt.PackedArray.from_words(lay, [2**64 - 1, 5], device="cpu")
     assert w.dtype == torch.int64 and w.device.type == "cpu"
     np.testing.assert_array_equal(words_to_numpy(w.word), [2**64 - 1, 5])
     np.testing.assert_array_equal(
         words_to_numpy(pt.PackedArray.from_words(lay, torch.tensor([-1])).word), [2**64 - 1])
     z = pt.PackedArray.zeros(pt.PackedLayout(5, 6, 5), (2, 3), device="cpu")
     assert z.shape == (2, 3) and z.dtype == torch.int16
-    assert repr(pt.PackedArray.pack(pt.PackedLayout(8, 8), 255, 1)) == \
+    assert repr(pt.PackedArray.pack(pt.PackedLayout(8, 8), 255, 1, device="cpu")) == \
         "PackedArray(PackedLayout(8, 8)<u16>, lanes=[255, 1])"
-    assert pt.PackedArray.pack(lay, 1, 2).astype_words(torch.int32).dtype == torch.int32
+    packed = pt.PackedArray.pack(lay, 1, 2, device="cpu")
+    assert packed.astype_words(torch.int32).dtype == torch.int32
     if not torch.cuda.is_available():   # asking for a card that is not there
         with pytest.raises(RuntimeError, match="cuda"):
             pt.PackedArray.zeros(lay, (2,), device="cuda")
@@ -232,8 +233,8 @@ def test_oracle_parity(widths):
     rng = np.random.default_rng(5)
     a, b = (rng.integers(0, 2**64 - 1, 256, dtype=np.uint64, endpoint=True)
             & np.uint64(jl.used_mask) for _ in range(2))
-    ta = pt.PackedArray.from_words(tl, a.astype(jl.word_dtype))
-    tb = pt.PackedArray.from_words(tl, b.astype(jl.word_dtype))
+    ta = pt.PackedArray.from_words(tl, a.astype(jl.word_dtype), device="cpu")
+    tb = pt.PackedArray.from_words(tl, b.astype(jl.word_dtype), device="cpu")
     for op in pt.ops.swar.BINOP_NAMES:
         exp = getattr(jo, op)(a, b)
         np.testing.assert_array_equal(getattr(to, op)(a, b), exp)
