@@ -43,6 +43,14 @@ the kernels are held to on the card).  ``fused=False`` runs the word-space
 a (dp, tp) process mesh; with tp > 1 its ALM inner is column-sharded over
 K10.
 
+Each phase of an iteration is a host range in a ``torch.profiler`` trace,
+the phases siblings: :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP`'s
+``pint.sqp.linearize``, ``pint.sqp.propagate``, ``pint.sqp.reduce``,
+``pint.sqp.quantize`` and ``pint.sqp.inner``, and the constraints'
+``pint.crti.stack`` (S, P, r), ``pint.crti.pen`` (K6 or the torch phases)
+and ``pint.crti.scale`` (the ALM's rationals, bounds, offsets and the
+multiplier rescale).
+
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
 """
@@ -76,6 +84,7 @@ from pint_tpu_torch.mpc.sqp_constrained import (
     _alm_batched_cols,
     _alm_batched_cols_hqt,
 )
+from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["DeviceConstrainedSQP"]
 
@@ -282,66 +291,75 @@ class DeviceConstrainedSQP:
         C, Cp = self.n_rows, self.padded_rows
         c = self._consts
 
-        A_seq, B_lane, c_seq = d._linearize_phase(x0_f, lanes)
+        with span("pint.sqp.linearize"):
+            A_seq, B_lane, c_seq = d._linearize_phase(x0_f, lanes)
         # the constraint rows need the propagator stacks, so every
         # ``propagate`` form, "allpairs" too (the reference's allpairs takes
         # its scan here), runs the recursion
-        Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
-        Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f)
-        S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
+        with span("pint.sqp.propagate"):
+            Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
+        with span("pint.sqp.reduce"):
+            Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f)
+        with span("pint.crti.stack"):
+            S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
         rho = float(np.float32(self.rho))
         kernels = d.use_kernels
-        if self.forms["condense"] == "lipq":
-            lipq = lipq_fused if kernels else lipq_plain
-            hqt, lip, h_max = lipq(Ht, power_iters=d.power_iters)
-        else:
-            lip = d._lipschitz_phase(Ht)
-        if self.forms["constraints"] == "pen":
-            pen = pen_fused if kernels else pen_plain
-            sqc, sqj, pen_lip, s_scale, row_amp = pen(S_t, power_iters=d.power_iters)
-        else:
-            pen_lip = self._pen_lipschitz(S_t)
-            sqc, s_scale, row_amp = self._quantize_rows(S_t)
-            sqj = sqc.transpose(0, 1).contiguous()
-        lip_total = lip + rho * pen_lip
-        alpha = true_div(1.0, lip_total)                          # (B,)
-        if self.forms["condense"] == "lipq":
-            g_pre = d._g_pre_from(g, alpha)
-            # the reference's alpha * h_max / 127.0, as XLA compiles it
-            hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
-        else:
-            hqt, g_pre, hs_num, hs_den = d._quantize_phase(Ht, g, lip_total)
-        sqc, sqj = _pad_rows(sqc, 0, Cp), _pad_rows(sqj, 1, Cp)
+        # the rows before the Hessian's step, which needs their pen_lip, so
+        # that the Hessian's quantization is one phase
+        with span("pint.crti.pen"):
+            if self.forms["constraints"] == "pen":
+                pen = pen_fused if kernels else pen_plain
+                sqc, sqj, pen_lip, s_scale, row_amp = pen(S_t, power_iters=d.power_iters)
+            else:
+                pen_lip = self._pen_lipschitz(S_t)
+                sqc, s_scale, row_amp = self._quantize_rows(S_t)
+                sqj = sqc.transpose(0, 1).contiguous()
+            sqc, sqj = _pad_rows(sqc, 0, Cp), _pad_rows(sqj, 1, Cp)
+        with span("pint.sqp.quantize"):
+            if self.forms["condense"] == "lipq":
+                lipq = lipq_fused if kernels else lipq_plain
+                hqt, lip, h_max = lipq(Ht, power_iters=d.power_iters)
+            else:
+                lip = d._lipschitz_phase(Ht)
+            lip_total = lip + rho * pen_lip
+            alpha = true_div(1.0, lip_total)                      # (B,)
+            if self.forms["condense"] == "lipq":
+                g_pre = d._g_pre_from(g, alpha)
+                # the reference's alpha * h_max / 127.0, as XLA compiles it
+                hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
+            else:
+                hqt, g_pre, hs_num, hs_den = d._quantize_phase(Ht, g, lip_total)
 
-        c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))
-        cs_num, cs_den = _rational_traced(
-            true_div(s_scale, c_unit), 127 * 127 * Tp, 2**31 - 1)
-        base = (
-            rho * s_scale * float(1 << _Y_SHIFT)
-            * c_unit * alpha
-        ) * float(1 << d.g_shift)
-        eh_num, eh_den = _rational_traced(base * 128.0, 64 * 127 * Cp, 2**30 - 1)
-        el_num, el_den = _rational_traced(base, 127 * 127 * Cp, 2**30 - 1)
+        with span("pint.crti.scale"):
+            c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))
+            cs_num, cs_den = _rational_traced(
+                true_div(s_scale, c_unit), 127 * 127 * Tp, 2**31 - 1)
+            base = (
+                rho * s_scale * float(1 << _Y_SHIFT)
+                * c_unit * alpha
+            ) * float(1 << d.g_shift)
+            eh_num, eh_den = _rational_traced(base * 128.0, 64 * 127 * Cp, 2**30 - 1)
+            el_num, el_den = _rational_traced(base, 127 * 127 * Cp, 2**30 - 1)
 
-        sent = 1 << 30
+            sent = 1 << 30
 
-        def bound(b_phys, fill):
-            rows = torch.clamp(torch.round(true_div(b_phys[None, :], c_unit[:, None])),
-                               -sent, sent)
-            return torch.nn.functional.pad(_to_i32(rows), (0, Cp - C), value=fill)
+            def bound(b_phys, fill):
+                rows = torch.clamp(
+                    torch.round(true_div(b_phys[None, :], c_unit[:, None])), -sent, sent)
+                return torch.nn.functional.pad(_to_i32(rows), (0, Cp - C), value=fill)
 
-        # constant offset rows: c_off = (x0 . P + r) / c_unit
-        off = torch.einsum("bn,cnb->bc", x0_f, P_t) + r_t.T
-        off = torch.nan_to_num(true_div(off, c_unit[:, None]), nan=0.0,
-                               posinf=_CX0_CAP, neginf=-_CX0_CAP)
-        c_off = _to_i32(torch.clamp(torch.round(off), -_CX0_CAP, _CX0_CAP))
-        ops = dict(
-            g_pre=g_pre, hqt=hqt, hs_num=hs_num, hs_den=hs_den, sqj=sqj,
-            sqc=sqc, cs_num=cs_num, cs_den=cs_den,
-            c_off=torch.nn.functional.pad(c_off, (0, Cp - C)),
-            lo_pre=bound(c["lo"], -sent), hi_pre=bound(c["hi"], sent),
-            eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den,
-        )
+            # constant offset rows: c_off = (x0 . P + r) / c_unit
+            off = torch.einsum("bn,cnb->bc", x0_f, P_t) + r_t.T
+            off = torch.nan_to_num(true_div(off, c_unit[:, None]), nan=0.0,
+                                   posinf=_CX0_CAP, neginf=-_CX0_CAP)
+            c_off = _to_i32(torch.clamp(torch.round(off), -_CX0_CAP, _CX0_CAP))
+            ops = dict(
+                g_pre=g_pre, hqt=hqt, hs_num=hs_num, hs_den=hs_den, sqj=sqj,
+                sqc=sqc, cs_num=cs_num, cs_den=cs_den,
+                c_off=torch.nn.functional.pad(c_off, (0, Cp - C)),
+                lo_pre=bound(c["lo"], -sent), hi_pre=bound(c["hi"], sent),
+                eh_num=eh_num, eh_den=eh_den, el_num=el_num, el_den=el_den,
+            )
         return ops, c_unit
 
     def _run_inner(self, words, ops, lam):
@@ -400,15 +418,17 @@ class DeviceConstrainedSQP:
         for _ in range(self.dev.sqp_iters):
             lanes = gather(unpack_controls(words))[:, : self.dev.n_dec]
             ops, c_unit = self._condense_constrained_dev(x0_f, lanes)
-            if prev_cu is None:
-                lam = torch.clamp(lam, -int(_LAM_CAP), int(_LAM_CAP))
-            else:
-                # keep the physical value lam_pre * c_unit across the
-                # relinearization's new per-problem c_unit
-                scale = true_div(prev_cu, c_unit)
-                lam = _to_i32(torch.clamp(
-                    torch.round(lam.to(torch.float32) * scale[:, None]), -cap, cap))
-            words, lam = inner(words, ops, lam)
+            with span("pint.crti.scale"):
+                if prev_cu is None:
+                    lam = torch.clamp(lam, -int(_LAM_CAP), int(_LAM_CAP))
+                else:
+                    # keep the physical value lam_pre * c_unit across the
+                    # relinearization's new per-problem c_unit
+                    scale = true_div(prev_cu, c_unit)
+                    lam = _to_i32(torch.clamp(
+                        torch.round(lam.to(torch.float32) * scale[:, None]), -cap, cap))
+            with span("pint.sqp.inner"):
+                words, lam = inner(words, ops, lam)
             prev_cu = c_unit
         return words, lam
 

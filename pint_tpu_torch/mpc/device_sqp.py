@@ -37,6 +37,12 @@ device: it is the reference the kernels are held to on the card.
 :meth:`DeviceSQP.sharded_solve_words` runs the same iteration on a (dp, tp)
 process mesh; with tp > 1 its PGD inner is column-sharded over K10.
 
+Each phase of an iteration is a host range in a ``torch.profiler`` trace
+(:func:`~pint_tpu_torch.utils.profiling.span`), the phases siblings:
+``pint.sqp.linearize``, ``pint.sqp.propagate``, ``pint.sqp.reduce``,
+``pint.sqp.quantize`` (K3 or the torch phases, the linear term and the step
+rationals) and ``pint.sqp.inner``.
+
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
 """
@@ -69,6 +75,7 @@ from pint_tpu_torch.mpc.ltv import (
     _pgd_batched_h_cols_hqt,
 )
 from pint_tpu_torch.ops import kernels as K
+from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["DeviceSQP"]
 
@@ -485,11 +492,17 @@ class DeviceSQP:
     def _condense_ht(self, x0_f, lanes):
         """f32 linearize + condense in the configured ``propagate`` and
         ``reduce`` forms: (Ht (Tm, Tm, B), g (B, Tm))."""
-        A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
+        with span("pint.sqp.linearize"):
+            A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
         if self._propagate_mode() == "allpairs":
-            H, g = self._condense_allpairs(A_seq, B_lane, c_seq, x0_f)
-            return self._hand_over(H), g
-        return self._reduce(*self._propagate_unrolled(A_seq, B_lane, c_seq), x0_f)
+            with span("pint.sqp.propagate"):
+                H, g = self._condense_allpairs(A_seq, B_lane, c_seq, x0_f)
+            with span("pint.sqp.reduce"):
+                return self._hand_over(H), g
+        with span("pint.sqp.propagate"):
+            stacks = self._propagate_unrolled(A_seq, B_lane, c_seq)
+        with span("pint.sqp.reduce"):
+            return self._reduce(*stacks, x0_f)
 
     def _condense_hg(self, x0_f, lanes):
         """(H (B, Tm, Tm), g (B, Tm)): the batch-first public layout."""
@@ -561,14 +574,15 @@ class DeviceSQP:
         orientation, g_pre (B, Tm) int32, hs_num, hs_den (B,) int32), the
         operands of either inner and of both sharded inners."""
         Ht, g = self._condense_ht(x0_f, lanes)
-        if self.forms["condense"] == "torch":
-            return self._quantize_phase(Ht, g, self._lipschitz_phase(Ht))
-        lipq = lipq_fused if self.use_kernels else lipq_plain
-        hqt, lip, h_max = lipq(Ht, power_iters=self.power_iters)
-        alpha = true_div(1.0, lip)
-        g_pre = self._g_pre_from(g, alpha)
-        _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
-        return hqt, g_pre, hs_num, hs_den
+        with span("pint.sqp.quantize"):
+            if self.forms["condense"] == "torch":
+                return self._quantize_phase(Ht, g, self._lipschitz_phase(Ht))
+            lipq = lipq_fused if self.use_kernels else lipq_plain
+            hqt, lip, h_max = lipq(Ht, power_iters=self.power_iters)
+            alpha = true_div(1.0, lip)
+            g_pre = self._g_pre_from(g, alpha)
+            _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
+            return hqt, g_pre, hs_num, hs_den
 
     def _lipq_rationals(self, alpha, h_max):
         """(h_scale, hs_num, hs_den) from the step alpha and K3's h_max.
@@ -583,11 +597,12 @@ class DeviceSQP:
         operands)."""
         hqt, g_pre, hs_num, hs_den = self._condense(x0_f, lanes)
         kw = dict(iters=self.pgd_iters, g_shift=self.g_shift)
-        if self.forms["inner"] == "pgd_batched_h":
-            return _pgd_batched_h(words, g_pre, hqt.permute(2, 1, 0).contiguous(),
-                                  hs_num, hs_den, **kw)
-        inner = pgd_fused_words_pre if self.use_kernels else pgd_fused_words_pre_plain
-        return inner(words, g_pre, hqt, hs_num, hs_den, **kw)
+        with span("pint.sqp.inner"):
+            if self.forms["inner"] == "pgd_batched_h":
+                return _pgd_batched_h(words, g_pre, hqt.permute(2, 1, 0).contiguous(),
+                                      hs_num, hs_den, **kw)
+            inner = pgd_fused_words_pre if self.use_kernels else pgd_fused_words_pre_plain
+            return inner(words, g_pre, hqt, hs_num, hs_den, **kw)
 
     # -- public API -------------------------------------------------------------
 
@@ -649,11 +664,13 @@ class DeviceSQP:
 
             def inner(words, x0_f, lanes):
                 hqt, g_pre, hs_num, hs_den = self._condense(x0_f, lanes)
-                g_r = g_pre[:, cols].contiguous()
-                if kernel:
-                    return _pgd_batched_h_cols_hqt(words, g_r, hqt, hs_num, hs_den, **kw)
-                return _pgd_batched_h_cols(words, g_r, hqt.permute(2, 1, 0), hs_num,
-                                           hs_den, **kw)
+                with span("pint.sqp.inner"):
+                    g_r = g_pre[:, cols].contiguous()
+                    if kernel:
+                        return _pgd_batched_h_cols_hqt(words, g_r, hqt, hs_num, hs_den,
+                                                       **kw)
+                    return _pgd_batched_h_cols(words, g_r, hqt.permute(2, 1, 0),
+                                               hs_num, hs_den, **kw)
 
             return inner
 

@@ -7,6 +7,14 @@ per tick and returns physical controls.  Every response is validated --
 states finite, controls inside the box -- and a failed row gets its warm
 state reset instead of poisoning later ticks.
 
+Each public ``solve`` is one ``pint.serve.solve`` range in a
+``torch.profiler`` trace, cut into ``pint.serve.in`` (states onto the
+device), the solver's own phases (``pint.sqp.*``, ``pint.crti.*``),
+``pint.serve.shift`` (the next warm state), ``pint.serve.wait`` (blocked
+until the device has drained and copied the controls back) and
+``pint.serve.out`` (validation and scaling); :class:`ServiceStats` keeps
+the host/wait split of every tick without a profiler.
+
 Route selection follows the device: on a CUDA device the LTI service runs
 the K2 kernel (:class:`~pint_tpu_torch.mpc.fused.FusedPGD`) and computes the
 linear term on the device; on the CPU it runs the word-space
@@ -29,6 +37,7 @@ from pint_tpu_torch.mpc.condensed import QuantizedQP
 from pint_tpu_torch.mpc.fused import FusedPGD
 from pint_tpu_torch.mpc.solver import FixedPointPGD
 from pint_tpu_torch.ops import kernels as K
+from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["ConstrainedRTIService", "MPCService", "RTIService", "ServiceStats",
            "CRTI_BUDGET_S", "LTI_BUDGET_S", "RTI_BUDGET_S"]
@@ -50,18 +59,43 @@ CRTI_BUDGET_S = 0.020
 class ServiceStats:
     """Per-service counters.  ``deadline_misses`` counts ticks whose
     end-to-end ``solve()`` latency exceeded ``deadline_s``; a miss is an
-    SLO violation, not an error."""
+    SLO violation, not an error.
+
+    ``enqueue_s`` and ``wait_s`` split the summed latencies of all ticks:
+    the host's time from each call's entry to the start of the controls'
+    copy back (validation, states onto the device, issuing the solver's
+    device work), and the time blocked in that copy, until the device has
+    drained.  A host-bound service has ``wait_s`` small beside
+    ``enqueue_s``; a device-bound one the reverse."""
 
     ticks: int = 0
     resets: int = 0
     last_latency_s: float = 0.0
     deadline_misses: int = 0
+    enqueue_s: float = 0.0
+    wait_s: float = 0.0
 
     def record_latency(self, seconds: float, deadline_s) -> None:
         self.last_latency_s = seconds
         self.ticks += 1
         if deadline_s is not None and seconds > deadline_s:
             self.deadline_misses += 1
+
+    def record_tick(self, t0: float, t1: float, t2: float, deadline_s) -> None:
+        """A tick that entered at ``t0``, began the copy back at ``t1`` and
+        had the controls at ``t2`` (``time.perf_counter()``)."""
+        self.enqueue_s += t1 - t0
+        self.wait_s += t2 - t1
+        self.record_latency(t2 - t0, deadline_s)
+
+
+def _states(x0_phys, batch: int) -> np.ndarray:
+    """A call's states as a (batch, n) float64 array; raises ValueError for
+    another batch."""
+    x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
+    if x0.shape[0] != batch:
+        raise ValueError(f"service built for batch {batch}, got {x0.shape[0]}")
+    return x0
 
 
 def _shift_plan(lanes: torch.Tensor, m: int, n_dec: int) -> torch.Tensor:
@@ -117,8 +151,9 @@ class MPCService:
         """Solve from the warm words; returns (words, next warm words,
         lanes (B, T))."""
         words = self._solver.solve_words(words, g_pre)
-        all_lanes = unpack_controls(words)
-        warm = _shift_plan(all_lanes, self.m, all_lanes.shape[-1])
+        with span("pint.serve.shift"):
+            all_lanes = unpack_controls(words)
+            warm = _shift_plan(all_lanes, self.m, all_lanes.shape[-1])
         return words, warm, all_lanes[:, : self.qqp.horizon]
 
     def _g_from_states(self, x0_f: torch.Tensor) -> torch.Tensor:
@@ -140,30 +175,31 @@ class MPCService:
     def solve(self, x0_phys: np.ndarray) -> np.ndarray:
         """One service tick: (batch, n) states -> (batch, T) physical
         controls.  Validates and self-heals the warm state."""
-        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
-        if x0.shape[0] != self.batch:
-            raise ValueError(
-                f"service built for batch {self.batch}, got {x0.shape[0]}"
-            )
-        t0 = time.perf_counter()
-        if self.g_on_device:
-            x0_t = torch.as_tensor(x0.astype(np.float32), device=self.device)
-            _, warm, lanes = self.tick_from_states(self._warm, x0_t)
-        else:
-            g_pre = torch.as_tensor(self.qqp.g_lane_fixed(x0), device=self.device)
+        with span("pint.serve.solve"):
+            t0 = time.perf_counter()
+            with span("pint.serve.in"):
+                x0 = _states(x0_phys, self.batch)
+                if self.g_on_device:
+                    x0_t = torch.as_tensor(x0.astype(np.float32), device=self.device)
+                    g_pre = self._g_from_states(x0_t)
+                else:
+                    g_pre = torch.as_tensor(self.qqp.g_lane_fixed(x0), device=self.device)
             _, warm, lanes = self._tick(self._warm, g_pre)
-        lanes_np = lanes.cpu().numpy()
-        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+            t1 = time.perf_counter()
+            with span("pint.serve.wait"):
+                lanes_np = lanes.cpu().numpy()
+            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
 
-        bad = ~np.isfinite(x0).all(axis=-1)
-        bad |= np.abs(lanes_np).max(axis=-1) > 127
-        if bad.any():
-            self.stats.resets += int(bad.sum())
-            keep = torch.as_tensor(~bad, device=self.device)[:, None]
-            warm = torch.where(keep, warm, self._zero)
-            lanes_np = np.where(bad[:, None], 0, lanes_np)
-        self._warm = warm
-        return lanes_np.astype(np.float64) * self.qqp.u_scale
+            with span("pint.serve.out"):
+                bad = ~np.isfinite(x0).all(axis=-1)
+                bad |= np.abs(lanes_np).max(axis=-1) > 127
+                if bad.any():
+                    self.stats.resets += int(bad.sum())
+                    keep = torch.as_tensor(~bad, device=self.device)[:, None]
+                    warm = torch.where(keep, warm, self._zero)
+                    lanes_np = np.where(bad[:, None], 0, lanes_np)
+                self._warm = warm
+                return lanes_np.astype(np.float64) * self.qqp.u_scale
 
     def reset(self) -> None:
         self._warm = self._zero
@@ -191,31 +227,33 @@ class RTIService:
     def _tick(self, words, x0_f):
         """Returns (next warm words, first controls (B, m) int32 lanes)."""
         words = self.sqp.solve_words(words, x0_f)
-        lanes = unpack_controls(words)
-        return _shift_plan(lanes, self.m, self.sqp.n_dec), lanes[:, : self.m]
+        with span("pint.serve.shift"):
+            lanes = unpack_controls(words)
+            return _shift_plan(lanes, self.m, self.sqp.n_dec), lanes[:, : self.m]
 
     def solve(self, x0_phys: np.ndarray) -> np.ndarray:
         """One tick: (batch, n) physical states -> (batch, m) physical first
         controls."""
-        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
-        if x0.shape[0] != self.batch:
-            raise ValueError(
-                f"service built for batch {self.batch}, got {x0.shape[0]}"
-            )
-        t0 = time.perf_counter()
-        x0_t = torch.as_tensor(x0.astype(np.float32), device=self.sqp.device)
-        warm, u0 = self._tick(self._warm, x0_t)
-        u0_np = u0.cpu().numpy()
-        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+        with span("pint.serve.solve"):
+            t0 = time.perf_counter()
+            with span("pint.serve.in"):
+                x0 = _states(x0_phys, self.batch)
+                x0_t = torch.as_tensor(x0.astype(np.float32), device=self.sqp.device)
+            warm, u0 = self._tick(self._warm, x0_t)
+            t1 = time.perf_counter()
+            with span("pint.serve.wait"):
+                u0_np = u0.cpu().numpy()
+            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
 
-        bad = ~np.isfinite(x0).all(axis=-1)
-        if bad.any():
-            self.stats.resets += int(bad.sum())
-            keep = torch.as_tensor(~bad, device=self.sqp.device)[:, None]
-            warm = torch.where(keep, warm, self._zero)
-            u0_np = np.where(bad[:, None], 0, u0_np)
-        self._warm = warm
-        return u0_np.astype(np.float64) * np.asarray(self.sqp._lane_scales)
+            with span("pint.serve.out"):
+                bad = ~np.isfinite(x0).all(axis=-1)
+                if bad.any():
+                    self.stats.resets += int(bad.sum())
+                    keep = torch.as_tensor(~bad, device=self.sqp.device)[:, None]
+                    warm = torch.where(keep, warm, self._zero)
+                    u0_np = np.where(bad[:, None], 0, u0_np)
+                self._warm = warm
+                return u0_np.astype(np.float64) * np.asarray(self.sqp._lane_scales)
 
     def reset(self) -> None:
         self._warm = self._zero
@@ -260,34 +298,37 @@ class ConstrainedRTIService:
         int32 lanes)."""
         csqp = self.csqp
         words, lam = csqp.solve_words(words, x0_f, lam)
-        lanes = unpack_controls(words)
-        warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
-        return warm, _shift_lam(lam, csqp._F.shape[0], csqp.n_rows), lanes[:, : self.m]
+        with span("pint.serve.shift"):
+            lanes = unpack_controls(words)
+            warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
+            return (warm, _shift_lam(lam, csqp._F.shape[0], csqp.n_rows),
+                    lanes[:, : self.m])
 
     def solve(self, x0_phys: np.ndarray) -> np.ndarray:
         """One tick: (batch, n) physical states -> (batch, m) physical first
         controls of the re-optimized constrained plans."""
-        x0 = np.atleast_2d(np.asarray(x0_phys, np.float64))
-        if x0.shape[0] != self.batch:
-            raise ValueError(
-                f"service built for batch {self.batch}, got {x0.shape[0]}"
-            )
-        t0 = time.perf_counter()
-        x0_t = torch.as_tensor(x0.astype(np.float32), device=self.csqp.device)
-        warm, warm_lam, u0 = self._tick(self._warm, self._warm_lam, x0_t)
-        u0_np = u0.cpu().numpy()
-        self.stats.record_latency(time.perf_counter() - t0, self.deadline_s)
+        with span("pint.serve.solve"):
+            t0 = time.perf_counter()
+            with span("pint.serve.in"):
+                x0 = _states(x0_phys, self.batch)
+                x0_t = torch.as_tensor(x0.astype(np.float32), device=self.csqp.device)
+            warm, warm_lam, u0 = self._tick(self._warm, self._warm_lam, x0_t)
+            t1 = time.perf_counter()
+            with span("pint.serve.wait"):
+                u0_np = u0.cpu().numpy()
+            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
 
-        bad = ~np.isfinite(x0).all(axis=-1)
-        if bad.any():
-            self.stats.resets += int(bad.sum())
-            keep = torch.as_tensor(~bad, device=self.csqp.device)[:, None]
-            warm = torch.where(keep, warm, self._zero)
-            warm_lam = torch.where(keep, warm_lam, self._zero_lam)
-            u0_np = np.where(bad[:, None], 0, u0_np)
-        self._warm = warm
-        self._warm_lam = warm_lam
-        return u0_np.astype(np.float64) * np.asarray(self.csqp.dev._lane_scales)
+            with span("pint.serve.out"):
+                bad = ~np.isfinite(x0).all(axis=-1)
+                if bad.any():
+                    self.stats.resets += int(bad.sum())
+                    keep = torch.as_tensor(~bad, device=self.csqp.device)[:, None]
+                    warm = torch.where(keep, warm, self._zero)
+                    warm_lam = torch.where(keep, warm_lam, self._zero_lam)
+                    u0_np = np.where(bad[:, None], 0, u0_np)
+                self._warm = warm
+                self._warm_lam = warm_lam
+                return u0_np.astype(np.float64) * np.asarray(self.csqp.dev._lane_scales)
 
     def reset(self) -> None:
         self._warm = self._zero

@@ -2,6 +2,8 @@
 
 * :func:`trace` -- context manager around ``torch.profiler``, writing a
   Chrome trace of the enclosed block (kernel names, device time, launches).
+* :func:`span` -- a named host range of the program's own (``pint.*``),
+  recorded whenever a ``torch.profiler`` session records.
 * :func:`op_word_costs` -- whole-word integer op counts of each packed op.
 * :func:`roofline_report` -- measured op rates against the memory and
   integer-ALU bounds.  Callers pass the card's own calibration (a raw-add
@@ -24,7 +26,10 @@ import torch
 from pint_tpu_torch.layout import PackedLayout
 
 __all__ = ["H100_SXM", "KernelCost", "bound_ms", "kernel_cost", "op_word_costs",
-           "roofline_report", "trace"]
+           "roofline_report", "span", "trace"]
+
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,6 +43,21 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def span(name: str):
+    """A context manager that marks the enclosed host work as ``name`` in
+    a ``torch.profiler`` trace: a host-only range on the profiler's clock,
+    the clock of the runtime calls that launch each device operation, so
+    operations and idle gaps can be placed inside it.  With no profiler
+    recording it costs well under a microsecond and records nothing.
+
+    It is ``_RecordFunctionFast``, a range of function scope that the
+    profiler does not draw again on the device; never ``record_function``,
+    whose user-scope range the device trace repeats as an annotation over
+    the whole span, which a reader of the device's busy time would count
+    as work.  Where torch lacks it, a shared null context."""
+    return _NULL if _RecordFunctionFast is None else _RecordFunctionFast(name)
 
 
 # Whole-word integer op counts per packed op (AND/OR/XOR/ADD/SUB/SHIFT all
