@@ -49,7 +49,10 @@ the phases siblings: :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP`'s
 ``pint.sqp.quantize`` and ``pint.sqp.inner``, and the constraints'
 ``pint.crti.stack`` (S, P, r), ``pint.crti.pen`` (K6 or the torch phases)
 and ``pint.crti.scale`` (the ALM's rationals, bounds, offsets and the
-multiplier rescale).
+multiplier rescale).  On a CUDA device
+:meth:`DeviceConstrainedSQP.solve_words` replays them as one CUDA graph a
+call shape from the shape's second call on, as ``DeviceSQP.solve_words``
+does.
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -84,6 +87,7 @@ from pint_tpu_torch.mpc.sqp_constrained import (
     _alm_batched_cols,
     _alm_batched_cols_hqt,
 )
+from pint_tpu_torch.utils.graphs import _Graphed
 from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["DeviceConstrainedSQP"]
@@ -443,9 +447,16 @@ class DeviceConstrainedSQP:
         x0_f (B, n) float32 physical states; u_words (B, Tm/4) int32 packed
         plan (warm start); lam (B, padded_rows) int32 multipliers (zeros
         when omitted).  Returns (words, lam) -- pass both back in for
-        warm-started receding-horizon use."""
+        warm-started receding-horizon use.  On a CUDA device the
+        iterations replay as one CUDA graph a call shape from the shape's
+        second call on (:mod:`pint_tpu_torch.utils.graphs`)."""
         x0_f, lam = self._x0_lam(u_words, x0_f, lam)
-        return self._iterate(u_words, x0_f, lam, lambda lanes: lanes, self._run_inner)
+        return self._graphed(u_words, x0_f, lam)
+
+    @functools.cached_property
+    def _graphed(self):
+        return _Graphed(lambda words, x0_f, lam: self._iterate(
+            words, x0_f, lam, lambda lanes: lanes, self._run_inner))
 
     @functools.cached_property
     def _sharded_cache(self) -> dict:

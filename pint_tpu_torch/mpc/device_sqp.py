@@ -41,7 +41,11 @@ Each phase of an iteration is a host range in a ``torch.profiler`` trace
 (:func:`~pint_tpu_torch.utils.profiling.span`), the phases siblings:
 ``pint.sqp.linearize``, ``pint.sqp.propagate``, ``pint.sqp.reduce``,
 ``pint.sqp.quantize`` (K3 or the torch phases, the linear term and the step
-rationals) and ``pint.sqp.inner``.
+rationals) and ``pint.sqp.inner``.  On a CUDA device
+:meth:`DeviceSQP.solve_words` replays its iterations as one CUDA graph a
+call shape from the shape's second call on, each replay a host range
+``pint.sqp.replay`` (:mod:`pint_tpu_torch.utils.graphs`); the phases' ranges
+then mark only the eager first call and the capture.
 
 The f32 contractions must run in full f32: on a CUDA device the solver
 refuses to run with ``torch.backends.cuda.matmul.allow_tf32`` set.
@@ -75,6 +79,7 @@ from pint_tpu_torch.mpc.ltv import (
     _pgd_batched_h_cols_hqt,
 )
 from pint_tpu_torch.ops import kernels as K
+from pint_tpu_torch.utils.graphs import _Graphed
 from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["DeviceSQP"]
@@ -625,9 +630,15 @@ class DeviceSQP:
 
     def solve_words(self, u_words: torch.Tensor, x0_f) -> torch.Tensor:
         """``sqp_iters`` SQP iterations.  u_words (B, Tm/4) int32 packed
-        plan (warm start); x0_f (B, n) physical states."""
-        return self._iterate(u_words, self._x0(x0_f), lambda lanes: lanes,
-                             self._run_inner)
+        plan (warm start); x0_f (B, n) physical states.  On a CUDA device
+        the iterations replay as one CUDA graph a call shape from the
+        shape's second call on (:mod:`pint_tpu_torch.utils.graphs`)."""
+        return self._graphed(u_words, self._x0(x0_f))
+
+    @functools.cached_property
+    def _graphed(self):
+        return _Graphed(lambda words, x0_f: self._iterate(
+            words, x0_f, lambda lanes: lanes, self._run_inner))
 
     @functools.cached_property
     def _sharded_cache(self) -> dict:

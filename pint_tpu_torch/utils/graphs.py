@@ -1,0 +1,118 @@
+"""One CUDA graph a call shape of a tensor function (private to the port).
+
+:class:`_Graphed` wraps ``fn(*tensors) -> tensor or tuple of tensors``, a
+function whose device work depends only on its inputs' shapes, and on a
+CUDA device replays it as one graph instead of issuing its operations one
+by one from Python.  What it does depends only on what it can see in the
+input:
+
+* a CPU tensor among the inputs: ``fn`` runs directly, always;
+* on a CUDA device, per key (each input's shape, dtype and device): the
+  first call runs ``fn`` eagerly, which is also the warm-up (libraries,
+  handles and cached constants are made there); the second captures ``fn``
+  into a ``torch.cuda.CUDAGraph`` over static copies of the inputs, in a
+  memory pool of its own, and replays it; every later call copies its
+  inputs into the static buffers (stream ordered) and replays.  Every call
+  returns outputs of its own (clones of the static outputs), so nothing
+  the caller keeps is overwritten by the next replay.  The last
+  :data:`_KEYS` keys are kept, the least recently used dropped first.
+
+A capture that fails raises: there is no fallback to the eager path.
+
+A replay launches the port's kernels that the capture recorded, so it adds
+their :func:`~pint_tpu_torch.ops.kernels.launch_counts` (the difference
+over the capture) each time.  Each replay is a host range
+``pint.sqp.replay`` (:func:`~pint_tpu_torch.utils.profiling.span`);
+``captures`` and ``replays`` count them on the wrapper.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import NamedTuple
+
+import torch
+
+from pint_tpu_torch.ops import kernels as K
+from pint_tpu_torch.utils.profiling import span
+
+_KEYS = 4
+"""Call shapes a wrapper keeps (eager-seen or captured)."""
+
+_CUDAGraph = torch.cuda.CUDAGraph
+_capture = torch.cuda.graph
+
+
+def _on_card(args) -> bool:
+    """Whether every input is on a CUDA device."""
+    return all(a.is_cuda for a in args)
+
+
+class _Entry(NamedTuple):
+    """A captured call: the graph, its static inputs and outputs, and the
+    kernel launches one replay makes."""
+
+    graph: object
+    static_in: tuple
+    static_out: object
+    counts: dict
+
+
+class _Graphed:
+    """``fn`` replayed as one CUDA graph a call shape (module docstring)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._keys = collections.OrderedDict()     # key -> _Entry, or None once seen
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, *args: torch.Tensor):
+        if not _on_card(args):
+            return self.fn(*args)
+        key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+        if key not in self._keys:
+            self._remember(key, None)
+            return self.fn(*args)
+        entry = self._keys[key]
+        if entry is None:
+            entry = self._capture(args)
+            self._remember(key, entry)
+            return self._replay(entry, args, count=False)
+        self._keys.move_to_end(key)
+        return self._replay(entry, args, count=True)
+
+    def _remember(self, key, entry) -> None:
+        self._keys[key] = entry
+        self._keys.move_to_end(key)
+        while len(self._keys) > _KEYS:
+            self._keys.popitem(last=False)
+
+    def _capture(self, args) -> _Entry:
+        """Capture ``fn`` over static buffers shaped as ``args`` (a capture
+        runs nothing; each replay copies its inputs in first); the launch
+        counts the capture adds stand for the replay that follows it."""
+        static_in = tuple(torch.empty_like(a) for a in args)
+        graph = _CUDAGraph()
+        before = K.launch_counts()
+        with _capture(graph):
+            out = self.fn(*static_in)
+        after = K.launch_counts()
+        self.captures += 1
+        counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        return _Entry(graph, static_in, out, counts)
+
+    def _replay(self, entry: _Entry, args, count: bool):
+        with span("pint.sqp.replay"):
+            for s, a in zip(entry.static_in, args):
+                s.copy_(a)
+            entry.graph.replay()
+            self.replays += 1
+            if count:
+                for name, n in entry.counts.items():
+                    for _ in range(n):
+                        K.count_launch(name)
+            out = entry.static_out
+            if isinstance(out, torch.Tensor):
+                return out.clone()
+            return tuple(o.clone() for o in out)
