@@ -17,18 +17,24 @@ input:
   the caller keeps is overwritten by the next replay.  The last
   :data:`_KEYS` keys are kept, the least recently used dropped first.
 
-A capture that fails raises: there is no fallback to the eager path.
+A capture that fails raises: there is no fallback to the eager path.  A
+graph destroyed while another captures (its ``reset`` frees memory, which
+capture forbids) invalidates that capture, so each capture first collects
+the cyclic garbage, where a dropped solver's graphs wait: a solver and its
+wrapper refer to each other.
 
 A replay launches the port's kernels that the capture recorded, so it adds
 their :func:`~pint_tpu_torch.ops.kernels.launch_counts` (the difference
-over the capture) each time.  Each replay is a host range
-``pint.sqp.replay`` (:func:`~pint_tpu_torch.utils.profiling.span`);
+over the capture) each time.  Each capture is a host range
+``pint.sqp.capture`` and each replay one ``pint.sqp.replay``
+(:func:`~pint_tpu_torch.utils.profiling.span`);
 ``captures`` and ``replays`` count them on the wrapper.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 from typing import NamedTuple
 
 import torch
@@ -95,8 +101,10 @@ class _Graphed:
         static_in = tuple(torch.empty_like(a) for a in args)
         graph = _CUDAGraph()
         before = K.launch_counts()
-        with _capture(graph):
-            out = self.fn(*static_in)
+        with span("pint.sqp.capture"):
+            gc.collect()        # no graph of cyclic garbage is destroyed inside the capture
+            with _capture(graph):
+                out = self.fn(*static_in)
         after = K.launch_counts()
         self.captures += 1
         counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}

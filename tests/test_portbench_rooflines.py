@@ -1,0 +1,144 @@
+"""Each kernel entry's share of its roofline (``portbench/layers/
+lipq_roofline.py``, ``pen_roofline.py``, ``alm_roofline.py``) and the
+helper they read the sources with (``portbench/entries.py``), on
+hand-built ``trace.Summary`` slices: the share is the bound of the kind's
+work for that entry over the device ms a tick of the kernels its file
+declares, and nothing is read where the slice cannot tell that time apart.
+This file imports neither jax nor pint_tpu."""
+
+import re
+import types
+from pathlib import Path
+
+import pytest
+
+from portbench import costs, entries, run, trace
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "pint_tpu_torch" / "csrc"
+ENTRIES = ("lipq", "pen", "alm")
+TICKS = [(0, 10_000), (20_000, 30_000)]
+
+# the names as the profiler gives them, one (start, end) a tick of each
+KERNELS = {
+    "crti_t128-fleet4096": {
+        "lipq": ("void lipq_long_kernel<64>(float const*, signed char*, float*, float*)",
+                 (100, 1655)),
+        "pen": ("void (anonymous namespace)::pen_wide_kernel(PenArgs)", (2000, 4527)),
+        "alm": ("void (anonymous namespace)::alm_wide_kernel<signed char, 4>(WideArgs<signed "
+                "char>)", (5000, 9060)),
+    },
+    "crti_t32-fleet16384": {
+        "lipq": ("void lipq_reg_kernel<1>(CUtensorMap_st, signed char*, float*, float*, int)",
+                 (100, 434)),
+        "pen": ("void (anonymous namespace)::pen_reg_kernel(CUtensorMap_st, PenArgs)",
+                (500, 793)),
+        "alm": ("void (anonymous namespace)::alm_reg_kernel<2>(int const*, int const*)",
+                (900, 1786)),
+    },
+}
+
+
+def _slice(cell, calls, drop=()):
+    """Two ticks of the cell's kernels (those of ``drop`` left out), a
+    torch operation beside them, the kernel entries ``calls`` a tick."""
+    ops = []
+    for a, _ in TICKS:
+        ops.append(trace.DeviceOp("void at::native::elementwise_kernel<128, 2>()", a, a + 90,
+                                  "solver", False))
+        for entry, (name, (s, e)) in KERNELS[cell].items():
+            if entry not in drop:
+                ops.append(trace.DeviceOp(name, a + s, a + e, "solver", True))
+    return trace.Summary(TICKS, 0, TICKS[-1][1], ops, [], 0, 0, calls=dict(calls))
+
+
+def _bound_ms(cell, entry):
+    shape = dict(cell.kind.work(cell.config, cell.traffic["batch"]))[entry]
+    return costs.bound_ms(costs.kernel_cost(entry, **shape))[0]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("workload", list(KERNELS))
+def test_the_share_is_the_bound_over_the_entrys_device_ms(workload, entry):
+    cell = run.load_cell(ROOT, workload)
+    got = run.reader(ROOT, f"{entry}_roofline")(_slice(workload, cell.kind.LAUNCHES), cell)
+    s, e = KERNELS[workload][entry][1]
+    assert got == pytest.approx(100.0 * _bound_ms(cell, entry) / ((e - s) / 1e6))
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("calls", [
+    {"lipq": 1.0, "pen": 1.0},                          # K5's work ran elsewhere
+    {"lipq": 1.0, "pen": 1.0, "alm": 2.0},              # twice the work a tick
+    {},
+])
+def test_nothing_is_read_unless_the_entries_called_are_the_kinds(entry, calls):
+    cell = run.load_cell(ROOT, "crti_t128-fleet4096")
+    assert run.reader(ROOT, f"{entry}_roofline")(_slice("crti_t128-fleet4096", calls),
+                                                 cell) is None
+
+
+def _kind(launches):
+    """A kind whose tick calls ``launches``, with the crti kind's work and a
+    K4 at the same lanes."""
+    crti = run.load_cell(ROOT, "crti_t128-fleet4096").kind
+
+    def work(config, batch):
+        return crti.work(config, batch) + [
+            ("pgd_hqt", dict(B=batch, Tp=256, iters=30, words=True))]
+
+    return types.SimpleNamespace(LAUNCHES=launches, work=work)
+
+
+def test_nothing_is_read_where_another_called_entry_shares_the_file():
+    """K4 past 64 lanes runs ``alm.cu``'s cluster kernel (``pint_pgd_wide``):
+    where a tick calls both, ``alm.cu``'s kernel time is not K5's alone."""
+    cell = run.load_cell(ROOT, "crti_t128-fleet4096")
+    launches = {"lipq": 1, "pen": 1, "alm": 1, "pgd_hqt": 1}
+    cell.kind = _kind(launches)
+    summary = _slice("crti_t128-fleet4096", launches)
+    assert run.reader(ROOT, "alm_roofline")(summary, cell) is None
+    for entry in ("lipq", "pen"):              # their files are their own
+        s, e = KERNELS["crti_t128-fleet4096"][entry][1]
+        assert run.reader(ROOT, f"{entry}_roofline")(summary, cell) == pytest.approx(
+            100.0 * _bound_ms(cell, entry) / ((e - s) / 1e6))
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_nothing_is_read_beside_an_entry_not_in_the_sources(entry):
+    cell = run.load_cell(ROOT, "crti_t128-fleet4096")
+    launches = {"lipq": 1, "pen": 1, "alm": 1, "no_such_entry": 1}
+    cell.kind = _kind(launches)
+    assert run.reader(ROOT, f"{entry}_roofline")(
+        _slice("crti_t128-fleet4096", launches), cell) is None
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_nothing_is_read_where_none_of_the_entrys_kernels_ran(entry):
+    cell = run.load_cell(ROOT, "crti_t128-fleet4096")
+    summary = _slice("crti_t128-fleet4096", cell.kind.LAUNCHES, drop=(entry,))
+    assert run.reader(ROOT, f"{entry}_roofline")(summary, cell) is None
+
+
+@pytest.mark.parametrize("source", ["lipq.cu", "pen.cu", "alm.cu"])
+def test_every_kernel_of_the_sources_is_mapped_to_its_file(source):
+    mapped = entries.kernel_files(CSRC)
+    assert set(mapped) == set(trace.port_kernels(CSRC))
+    mine = {k for k, f in mapped.items() if f == source}
+    text = (CSRC / source).read_text()
+    assert len(mine) == len(re.findall(r"__global__\s+void", text))
+    assert all(re.search(rf"\b{k}\b", text) for k in mine)
+
+
+@pytest.mark.parametrize("entry, files", [
+    ("lipq", {"lipq.cu"}),
+    ("pen", {"pen.cu"}),
+    ("alm", {"alm.cu"}),
+    ("alm_shared", {"alm.cu"}),
+    ("pgd_hqt", {"pgd_hqt.cu", "alm.cu"}),        # past 64 lanes, pint_pgd_wide
+    ("fused_pgd_packed", {"fused_pgd.cu"}),
+    ("swar_binop_pair", {"swar.cu"}),
+    ("no_such_entry", None),
+])
+def test_an_entry_runs_the_kernels_of_the_files_it_calls_into(entry, files):
+    assert entries.files(entry, CSRC) == (None if files is None else frozenset(files))

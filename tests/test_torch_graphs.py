@@ -8,7 +8,9 @@ benchmark's T 32 configurations at B 4096 over six warm-started ticks, the
 first eager and the rest replays: words and multipliers bit-identical to the
 eager iteration tick by tick, the same kernel launches, and a profiled
 replay that holds the eager tick's kernels, each placed by the graph's
-launch.
+launch; the same at ``crti_t128``'s T 128 (Tm 256, C 128), where every
+stage takes its long form: K3's ``lipq_long_kernel``, K6's and K5's cluster
+kernels ``pen_wide_kernel`` and ``alm_wide_kernel``.
 
 This file imports neither jax nor pint_tpu, so the card tests run on a
 machine without JAX:
@@ -18,7 +20,9 @@ machine without JAX:
 
 import collections
 import contextlib
+import gc
 import itertools
+import re
 
 from pathlib import Path
 
@@ -215,6 +219,50 @@ def test_a_capture_that_fails_raises(card):
     assert w.captures == 0 and w.replays == 0
 
 
+def test_a_graph_in_cyclic_garbage_is_not_destroyed_inside_a_capture(card, monkeypatch):
+    """A solver dropped in a reference cycle (a solver and its wrapper refer
+    to each other) keeps its graph until the cyclic collector runs; on the
+    card a graph destroyed while another captures invalidates that capture.
+    A collection the capture's own allocations set off is stood in for by
+    one the captured function makes; the automatic collector is off, so
+    only the wrapper's own collection can come first."""
+    destroyed = []
+
+    class _Held(_Graph):
+        def __del__(self):
+            destroyed.append(_Graph.recording is not None)
+
+    monkeypatch.setattr(graphs, "_CUDAGraph", _Held)
+
+    def collecting():
+        inner = _fn(False)
+
+        def fn(x, y):
+            if _Graph.recording is not None:
+                gc.collect()
+            return inner(x, y)
+
+        return fn
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        holder = {"w": graphs._Graphed(collecting())}
+        holder["self"] = holder
+        for i in range(2):
+            holder["w"](*_ins(8, i))
+        assert holder["w"].captures == 1
+        del holder
+        w = graphs._Graphed(collecting())
+        for i in range(2):
+            w(*_ins(8, i))
+    finally:
+        if was:
+            gc.enable()
+    assert w.captures == 1
+    assert destroyed == [False]
+
+
 def _share_of(w, ticks):
     """``solver_replay_share`` read from a CPU profile of ``ticks`` calls
     of ``w``, traced as ``portbench/run.py`` traces its ticks."""
@@ -280,8 +328,15 @@ SQP_CELLS = {
                  Q=np.diag([1.0, 1.0, 0.02]), R=np.diag([0.02, 0.02]), qf_scale=20.0,
                  x_ref=np.array([1.0, 0.0, 0.0])),
 }
-"""The benchmark's ``rti_t32`` and ``crti_t32`` configurations."""
-STATES = {"rti": (0.0, 1.0), "crti": (-np.pi, np.pi)}
+SQP_CELLS["crti_t128"] = dict(SQP_CELLS["crti"], horizon=128)
+"""The benchmark's ``rti_t32``, ``crti_t32`` and ``crti_t128`` configurations."""
+STATES = {"rti": (0.0, 1.0), "crti": (-np.pi, np.pi), "crti_t128": (-np.pi, np.pi)}
+KINDS = ["rti", "crti", "crti_t128"]
+PORT_KERNELS = {"rti": {"lipq_reg_kernel", "pgd_hqt_kernel"},
+                "crti": {"lipq_reg_kernel", "pen_reg_kernel", "alm_reg_kernel"},
+                "crti_t128": {"lipq_long_kernel", "pen_wide_kernel", "alm_wide_kernel"}}
+"""The port's kernels a tick of each configuration runs: the register
+designs at T 32, the long designs past 64 lanes."""
 B_CARD = 4096
 TICKS = 6
 
@@ -323,7 +378,7 @@ def _ticks(kind, solver, device, B=B_CARD):
         yield tuple(state)
         out = _graphed(kind, solver, state)
         state[0] = torch.roll(out[0], -1, dims=1)
-        if kind == "crti":
+        if kind != "rti":
             state[2] = torch.roll(out[1], -1, dims=1)
 
 
@@ -336,11 +391,11 @@ def _counts_of(call):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rti", "crti"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_replays_are_bit_identical_to_the_eager_iteration(cuda, kind):
     solver = _solver(kind, cuda)
-    want_launches = {"rti": {"lipq": 1, "pgd_hqt": 1},
-                     "crti": {"lipq": 1, "pen": 1, "alm": 1}}[kind]
+    want_launches = ({"lipq": 1, "pgd_hqt": 1} if kind == "rti"
+                     else {"lipq": 1, "pen": 1, "alm": 1})
     state = [solver.init_words(B_CARD), None,
              *(() if kind == "rti" else (solver.init_lam(B_CARD),))]
     for i in range(TICKS):
@@ -351,7 +406,7 @@ def test_replays_are_bit_identical_to_the_eager_iteration(cuda, kind):
         for g, w in zip(got, want, strict=True):
             assert torch.equal(g, w), f"tick {i}"
         state[0] = torch.roll(got[0], -1, dims=1)
-        if kind == "crti":
+        if kind != "rti":
             state[2] = torch.roll(got[1], -1, dims=1)
     assert solver._graphed.captures == 1 and solver._graphed.replays == TICKS - 1
 
@@ -377,11 +432,14 @@ def _device_kernels(call):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rti", "crti"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_a_profiled_replay_holds_the_eager_kernels(cuda, kind):
     """Profiled after the graph was made, as the benchmark's traced slice
     is: a replay's kernels appear one by one, the eager tick's names and
-    number, each carrying the graph launch's correlation id."""
+    number, each carrying the graph launch's correlation id; of the port's
+    own kernels, the designs of the configuration's shapes and no other."""
+    from portbench import trace
+
     solver = _solver(kind, cuda)
     states = list(itertools.islice(_ticks(kind, solver, cuda), 3))   # eager, capture
     assert solver._graphed.captures == 1
@@ -390,6 +448,9 @@ def test_a_profiled_replay_holds_the_eager_kernels(cuda, kind):
     assert solver._graphed.replays == 2
     assert collections.Counter(replay) == collections.Counter(eager)
     assert launched_by and all(c and c.startswith("cudaGraphLaunch") for c in launched_by)
+    names = trace.port_kernels(ROOT / "pint_tpu_torch" / "csrc")
+    port = {n for k in replay for n in names if re.search(rf"\b{n}\b", k)}
+    assert port == PORT_KERNELS[kind]
 
 
 @pytest.mark.cuda
