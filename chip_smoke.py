@@ -13,8 +13,8 @@ Phases (any failure raises and the script exits non-zero):
 2. build: the kernels under pint_tpu_torch/csrc/ with nvcc, one process a
    source, and meanwhile the native host library with g++; from the
    build's -Xptxas -v report, the registers of every K2,
-   K2p, K3, K4, K5, K6, K7 and K10 kernel (none may spill) and any kernel
-   that spills;
+   K2p, K3, K4, K5, K6, K7, K10 and chain kernel (none may spill) and any
+   kernel that spills;
 3. substrate: the SWAR kernels K1 (binop), K9 (shift), K8 (saturating
    accumulate) and their u64 pair forms K11a-c, each against its plain
    PyTorch version on 1Mi full-range random words and against the per-lane
@@ -54,11 +54,12 @@ Phases (any failure raises and the script exits non-zero):
 8. MPCService: LTI double integrator, T = 50 (Tp = 64), batch 8192, 15 PGD
    iterations a tick, 10 ticks;
 9. RTIService: unicycle DeviceSQP, T = 32, batch 4096, 1 SQP x 30 PGD a
-   tick, 10 ticks: K3 and K4 once a tick, K4 on the packed words with no
-   unpack or pack around it;
+   tick, 10 ticks: the chain kernel, K3 and K4 once a tick, K4 on the
+   packed words with no unpack or pack around it;
 10. ConstrainedRTIService at phase 6's configuration, 1 SQP x (3 x 30 ALM)
-    a tick, 10 ticks: controls finite and in the box, K3, K6 and K5 once a
-    tick, tick p50/p99 and deadline misses against CRTI_BUDGET_S;
+    a tick, 10 ticks: controls finite and in the box, the chain kernel, K3,
+    K6 and K5 once a tick, tick p50/p99 and deadline misses against
+    CRTI_BUDGET_S;
 11. the flagship DeviceSQP solve, 4 SQP x 30 PGD, batch 4096, once through
     the kernels and once through the plain versions, held to cost parity
     (rtol 0.01, atol 1e-4);
@@ -156,16 +157,24 @@ Phases (any failure raises and the script exits non-zero):
     64, bit-identical, K2 launched in each solve; the flagship DeviceSQP
     (T 32, B 4096, 4 x 30) with fused=False (K3, then the word-space inner)
     bit-identical to fused=None (K3, then K4), K4 launched only by the
-    latter.
+    latter;
+29. the chain kernel (phase_chain, ``mpc/propagate.py``: the unicycle's
+    f32 rollout, linearization and propagator recursion in one launch) at
+    the benchmark's shapes, T = 32 at B = 4096 and 16384 and T = 128 at
+    B = 4096: Abar, Bbar and Cbar equal (``torch.equal``) to its plain
+    version on the card, and timed.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
 K7, phases 8-10 every serving kernel, phase 13 K2p, phase 15 K2-K6,
-phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels,
+phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels
+(the chain kernel once an SQP iteration of each unicycle solve),
 phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick,
 phase 21 K3 and K4 (K3, K6 and K5) in each solve, phase 24 K2 once a
 tick in both fused LTI loops (K2's launches in the kernels line add the
-MPCService ticks and these), and phase 28 K2 in each resumed solve and K3
+MPCService ticks and these), phases 9-10 the chain kernel once a tick
+(its count, ``propagate.launch_count()``, is kept beside
+``launch_counts()``), and phase 28 K2 in each resumed solve and K3
 (and K4 for fused=None) in each flagship solve.
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
@@ -200,7 +209,8 @@ N_CHECK, N_ORACLE = 1 << 20, 2048
 N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
 NO_SPILL_SOURCES = ("fused_pgd.cu", "lipq.cu", "pgd_hqt.cu", "alm.cu",  # operands in
-                    "pen.cu", "matvec_cols.cu")                # registers: K2-K7, K10
+                    "pen.cu", "matvec_cols.cu",                # registers: K2-K7, K10
+                    "propagate.cu")                            # and the chain kernel
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
@@ -971,7 +981,9 @@ def phase_rti(torch, P, K):
             wrapped[_n][1] += 1
             return wrapped[_n][0](*a, **k)
         setattr(fused_alm, name, counting)
-    before = K.launch_counts()
+    from pint_tpu_torch.mpc import propagate
+
+    before, chain = K.launch_counts(), propagate.launch_count()
     lat = []
     box = 127 * np.asarray(sqp.model.lane_scales) + 1e-12
     try:
@@ -985,15 +997,17 @@ def phase_rti(torch, P, K):
     finally:
         for name, (fn, _) in wrapped.items():
             setattr(fused_alm, name, fn)
-    after = K.launch_counts()
+    after, chain = K.launch_counts(), propagate.launch_count() - chain
     for k in ("lipq", "pgd_hqt"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"RTIService: {k} +{after[k] - before[k]}")
+    if chain != TICKS:
+        raise AssertionError(f"RTIService: the chain kernel +{chain}")
     if any(n for _, n in wrapped.values()):
         raise AssertionError(f"RTIService: unpack/pack around K4: {wrapped}")
     rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
-               deadline_misses=rti.stats.deadline_misses)
-    say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; K3 +{TICKS}, "
+               deadline_misses=rti.stats.deadline_misses, chain_launches=chain)
+    say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; chain +{chain}, K3 +{TICKS}, "
         f"K4 +{TICKS} on the words, no unpack or pack around it; tick p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms")
     return rec
 
@@ -1003,7 +1017,9 @@ def phase_crti(torch, P, K):
     svc = P.ConstrainedRTIService(csqp, batch=CON_BATCH)
     x0 = con_states(np.random.default_rng(0), CON_BATCH)
     box = 127 * np.asarray(csqp.dev.model.lane_scales) + 1e-12
-    before = K.launch_counts()
+    from pint_tpu_torch.mpc import propagate
+
+    before, chain = K.launch_counts(), propagate.launch_count()
     lat = []
     for _ in range(TICKS):
         u = svc.solve(x0)
@@ -1012,17 +1028,19 @@ def phase_crti(torch, P, K):
             raise AssertionError("ConstrainedRTIService: controls not finite / bad shape")
         if (np.abs(u) > box).any():
             raise AssertionError("ConstrainedRTIService: controls outside the box")
-    after = K.launch_counts()
+    after, chain = K.launch_counts(), propagate.launch_count() - chain
     for k in ("lipq", "pen", "alm"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"ConstrainedRTIService: {k} +{after[k] - before[k]}")
+    if chain != TICKS:
+        raise AssertionError(f"ConstrainedRTIService: the chain kernel +{chain}")
     if int(svc._warm_lam.abs().max()) == 0:
         raise AssertionError("ConstrainedRTIService: the corridor never bound")
     rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
                deadline_misses=svc.stats.deadline_misses,
-               budget_ms=P.serving.CRTI_BUDGET_S * 1e3)
-    say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; K3, "
-        f"K6, K5 +{TICKS} each; tick p50 {rec['p50_ms']:.3f} ms, p99 "
+               budget_ms=P.serving.CRTI_BUDGET_S * 1e3, chain_launches=chain)
+    say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; chain, "
+        f"K3, K6, K5 +{TICKS} each; tick p50 {rec['p50_ms']:.3f} ms, p99 "
         f"{rec['p99_ms']:.3f} ms; {rec['deadline_misses']} of {TICKS} over the "
         f"{rec['budget_ms']:.0f} ms budget")
     return rec
@@ -1214,6 +1232,7 @@ def phase_long(torch, P, K):
     condensation kernel, words and multipliers bit-identical to the plain
     versions', cost (and violation) parity."""
     from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc import propagate
 
     rec = {}
 
@@ -1255,6 +1274,7 @@ def phase_long(torch, P, K):
             ms = (time.perf_counter() - t0) * 1e3
             if which == "kernels":
                 counts = K.launch_counts()      # and ends here
+                chain = propagate.launch_count()
             words = res[0] if isinstance(res, tuple) else res
             if isinstance(res, tuple):
                 outs_lam[which] = res[1]
@@ -1268,6 +1288,9 @@ def phase_long(torch, P, K):
         for k in idle:
             if counts[k]:
                 raise AssertionError(f"long horizon {name}: {k} launched past its fit")
+        if chain != LONG_SQP:
+            raise AssertionError(f"long horizon {name}: the chain kernel +{chain}, not "
+                                 "once an SQP iteration")
         (wk, ck, msk, vk), (wp, cp, msp, vp) = out["kernels"], out["plain"]
         if not np.isfinite(ck).all():
             raise AssertionError(f"long horizon {name}: costs not finite")
@@ -1297,13 +1320,14 @@ def phase_long(torch, P, K):
         key = f"{name}_T{T}"
         rec[key] = dict(
             forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
-            launches={k: counts[k] for k in launched}, kernels_ms=msk, plain_ms=msp,
+            launches={k: counts[k] for k in launched}, chain_launches=chain,
+            kernels_ms=msk, plain_ms=msp,
             device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(names)
             / LONG_SQP, transpose_kernels=transposes, ht_copies=ht_copies,
             max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
             problems_differing=differ, mean_cost=float(ck.mean()))
         say(f"long horizon {name} T={T} B={B} {LONG_SQP} SQP: forms {kern.forms}; "
-            f"launches {rec[key]['launches']}; cost parity with the plain versions (max "
+            f"launches {rec[key]['launches']}, chain +{chain}; cost parity with the plain versions (max "
             f"rel diff {rec[key]['max_rel_cost_diff']:.3e}"
             f"{', violation parity' if vk is not None else ''}), {differ} problems differ "
             f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms; "
@@ -1417,6 +1441,46 @@ def phase_long_kernels(torch, P, timing):
     timed(f"pgd_hqt (K4) Tp={Tp}", lambda: (pgd_fused_words_pre(*wargs, **pk),),
           lambda: (pgd_fused_words_pre_plain(*wargs, **pk),), (("words", True),),
           dict(B=B, Tp=Tp, iters=30))
+    return rec
+
+
+CHAIN_SHAPES = ((32, 4096), (32, 16384), (128, 4096))   # (T, B): the benchmark's cells
+
+
+def phase_chain(torch, P, timing):
+    """The chain kernel at the benchmark's shapes: ``chain_fused`` against
+    ``chain_plain`` on the card, Abar, Bbar and Cbar ``torch.equal``; one
+    call between CUDA events, queued calls and the plain chain timed."""
+    from pint_tpu_torch.mpc.propagate import chain_fused, chain_plain
+
+    rec = {}
+    for T, B in CHAIN_SHAPES:
+        sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **dict(SQP_KW, horizon=T))
+        rng = np.random.default_rng(T + B)
+        x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
+        lanes = torch.as_tensor(rng.integers(-128, 128, (B, 2 * T), dtype=np.int32),
+                                device=DEVICE)
+
+        def fused(sqp=sqp, x0=x0, lanes=lanes):
+            return chain_fused(sqp, x0, lanes)
+
+        def plain(sqp=sqp, x0=x0, lanes=lanes):
+            return chain_plain(sqp, x0, lanes)
+
+        got, ref = fused(), plain()
+        for name, g, r in zip(("Abar", "Bbar", "Cbar"), got, ref, strict=True):
+            if not torch.equal(g, r):
+                raise AssertionError(f"chain kernel T={T} B={B}: {name} differs from the "
+                                     "plain chain")
+        del got, ref
+        key = f"T={T} B={B}"
+        rec[key] = dict(B=B, T=T, max_abs_err=0.0,
+                        ms=median(timing.cuda_ms(fused, reps=5)),
+                        queued_ms=median(timing.queued_ms(fused, calls=3, reps=3)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=3, warmup=1)))
+        say(f"chain kernel T={T} B={B}: Abar, Bbar, Cbar equal to the plain chain; "
+            f"{rec[key]['queued_ms']:.4f} ms queued, {rec[key]['ms']:.4f} ms one call, "
+            f"plain {rec[key]['plain_ms']:.2f} ms")
     return rec
 
 
@@ -2682,6 +2746,7 @@ def main():
     t5 = time.perf_counter()
     ckpt = phase_checkpoint(torch, P, K, timing)
     t6 = time.perf_counter()
+    chain = phase_chain(torch, P, timing)
     phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
                      swingup=t4 - t3, native=t5 - t4, checkpoint=t6 - t5)
     say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
@@ -2712,6 +2777,8 @@ def main():
         "power": "none: no PyTorch call runs a power iteration with an int8 quantization",
         "matvec": "none: PyTorch's batched products take no int8 slab with int32 lanes "
                   "on CUDA in one call",
+        "chain": "none: no PyTorch call runs a rollout, its linearization and the "
+                 "propagator recursion",
     }
     kernels = []
 
@@ -2815,6 +2882,20 @@ def main():
               wide_path[kernel], r,
               kernel_cost("fused_pgd" if kernel.startswith("fused_pgd") else kernel,
                           **shape), "loop")
+    serving_chain = rti["chain_launches"] + crti["chain_launches"]
+    long_chain = (long[f"device_sqp_T{LONG_T}"]["chain_launches"]
+                  + long[f"device_constrained_T{LONG_T}"]["chain_launches"])
+    for key, launches, paths in (
+            ("T=32 B=4096", serving_chain, "serving (RTIService, ConstrainedRTIService ticks)"),
+            ("T=32 B=16384", serving_chain, "serving at T=32 (the B=4096 ticks: the kernel "
+             "and its main path are the same at T=32, only the timed batch differs)"),
+            (f"T={LONG_T} B={LONG_BATCH}", long_chain, f"long horizon T={LONG_T} solves "
+             "(phase 17)")):
+        r = chain[key]
+        entry(f"propagate (chain, {key})", "pint_tpu_torch/csrc/propagate.cu",
+              "none: the reference's chain is XLA jnp (pint_tpu/mpc/device_sqp.py)",
+              launches, r, kernel_cost("propagate", B=r["B"], T=r["T"]), "chain")
+        kernels[-1]["launches_by_path"] = {paths: launches}
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
@@ -2825,7 +2906,7 @@ def main():
     say(json.dumps({"wide": wide, "rollouts": rollouts, "controller": controller,
                     "models": models, "forms": forms}))
     say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
-                    "swingup": swingup, "native": native, "checkpoint": ckpt,
+                    "swingup": swingup, "native": native, "checkpoint": ckpt, "chain": chain,
                     "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))

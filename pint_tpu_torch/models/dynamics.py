@@ -191,6 +191,12 @@ class Unicycle:
     v_shift: int = 8
     w_shift: int = 6
 
+    fused_chain = True
+    """Whether an SQP iteration's serial chain on this map (``rollout_f32``,
+    ``linearize_f32`` and the propagator recursion) has a kernel of its own,
+    :func:`~pint_tpu_torch.mpc.propagate.chain_fused`; a model without the
+    attribute has none."""
+
     def __post_init__(self):
         if not (0 <= self.v_shift <= 10):
             raise ValueError(

@@ -7,7 +7,8 @@ of problems at once:
 
 * the condensation of :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP`
   (f32 rollout + linearization, the propagator recursion in every
-  ``dev.propagate`` form, the contraction ``dev.reduce`` names);
+  ``dev.propagate`` form, for the unicycle all three in one kernel, then
+  the contraction ``dev.reduce`` names);
 * constraint-row stacking S = F Bbar, P = F Abar, r = F Cbar from the same
   propagator stacks, batch-last;
 * K3 (:func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) on the
@@ -164,7 +165,13 @@ class DeviceConstrainedSQP:
     @functools.cached_property
     def forms(self) -> dict:
         """The form each stage of an SQP iteration takes, chosen from the
-        shapes alone: ``condense`` is "lipq" (K3, or its plain version)
+        model and the shapes alone: ``chain`` is "fused" (rollout,
+        linearization and the recursion in one kernel,
+        :func:`~pint_tpu_torch.mpc.propagate.chain_fused`, or its plain
+        version) where ``dev``'s model has ``fused_chain`` (the
+        :class:`~pint_tpu_torch.models.dynamics.Unicycle`), since the
+        constraint rows run the recursion in every ``propagate`` form, else
+        "torch"; ``condense`` is "lipq" (K3, or its plain version)
         where ``lipq`` is not False and :func:`lipq_fits` takes Tm, else
         "torch"; ``constraints`` is "pen" (K6, or its plain version) where
         the condensation is "lipq" and :func:`pen_fits` takes (C, Tm), else
@@ -177,6 +184,7 @@ class DeviceConstrainedSQP:
         Tm, C, Cp = self.dev.n_dec, self.n_rows, self.padded_rows
         lipq = self.lipq is not False and lipq_fits(Tm)
         return dict(
+            chain="fused" if getattr(self.dev.model, "fused_chain", False) else "torch",
             condense="lipq" if lipq else "torch",
             constraints="pen" if lipq and pen_fits(C, Tm) else "torch",
             inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
@@ -295,13 +303,10 @@ class DeviceConstrainedSQP:
         C, Cp = self.n_rows, self.padded_rows
         c = self._consts
 
-        with span("pint.sqp.linearize"):
-            A_seq, B_lane, c_seq = d._linearize_phase(x0_f, lanes)
         # the constraint rows need the propagator stacks, so every
         # ``propagate`` form, "allpairs" too (the reference's allpairs takes
         # its scan here), runs the recursion
-        with span("pint.sqp.propagate"):
-            Abar, Bbar, Cbar = d._propagate_unrolled(A_seq, B_lane, c_seq)
+        Abar, Bbar, Cbar = d._stacks(x0_f, lanes, self.forms["chain"])
         with span("pint.sqp.reduce"):
             Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f)
         with span("pint.crti.stack"):

@@ -4,7 +4,10 @@ PyTorch port of ``pint_tpu/mpc/device_sqp.py`` (``DeviceSQP``), default path
 only.  Each SQP iteration, for a batch of problems at once:
 
 * nominal rollout + linearization with the model's float32 twins
-  (``rollout_f32``, ``linearize_f32``);
+  (``rollout_f32``, ``linearize_f32``); for the unicycle these and the
+  propagator recursion are one kernel
+  (:func:`~pint_tpu_torch.mpc.propagate.chain_fused`), which writes the
+  recursion's stacks bit for bit;
 * condensation: the propagator recursion (``propagate``: "unroll", the
   step-by-step recursion; "scan" and "auto", the same recursion (see
   :meth:`DeviceSQP._propagate_mode`); "allpairs", the closed form from
@@ -31,9 +34,10 @@ only.  Each SQP iteration, for a batch of problems at once:
 Each choice is made once, at construction, from the shapes
 (:attr:`DeviceSQP.forms`), as the reference's ``_use_lipq`` and
 ``_use_fused`` gates choose, so every horizon solves on the card.  On a
-CUDA device K3 and K4 are the hand-written kernels; on the CPU their plain
-PyTorch versions.  ``use_kernels=False`` runs the plain versions on any
-device: it is the reference the kernels are held to on the card.
+CUDA device the chain's kernel, K3 and K4 are the hand-written kernels; on
+the CPU their plain PyTorch versions.  ``use_kernels=False`` runs the plain
+versions on any device: it is the reference the kernels are held to on the
+card.
 :meth:`DeviceSQP.sharded_solve_words` runs the same iteration on a (dp, tp)
 process mesh; with tp > 1 its PGD inner is column-sharded over K10.
 
@@ -41,7 +45,8 @@ Each phase of an iteration is a host range in a ``torch.profiler`` trace
 (:func:`~pint_tpu_torch.utils.profiling.span`), the phases siblings:
 ``pint.sqp.linearize``, ``pint.sqp.propagate``, ``pint.sqp.reduce``,
 ``pint.sqp.quantize`` (K3 or the torch phases, the linear term and the step
-rationals) and ``pint.sqp.inner``.  On a CUDA device
+rationals) and ``pint.sqp.inner``; the chain's kernel is one launch inside
+``pint.sqp.propagate``.  On a CUDA device
 :meth:`DeviceSQP.solve_words` replays its iterations as one CUDA graph a
 call shape from the shape's second call on, each replay a host range
 ``pint.sqp.replay`` (:mod:`pint_tpu_torch.utils.graphs`); the phases' ranges
@@ -78,6 +83,7 @@ from pint_tpu_torch.mpc.ltv import (
     _pgd_batched_h_cols,
     _pgd_batched_h_cols_hqt,
 )
+from pint_tpu_torch.mpc.propagate import chain_fused, chain_plain
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils.graphs import _Graphed
 from pint_tpu_torch.utils.profiling import span
@@ -224,7 +230,13 @@ class DeviceSQP:
     @functools.cached_property
     def forms(self) -> dict:
         """The form each stage of an SQP iteration takes, chosen from the
-        shapes alone: ``condense`` is "lipq" (K3; its plain version with
+        model and the shapes alone: ``chain`` is "fused" (rollout,
+        linearization and the recursion in one kernel,
+        :func:`~pint_tpu_torch.mpc.propagate.chain_fused`, or its plain
+        version) where the model has ``fused_chain`` (the :class:`Unicycle`)
+        and the iteration runs the recursion (:meth:`_propagate_mode` "unroll"), else "torch"
+        (:meth:`_linearize_phase`, then the recursion or "allpairs");
+        ``condense`` is "lipq" (K3; its plain version with
         ``use_kernels=False`` or on the CPU) where ``lipq`` is not False and
         :func:`lipq_fits` takes ``n_dec``, else "torch"
         (:meth:`_lipschitz_phase` and :meth:`_quantize_phase`); ``inner`` is
@@ -235,6 +247,8 @@ class DeviceSQP:
         ``lipq_viable``; ``fused=True`` past K4's fit takes the word-space
         inner, as its ``_use_fused`` does past ``pgd_viable``."""
         return dict(
+            chain="fused" if getattr(self.model, "fused_chain", False)
+            and self._propagate_mode() == "unroll" else "torch",
             condense="lipq" if self.lipq is not False and lipq_fits(self.n_dec)
             else "torch",
             inner="pgd_hqt" if self.fused is not False and pgd_fits(self.n_dec)
@@ -294,11 +308,12 @@ class DeviceSQP:
     # -- condensation -----------------------------------------------------------
 
     def _linearize_phase(self, x0_f, lanes):
-        """f32 rollout + linearization around the lane plan.  Returns
-        (A_seq (B,T,n,n), B_lane (B,T,n,m) lane-scaled, c_seq (B,T,n))."""
-        T, m = self.horizon, self.n_ctrl
+        """f32 rollout + linearization around the lane plan ``lanes`` (B,
+        T m), T read from its width.  Returns (A_seq (B,T,n,n), B_lane
+        (B,T,n,m) lane-scaled, c_seq (B,T,n))."""
+        m = self.n_ctrl
         s = self._consts["s"]
-        u_phys = lanes.reshape(-1, T, m).to(torch.float32) * s
+        u_phys = lanes.reshape(lanes.shape[0], -1, m).to(torch.float32) * s
         traj = self.model.rollout_f32(x0_f, u_phys)
         n = traj.shape[-1]
         if np.asarray(self.Q).shape != (n, n):
@@ -318,12 +333,12 @@ class DeviceSQP:
         """The propagator recursion, unrolled over the horizon, batch first:
         P_k = A_k P_{k-1}, S_k = A_k S_{k-1} + [0..B_k..0], c_k = A_k
         c_{k-1} + c_k.  Returns (Abar (B,T,n,n), Bbar (B,T,n,Tm),
-        Cbar (B,T,n))."""
-        T, m = self.horizon, self.n_ctrl
-        Bn, _, n, _ = A_seq.shape
+        Cbar (B,T,n)), T and m read from the shapes."""
+        Bn, T, n, _ = A_seq.shape
+        m = B_lane.shape[-1]
         dev = A_seq.device
         P = torch.eye(n, dtype=torch.float32, device=dev).expand(Bn, n, n)
-        S = torch.zeros((Bn, n, self.n_dec), dtype=torch.float32, device=dev)
+        S = torch.zeros((Bn, n, T * m), dtype=torch.float32, device=dev)
         c = torch.zeros((Bn, n), dtype=torch.float32, device=dev)
         Ps, Ss, cs = [], [], []
         for k in range(T):
@@ -336,6 +351,15 @@ class DeviceSQP:
             Ss.append(S)
             cs.append(c)
         return torch.stack(Ps, 1), torch.stack(Ss, 1), torch.stack(cs, 1)
+
+    def _stacks(self, x0_f, lanes, chain):
+        """The propagator stacks (Abar, Bbar, Cbar) around the lane plan in
+        the form ``chain`` names (a solver's ``forms["chain"]``):
+        :func:`~pint_tpu_torch.mpc.propagate.chain_fused` where it is
+        "fused" and ``use_kernels`` holds, else its plain version,
+        :meth:`_linearize_phase` then :meth:`_propagate_unrolled`."""
+        fused = chain == "fused" and self.use_kernels
+        return (chain_fused if fused else chain_plain)(self, x0_f, lanes)
 
     def _condense_allpairs(self, A_seq, B_lane, c_seq, x0_f):
         """``propagate="allpairs"``: the closed-form condensation of the
@@ -497,15 +521,14 @@ class DeviceSQP:
     def _condense_ht(self, x0_f, lanes):
         """f32 linearize + condense in the configured ``propagate`` and
         ``reduce`` forms: (Ht (Tm, Tm, B), g (B, Tm))."""
-        with span("pint.sqp.linearize"):
-            A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
         if self._propagate_mode() == "allpairs":
+            with span("pint.sqp.linearize"):
+                A_seq, B_lane, c_seq = self._linearize_phase(x0_f, lanes)
             with span("pint.sqp.propagate"):
                 H, g = self._condense_allpairs(A_seq, B_lane, c_seq, x0_f)
             with span("pint.sqp.reduce"):
                 return self._hand_over(H), g
-        with span("pint.sqp.propagate"):
-            stacks = self._propagate_unrolled(A_seq, B_lane, c_seq)
+        stacks = self._stacks(x0_f, lanes, self.forms["chain"])
         with span("pint.sqp.reduce"):
             return self._reduce(*stacks, x0_f)
 

@@ -59,6 +59,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
@@ -88,6 +89,8 @@ _SIGNATURES = {
     # Tp, Cp, outer, inners, g_shift, y_shift, hs_num, hs_den, cs_num,
     # cs_den, eh_num, eh_den, el_num, el_den, stream
     "pint_alm_shared": [_P] * 11 + [_I] * 15 + [_P],
+    # lanes, x0, scales, abar, bbar, cbar, B, T, dt, stream
+    "pint_propagate": [_P] * 6 + [_I, _I, _F, _P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -119,17 +122,20 @@ words entry both count as ``pgd_hqt``), K10, K5 and K7 (``mpc/fused_alm.py``),
 K3 and K6 (``mpc/condense_fused.py``) and the SWAR kernels."""
 
 _counts = dict.fromkeys(KERNELS, 0)
+"""Launches since the last :func:`reset_launch_counts`, by name: those of
+:data:`KERNELS`, and of any other port kernel whose wrapper reads its own
+count (``mpc/propagate.py``'s chain kernel, "propagate")."""
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    _counts[name] += 1
+    _counts[name] = _counts.get(name, 0) + 1
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_counts)
+    """Launches of :data:`KERNELS` since the last :func:`reset_launch_counts`."""
+    return {k: _counts[k] for k in KERNELS}
 
 
 def reset_launch_counts() -> None:

@@ -24,8 +24,10 @@ the cyclic garbage, where a dropped solver's graphs wait: a solver and its
 wrapper refer to each other.
 
 A replay launches the port's kernels that the capture recorded, so it adds
-their :func:`~pint_tpu_torch.ops.kernels.launch_counts` (the difference
-over the capture) each time.  Each capture is a host range
+their launch counts (the difference over the capture of every name
+:func:`~pint_tpu_torch.ops.kernels.count_launch` counts, those of
+:func:`~pint_tpu_torch.ops.kernels.launch_counts` and the chain kernel's
+alike) each time.  Each capture is a host range
 ``pint.sqp.capture`` and each replay one ``pint.sqp.replay``
 (:func:`~pint_tpu_torch.utils.profiling.span`);
 ``captures`` and ``replays`` count them on the wrapper.
@@ -100,14 +102,14 @@ class _Graphed:
         counts the capture adds stand for the replay that follows it."""
         static_in = tuple(torch.empty_like(a) for a in args)
         graph = _CUDAGraph()
-        before = K.launch_counts()
+        before = dict(K._counts)
         with span("pint.sqp.capture"):
             gc.collect()        # no graph of cyclic garbage is destroyed inside the capture
             with _capture(graph):
                 out = self.fn(*static_in)
-        after = K.launch_counts()
+        after = dict(K._counts)
         self.captures += 1
-        counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        counts = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
         return _Entry(graph, static_in, out, counts)
 
     def _replay(self, entry: _Entry, args, count: bool):

@@ -176,7 +176,8 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
     ``lipq`` (K3): B, Tm, power_iters.  ``pgd_hqt`` (K4; ``words=True``
     for the words entry): B, Tp, iters.  ``alm`` (K5) and ``alm_shared``
     (K7): B, Tp, Cp, outer, inners.  ``pen`` (K6): B, C, Tm, power_iters.
-    ``pgd_matvec_cols`` (K10): B, K, rows.  ``swar``: layout, kind
+    ``pgd_matvec_cols`` (K10): B, K, rows.  ``propagate`` (the unicycle's
+    SQP chain, ``mpc/propagate.py``): B, T.  ``swar``: layout, kind
     ("binop", "shift", "sat_accum"), n, op, steps, pair."""
     s = shape
     if kernel == "swar":
@@ -212,6 +213,16 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
         B, Kc, rows = s["B"], s["K"], s["rows"]
         return KernelCost(Kc * rows * B + 4 * B * Kc + 4 * B * rows,
                           2 * Kc * rows * B, "int8")
+    if kernel == "propagate":
+        # Abar, Bbar, Cbar written (48 T + 12 T Tm bytes a problem), the
+        # int32 lanes and x0 read; the recursion's products and sums (18 a
+        # column a step: three rows of three, summed from +0.0) over the
+        # live columns of S_k and the four of P_k and c_k, the scalar
+        # rollout left out
+        B, T = s["B"], s["T"]
+        Tm = 2 * T
+        return KernelCost(B * (48 * T + 12 * T * Tm + 4 * Tm + 12),
+                          18 * (T * (T + 1) + 4 * T) * B, "f32")
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

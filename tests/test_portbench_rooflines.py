@@ -142,3 +142,48 @@ def test_every_kernel_of_the_sources_is_mapped_to_its_file(source):
 ])
 def test_an_entry_runs_the_kernels_of_the_files_it_calls_into(entry, files):
     assert entries.files(entry, CSRC) == (None if files is None else frozenset(files))
+
+
+# -- propagate_device_ms: the chain kernel's device ms a tick --------------------
+
+CHAIN = "void (anonymous namespace)::propagate_kernel<4>(int2 const*, float const*, float const*, float*, float*, float*, int, int, int, float)"
+
+
+def _chain_slice(where="solver", port=True, name=CHAIN):
+    """Two ticks, each with the chain kernel twice (100 + 50 ns, overlapping
+    by 10) and a torch operation beside it."""
+    ops = []
+    for a, _ in TICKS:
+        ops.append(trace.DeviceOp("void at::native::elementwise_kernel<128, 2>()", a, a + 90,
+                                  "solver", False))
+        ops.append(trace.DeviceOp(name, a + 100, a + 200, where, port))
+        ops.append(trace.DeviceOp(name, a + 190, a + 240, where, port))
+    return trace.Summary(TICKS, 0, TICKS[-1][1], ops, [], 0, 0)
+
+
+@pytest.mark.parametrize("workload", ["rti_t32-fleet4096", "crti_t128-fleet4096"])
+def test_propagate_device_ms_is_the_chain_kernels_union_a_tick(workload):
+    cell = run.load_cell(ROOT, workload)
+    assert "propagate_device_ms" in {m["name"] for m in cell.per_layer}
+    got = run.reader(ROOT, "propagate_device_ms")(_chain_slice(), cell)
+    assert got == pytest.approx(140 / 1e6)
+
+
+@pytest.mark.parametrize("kw", [dict(where="serve"), dict(port=False),
+                                dict(name="void lipq_reg_kernel<1>(CUtensorMap_st)")],
+                         ids=["outside-the-solver", "not-the-ports", "another-kernel"])
+def test_propagate_device_ms_reads_nothing_without_the_chain_kernel(kw):
+    cell = run.load_cell(ROOT, "crti_t32-fleet16384")
+    assert run.reader(ROOT, "propagate_device_ms")(_chain_slice(**kw), cell) is None
+
+
+def test_propagate_device_ms_reads_nothing_for_a_program_without_the_file(monkeypatch,
+                                                                          tmp_path):
+    """A program with no ``csrc/propagate.cu``, as the parent of the kernel
+    is, reads None rather than raising."""
+    for p in CSRC.glob("*.cu"):
+        if p.name != "propagate.cu":
+            (tmp_path / p.name).write_text(p.read_text())
+    monkeypatch.setattr(entries, "csrc", lambda: tmp_path)
+    cell = run.load_cell(ROOT, "rti_t32-fleet4096")
+    assert run.reader(ROOT, "propagate_device_ms")(_chain_slice(), cell) is None

@@ -56,7 +56,7 @@ def test_the_cell_loads_by_name():
         "serve_launches_per_tick", "solver_launches_per_tick", "condense_device_ms",
         "kernels_device_ms", "kernels_roofline", "device_idle_share", "serve_enqueue_ms",
         "serve_wait_ms", "solver_replay_share", "lipq_roofline", "pen_roofline",
-        "alm_roofline"}
+        "alm_roofline", "propagate_device_ms"}
     for m in cell.per_layer:
         assert callable(run.reader(ROOT, m["name"]))
         assert m["moves"] in {e["name"] for e in cell.end_to_end}
@@ -125,7 +125,7 @@ def test_the_work_is_the_shapes_the_solver_launches():
     B = 8
     csqp = cell.kind.solver(cell.kind.build(cell.config, B, "cpu"))
     assert (csqp.dev.n_dec, csqp.n_rows, csqp.padded_rows) == (256, 128, 128)
-    assert csqp.forms == dict(condense="lipq", constraints="pen", inner="alm")
+    assert csqp.forms == dict(chain="fused", condense="lipq", constraints="pen", inner="alm")
     rng = np.random.default_rng(0)
     box = cell.config["initial_states"]
     x0 = torch.as_tensor(rng.uniform(box["low"], box["high"], (B, 3)), dtype=torch.float32)

@@ -282,7 +282,7 @@ def test_quadrotor_device_matches_host_path(quad_pair):
 def test_quadrotor_regulates_and_is_deterministic(quad_pair):
     host, ref = quad_pair
     port = device_sqp_config(ref, device="cpu")
-    assert port.forms == dict(condense="lipq", inner="pgd_hqt")
+    assert port.forms == dict(chain="torch", condense="lipq", inner="pgd_hqt")
     w1, _ = port.solve(QUAD_X0)
     w2, _ = port.solve(QUAD_X0)
     assert torch.equal(w1, w2)

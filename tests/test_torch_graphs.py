@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
+from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP, propagate
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils import graphs
 
@@ -191,6 +191,23 @@ def test_replays_add_the_captured_kernel_launches_and_nothing_else(card):
     K.reset_launch_counts()
 
 
+def test_replays_add_the_chain_kernels_launches_apart(card):
+    """A replay adds the launches of the chain's kernel its capture
+    recorded, to ``propagate.launch_count()`` and not to
+    ``launch_counts()``."""
+    def fn(x, y):
+        K.count_launch("propagate")
+        return _compute(x, y)
+
+    w = graphs._Graphed(fn)
+    for i in range(4):
+        before, chain_before = K.launch_counts(), propagate.launch_count()
+        w(*_ins(8, i))
+        assert K.launch_counts() == before
+        assert propagate.launch_count() - chain_before == 1
+    assert w.captures == 1 and w.replays == 3
+
+
 @pytest.mark.parametrize("calls", [1, 2, 5])
 def test_on_the_cpu_fn_runs_directly(monkeypatch, calls):
     monkeypatch.setattr(graphs, "_CUDAGraph", None)      # never reached
@@ -332,11 +349,14 @@ SQP_CELLS["crti_t128"] = dict(SQP_CELLS["crti"], horizon=128)
 """The benchmark's ``rti_t32``, ``crti_t32`` and ``crti_t128`` configurations."""
 STATES = {"rti": (0.0, 1.0), "crti": (-np.pi, np.pi), "crti_t128": (-np.pi, np.pi)}
 KINDS = ["rti", "crti", "crti_t128"]
-PORT_KERNELS = {"rti": {"lipq_reg_kernel", "pgd_hqt_kernel"},
-                "crti": {"lipq_reg_kernel", "pen_reg_kernel", "alm_reg_kernel"},
-                "crti_t128": {"lipq_long_kernel", "pen_wide_kernel", "alm_wide_kernel"}}
-"""The port's kernels a tick of each configuration runs: the register
-designs at T 32, the long designs past 64 lanes."""
+PORT_KERNELS = {"rti": {"propagate_kernel", "lipq_reg_kernel", "pgd_hqt_kernel"},
+                "crti": {"propagate_kernel", "lipq_reg_kernel", "pen_reg_kernel",
+                         "alm_reg_kernel"},
+                "crti_t128": {"propagate_kernel", "lipq_long_kernel", "pen_wide_kernel",
+                              "alm_wide_kernel"}}
+"""The port's kernels a tick of each configuration runs: the unicycle's
+chain (rollout, linearization and recursion), then the register designs at
+T 32, the long designs past 64 lanes."""
 B_CARD = 4096
 TICKS = 6
 

@@ -207,7 +207,7 @@ def test_device_sqp_past_64_lanes_at_parity(horizon):
     as the torch form fed the same handoff."""
     ref = JDeviceSQP(propagate="scan", horizon=horizon, **dict(KW, sqp_iters=2))
     port = device_sqp_config(ref, device="cpu")
-    assert port.forms == dict(condense="lipq", inner="pgd_hqt")
+    assert port.forms == dict(chain="fused", condense="lipq", inner="pgd_hqt")
     x0 = _x0(3, horizon)
     w_ref, _ = ref.solve(x0)
     w, _ = port.solve(x0)
@@ -228,7 +228,7 @@ def test_device_constrained_past_64_lanes_at_parity(horizon):
     ref = JDeviceConstrainedSQP(JDeviceSQP(horizon=horizon, **CON_SQP), **CON)
     port = device_constrained_config(ref, device="cpu")
     d = port.dev
-    assert port.forms == dict(condense="lipq", constraints="pen", inner="alm")
+    assert port.forms == dict(chain="fused", condense="lipq", constraints="pen", inner="alm")
     x0 = np.stack([np.linspace(-0.1, 0.1, 3), np.linspace(-0.02, 0.02, 3),
                    np.linspace(-1, 1, 3)], -1).astype(np.float32)
     w_ref, lam_ref, _ = ref.solve(x0)

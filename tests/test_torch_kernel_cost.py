@@ -19,6 +19,9 @@ MAIN_PATH = [
     ("pgd_hqt", dict(B=4096, Tp=64, iters=30), 16.8 + 3.1, 1.007, 0.0060, "bytes"),
     ("pgd_hqt", dict(B=4096, Tp=64, iters=30, words=True), 16.8 + 1.6, 1.007, 0.0055,
      "bytes"),
+    ("propagate", dict(B=4096, T=32), 108.05, 0.0873, 0.03225, "bytes"),
+    ("propagate", dict(B=16384, T=32), 432.2, 0.349, 0.1290, "bytes"),
+    ("propagate", dict(B=4096, T=128), 1640.0, 1.2552, 0.4896, "bytes"),
 ]
 
 
