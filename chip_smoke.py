@@ -58,8 +58,7 @@ Phases (any failure raises and the script exits non-zero):
    packed words with no unpack or pack around it;
 10. ConstrainedRTIService at phase 6's configuration, 1 SQP x (3 x 30 ALM)
     a tick, 10 ticks: controls finite and in the box, the chain kernel, K3,
-    K6 and K5 once a tick, tick p50/p99 and deadline misses against
-    CRTI_BUDGET_S;
+    K6 and K5 once a tick, the multipliers nonzero (the corridor binds);
 11. the flagship DeviceSQP solve, 4 SQP x 30 PGD, batch 4096, once through
     the kernels and once through the plain versions, held to cost parity
     (rtol 0.01, atol 1e-4);
@@ -825,31 +824,12 @@ def phase_k2(torch, P, timing):
     return rec
 
 
-def device_kernels(torch, fn):
-    """(name, device µs) of each device operation that one call of ``fn``
-    runs, after a call to warm up (torch.profiler)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = []
-    for e in prof.key_averages():      # device time sits on the kernels' events
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            out += [(e.key, us / e.count)] * e.count
-    return out
-
-
 def profile_call(torch, fn):
     """One call of ``fn`` after a call to warm up, under torch.profiler:
     (device ms summed over the kernels it ran -- device events only, not
     the self device time the profiler also gives the operators that
-    launched them --, their names, the input shapes of its ``aten::copy_``
-    calls)."""
+    launched them --, (name, device ms) of each of those kernels, the input
+    shapes of its ``aten::copy_`` calls)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -857,11 +837,11 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.events() if e.device_type == cuda]
+    kern = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == cuda]
     copies = [e.input_shapes for e in prof.events()
               if e.device_type != cuda and e.name == "aten::copy_"]
-    return (sum(e.time_range.elapsed_us() for e in kern) / 1e3, [e.name for e in kern],
-            copies)
+    return sum(ms for _, ms in kern), kern, copies
 
 
 def phase_k3_k4(torch, P, K, timing):
@@ -903,8 +883,8 @@ def phase_k3_k4(torch, P, K, timing):
     same(torch, "K4 words vs unpack, pgd_hqt_plain, pack", got,
          pgd_fused_words_pre_plain(words, *args, **kw))
     same(torch, "K4 words vs lanes", got, pack_controls(out))
-    launched = [k for k, _ in device_kernels(
-        torch, lambda: pgd_fused_words_pre(words, *args, **kw))]
+    launched = [n for n, _ in profile_call(
+        torch, lambda: pgd_fused_words_pre(words, *args, **kw))[1]]
     if len(launched) != 1 or "pgd_hqt" not in launched[0]:
         raise AssertionError(f"K4 words entry ran {launched}, not one K4 launch")
     before = K.launch_counts()["pgd_hqt"]
@@ -984,12 +964,10 @@ def phase_rti(torch, P, K):
     from pint_tpu_torch.mpc import propagate
 
     before, chain = K.launch_counts(), propagate.launch_count()
-    lat = []
     box = 127 * np.asarray(sqp.model.lane_scales) + 1e-12
     try:
         for _ in range(TICKS):
             u = rti.solve(x0)
-            lat.append(rti.stats.last_latency_s * 1e3)
             if u.shape != (RTI_BATCH, 2) or not np.isfinite(u).all():
                 raise AssertionError("RTIService: controls not finite / bad shape")
             if (np.abs(u) > box).any():
@@ -1005,11 +983,9 @@ def phase_rti(torch, P, K):
         raise AssertionError(f"RTIService: the chain kernel +{chain}")
     if any(n for _, n in wrapped.values()):
         raise AssertionError(f"RTIService: unpack/pack around K4: {wrapped}")
-    rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
-               deadline_misses=rti.stats.deadline_misses, chain_launches=chain)
     say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; chain +{chain}, K3 +{TICKS}, "
-        f"K4 +{TICKS} on the words, no unpack or pack around it; tick p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms")
-    return rec
+        f"K4 +{TICKS} on the words, no unpack or pack around it")
+    return dict(ticks=TICKS, chain_launches=chain)
 
 
 def phase_crti(torch, P, K):
@@ -1020,10 +996,8 @@ def phase_crti(torch, P, K):
     from pint_tpu_torch.mpc import propagate
 
     before, chain = K.launch_counts(), propagate.launch_count()
-    lat = []
     for _ in range(TICKS):
         u = svc.solve(x0)
-        lat.append(svc.stats.last_latency_s * 1e3)
         if u.shape != (CON_BATCH, 2) or not np.isfinite(u).all():
             raise AssertionError("ConstrainedRTIService: controls not finite / bad shape")
         if (np.abs(u) > box).any():
@@ -1034,16 +1008,11 @@ def phase_crti(torch, P, K):
             raise AssertionError(f"ConstrainedRTIService: {k} +{after[k] - before[k]}")
     if chain != TICKS:
         raise AssertionError(f"ConstrainedRTIService: the chain kernel +{chain}")
-    if int(svc._warm_lam.abs().max()) == 0:
+    if int(svc._warm[1].abs().max()) == 0:
         raise AssertionError("ConstrainedRTIService: the corridor never bound")
-    rec = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99), ticks=TICKS,
-               deadline_misses=svc.stats.deadline_misses,
-               budget_ms=P.serving.CRTI_BUDGET_S * 1e3, chain_launches=chain)
     say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; chain, "
-        f"K3, K6, K5 +{TICKS} each; tick p50 {rec['p50_ms']:.3f} ms, p99 "
-        f"{rec['p99_ms']:.3f} ms; {rec['deadline_misses']} of {TICKS} over the "
-        f"{rec['budget_ms']:.0f} ms budget")
-    return rec
+        f"K3, K6, K5 +{TICKS} each; the corridor bound")
+    return dict(ticks=TICKS, chain_launches=chain)
 
 
 def phase_con_flagship(torch, P, timing):
@@ -1308,10 +1277,10 @@ def phase_long(torch, P, K):
                                      "plain versions'")
         # the handoff past 64 lanes: no batch-last copy of Ht (Tm, Tm, B) and
         # no K6 transpose kernel in the solve
-        dev_ms, names, copies = profile_call(torch, lambda: kern.solve_words(u0, x0_t))
+        dev_ms, kernels, copies = profile_call(torch, lambda: kern.solve_words(u0, x0_t))
         Tm = getattr(kern, "dev", kern).n_dec
         long = Tm > K.LONG_LANES
-        transposes = sum("pen_transpose" in n for n in names)
+        transposes = sum("pen_transpose" in n for n, _ in kernels)
         ht_copies = sum(1 for shapes in copies if [Tm, Tm, B] in shapes)
         if long and (transposes or ht_copies):
             raise AssertionError(f"long horizon {name} T={T}: {transposes} K6 transpose "
@@ -1322,7 +1291,7 @@ def phase_long(torch, P, K):
             forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
             launches={k: counts[k] for k in launched}, chain_launches=chain,
             kernels_ms=msk, plain_ms=msp,
-            device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(names)
+            device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(kernels)
             / LONG_SQP, transpose_kernels=transposes, ht_copies=ht_copies,
             max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
             problems_differing=differ, mean_cost=float(ck.mean()))
@@ -1642,8 +1611,7 @@ def phase_rollouts(torch, P, timing):
     if got.shape != (ROLL_BATCH, ROLL_H + 1, 2) or not torch.equal(got.cpu(), ref):
         raise AssertionError("rollouts: the card's rollout differs from the CPU's")
     ms = median(timing.host_ms(lambda: model.rollout_packed(s_d, w_d), reps=10))
-    dev_ms = sum(us for _, us in device_kernels(
-        torch, lambda: model.rollout_packed(s_d, w_d))) / 1e3
+    dev_ms = profile_call(torch, lambda: model.rollout_packed(s_d, w_d))[0]
     rec = dict(rollouts_per_s_b8192_h52=ROLL_BATCH / (ms / 1e3), host_ms=ms,
                device_ms=dev_ms, B=ROLL_BATCH, H=ROLL_H)
     say(f"rollouts DoubleIntegrator B={ROLL_BATCH} H={ROLL_H}: bit-identical to the "
@@ -1694,7 +1662,7 @@ def phase_controller(torch, P, K, timing):
     if not v_max < CTRL_VMAX + 0.01:
         raise AssertionError(f"controller: |v| reached {v_max}")
     tick_ms = median(timing.host_ms(lambda: ctrl.run(x_d, 5), reps=3)) / 5
-    dev_ms = sum(us for _, us in device_kernels(torch, lambda: ctrl.run(x_d, 5))) / 5e3
+    dev_ms = profile_call(torch, lambda: ctrl.run(x_d, 5))[0] / 5
     rec = dict(launches=launches, ticks=CTRL_TICKS, B=CTRL_BATCH,
                ticks_per_s=CTRL_TICKS / sec, tick_ms=tick_ms, device_ms_per_tick=dev_ms,
                max_abs_v=v_max)
@@ -1778,8 +1746,8 @@ def phase_models(torch, P, K, timing):
                                      "differ in bits from use_kernels=False")
             u0 = kern.init_words(MODEL_BATCH)
             ms = median(timing.host_ms(lambda: kern.solve_words(u0, x_d), reps=5))
-            r.update(host_ms=ms, device_ms=sum(us for _, us in device_kernels(
-                torch, lambda: kern.solve_words(u0, x_d))) / 1e3)
+            r.update(host_ms=ms, device_ms=profile_call(
+                torch, lambda: kern.solve_words(u0, x_d))[0])
             key = f"{name}_{kind}_T{d.horizon}"
             r[f"{key}_solves_per_s"] = MODEL_BATCH / (ms / 1e3)
             rec[key] = r
@@ -1816,7 +1784,7 @@ def phase_forms(torch, P):
         return out if isinstance(out, tuple) else (out,)
 
     def device_ms(solver, x_d):
-        return sum(us for _, us in device_kernels(torch, lambda: run(solver, x_d))) / 1e3
+        return profile_call(torch, lambda: run(solver, x_d))[0]
 
     rec = {"T32": {}, "crossover": {}}
     x0s = dict(device_sqp=rti_states(np.random.default_rng(5), B).astype(np.float32),
@@ -1900,11 +1868,11 @@ def phase_sqp_host(torch, P, timing):
     ops = sqp._condense_batch(x0, lanes)
     host_ms = (time.perf_counter() - t0) * 1e3
     Hq, g, num, den = (torch.as_tensor(a, device=DEVICE) for a in ops)
-    ev = device_kernels(torch, lambda: _pgd_batched_h(
+    dev_ms, ev, _ = profile_call(torch, lambda: _pgd_batched_h(
         w, g, Hq, num, den, iters=sqp.pgd_iters, g_shift=sqp.g_shift))
     rec["quantized_sqp"] = dict(
         B=B, checked_on_cpu=len(sub), sec=sec, solves_per_s=B / sec,
-        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=sum(u for _, u in ev) / 1e3,
+        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=dev_ms,
         inner_device_ops_per_iter=len(ev), mean_cost_first=float(costs[:, 0].mean()),
         mean_cost_last=float(costs[:, -1].mean()))
     say(f"QuantizedSQP B={B} T=32 6x40: words and cost histories bit-identical to the CPU "
@@ -1928,12 +1896,12 @@ def phase_sqp_host(torch, P, timing):
     names = ("g_pre", "Hq", "hs_num", "hs_den", "Sq", "cs_num", "cs_den", "c_off", "lo_pre",
              "hi_pre", "eh_num", "eh_den", "el_num", "el_den")
     t_ops = [torch.as_tensor(ops[k], device=DEVICE) for k in names]
-    ev = device_kernels(torch, lambda: _alm_batched(
+    dev_ms, ev, _ = profile_call(torch, lambda: _alm_batched(
         w, *t_ops, lam, outer=csqp.alm_outer, inners=csqp.sqp.pgd_iters,
         g_shift=csqp.sqp.g_shift, y_shift=_Y_SHIFT))
     rec["constrained_sqp"] = dict(
         B=B, checked_on_cpu=len(sub), sec=sec, solves_per_s=B / sec,
-        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=sum(u for _, u in ev) / 1e3,
+        host_condense_ms_per_iter=host_ms, inner_device_ms_per_iter=dev_ms,
         inner_device_ops_per_iter=len(ev), mean_violation=float(viol.mean()),
         max_violation=float(viol.max()), active_multipliers=int((lam != 0).any(-1).sum()))
     r = rec["constrained_sqp"]
@@ -1978,11 +1946,11 @@ def phase_lti_controllers(torch, P, K, timing):
     rng = np.random.default_rng(100)
 
     def k2_per_tick(ctl, x, ticks=5):
-        ev = device_kernels(torch, lambda: ctl.run(x, ticks))
+        ms, ev, _ = profile_call(torch, lambda: ctl.run(x, ticks))
         k2 = [n for n, _ in ev if "fused_pgd" in n]
         if len(k2) != ticks:
             raise AssertionError(f"profiler: {len(k2)} K2 launches in {ticks} ticks")
-        return sum(u for _, u in ev) / (ticks * 1e3), len(ev) / ticks
+        return ms / ticks, len(ev) / ticks
 
     def loop(ctl, x, ticks):
         """The fused closed loop, timed, with its K2 launches counted."""
@@ -2014,7 +1982,7 @@ def phase_lti_controllers(torch, P, K, timing):
     same(torch, "RecedingHorizonController states, card vs CPU", sf.cpu(), sc)
     same(torch, "RecedingHorizonController lanes, card vs CPU", lf.cpu(), lc)
     dev_f, ops_f = k2_per_tick(fused, x_d)
-    dev_u = sum(u for _, u in device_kernels(torch, lambda: rhc.run(x_d, 5))) / 5e3
+    dev_u = profile_call(torch, lambda: rhc.run(x_d, 5))[0] / 5
     ms_f = median(timing.host_ms(lambda: fused.run(x_d, 5), reps=3)) / 5
     ms_u = median(timing.host_ms(lambda: rhc.run(x_d, 5), reps=3)) / 5
     pos = np.abs(model.to_float(sc.numpy()[:, -1, 0]))
@@ -2067,7 +2035,7 @@ def phase_lti_controllers(torch, P, K, timing):
     same(torch, "hover LTIController states, fused vs word-space", sf, sw)
     same(torch, "hover LTIController lanes, fused vs word-space", lf, lw)
     dev_f, ops_f = k2_per_tick(fz, x_d)
-    dev_e = sum(u for _, u in device_kernels(torch, lambda: ef.run(x_d, 5))) / 5e3
+    dev_e = profile_call(torch, lambda: ef.run(x_d, 5))[0] / 5
     rec["quadrotor_hover"] = dict(
         B=HOVER_BATCH, ticks=HOVER_TICKS, Tp=qqp.padded, iters=HOVER_ITERS,
         checked_on_cpu=len(sub), k2_launches=HOVER_TICKS,
@@ -2129,11 +2097,11 @@ def phase_planners(torch, P, timing):
     lk, lc = cost(sd.cpu(), ad.cpu()).numpy(), cost(sc, ac).numpy()
     np.testing.assert_allclose(lk, lc, rtol=0.01, atol=1e-4)
     n_loop = int((sd.cpu() != sc).sum())
-    ev = device_kernels(torch, lambda: mppi.step(gen(9), w, s0.to(DEVICE), cost))
+    dev_ms, ev, _ = profile_call(torch, lambda: mppi.step(gen(9), w, s0.to(DEVICE), cost))
     rollouts = MPPI_BATCH * MPPI_K * MPPI_UPDATES
     rec["mppi"] = dict(B=MPPI_BATCH, K=MPPI_K, H=MPPI_H, updates=MPPI_UPDATES,
                        rollouts_per_s=rollouts / sec, plan_sec=sec,
-                       update_device_ms=sum(u for _, u in ev) / 1e3,
+                       update_device_ms=dev_ms,
                        update_device_ops=len(ev), plan_lanes_differing=n_plan,
                        closed_loop_ticks=MPPI_TICKS, closed_loop_state_values_differing=n_loop,
                        mean_plan_cost=float(ck.mean()), mean_loop_cost=float(lk.mean()))
@@ -2174,11 +2142,11 @@ def phase_planners(torch, P, timing):
     n_nl = int((unpack_controls(w.cpu()[sub]) != unpack_controls(wc)).sum())
     dist = np.linalg.norm(st.cpu().numpy()[:, -1, :2] * 2.0**-16 - g_nl, axis=-1)
     short = dataclasses.replace(nl, iters=NL_PROFILE_ITERS)
-    ev = device_kernels(torch, lambda: short.solve(x_d, nl_cost(g_nl)))
+    dev_ms, ev, _ = profile_call(torch, lambda: short.solve(x_d, nl_cost(g_nl)))
     rec["nonlinear"] = dict(B=NL_BATCH, H=NL_H, iters=NL_ITERS, sec=sec,
                             solves_per_s=NL_BATCH / sec, checked_on_cpu=len(sub),
                             lanes_differing=n_nl, lanes_checked=int(sub.size * 2 * NL_H),
-                            device_ms_per_iter=sum(u for _, u in ev) / (NL_PROFILE_ITERS * 1e3),
+                            device_ms_per_iter=dev_ms / NL_PROFILE_ITERS,
                             device_ops_per_iter=len(ev) / NL_PROFILE_ITERS,
                             mean_final_distance=float(dist.mean()))
     r = rec["nonlinear"]

@@ -113,9 +113,8 @@ def solve_record(timing, fn, B, reps):
     """Host ms and solves/s of ``fn`` (a solve of B problems) and the
     device time of one call."""
     ms = median(timing.host_ms(fn, reps=reps))
-    ops = CS.device_kernels(torch, fn)
-    return dict(ms=ms, solves_per_s=B / (ms / 1e3),
-                device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    dev_ms, kern, _ = CS.profile_call(torch, fn)
+    return dict(ms=ms, solves_per_s=B / (ms / 1e3), device_ms=dev_ms, operations=len(kern))
 
 
 def lti(P, timing):
@@ -159,10 +158,10 @@ def lti(P, timing):
     for _ in range(TICKS):
         svc.solve(x0)
         lat.append(svc.stats.last_latency_s * 1e3)
-    ops = CS.device_kernels(torch, lambda: svc.solve(x0))
+    dev_ms, kern, _ = CS.profile_call(torch, lambda: svc.solve(x0))
     rec["mpc_tick"] = dict(p50_ms=CS.pct(lat, 50), p99_ms=CS.pct(lat, 99), readings_ms=lat,
-                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops),
-                           k2_device_ms=sum(us for k, us in ops if "fused_pgd" in k) / 1e3)
+                           device_ms=dev_ms, operations=len(kern),
+                           k2_device_ms=sum(ms for k, ms in kern if "fused_pgd" in k))
     return rec
 
 
@@ -325,21 +324,16 @@ def long_solves(P, timing):
         x0 = torch.as_tensor(states(np.random.default_rng(11), B), dtype=torch.float32,
                              device="cuda")
         u0 = solver.init_words(B)
-        ops = CS.device_kernels(torch, lambda: solver.solve_words(u0, x0))
+        dev_ms, kern, copies = CS.profile_call(torch, lambda: solver.solve_words(u0, x0))
         by = {}
-        for key, us in ops:
-            by[key] = by.get(key, 0.0) + us / 1e3
+        for key, ms in kern:
+            by[key] = by.get(key, 0.0) + ms
         top = sorted(by.items(), key=lambda kv: -kv[1])[:10]
+        Tm = solver.n_dec if hasattr(solver, "n_dec") else solver.dev.n_dec
         rec[f"{name}_T{T}_iteration"] = dict(
-            device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops),
-            top_ms={k[:90]: ms for k, ms in top})
-        if hasattr(CS, "profile_call"):  # kernels only, and the copies' shapes
-            ms, names, copies = CS.profile_call(torch, lambda: solver.solve_words(u0, x0))
-            Tm = solver.n_dec if hasattr(solver, "n_dec") else solver.dev.n_dec
-            rec[f"{name}_T{T}_iteration"].update(
-                kernel_device_ms=ms, kernels=len(names),
-                transpose_kernels=sum("pen_transpose" in n for n in names),
-                ht_copies=sum(1 for sh in copies if [Tm, Tm, B] in sh))
+            device_ms=dev_ms, kernels=len(kern), top_ms={k[:90]: ms for k, ms in top},
+            transpose_kernels=sum("pen_transpose" in n for n, _ in kern),
+            ht_copies=sum(1 for sh in copies if [Tm, Tm, B] in sh))
         del solver, x0, u0
     return rec
 
@@ -411,9 +405,8 @@ def long_horizon(P, timing):
     for p in (0, 1, 4, 16):
         rec[f"k6_C128_Tm256_power_iters_{p}_queued_ms"] = queued(
             lambda: pen_fused(S_t, power_iters=p))
-    ops = CS.device_kernels(torch, lambda: pen_fused(S_t, power_iters=16))
-    rec["k6_C128_Tm256_transpose_device_ms"] = sum(
-        us for k, us in ops if "transpose" in k) / 1e3
+    kern = CS.profile_call(torch, lambda: pen_fused(S_t, power_iters=16))[1]
+    rec["k6_C128_Tm256_transpose_device_ms"] = sum(ms for k, ms in kern if "transpose" in k)
     del S_t
     for C, Tm in K6_SHAPES:  # the card tests' other K6 shapes, B = 1000
         S_t = torch.randn((C, Tm, 1000), device=dev)
@@ -539,10 +532,10 @@ def rehearsal_rank(rank, port, out, P):
             solve = solver.sharded_solve_words(mesh)
             w0 = shard(solver.init_words(B), mesh, ("dp", "tp"))
             xs = shard(x, mesh, ("dp", None))
-            ops = CS.device_kernels(torch, lambda: solve(w0, xs))
-            k10 = [us for key, us in ops if "matvec" in key]
-            rec[name] = dict(k10_launches=len(k10), k10_device_ms=sum(k10) / 1e3,
-                             device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+            dev_ms, kern, _ = CS.profile_call(torch, lambda: solve(w0, xs))
+            k10 = [ms for key, ms in kern if "matvec" in key]
+            rec[name] = dict(k10_launches=len(k10), k10_device_ms=sum(k10),
+                             device_ms=dev_ms, operations=len(kern))
     finally:
         import torch.distributed as dist
 
@@ -656,17 +649,14 @@ def main():
     for _ in range(TICKS):
         rti.solve(xr)
         lat.append(rti.stats.last_latency_s * 1e3)
-    ops = CS.device_kernels(torch, lambda: rti.solve(xr))
+    dev_ms, kern, _ = CS.profile_call(torch, lambda: rti.solve(xr))
     rec["rti_tick"] = dict(p50_ms=CS.pct(lat, 50), p99_ms=CS.pct(lat, 99), readings_ms=lat,
-                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+                           device_ms=dev_ms, operations=len(kern))
     flag = P.DeviceSQP(sqp_iters=4, device=dev, **CS.SQP_KW)
     xf = torch.as_tensor(CS.rti_states(np.random.default_rng(0), B).astype(np.float32),
                          device=dev)
     u0 = flag.init_words(B)
-    ms = median(timing.host_ms(lambda: flag.solve_words(u0, xf), reps=SOLVES))
-    ops = CS.device_kernels(torch, lambda: flag.solve_words(u0, xf))
-    rec["flagship"] = dict(ms=ms, solves_per_s=B / (ms / 1e3),
-                           device_ms=sum(us for _, us in ops) / 1e3, operations=len(ops))
+    rec["flagship"] = solve_record(timing, lambda: flag.solve_words(u0, xf), B, SOLVES)
     rec.update(lti(P, timing))
     rec.update(constrained(P, timing))
     rec.update(k6_k10(P, timing))

@@ -72,16 +72,20 @@ from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc.condense_fused import (
     INV_127,
     lipq_fits,
-    lipq_fused,
-    lipq_plain,
     pen_fits,
     pen_fused,
     pen_plain,
     true_div,
 )
 from pint_tpu_torch.mpc.constrained import RATIONALS, _C_BITS, _CX0_CAP, _LAM_CAP
-from pint_tpu_torch.mpc.device_sqp import DeviceSQP, _f32_to_i32, sharded_program
+from pint_tpu_torch.mpc.device_sqp import (
+    DeviceSQP,
+    _f32_to_i32,
+    _power_lipschitz,
+    sharded_program,
+)
 from pint_tpu_torch.mpc.fused_alm import alm_fits, alm_fused_words_pre, alm_hqt_plain
+from pint_tpu_torch.mpc.propagate import chain_form
 from pint_tpu_torch.mpc.sqp_constrained import (
     _Y_SHIFT,
     _alm_batched,
@@ -184,7 +188,7 @@ class DeviceConstrainedSQP:
         Tm, C, Cp = self.dev.n_dec, self.n_rows, self.padded_rows
         lipq = self.lipq is not False and lipq_fits(Tm)
         return dict(
-            chain="fused" if getattr(self.dev.model, "fused_chain", False) else "torch",
+            chain=chain_form(self.dev.model, True),
             condense="lipq" if lipq else "torch",
             constraints="pen" if lipq and pen_fits(C, Tm) else "torch",
             inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
@@ -263,16 +267,8 @@ class DeviceConstrainedSQP:
         _, Tm, B = S_t.shape
         Sb = S_t.permute(2, 0, 1).contiguous()                   # (B, C, Tm)
         SbT = Sb.transpose(1, 2)
-
-        def sts(v):                                              # (B, Tm, 1)
-            return torch.bmm(SbT, torch.bmm(Sb, v))
-
-        v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
-                       dtype=torch.float32, device=S_t.device)
-        for _ in range(self.dev.power_iters):
-            u = sts(v)
-            v = u / (torch.sqrt((u * u).sum(1, keepdim=True)) + 1e-30)
-        return (v * sts(v)).sum((1, 2)) * float(np.float32(1.05))
+        return _power_lipschitz(lambda v: torch.bmm(SbT, torch.bmm(Sb, v)), B, Tm,
+                                self.dev.power_iters, S_t.device)
 
     def _quantize_rows(self, S_t):
         """The constraint rows' int8 quantization from S_t (C, Tm, B): the
@@ -312,12 +308,11 @@ class DeviceConstrainedSQP:
         with span("pint.crti.stack"):
             S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
         rho = float(np.float32(self.rho))
-        kernels = d.use_kernels
         # the rows before the Hessian's step, which needs their pen_lip, so
         # that the Hessian's quantization is one phase
         with span("pint.crti.pen"):
             if self.forms["constraints"] == "pen":
-                pen = pen_fused if kernels else pen_plain
+                pen = pen_fused if d.use_kernels else pen_plain
                 sqc, sqj, pen_lip, s_scale, row_amp = pen(S_t, power_iters=d.power_iters)
             else:
                 pen_lip = self._pen_lipschitz(S_t)
@@ -325,19 +320,8 @@ class DeviceConstrainedSQP:
                 sqj = sqc.transpose(0, 1).contiguous()
             sqc, sqj = _pad_rows(sqc, 0, Cp), _pad_rows(sqj, 1, Cp)
         with span("pint.sqp.quantize"):
-            if self.forms["condense"] == "lipq":
-                lipq = lipq_fused if kernels else lipq_plain
-                hqt, lip, h_max = lipq(Ht, power_iters=d.power_iters)
-            else:
-                lip = d._lipschitz_phase(Ht)
-            lip_total = lip + rho * pen_lip
-            alpha = true_div(1.0, lip_total)                      # (B,)
-            if self.forms["condense"] == "lipq":
-                g_pre = d._g_pre_from(g, alpha)
-                # the reference's alpha * h_max / 127.0, as XLA compiles it
-                hs_num, hs_den = d._step_rationals(alpha * h_max * INV_127)
-            else:
-                hqt, g_pre, hs_num, hs_den = d._quantize_phase(Ht, g, lip_total)
+            (hqt, g_pre, hs_num, hs_den), alpha = d._quantize(
+                Ht, g, self.forms["condense"], rho * pen_lip)
 
         with span("pint.crti.scale"):
             c_unit = true_div(2.0 * (row_amp + c["b_amp"]), float(1 << _C_BITS))

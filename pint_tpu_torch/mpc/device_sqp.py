@@ -83,7 +83,7 @@ from pint_tpu_torch.mpc.ltv import (
     _pgd_batched_h_cols,
     _pgd_batched_h_cols_hqt,
 )
-from pint_tpu_torch.mpc.propagate import chain_fused, chain_plain
+from pint_tpu_torch.mpc.propagate import chain_form, chain_fused, chain_plain
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils.graphs import _Graphed
 from pint_tpu_torch.utils.profiling import span
@@ -169,6 +169,19 @@ def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _power_lipschitz(apply, B: int, Tm: int, iters: int, device) -> torch.Tensor:
+    """lambda_max per problem of the PSD operator ``apply`` ((B, Tm, 1) f32
+    vectors to the same) with the 1.05 safety factor: ``iters`` normalised
+    power steps from the constant unit vector, then the Rayleigh quotient,
+    each a batched f32 product.  Returns (B,) f32."""
+    v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
+                   dtype=torch.float32, device=device)
+    for _ in range(iters):
+        w = apply(v)
+        v = w / (torch.sqrt((w * w).sum(1, keepdim=True)) + 1e-30)
+    return (v * apply(v)).sum((1, 2)) * float(np.float32(1.05))
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceSQP:
     """SQP trajectory optimizer on packed int8 plans, on one device.
@@ -247,8 +260,7 @@ class DeviceSQP:
         ``lipq_viable``; ``fused=True`` past K4's fit takes the word-space
         inner, as its ``_use_fused`` does past ``pgd_viable``."""
         return dict(
-            chain="fused" if getattr(self.model, "fused_chain", False)
-            and self._propagate_mode() == "unroll" else "torch",
+            chain=chain_form(self.model, self._propagate_mode() == "unroll"),
             condense="lipq" if self.lipq is not False and lipq_fits(self.n_dec)
             else "torch",
             inner="pgd_hqt" if self.fused is not False and pgd_fits(self.n_dec)
@@ -494,10 +506,10 @@ class DeviceSQP:
         at every horizon.  "allpairs" is a different computation (its (H, g)
         differ from the recursion's in roundoff, within 1e-4 of max) and is
         taken only by name, as in the reference.  On one H100 80GB HBM3 at
-        700 W, ``chip_smoke.py``'s ``phase_forms`` timed it against the
-        recursion (device ms of one SQP iteration, B = 4096): slower from
-        T = 8 (2.42 against 1.62) to T = 40 (12.68 against 11.51), 5%
-        faster at T = 64 (23.10 against 24.40; PERF.md section 5)."""
+        700 W, ``chip_smoke.py``'s ``phase_forms`` times it against the
+        recursion (kernel device ms of one SQP iteration of the unicycle,
+        whose recursion is one kernel, B = 4096): slower at every T, from
+        T = 8 (1.209 against 0.299) to T = 64 (10.175 against 5.804)."""
         return "allpairs" if self.propagate == "allpairs" else "unroll"
 
     def _hand_over(self, Hb):
@@ -565,12 +577,8 @@ class DeviceSQP:
         roundoff.  Returns lip (B,)."""
         Tm, _, B = Ht.shape
         Hb = Ht.permute(2, 0, 1).contiguous()  # (B, k, j): a view past 64 rows
-        v = torch.full((B, Tm, 1), float(np.float32(1.0 / np.sqrt(Tm))),
-                       dtype=torch.float32, device=Ht.device)
-        for _ in range(self.power_iters):
-            w = torch.bmm(Hb, v)
-            v = w / (torch.sqrt((w * w).sum(1, keepdim=True)) + 1e-30)
-        return (v * torch.bmm(Hb, v)).sum((1, 2)) * float(np.float32(1.05))
+        return _power_lipschitz(lambda v: torch.bmm(Hb, v), B, Tm, self.power_iters,
+                                Ht.device)
 
     def _quantize_phase(self, Ht, g, lip):
         """int8 Hessian, int32 linear term and step rationals from Ht
@@ -596,21 +604,37 @@ class DeviceSQP:
         return ((hqt if long else hqt.contiguous()), self._g_pre_from(g, alpha),
                 hs_num, hs_den)
 
+    def _quantize(self, Ht, g, form, extra_lip=None):
+        """The quantization step of an SQP iteration from Ht (Tm, Tm, B)
+        and g (B, Tm), in the form ``form`` names (a solver's
+        ``forms["condense"]``): "lipq", K3 (its plain version with
+        ``use_kernels=False`` or on the CPU), or "torch",
+        :meth:`_lipschitz_phase` then :meth:`_quantize_phase`.
+        ``extra_lip`` (B,), where given, is added to lip before the step
+        ``alpha = 1 / lip``.  Returns ((hqt (Tm, Tm, B) int8 in the kernel
+        orientation, g_pre (B, Tm) int32, hs_num, hs_den (B,) int32), alpha
+        (B,) f32)."""
+        if form == "torch":
+            lip = self._lipschitz_phase(Ht)
+        else:
+            lipq = lipq_fused if self.use_kernels else lipq_plain
+            hqt, lip, h_max = lipq(Ht, power_iters=self.power_iters)
+        if extra_lip is not None:
+            lip = lip + extra_lip
+        alpha = true_div(1.0, lip)
+        if form == "torch":
+            return self._quantize_phase(Ht, g, lip), alpha
+        _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
+        return (hqt, self._g_pre_from(g, alpha), hs_num, hs_den), alpha
+
     def _condense(self, x0_f, lanes):
         """Condense and quantize in the form ``forms["condense"]`` names
-        (K3, or the torch phases): (hqt (Tm, Tm, B) int8 in the kernel
+        (:meth:`_quantize`): (hqt (Tm, Tm, B) int8 in the kernel
         orientation, g_pre (B, Tm) int32, hs_num, hs_den (B,) int32), the
         operands of either inner and of both sharded inners."""
         Ht, g = self._condense_ht(x0_f, lanes)
         with span("pint.sqp.quantize"):
-            if self.forms["condense"] == "torch":
-                return self._quantize_phase(Ht, g, self._lipschitz_phase(Ht))
-            lipq = lipq_fused if self.use_kernels else lipq_plain
-            hqt, lip, h_max = lipq(Ht, power_iters=self.power_iters)
-            alpha = true_div(1.0, lip)
-            g_pre = self._g_pre_from(g, alpha)
-            _, hs_num, hs_den = self._lipq_rationals(alpha, h_max)
-            return hqt, g_pre, hs_num, hs_den
+            return self._quantize(Ht, g, self.forms["condense"])[0]
 
     def _lipq_rationals(self, alpha, h_max):
         """(h_scale, hs_num, hs_den) from the step alpha and K3's h_max.

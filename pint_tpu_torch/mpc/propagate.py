@@ -9,7 +9,8 @@ runs the whole chain in one CUDA kernel (``csrc/propagate.cu``) that writes
 the same three stacks, bit for bit on the card for every problem whose
 state is finite (the kernel writes +0.0 where a problem with a NaN state
 has NaN in the columns no step has reached yet), and its plain version for
-CPU tensors.  The solvers choose it at construction (``forms["chain"]``).
+CPU tensors.  The solvers choose it at construction (``forms["chain"]``,
+from :func:`chain_form`).
 
 The kernel's launches are counted under "propagate" (:func:`launch_count`),
 beside and not among :func:`~pint_tpu_torch.ops.kernels.launch_counts`.
@@ -25,7 +26,7 @@ import torch
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils.profiling import span
 
-__all__ = ["chain_fused", "chain_plain", "launch_count"]
+__all__ = ["chain_form", "chain_fused", "chain_plain", "launch_count"]
 
 Stacks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -35,6 +36,14 @@ def launch_count() -> int:
     :func:`~pint_tpu_torch.ops.kernels.reset_launch_counts`, graph replays
     included."""
     return K._counts.get("propagate", 0)
+
+
+def chain_form(model, recursion: bool) -> str:
+    """The form of an SQP iteration's chain: "fused" (:func:`chain_fused`)
+    where ``model`` has the chain kernel (its ``fused_chain``, as
+    inherited) and the iteration runs the propagator recursion, else
+    "torch" (:func:`chain_plain`)."""
+    return "fused" if recursion and getattr(model, "fused_chain", False) else "torch"
 
 
 def chain_plain(sqp, x0_f: torch.Tensor, lanes: torch.Tensor) -> Stacks:
@@ -57,7 +66,7 @@ def chain_fused(sqp, x0_f: torch.Tensor, lanes: torch.Tensor) -> Stacks:
     :func:`chain_plain` returns them.  Kernel for CUDA tensors, plain
     version for CPU tensors."""
     model = sqp.model
-    if not getattr(model, "fused_chain", False):
+    if chain_form(model, True) != "fused":
         raise ValueError(f"chain_fused: {type(model).__name__} has no chain kernel")
     if lanes.dim() != 2 or lanes.shape[1] % 2 or lanes.dtype != torch.int32:
         raise ValueError(f"lanes must be (B, 2T) int32, got {tuple(lanes.shape)} {lanes.dtype}")

@@ -108,8 +108,65 @@ def _shift_plan(lanes: torch.Tensor, m: int, n_dec: int) -> torch.Tensor:
     return pack_controls(shifted)
 
 
-class MPCService:
-    """Warm-started batched LTI MPC serving endpoint."""
+class _Service:
+    """The tick the three services share.  A service passes its batch, its
+    deadline, its zero warm state (a tuple of tensors on its device, the
+    plan words first) and the scale of its output lanes, and supplies
+    ``_tick(*warm, inputs)``, which returns the next warm state and, last,
+    the output lanes; :meth:`_inputs` and :meth:`_bad_rows` where they
+    differ."""
+
+    def __init__(self, batch: int, deadline_s, zero: tuple, scale):
+        self.batch = batch
+        self.deadline_s = deadline_s
+        self.stats = ServiceStats()
+        self._zero = zero
+        self._warm = zero
+        self._scale = scale
+
+    def _inputs(self, x0: np.ndarray):
+        """The tick's input from the validated states: f32 on the device."""
+        return torch.as_tensor(x0.astype(np.float32), device=self._zero[0].device)
+
+    def _bad_rows(self, x0: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+        """Rows whose warm state is reset and whose output is zeroed: a
+        non-finite state."""
+        return ~np.isfinite(x0).all(axis=-1)
+
+    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
+        """One service tick: (batch, n) physical states -> physical
+        controls, the (batch, T) plans of :class:`MPCService`, the (batch,
+        m) first controls of the RTI services.  Validates and self-heals
+        the warm state."""
+        with span("pint.serve.solve"):
+            t0 = time.perf_counter()
+            with span("pint.serve.in"):
+                x0 = _states(x0_phys, self.batch)
+                inputs = self._inputs(x0)
+            *out, lanes = self._tick(*self._warm, inputs)
+            warm = out[len(out) - len(self._zero):]   # MPCService's words come first
+            t1 = time.perf_counter()
+            with span("pint.serve.wait"):
+                lanes_np = lanes.cpu().numpy()
+            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
+
+            with span("pint.serve.out"):
+                bad = self._bad_rows(x0, lanes_np)
+                if bad.any():
+                    self.stats.resets += int(bad.sum())
+                    keep = torch.as_tensor(~bad, device=self._zero[0].device)[:, None]
+                    warm = [torch.where(keep, w, z) for w, z in zip(warm, self._zero)]
+                    lanes_np = np.where(bad[:, None], 0, lanes_np)
+                self._warm = tuple(warm)
+                return lanes_np.astype(np.float64) * self._scale
+
+    def reset(self) -> None:
+        self._warm = self._zero
+
+
+class MPCService(_Service):
+    """Warm-started batched LTI MPC serving endpoint: each tick returns the
+    whole (batch, T) plan."""
 
     def __init__(
         self,
@@ -130,16 +187,13 @@ class MPCService:
         self.device = K.resolve_device(device)
         on_cuda = self.device.type == "cuda"
         self.qqp = qqp
-        self.batch = batch
         self.m = inputs_per_step
-        self.deadline_s = deadline_s
         self.g_on_device = on_cuda if g_on_device is None else g_on_device
         use_fused = on_cuda if use_fused is None else use_fused
         solver_cls = FusedPGD if use_fused else FixedPointPGD
         self._solver = solver_cls(qqp, iters=iters_per_tick, device=self.device)
-        self._zero = self._solver.init_words(batch)
-        self._warm = self._zero
-        self.stats = ServiceStats()
+        super().__init__(batch, deadline_s, (self._solver.init_words(batch),),
+                         qqp.u_scale)
         self._GT = torch.as_tensor(
             np.asarray(qqp.qp.G, np.float32).T.copy(), device=self.device
         )
@@ -172,40 +226,18 @@ class MPCService:
     def tick_from_states(self, words, x0_f):
         return self._tick(words, self._g_from_states(x0_f))
 
-    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
-        """One service tick: (batch, n) states -> (batch, T) physical
-        controls.  Validates and self-heals the warm state."""
-        with span("pint.serve.solve"):
-            t0 = time.perf_counter()
-            with span("pint.serve.in"):
-                x0 = _states(x0_phys, self.batch)
-                if self.g_on_device:
-                    x0_t = torch.as_tensor(x0.astype(np.float32), device=self.device)
-                    g_pre = self._g_from_states(x0_t)
-                else:
-                    g_pre = torch.as_tensor(self.qqp.g_lane_fixed(x0), device=self.device)
-            _, warm, lanes = self._tick(self._warm, g_pre)
-            t1 = time.perf_counter()
-            with span("pint.serve.wait"):
-                lanes_np = lanes.cpu().numpy()
-            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
+    def _inputs(self, x0):
+        """The linear term: from the states on the device, or the host's."""
+        if self.g_on_device:
+            return self._g_from_states(super()._inputs(x0))
+        return torch.as_tensor(self.qqp.g_lane_fixed(x0), device=self.device)
 
-            with span("pint.serve.out"):
-                bad = ~np.isfinite(x0).all(axis=-1)
-                bad |= np.abs(lanes_np).max(axis=-1) > 127
-                if bad.any():
-                    self.stats.resets += int(bad.sum())
-                    keep = torch.as_tensor(~bad, device=self.device)[:, None]
-                    warm = torch.where(keep, warm, self._zero)
-                    lanes_np = np.where(bad[:, None], 0, lanes_np)
-                self._warm = warm
-                return lanes_np.astype(np.float64) * self.qqp.u_scale
-
-    def reset(self) -> None:
-        self._warm = self._zero
+    def _bad_rows(self, x0, lanes):
+        """Non-finite states, and plans whose lanes leave +-127."""
+        return super()._bad_rows(x0, lanes) | (np.abs(lanes).max(axis=-1) > 127)
 
 
-class RTIService:
+class RTIService(_Service):
     """Persistent nonlinear MPC endpoint: warm-started real-time iterations
     of :class:`~pint_tpu_torch.mpc.device_sqp.DeviceSQP` per tick.  Each
     tick takes physical states, returns the first control of every
@@ -217,12 +249,9 @@ class RTIService:
         """``sqp``: a configured DeviceSQP (its device is the service's);
         set its ``sqp_iters`` to the per-tick count (1 for classic RTI)."""
         self.sqp = sqp
-        self.batch = batch
-        self.deadline_s = deadline_s
         self.m = sqp.n_ctrl
-        self._zero = sqp.init_words(batch)
-        self._warm = self._zero
-        self.stats = ServiceStats()
+        super().__init__(batch, deadline_s, (sqp.init_words(batch),),
+                         np.asarray(sqp._lane_scales))
 
     def _tick(self, words, x0_f):
         """Returns (next warm words, first controls (B, m) int32 lanes)."""
@@ -230,33 +259,6 @@ class RTIService:
         with span("pint.serve.shift"):
             lanes = unpack_controls(words)
             return _shift_plan(lanes, self.m, self.sqp.n_dec), lanes[:, : self.m]
-
-    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
-        """One tick: (batch, n) physical states -> (batch, m) physical first
-        controls."""
-        with span("pint.serve.solve"):
-            t0 = time.perf_counter()
-            with span("pint.serve.in"):
-                x0 = _states(x0_phys, self.batch)
-                x0_t = torch.as_tensor(x0.astype(np.float32), device=self.sqp.device)
-            warm, u0 = self._tick(self._warm, x0_t)
-            t1 = time.perf_counter()
-            with span("pint.serve.wait"):
-                u0_np = u0.cpu().numpy()
-            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
-
-            with span("pint.serve.out"):
-                bad = ~np.isfinite(x0).all(axis=-1)
-                if bad.any():
-                    self.stats.resets += int(bad.sum())
-                    keep = torch.as_tensor(~bad, device=self.sqp.device)[:, None]
-                    warm = torch.where(keep, warm, self._zero)
-                    u0_np = np.where(bad[:, None], 0, u0_np)
-                self._warm = warm
-                return u0_np.astype(np.float64) * np.asarray(self.sqp._lane_scales)
-
-    def reset(self) -> None:
-        self._warm = self._zero
 
 
 def _shift_lam(lam: torch.Tensor, Cs: int, C: int) -> torch.Tensor:
@@ -267,7 +269,7 @@ def _shift_lam(lam: torch.Tensor, Cs: int, C: int) -> torch.Tensor:
                      dim=-1)
 
 
-class ConstrainedRTIService:
+class ConstrainedRTIService(_Service):
     """Persistent state-constrained nonlinear MPC endpoint: warm-started
     real-time iterations of
     :class:`~pint_tpu_torch.mpc.device_constrained.DeviceConstrainedSQP`
@@ -284,14 +286,10 @@ class ConstrainedRTIService:
         service's); set its ``dev.sqp_iters`` to the per-tick RTI count (1
         for classic RTI)."""
         self.csqp = csqp
-        self.batch = batch
-        self.deadline_s = deadline_s
         self.m = csqp.dev.n_ctrl
-        self._zero = csqp.init_words(batch)
-        self._zero_lam = csqp.init_lam(batch)
-        self._warm = self._zero
-        self._warm_lam = self._zero_lam
-        self.stats = ServiceStats()
+        super().__init__(batch, deadline_s,
+                         (csqp.init_words(batch), csqp.init_lam(batch)),
+                         np.asarray(csqp.dev._lane_scales))
 
     def _tick(self, words, lam, x0_f):
         """Returns (next warm words, next warm lam, first controls (B, m)
@@ -303,33 +301,3 @@ class ConstrainedRTIService:
             warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
             return (warm, _shift_lam(lam, csqp._F.shape[0], csqp.n_rows),
                     lanes[:, : self.m])
-
-    def solve(self, x0_phys: np.ndarray) -> np.ndarray:
-        """One tick: (batch, n) physical states -> (batch, m) physical first
-        controls of the re-optimized constrained plans."""
-        with span("pint.serve.solve"):
-            t0 = time.perf_counter()
-            with span("pint.serve.in"):
-                x0 = _states(x0_phys, self.batch)
-                x0_t = torch.as_tensor(x0.astype(np.float32), device=self.csqp.device)
-            warm, warm_lam, u0 = self._tick(self._warm, self._warm_lam, x0_t)
-            t1 = time.perf_counter()
-            with span("pint.serve.wait"):
-                u0_np = u0.cpu().numpy()
-            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
-
-            with span("pint.serve.out"):
-                bad = ~np.isfinite(x0).all(axis=-1)
-                if bad.any():
-                    self.stats.resets += int(bad.sum())
-                    keep = torch.as_tensor(~bad, device=self.csqp.device)[:, None]
-                    warm = torch.where(keep, warm, self._zero)
-                    warm_lam = torch.where(keep, warm_lam, self._zero_lam)
-                    u0_np = np.where(bad[:, None], 0, u0_np)
-                self._warm = warm
-                self._warm_lam = warm_lam
-                return u0_np.astype(np.float64) * np.asarray(self.csqp.dev._lane_scales)
-
-    def reset(self) -> None:
-        self._warm = self._zero
-        self._warm_lam = self._zero_lam

@@ -86,7 +86,7 @@ def test_mpc_service_resets_bad_rows(qqps):
     out = svc.solve(x0)
     assert svc.stats.resets == 1
     np.testing.assert_array_equal(out[1], 0.0)
-    np.testing.assert_array_equal(unpack_controls(svc._warm)[1].numpy(), 0)
+    np.testing.assert_array_equal(unpack_controls(svc._warm[0])[1].numpy(), 0)
     with pytest.raises(ValueError, match="batch"):
         svc.solve(x0[:2])
 
@@ -107,7 +107,7 @@ def test_rti_service_cost_parity():
     rng = np.random.default_rng(10)
     x0 = np.stack([rng.uniform(-0.2, 0.2, b), rng.uniform(-0.2, 0.2, b),
                    rng.uniform(0, 1, b)], axis=-1)
-    jw, tw = jsvc._zero, tsvc._zero
+    jw, (tw,) = jsvc._zero, tsvc._zero
     for _ in range(3):
         jw, ju0 = jsvc._tick(jw, jnp.asarray(x0, jnp.float32))
         tw, tu0 = tsvc._tick(tw, torch.as_tensor(x0, dtype=torch.float32))
@@ -231,7 +231,7 @@ def test_constrained_rti_cost_parity():
     jsvc, tsvc = JConstrainedRTIService(ref, batch=b), ConstrainedRTIService(port, batch=b)
     x0 = _crti_states(np.random.default_rng(12), b)
     jw, jl = jsvc._warm, jsvc._warm_lam
-    tw, tl = tsvc._warm, tsvc._warm_lam
+    tw, tl = tsvc._warm
     m = port.dev.n_ctrl
     for _ in range(2):
         jw, jl, ju0 = jsvc._tick(jw, jl, jnp.asarray(x0, jnp.float32))
@@ -260,21 +260,57 @@ def test_constrained_rti_resets_nonfinite_rows_only():
     clean, dirty = ConstrainedRTIService(port, batch=b), ConstrainedRTIService(port, batch=b)
     for svc in (clean, dirty):
         svc.solve(x0)
-    assert int(dirty._warm_lam.abs().max()) > 0
+    assert int(dirty._warm[1].abs().max()) > 0
     u_clean = clean.solve(x0)
     u_dirty = dirty.solve(bad_x0)
     assert dirty.stats.resets == 1 and clean.stats.resets == 0
     np.testing.assert_array_equal(u_dirty[1], 0.0)
-    np.testing.assert_array_equal(dirty._warm[1].numpy(), 0)
-    np.testing.assert_array_equal(dirty._warm_lam[1].numpy(), 0)
+    np.testing.assert_array_equal(dirty._warm[0][1].numpy(), 0)
+    np.testing.assert_array_equal(dirty._warm[1][1].numpy(), 0)
     keep = [0, 2, 3]
     np.testing.assert_array_equal(u_dirty[keep], u_clean[keep])
-    assert torch.equal(dirty._warm[keep], clean._warm[keep])
-    assert torch.equal(dirty._warm_lam[keep], clean._warm_lam[keep])
+    for d, c in zip(dirty._warm, clean._warm):
+        assert torch.equal(d[keep], c[keep])
     with pytest.raises(ValueError, match="batch"):
         dirty.solve(x0[:2])
     dirty.reset()
-    assert int(dirty._warm.abs().max()) == 0 and int(dirty._warm_lam.abs().max()) == 0
+    assert all(int(w.abs().max()) == 0 for w in dirty._warm)
+
+
+def _services(kind, qqps):
+    """(a maker of fresh ``kind`` services of batch 4 on the CPU, their
+    states)."""
+    from pint_tpu_torch import ConstrainedRTIService
+
+    if kind == "mpc":
+        return (lambda: MPCService(qqps[1], batch=4, g_on_device=False, device="cpu"),
+                _lti_states)
+    if kind == "rti":
+        sqp = device_sqp_config(JDeviceSQP(**RTI_KW), device="cpu")
+        return lambda: RTIService(sqp, batch=4), _crti_states
+    csqp = _crti_pair()[1]
+    return lambda: ConstrainedRTIService(csqp, batch=4), _crti_states
+
+
+@pytest.mark.parametrize("kind", ["mpc", "rti", "crti"])
+def test_reset_returns_to_the_zero_warm_state(qqps, kind):
+    """``reset()`` gives a service that has ticked its zero warm state
+    back, every member of it, and its next tick equals a fresh service's
+    bit for bit."""
+    make, states = _services(kind, qqps)
+    dirty, fresh = make(), make()
+    rng = np.random.default_rng(14)
+    for _ in range(2):
+        dirty.solve(states(rng, 4))
+    assert all(int(w.abs().max()) > 0 for w in dirty._warm)
+    dirty.reset()
+    assert len(dirty._warm) == len(fresh._warm)
+    for w, z in zip(dirty._warm, fresh._warm):
+        assert torch.equal(w, z) and int(w.abs().max()) == 0
+    x0 = states(rng, 4)
+    np.testing.assert_array_equal(dirty.solve(x0), fresh.solve(x0))
+    for w, f in zip(dirty._warm, fresh._warm):
+        assert torch.equal(w, f)
 
 
 def test_port_imports_no_jax_with_constrained_tier():
