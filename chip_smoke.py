@@ -161,7 +161,11 @@ Phases (any failure raises and the script exits non-zero):
     f32 rollout, linearization and propagator recursion in one launch) at
     the benchmark's shapes, T = 32 at B = 4096 and 16384 and T = 128 at
     B = 4096: Abar, Bbar and Cbar equal (``torch.equal``) to its plain
-    version on the card, and timed.
+    version on the card, and timed;
+30. the reduce kernel (phase_reduce, ``mpc/reduce.py``: the condensed
+    Hessian and linear term from the chain's stacks in one launch) at the
+    same shapes: Ht and g equal (int32 bits) to its plain version on the
+    card, and timed beside the torch ``_reduce_sym`` it replaces.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
@@ -171,9 +175,10 @@ phase 16 K10 on both ranks, phase 17 each long-horizon solve's kernels
 phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick,
 phase 21 K3 and K4 (K3, K6 and K5) in each solve, phase 24 K2 once a
 tick in both fused LTI loops (K2's launches in the kernels line add the
-MPCService ticks and these), phases 9-10 the chain kernel once a tick
-(its count, ``propagate.launch_count()``, is kept beside
-``launch_counts()``), and phase 28 K2 in each resumed solve and K3
+MPCService ticks and these), phases 9-10 the chain and the reduce kernels
+once a tick, phase 17 both once an SQP iteration (their counts,
+``propagate.launch_count()`` and ``reduce.launch_count()``, are kept
+beside ``launch_counts()``), and phase 28 K2 in each resumed solve and K3
 (and K4 for fused=None) in each flagship solve.
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
@@ -961,9 +966,9 @@ def phase_rti(torch, P, K):
             wrapped[_n][1] += 1
             return wrapped[_n][0](*a, **k)
         setattr(fused_alm, name, counting)
-    from pint_tpu_torch.mpc import propagate
+    from pint_tpu_torch.mpc import propagate, reduce
 
-    before, chain = K.launch_counts(), propagate.launch_count()
+    before, chain, red = K.launch_counts(), propagate.launch_count(), reduce.launch_count()
     box = 127 * np.asarray(sqp.model.lane_scales) + 1e-12
     try:
         for _ in range(TICKS):
@@ -976,16 +981,17 @@ def phase_rti(torch, P, K):
         for name, (fn, _) in wrapped.items():
             setattr(fused_alm, name, fn)
     after, chain = K.launch_counts(), propagate.launch_count() - chain
+    red = reduce.launch_count() - red
     for k in ("lipq", "pgd_hqt"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"RTIService: {k} +{after[k] - before[k]}")
-    if chain != TICKS:
-        raise AssertionError(f"RTIService: the chain kernel +{chain}")
+    if chain != TICKS or red != TICKS:
+        raise AssertionError(f"RTIService: the chain kernel +{chain}, the reduce's +{red}")
     if any(n for _, n in wrapped.values()):
         raise AssertionError(f"RTIService: unpack/pack around K4: {wrapped}")
-    say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; chain +{chain}, K3 +{TICKS}, "
-        f"K4 +{TICKS} on the words, no unpack or pack around it")
-    return dict(ticks=TICKS, chain_launches=chain)
+    say(f"RTIService B={RTI_BATCH} T=32 1x30/tick: {TICKS} ticks; chain +{chain}, reduce "
+        f"+{red}, K3 +{TICKS}, K4 +{TICKS} on the words, no unpack or pack around it")
+    return dict(ticks=TICKS, chain_launches=chain, reduce_launches=red)
 
 
 def phase_crti(torch, P, K):
@@ -993,9 +999,9 @@ def phase_crti(torch, P, K):
     svc = P.ConstrainedRTIService(csqp, batch=CON_BATCH)
     x0 = con_states(np.random.default_rng(0), CON_BATCH)
     box = 127 * np.asarray(csqp.dev.model.lane_scales) + 1e-12
-    from pint_tpu_torch.mpc import propagate
+    from pint_tpu_torch.mpc import propagate, reduce
 
-    before, chain = K.launch_counts(), propagate.launch_count()
+    before, chain, red = K.launch_counts(), propagate.launch_count(), reduce.launch_count()
     for _ in range(TICKS):
         u = svc.solve(x0)
         if u.shape != (CON_BATCH, 2) or not np.isfinite(u).all():
@@ -1003,16 +1009,18 @@ def phase_crti(torch, P, K):
         if (np.abs(u) > box).any():
             raise AssertionError("ConstrainedRTIService: controls outside the box")
     after, chain = K.launch_counts(), propagate.launch_count() - chain
+    red = reduce.launch_count() - red
     for k in ("lipq", "pen", "alm"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"ConstrainedRTIService: {k} +{after[k] - before[k]}")
-    if chain != TICKS:
-        raise AssertionError(f"ConstrainedRTIService: the chain kernel +{chain}")
+    if chain != TICKS or red != TICKS:
+        raise AssertionError(f"ConstrainedRTIService: the chain kernel +{chain}, the "
+                             f"reduce's +{red}")
     if int(svc._warm[1].abs().max()) == 0:
         raise AssertionError("ConstrainedRTIService: the corridor never bound")
     say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; chain, "
-        f"K3, K6, K5 +{TICKS} each; the corridor bound")
-    return dict(ticks=TICKS, chain_launches=chain)
+        f"reduce, K3, K6, K5 +{TICKS} each; the corridor bound")
+    return dict(ticks=TICKS, chain_launches=chain, reduce_launches=red)
 
 
 def phase_con_flagship(torch, P, timing):
@@ -1199,9 +1207,10 @@ def phase_long(torch, P, K):
     (C 40 x Tm 40: K6's warp kernel): each stage's form, the kernels of each
     solve launched (counts set to 0 before it, read after) and no other
     condensation kernel, words and multipliers bit-identical to the plain
-    versions', cost (and violation) parity."""
+    versions', cost (and violation) parity, the chain's and the reduce's
+    kernels once an SQP iteration."""
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc import propagate
+    from pint_tpu_torch.mpc import propagate, reduce
 
     rec = {}
 
@@ -1243,7 +1252,7 @@ def phase_long(torch, P, K):
             ms = (time.perf_counter() - t0) * 1e3
             if which == "kernels":
                 counts = K.launch_counts()      # and ends here
-                chain = propagate.launch_count()
+                chain, red = propagate.launch_count(), reduce.launch_count()
             words = res[0] if isinstance(res, tuple) else res
             if isinstance(res, tuple):
                 outs_lam[which] = res[1]
@@ -1257,9 +1266,9 @@ def phase_long(torch, P, K):
         for k in idle:
             if counts[k]:
                 raise AssertionError(f"long horizon {name}: {k} launched past its fit")
-        if chain != LONG_SQP:
-            raise AssertionError(f"long horizon {name}: the chain kernel +{chain}, not "
-                                 "once an SQP iteration")
+        if chain != LONG_SQP or red != LONG_SQP:
+            raise AssertionError(f"long horizon {name}: the chain kernel +{chain}, the "
+                                 f"reduce's +{red}, not once an SQP iteration")
         (wk, ck, msk, vk), (wp, cp, msp, vp) = out["kernels"], out["plain"]
         if not np.isfinite(ck).all():
             raise AssertionError(f"long horizon {name}: costs not finite")
@@ -1290,13 +1299,15 @@ def phase_long(torch, P, K):
         rec[key] = dict(
             forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
             launches={k: counts[k] for k in launched}, chain_launches=chain,
+            reduce_launches=red,
             kernels_ms=msk, plain_ms=msp,
             device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(kernels)
             / LONG_SQP, transpose_kernels=transposes, ht_copies=ht_copies,
             max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
             problems_differing=differ, mean_cost=float(ck.mean()))
         say(f"long horizon {name} T={T} B={B} {LONG_SQP} SQP: forms {kern.forms}; "
-            f"launches {rec[key]['launches']}, chain +{chain}; cost parity with the plain versions (max "
+            f"launches {rec[key]['launches']}, chain +{chain}, reduce +{red}; cost parity "
+            f"with the plain versions (max "
             f"rel diff {rec[key]['max_rel_cost_diff']:.3e}"
             f"{', violation parity' if vk is not None else ''}), {differ} problems differ "
             f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms; "
@@ -1450,6 +1461,51 @@ def phase_chain(torch, P, timing):
         say(f"chain kernel T={T} B={B}: Abar, Bbar, Cbar equal to the plain chain; "
             f"{rec[key]['queued_ms']:.4f} ms queued, {rec[key]['ms']:.4f} ms one call, "
             f"plain {rec[key]['plain_ms']:.2f} ms")
+    return rec
+
+
+def phase_reduce(torch, P, timing):
+    """The reduce kernel at the benchmark's shapes, on the chain kernel's
+    stacks: ``reduce_fused`` against ``reduce_plain`` on the card, Ht and g
+    ``torch.equal`` as int32 bits; one call between CUDA events, queued
+    calls, the plain version and the torch ``_reduce_sym`` it replaces
+    timed."""
+    from pint_tpu_torch.mpc.propagate import chain_fused
+    from pint_tpu_torch.mpc.reduce import reduce_fused, reduce_plain
+
+    rec = {}
+    for T, B in CHAIN_SHAPES:
+        sqp = P.DeviceSQP(sqp_iters=1, device=DEVICE, **dict(CON_SQP_KW, horizon=T))
+        rng = np.random.default_rng(T + B + 1)
+        x0 = torch.as_tensor(con_states(rng, B), dtype=torch.float32, device=DEVICE)
+        lanes = torch.as_tensor(rng.integers(-128, 128, (B, 2 * T), dtype=np.int32),
+                                device=DEVICE)
+        args = (*chain_fused(sqp, x0, lanes), x0)
+
+        def fused(sqp=sqp, args=args):
+            return reduce_fused(sqp, *args)
+
+        def plain(sqp=sqp, args=args):
+            return reduce_plain(sqp, *args)
+
+        def sym(sqp=sqp, args=args):
+            return sqp._reduce_sym(*args)
+
+        got, ref = fused(), plain()
+        for name, g, r in zip(("Ht", "g"), got, ref, strict=True):
+            if not torch.equal(g.contiguous().view(torch.int32), r.contiguous().view(torch.int32)):
+                raise AssertionError(f"reduce kernel T={T} B={B}: {name} differs from the "
+                                     "plain version")
+        del got, ref
+        key = f"T={T} B={B}"
+        rec[key] = dict(B=B, T=T, max_abs_err=0.0,
+                        ms=median(timing.cuda_ms(fused, reps=5)),
+                        queued_ms=median(timing.queued_ms(fused, calls=3, reps=3)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=3, warmup=1)),
+                        sym_ms=median(timing.cuda_ms(sym, reps=3, warmup=1)))
+        say(f"reduce kernel T={T} B={B}: Ht, g equal to the plain version; "
+            f"{rec[key]['queued_ms']:.4f} ms queued, {rec[key]['ms']:.4f} ms one call, "
+            f"plain {rec[key]['plain_ms']:.2f} ms, _reduce_sym {rec[key]['sym_ms']:.3f} ms")
     return rec
 
 
@@ -2715,6 +2771,7 @@ def main():
     ckpt = phase_checkpoint(torch, P, K, timing)
     t6 = time.perf_counter()
     chain = phase_chain(torch, P, timing)
+    reduce = phase_reduce(torch, P, timing)
     phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
                      swingup=t4 - t3, native=t5 - t4, checkpoint=t6 - t5)
     say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
@@ -2747,6 +2804,8 @@ def main():
                   "on CUDA in one call",
         "chain": "none: no PyTorch call runs a rollout, its linearization and the "
                  "propagator recursion",
+        "reduce": "none: no PyTorch call sums a product over a triangle's live steps; "
+                  "sym_ms is the torch _reduce_sym it replaces",
     }
     kernels = []
 
@@ -2864,6 +2923,22 @@ def main():
               "none: the reference's chain is XLA jnp (pint_tpu/mpc/device_sqp.py)",
               launches, r, kernel_cost("propagate", B=r["B"], T=r["T"]), "chain")
         kernels[-1]["launches_by_path"] = {paths: launches}
+    serving_reduce = rti["reduce_launches"] + crti["reduce_launches"]
+    long_reduce = (long[f"device_sqp_T{LONG_T}"]["reduce_launches"]
+                   + long[f"device_constrained_T{LONG_T}"]["reduce_launches"])
+    for key, launches, paths in (
+            ("T=32 B=4096", serving_reduce, "serving (RTIService, ConstrainedRTIService "
+             "ticks)"),
+            ("T=32 B=16384", serving_reduce, "serving at T=32 (the B=4096 ticks: the kernel "
+             "and its main path are the same at T=32, only the timed batch differs)"),
+            (f"T={LONG_T} B={LONG_BATCH}", long_reduce, f"long horizon T={LONG_T} solves "
+             "(phase 17)")):
+        r = reduce[key]
+        entry(f"reduce ({key})", "pint_tpu_torch/csrc/reduce.cu",
+              "none: the reference's reduce is XLA jnp (pint_tpu/mpc/device_sqp.py)",
+              launches, r, kernel_cost("reduce", B=r["B"], T=r["T"], n=3, m=2), "reduce")
+        kernels[-1]["launches_by_path"] = {paths: launches}
+        kernels[-1]["sym_ms"] = r["sym_ms"]
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
@@ -2875,7 +2950,7 @@ def main():
                     "models": models, "forms": forms}))
     say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
                     "swingup": swingup, "native": native, "checkpoint": ckpt, "chain": chain,
-                    "phase_sec": phase_sec}))
+                    "reduce": reduce, "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -86,6 +86,7 @@ from pint_tpu_torch.mpc.device_sqp import (
 )
 from pint_tpu_torch.mpc.fused_alm import alm_fits, alm_fused_words_pre, alm_hqt_plain
 from pint_tpu_torch.mpc.propagate import chain_form
+from pint_tpu_torch.mpc.reduce import reduce_form
 from pint_tpu_torch.mpc.sqp_constrained import (
     _Y_SHIFT,
     _alm_batched,
@@ -175,8 +176,13 @@ class DeviceConstrainedSQP:
         version) where ``dev``'s model has ``fused_chain`` (the
         :class:`~pint_tpu_torch.models.dynamics.Unicycle`), since the
         constraint rows run the recursion in every ``propagate`` form, else
-        "torch"; ``condense`` is "lipq" (K3, or its plain version)
-        where ``lipq`` is not False and :func:`lipq_fits` takes Tm, else
+        "torch"; ``reduce`` is "kernel" (one kernel,
+        :func:`~pint_tpu_torch.mpc.reduce.reduce_fused`, or its plain
+        version) where ``dev``'s ``reduce`` is "sym" and
+        :func:`~pint_tpu_torch.mpc.reduce.reduce_fits` takes the shape, for
+        the same reason, else "torch"; ``condense`` is "lipq" (K3, or its
+        plain version) where ``lipq`` is not False and :func:`lipq_fits`
+        takes Tm, else
         "torch"; ``constraints`` is "pen" (K6, or its plain version) where
         the condensation is "lipq" and :func:`pen_fits` takes (C, Tm), else
         "torch".  These are the reference's ``_use_lipq`` gates
@@ -189,6 +195,7 @@ class DeviceConstrainedSQP:
         lipq = self.lipq is not False and lipq_fits(Tm)
         return dict(
             chain=chain_form(self.dev.model, True),
+            reduce=reduce_form(self.dev, True),
             condense="lipq" if lipq else "torch",
             constraints="pen" if lipq and pen_fits(C, Tm) else "torch",
             inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
@@ -304,7 +311,7 @@ class DeviceConstrainedSQP:
         # its scan here), runs the recursion
         Abar, Bbar, Cbar = d._stacks(x0_f, lanes, self.forms["chain"])
         with span("pint.sqp.reduce"):
-            Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f)
+            Ht, g = d._reduce(Abar, Bbar, Cbar, x0_f, self.forms["reduce"])
         with span("pint.crti.stack"):
             S_t, P_t, r_t = self._stack_constraints(Abar, Bbar, Cbar)
         rho = float(np.float32(self.rho))

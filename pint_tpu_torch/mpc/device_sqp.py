@@ -17,7 +17,10 @@ only.  Each SQP iteration, for a batch of problems at once:
   "einsum", the two-operand form any Q takes; "blocked", 2 x 2 block
   triangular with the mirror; "btrans", one batched GEMM), keeping the
   Hessian batch-last (Tm, Tm, B).  The port keeps its stacks batch-first
-  (B, T, n, ...); the contractions are batched f32 products;
+  (B, T, n, ...); the contractions are batched f32 products, except "sym"
+  after the recursion, which is one kernel
+  (:func:`~pint_tpu_torch.mpc.reduce.reduce_fused`) over the live triangle
+  only;
 * Lipschitz estimate + int8 quantization, then the int32 step rationals
   and linear term: in one pass (K3,
   :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) where
@@ -34,7 +37,8 @@ only.  Each SQP iteration, for a batch of problems at once:
 Each choice is made once, at construction, from the shapes
 (:attr:`DeviceSQP.forms`), as the reference's ``_use_lipq`` and
 ``_use_fused`` gates choose, so every horizon solves on the card.  On a
-CUDA device the chain's kernel, K3 and K4 are the hand-written kernels; on
+CUDA device the chain's kernel, the reduce's, K3 and K4 are the
+hand-written kernels; on
 the CPU their plain PyTorch versions.  ``use_kernels=False`` runs the plain
 versions on any device: it is the reference the kernels are held to on the
 card.
@@ -46,8 +50,8 @@ Each phase of an iteration is a host range in a ``torch.profiler`` trace
 ``pint.sqp.linearize``, ``pint.sqp.propagate``, ``pint.sqp.reduce``,
 ``pint.sqp.quantize`` (K3 or the torch phases, the linear term and the step
 rationals) and ``pint.sqp.inner``; the chain's kernel is one launch inside
-``pint.sqp.propagate``.  On a CUDA device
-:meth:`DeviceSQP.solve_words` replays its iterations as one CUDA graph a
+``pint.sqp.propagate``, the reduce's one inside ``pint.sqp.reduce``.  On a
+CUDA device :meth:`DeviceSQP.solve_words` replays its iterations as one CUDA graph a
 call shape from the shape's second call on, each replay a host range
 ``pint.sqp.replay`` (:mod:`pint_tpu_torch.utils.graphs`); the phases' ranges
 then mark only the eager first call and the capture.
@@ -84,6 +88,7 @@ from pint_tpu_torch.mpc.ltv import (
     _pgd_batched_h_cols_hqt,
 )
 from pint_tpu_torch.mpc.propagate import chain_form, chain_fused, chain_plain
+from pint_tpu_torch.mpc.reduce import reduce_form, reduce_fused, reduce_plain
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils.graphs import _Graphed
 from pint_tpu_torch.utils.profiling import span
@@ -249,8 +254,13 @@ class DeviceSQP:
         version) where the model has ``fused_chain`` (the :class:`Unicycle`)
         and the iteration runs the recursion (:meth:`_propagate_mode` "unroll"), else "torch"
         (:meth:`_linearize_phase`, then the recursion or "allpairs");
-        ``condense`` is "lipq" (K3; its plain version with
-        ``use_kernels=False`` or on the CPU) where ``lipq`` is not False and
+        ``reduce`` is "kernel" (one kernel,
+        :func:`~pint_tpu_torch.mpc.reduce.reduce_fused`, or its plain
+        version) where ``reduce`` is "sym", the iteration runs the recursion
+        and :func:`~pint_tpu_torch.mpc.reduce.reduce_fits` takes the shape,
+        else "torch" (the contraction ``reduce`` names); ``condense`` is
+        "lipq" (K3; its plain version with ``use_kernels=False`` or on the
+        CPU) where ``lipq`` is not False and
         :func:`lipq_fits` takes ``n_dec``, else "torch"
         (:meth:`_lipschitz_phase` and :meth:`_quantize_phase`); ``inner`` is
         "pgd_hqt" (K4, or its plain version) where ``fused`` is not False
@@ -261,6 +271,7 @@ class DeviceSQP:
         inner, as its ``_use_fused`` does past ``pgd_viable``."""
         return dict(
             chain=chain_form(self.model, self._propagate_mode() == "unroll"),
+            reduce=reduce_form(self, self._propagate_mode() == "unroll"),
             condense="lipq" if self.lipq is not False and lipq_fits(self.n_dec)
             else "torch",
             inner="pgd_hqt" if self.fused is not False and pgd_fits(self.n_dec)
@@ -305,8 +316,8 @@ class DeviceSQP:
         Q = np.asarray(self.Q, np.float64)
         x_ref = np.broadcast_to(np.asarray(self.x_ref, np.float64), (T, Q.shape[0]))
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        def f32(a):   # contiguous: the reduce kernel reads L, dQ, R_kron and x_ref
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=self.device)
 
         return dict(
             Q=f32(Q),
@@ -524,8 +535,15 @@ class DeviceSQP:
         Ht = Hb.contiguous().permute(1, 2, 0)
         return Ht if self.n_dec > K.LONG_LANES else Ht.contiguous()
 
-    def _reduce(self, Abar, Bbar, Cbar, x0_f):
-        """The contraction ``reduce`` names: (Ht (Tm, Tm, B), g (B, Tm))."""
+    def _reduce(self, Abar, Bbar, Cbar, x0_f, form=None):
+        """The contraction in the form ``form`` names (a solver's
+        ``forms["reduce"]``, this solver's by default): "kernel",
+        :func:`~pint_tpu_torch.mpc.reduce.reduce_fused` where
+        ``use_kernels`` holds, else its plain version; "torch", the
+        contraction ``reduce`` names.  Returns (Ht (Tm, Tm, B), g (B, Tm))."""
+        if (form or self.forms["reduce"]) == "kernel":
+            fused = reduce_fused if self.use_kernels else reduce_plain
+            return fused(self, Abar, Bbar, Cbar, x0_f)
         red = {"einsum": self._reduce_phase, "blocked": self._reduce_blocked,
                "btrans": self._reduce_btrans, "sym": self._reduce_sym}[self.reduce]
         return red(Abar, Bbar, Cbar, x0_f)

@@ -91,6 +91,9 @@ _SIGNATURES = {
     "pint_alm_shared": [_P] * 11 + [_I] * 15 + [_P],
     # lanes, x0, scales, abar, bbar, cbar, B, T, dt, stream
     "pint_propagate": [_P] * 6 + [_I, _I, _F, _P],
+    # abar, bbar, cbar, x0, L, dq, rk, xref, ht, g, B, T, n, m,
+    # problem_major, stream
+    "pint_reduce": [_P] * 10 + [_I] * 5 + [_P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -124,7 +127,8 @@ K3 and K6 (``mpc/condense_fused.py``) and the SWAR kernels."""
 _counts = dict.fromkeys(KERNELS, 0)
 """Launches since the last :func:`reset_launch_counts`, by name: those of
 :data:`KERNELS`, and of any other port kernel whose wrapper reads its own
-count (``mpc/propagate.py``'s chain kernel, "propagate")."""
+count (``mpc/propagate.py``'s chain kernel, "propagate", and
+``mpc/reduce.py``'s reduce kernel, "reduce")."""
 _lib = None
 _lib_lock = threading.Lock()
 

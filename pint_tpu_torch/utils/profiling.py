@@ -177,7 +177,8 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
     for the words entry): B, Tp, iters.  ``alm`` (K5) and ``alm_shared``
     (K7): B, Tp, Cp, outer, inners.  ``pen`` (K6): B, C, Tm, power_iters.
     ``pgd_matvec_cols`` (K10): B, K, rows.  ``propagate`` (the unicycle's
-    SQP chain, ``mpc/propagate.py``): B, T.  ``swar``: layout, kind
+    SQP chain, ``mpc/propagate.py``): B, T.  ``reduce`` (an SQP
+    iteration's reduce, ``mpc/reduce.py``): B, T, n, m.  ``swar``: layout, kind
     ("binop", "shift", "sat_accum"), n, op, steps, pair."""
     s = shape
     if kernel == "swar":
@@ -223,6 +224,21 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
         Tm = 2 * T
         return KernelCost(B * (48 * T + 12 * T * Tm + 4 * Tm + 12),
                           18 * (T * (T + 1) + 4 * T) * B, "f32")
+    if kernel == "reduce":
+        # the live columns of Bbar (t >= j // m), Abar and Cbar and x0 read,
+        # Ht and g written; each product and sum one rounding, one f32
+        # instruction and no FMA, so two of the "f32" peak's operations:
+        # the upper triangle's dots over n (2n a live step), W = L^T Bbar a
+        # live column and step (n dots of n), g's n + 1 dots a live column
+        # and step, and the terminal term a pair (2n + 1)
+        B, T, n, m = s["B"], s["T"], s["n"], s["m"]
+        Tm = T * m
+        live = n * m * T * (T + 1) // 2                 # live Bbar entries
+        pairs = sum((j + 1) * (T - j // m) for j in range(Tm))
+        rounds = (2 * n * pairs + (2 * n - 1) * live + 2 * (n + 1) * live
+                  + (2 * n + 1) * Tm * (Tm + 1) // 2)
+        return KernelCost(4 * B * (live + T * n * (n + 1) + n + Tm * Tm + Tm),
+                          2 * rounds * B, "f32")
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

@@ -187,3 +187,37 @@ def test_propagate_device_ms_reads_nothing_for_a_program_without_the_file(monkey
     monkeypatch.setattr(entries, "csrc", lambda: tmp_path)
     cell = run.load_cell(ROOT, "rti_t32-fleet4096")
     assert run.reader(ROOT, "propagate_device_ms")(_chain_slice(), cell) is None
+
+
+# -- reduce_device_ms: the reduce kernel's device ms a tick ----------------------
+
+REDUCE = "void (anonymous namespace)::reduce_kernel<3, 8>((anonymous namespace)::Args)"
+
+
+@pytest.mark.parametrize("workload", ["rti_t32-fleet4096", "crti_t32-fleet4096",
+                                      "rti_t32-fleet16384", "crti_t32-fleet16384",
+                                      "crti_t128-fleet4096"])
+def test_reduce_device_ms_is_the_reduce_kernels_union_a_tick(workload):
+    cell = run.load_cell(ROOT, workload)
+    assert "reduce_device_ms" in {m["name"] for m in cell.per_layer}
+    got = run.reader(ROOT, "reduce_device_ms")(_chain_slice(name=REDUCE), cell)
+    assert got == pytest.approx(140 / 1e6)
+
+
+@pytest.mark.parametrize("kw", [dict(where="serve"), dict(port=False), dict(name=CHAIN)],
+                         ids=["outside-the-solver", "not-the-ports", "the-chain-kernel"])
+def test_reduce_device_ms_reads_nothing_without_the_reduce_kernel(kw):
+    cell = run.load_cell(ROOT, "crti_t32-fleet16384")
+    assert run.reader(ROOT, "reduce_device_ms")(_chain_slice(**dict(dict(name=REDUCE), **kw)),
+                                                cell) is None
+
+
+def test_reduce_device_ms_reads_nothing_for_a_program_without_the_file(monkeypatch, tmp_path):
+    """A program with no ``csrc/reduce.cu``, as the parent of the kernel is,
+    reads None rather than raising."""
+    for p in CSRC.glob("*.cu"):
+        if p.name != "reduce.cu":
+            (tmp_path / p.name).write_text(p.read_text())
+    monkeypatch.setattr(entries, "csrc", lambda: tmp_path)
+    cell = run.load_cell(ROOT, "rti_t32-fleet4096")
+    assert run.reader(ROOT, "reduce_device_ms")(_chain_slice(name=REDUCE), cell) is None

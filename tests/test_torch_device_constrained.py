@@ -28,6 +28,7 @@ from pint_tpu_torch.convert import (
 )
 from pint_tpu_torch.models.dynamics import unpack_controls
 from pint_tpu_torch.mpc import DeviceConstrainedSQP, DeviceSQP
+from pint_tpu_torch.mpc import device_sqp
 
 CON = dict(F=[[0.0, 1.0, 0.0]], lo=-0.03, hi=0.03, rho=100.0)
 SMALL = dict(horizon=8, sqp_iters=2, pgd_iters=6, x_ref=np.array([1.0, 0.0, 0.0]))
@@ -183,13 +184,14 @@ def test_validation(small_pair):
     (lambda: DeviceConstrainedSQP(DeviceSQP(reduce="einsum", **SMALL, device="cpu")),
      "_reduce_phase"),
     (lambda: DeviceConstrainedSQP(DeviceSQP(propagate="scan", **SMALL, device="cpu")),
-     "_reduce_sym"),
+     "reduce_fused"),
 ], ids=["reduce=einsum", "propagate=scan"])
 def test_unported_options_raise(make, reduce_fn, monkeypatch):
     """These options raised NotImplementedError until the port took them;
     now the solver builds, and its condensation runs the recursion and the
     contraction asked for ("scan" is the recursion, "einsum" the
-    two-operand contraction), and nothing else."""
+    two-operand contraction; "sym", the default, the reduce kernel's
+    form), and nothing else."""
     csqp = make()
     calls = []
     for name in ("_propagate_unrolled", "_condense_allpairs", "_reduce_phase",
@@ -198,6 +200,11 @@ def test_unported_options_raise(make, reduce_fn, monkeypatch):
             calls.append(_name)
             return _orig(self, *a)
         monkeypatch.setattr(DeviceSQP, name, spy)
+
+    def fused_spy(*a, _orig=device_sqp.reduce_fused):
+        calls.append("reduce_fused")
+        return _orig(*a)
+    monkeypatch.setattr(device_sqp, "reduce_fused", fused_spy)
     words, _ = csqp.solve_words(csqp.init_words(2), torch.from_numpy(X0))
     assert words.shape == (2, csqp.dev.n_dec // 4)
     assert calls == ["_propagate_unrolled", reduce_fn] * csqp.dev.sqp_iters, calls
@@ -254,7 +261,8 @@ def test_lipq_false_solve_parity(small_pair):
     ref, _ = small_pair
     ref_x = JDeviceConstrainedSQP(ref.dev, alm_outer=2, lipq=False, fused=False, **CON)
     port = device_constrained_config(ref_x, fused=None, device="cpu")
-    assert port.forms == dict(chain="fused", condense="torch", constraints="torch", inner="alm")
+    assert port.forms == dict(chain="fused", reduce="kernel",
+                              condense="torch", constraints="torch", inner="alm")
     x0 = np.concatenate([X0, _x0(4, 83)])
     w_j, _ = ref_x.solve_words(ref_x.init_words(6), x0)
     w, lam = port.solve_words(port.init_words(6), x0)
@@ -294,14 +302,16 @@ def test_long_horizon_solves_in_the_torch_form():
     """T = 144 (Tm = 288, past K3's fit; C = 144 rows, Cp = 192) takes the
     torch form of both, as the reference's _use_lipq does, and K5 (its plain
     version here)."""
-    _long_horizon_parity(144, dict(chain="fused", condense="torch", constraints="torch", inner="alm"),
+    _long_horizon_parity(144, dict(chain="fused", reduce="kernel",
+                                   condense="torch", constraints="torch", inner="alm"),
                          192)
 
 
 def test_t128_solves_through_k3_k6_and_k5():
     """T = 128 (Tm = 256; C = 128 rows, Cp = 128) takes K3, K6 and K5, as
     the reference does on its chip."""
-    _long_horizon_parity(128, dict(chain="fused", condense="lipq", constraints="pen", inner="alm"), 128)
+    _long_horizon_parity(128, dict(chain="fused", reduce="kernel",
+                                   condense="lipq", constraints="pen", inner="alm"), 128)
 
 
 @pytest.mark.parametrize("horizon, kw, forms", [

@@ -311,7 +311,7 @@ def test_lipq_false_solve_cost_parity(pair):
     default on the CPU is its ``lipq=False`` form into the XLA inner."""
     ref, _ = pair
     port = device_sqp_config(ref, lipq=False, device="cpu")
-    assert port.forms == dict(chain="fused", condense="torch", inner="pgd_hqt")
+    assert port.forms == dict(chain="fused", reduce="kernel", condense="torch", inner="pgd_hqt")
     x0 = _x0(6, 73)
     w_ref, _ = ref.solve(x0)
     w, _ = port.solve(x0)
@@ -332,7 +332,7 @@ def test_converted_lipq_false_takes_the_torch_form():
     ref = JDeviceSQP(propagate="unroll", lipq=False, **KW)
     port = device_sqp_config(ref, device="cpu")
     assert port.lipq is False and port.fused is None
-    assert port.forms == dict(chain="fused", condense="torch", inner="pgd_hqt")
+    assert port.forms == dict(chain="fused", reduce="kernel", condense="torch", inner="pgd_hqt")
     x0 = _x0(6, 77)
     w_ref, _ = ref.solve(x0)
     w, _ = port.solve(x0)
@@ -394,13 +394,15 @@ def _long_horizon_parity(horizon, forms, seed):
 def test_long_horizon_solves_in_the_torch_form():
     """T = 144 (Tm = 288, past K3's fit, the reference's lipq_viable)
     takes the torch form and K4 (its plain version here)."""
-    _long_horizon_parity(144, dict(chain="fused", condense="torch", inner="pgd_hqt"), 74)
+    _long_horizon_parity(144, dict(chain="fused", reduce="kernel",
+                                   condense="torch", inner="pgd_hqt"), 74)
 
 
 def test_t128_solves_through_k3_and_k4():
     """T = 128 (Tm = 256, the reference's longest shipped horizon) takes
     K3 and K4, as the reference does on its chip."""
-    _long_horizon_parity(128, dict(chain="fused", condense="lipq", inner="pgd_hqt"), 75)
+    _long_horizon_parity(128, dict(chain="fused", reduce="kernel",
+                                   condense="lipq", inner="pgd_hqt"), 75)
 
 
 @pytest.mark.parametrize("horizon, forms", [

@@ -22,6 +22,9 @@ MAIN_PATH = [
     ("propagate", dict(B=4096, T=32), 108.05, 0.0873, 0.03225, "bytes"),
     ("propagate", dict(B=16384, T=32), 432.2, 0.349, 0.1290, "bytes"),
     ("propagate", dict(B=4096, T=128), 1640.0, 1.2552, 0.4896, "bytes"),
+    ("reduce", dict(B=4096, T=32, n=3, m=2), 126.4, 1.6072, 0.03773, "bytes"),
+    ("reduce", dict(B=16384, T=32, n=3, m=2), 505.6, 6.4288, 0.1509, "bytes"),
+    ("reduce", dict(B=4096, T=128, n=3, m=2), 1914.7, 77.094, 1.1507, "operations"),
 ]
 
 
@@ -44,6 +47,22 @@ def test_k3_counts_exactly():
     assert cost.bytes == 4 * Tm * Tm * B + Tm * Tm * B + 8 * B
     assert cost.ops == 17 * 2 * Tm * Tm * B
     assert cost.op_type == "f32"
+
+
+def test_reduce_counts_the_live_triangle():
+    """Ht[j1, j2] for j1 <= j2 sums the steps t >= max(j1, j2) // m, 2n
+    roundings each (n products, n - 1 sums, the accumulation), counted here
+    pair by pair; W, g and the terminal term on top; each f32 rounding two
+    of the peak's operations (no FMA)."""
+    B, T, n, m = 7, 5, 3, 2
+    Tm = T * m
+    pairs = sum(T - max(j1, j2) // m for j2 in range(Tm) for j1 in range(j2 + 1))
+    live = sum(n * min((t + 1) * m, Tm) for t in range(T))
+    rounds = (2 * n * pairs + (2 * n - 1) * live + 2 * (n + 1) * live
+              + (2 * n + 1) * Tm * (Tm + 1) // 2)
+    cost = kernel_cost("reduce", B=B, T=T, n=n, m=m)
+    assert cost.ops == 2 * rounds * B and cost.op_type == "f32"
+    assert cost.bytes == 4 * B * (live + T * n * (n + 1) + n + Tm * Tm + Tm)
 
 
 def test_k4_words_entry_moves_a_quarter_of_the_lanes():

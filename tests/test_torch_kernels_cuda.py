@@ -835,8 +835,8 @@ def test_alm_fits_is_where_k5_and_k7_accept(cuda, Tp, Cp):
 
 
 @pytest.mark.parametrize("horizon, forms", [
-    (128, dict(chain="fused", condense="lipq", inner="pgd_hqt")),
-    (144, dict(chain="fused", condense="torch", inner="pgd_hqt")),
+    (128, dict(chain="fused", reduce="kernel", condense="lipq", inner="pgd_hqt")),
+    (144, dict(chain="fused", reduce="kernel", condense="torch", inner="pgd_hqt")),
 ])
 def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
     """At T = 128 (Tm 256: K3 with rows in registers, K4) and past K3's fit
@@ -856,9 +856,10 @@ def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
 
 
 @pytest.mark.parametrize("horizon, forms", [
-    (128, dict(chain="fused", condense="lipq", constraints="pen", inner="alm")),
-    (136, dict(chain="fused", condense="lipq", constraints="pen", inner="alm")),
-    (144, dict(chain="fused", condense="torch", constraints="torch", inner="alm")),
+    (128, dict(chain="fused", reduce="kernel", condense="lipq", constraints="pen", inner="alm")),
+    (136, dict(chain="fused", reduce="kernel", condense="lipq", constraints="pen", inner="alm")),
+    (144, dict(chain="fused", reduce="kernel",
+               condense="torch", constraints="torch", inner="alm")),
 ])
 def test_long_horizon_device_constrained_cost_parity(cuda, horizon, forms):
     """T = 128 and 136 through K3, K6 and K5's cluster kernel; T = 144 past
@@ -1334,7 +1335,8 @@ def quad_condensed(cuda, request):
 
     csqp = DeviceConstrainedSQP(DeviceSQP(model=pt.PlanarQuadrotor(), sqp_iters=1,
                                           device=cuda, **QUAD_KW), **QUAD_CON)
-    assert csqp.forms == dict(chain="torch", condense="lipq", constraints="pen", inner="alm")
+    assert csqp.forms == dict(chain="torch", reduce="kernel",
+                              condense="lipq", constraints="pen", inner="alm")
     B = request.param
     rng = np.random.default_rng(90)
     x0 = torch.as_tensor(_quad_x0(B, 91), device=cuda)
