@@ -195,7 +195,8 @@ class Unicycle:
     """Whether an SQP iteration's serial chain on this map (``rollout_f32``,
     ``linearize_f32`` and the propagator recursion) has a kernel of its own,
     :func:`~pint_tpu_torch.mpc.propagate.chain_fused`; a model without the
-    attribute has none."""
+    attribute has none, and so has a subclass that overrides ``rollout_f32``
+    or ``linearize_f32`` (:func:`~pint_tpu_torch.mpc.propagate.chain_form`)."""
 
     def __post_init__(self):
         if not (0 <= self.v_shift <= 10):

@@ -45,6 +45,11 @@ class PlanarQuadrotor:
     f_shift: int = 9        # thrust delta per lane: 2^(9-16) = 1/128 N
     torque_shift: int = 4   # domega = (f2-f1) >> 4  [turns/s^2 per N]
 
+    fused_chain = True
+    """An SQP iteration's serial chain on this map (``rollout_f32``,
+    ``linearize_f32`` and the propagator recursion) has a kernel of its own,
+    :func:`~pint_tpu_torch.mpc.propagate.chain_fused`, as the unicycle's."""
+
     def __post_init__(self):
         if not (0 <= self.f_shift <= 11):
             # (total_fp >> 2) * trig_q14 must fit int32

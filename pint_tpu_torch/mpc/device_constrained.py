@@ -173,8 +173,10 @@ class DeviceConstrainedSQP:
         model and the shapes alone: ``chain`` is "fused" (rollout,
         linearization and the recursion in one kernel,
         :func:`~pint_tpu_torch.mpc.propagate.chain_fused`, or its plain
-        version) where ``dev``'s model has ``fused_chain`` (the
-        :class:`~pint_tpu_torch.models.dynamics.Unicycle`), since the
+        version) where ``dev``'s model has the chain kernel (the
+        :class:`~pint_tpu_torch.models.dynamics.Unicycle` and the
+        :class:`~pint_tpu_torch.models.quadrotor.PlanarQuadrotor`,
+        :func:`~pint_tpu_torch.mpc.propagate.chain_form`), since the
         constraint rows run the recursion in every ``propagate`` form, else
         "torch"; ``reduce`` is "kernel" (one kernel,
         :func:`~pint_tpu_torch.mpc.reduce.reduce_fused`, or its plain

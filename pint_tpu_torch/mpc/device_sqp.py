@@ -4,8 +4,8 @@ PyTorch port of ``pint_tpu/mpc/device_sqp.py`` (``DeviceSQP``), default path
 only.  Each SQP iteration, for a batch of problems at once:
 
 * nominal rollout + linearization with the model's float32 twins
-  (``rollout_f32``, ``linearize_f32``); for the unicycle these and the
-  propagator recursion are one kernel
+  (``rollout_f32``, ``linearize_f32``); for the unicycle and the planar
+  quadrotor these and the propagator recursion are one kernel
   (:func:`~pint_tpu_torch.mpc.propagate.chain_fused`), which writes the
   recursion's stacks bit for bit;
 * condensation: the propagator recursion (``propagate``: "unroll", the
@@ -251,7 +251,9 @@ class DeviceSQP:
         model and the shapes alone: ``chain`` is "fused" (rollout,
         linearization and the recursion in one kernel,
         :func:`~pint_tpu_torch.mpc.propagate.chain_fused`, or its plain
-        version) where the model has ``fused_chain`` (the :class:`Unicycle`)
+        version) where the model has the chain kernel (the :class:`Unicycle`
+        and the planar quadrotor,
+        :func:`~pint_tpu_torch.mpc.propagate.chain_form`)
         and the iteration runs the recursion (:meth:`_propagate_mode` "unroll"), else "torch"
         (:meth:`_linearize_phase`, then the recursion or "allpairs");
         ``reduce`` is "kernel" (one kernel,

@@ -91,6 +91,8 @@ _SIGNATURES = {
     "pint_alm_shared": [_P] * 11 + [_I] * 15 + [_P],
     # lanes, x0, scales, abar, bbar, cbar, B, T, dt, stream
     "pint_propagate": [_P] * 6 + [_I, _I, _F, _P],
+    # lanes, x0, scales, abar, bbar, cbar, B, T, dt, g, hover2, k, stream
+    "pint_propagate_quad": [_P] * 6 + [_I, _I, _F, _F, _F, _F, _P],
     # abar, bbar, cbar, x0, L, dq, rk, xref, ht, g, B, T, n, m,
     # problem_major, stream
     "pint_reduce": [_P] * 10 + [_I] * 5 + [_P],

@@ -176,8 +176,8 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
     ``lipq`` (K3): B, Tm, power_iters.  ``pgd_hqt`` (K4; ``words=True``
     for the words entry): B, Tp, iters.  ``alm`` (K5) and ``alm_shared``
     (K7): B, Tp, Cp, outer, inners.  ``pen`` (K6): B, C, Tm, power_iters.
-    ``pgd_matvec_cols`` (K10): B, K, rows.  ``propagate`` (the unicycle's
-    SQP chain, ``mpc/propagate.py``): B, T.  ``reduce`` (an SQP
+    ``pgd_matvec_cols`` (K10): B, K, rows.  ``propagate`` (an SQP
+    iteration's chain, ``mpc/propagate.py``): B, T, n (3), m (2).  ``reduce`` (an SQP
     iteration's reduce, ``mpc/reduce.py``): B, T, n, m.  ``swar``: layout, kind
     ("binop", "shift", "sat_accum"), n, op, steps, pair."""
     s = shape
@@ -215,15 +215,16 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
         return KernelCost(Kc * rows * B + 4 * B * Kc + 4 * B * rows,
                           2 * Kc * rows * B, "int8")
     if kernel == "propagate":
-        # Abar, Bbar, Cbar written (48 T + 12 T Tm bytes a problem), the
-        # int32 lanes and x0 read; the recursion's products and sums (18 a
-        # column a step: three rows of three, summed from +0.0) over the
-        # live columns of S_k and the four of P_k and c_k, the scalar
-        # rollout left out
+        # Abar, Bbar, Cbar written (4 (n^2 T + n T Tm + n T) bytes a
+        # problem), the int32 lanes and x0 read (4 Tm + 4 n); the
+        # recursion's products and sums (2 n^2 a column a step: n rows of n,
+        # summed from +0.0) over the live columns of S_k (m (k + 1) at step
+        # k) and the n + 1 of P_k and c_k, the scalar rollout left out
         B, T = s["B"], s["T"]
-        Tm = 2 * T
-        return KernelCost(B * (48 * T + 12 * T * Tm + 4 * Tm + 12),
-                          18 * (T * (T + 1) + 4 * T) * B, "f32")
+        n, m = s.get("n", 3), s.get("m", 2)
+        Tm = m * T
+        return KernelCost(B * (4 * (n * n * T + n * T * Tm + n * T) + 4 * Tm + 4 * n),
+                          2 * n * n * (m * T * (T + 1) // 2 + (n + 1) * T) * B, "f32")
     if kernel == "reduce":
         # the live columns of Bbar (t >= j // m), Abar and Cbar and x0 read,
         # Ht and g written; each product and sum one rounding, one f32

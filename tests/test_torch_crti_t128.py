@@ -56,7 +56,7 @@ def test_the_cell_loads_by_name():
         "serve_launches_per_tick", "solver_launches_per_tick", "condense_device_ms",
         "kernels_device_ms", "kernels_roofline", "device_idle_share", "serve_enqueue_ms",
         "serve_wait_ms", "solver_replay_share", "lipq_roofline", "pen_roofline",
-        "alm_roofline", "propagate_device_ms", "reduce_device_ms"}
+        "alm_roofline", "propagate_device_ms", "reduce_device_ms", "chain_roofline"}
     for m in cell.per_layer:
         assert callable(run.reader(ROOT, m["name"]))
         assert m["moves"] in {e["name"] for e in cell.end_to_end}

@@ -22,6 +22,8 @@ MAIN_PATH = [
     ("propagate", dict(B=4096, T=32), 108.05, 0.0873, 0.03225, "bytes"),
     ("propagate", dict(B=16384, T=32), 432.2, 0.349, 0.1290, "bytes"),
     ("propagate", dict(B=4096, T=128), 1640.0, 1.2552, 0.4896, "bytes"),
+    ("propagate", dict(B=4096, T=16, n=6, m=2), 61.96, 0.11325, 0.018497, "bytes"),
+    ("propagate", dict(B=4096, T=32, n=3, m=2), 108.05, 0.0873, 0.03225, "bytes"),
     ("reduce", dict(B=4096, T=32, n=3, m=2), 126.4, 1.6072, 0.03773, "bytes"),
     ("reduce", dict(B=16384, T=32, n=3, m=2), 505.6, 6.4288, 0.1509, "bytes"),
     ("reduce", dict(B=4096, T=128, n=3, m=2), 1914.7, 77.094, 1.1507, "operations"),
@@ -47,6 +49,22 @@ def test_k3_counts_exactly():
     assert cost.bytes == 4 * Tm * Tm * B + Tm * Tm * B + 8 * B
     assert cost.ops == 17 * 2 * Tm * Tm * B
     assert cost.op_type == "f32"
+
+
+@pytest.mark.parametrize("n, m", [(3, 2), (6, 2), (2, 1)])
+def test_propagate_counts_the_stacks_it_writes(n, m):
+    """Abar (T, n, n), Bbar (T, n, Tm) and Cbar (T, n) written and the lanes
+    (Tm) and x0 (n) read, 4 bytes a value; 2 n^2 operations a column a step
+    over S_k's live columns and P_k's and c_k's n + 1; the unicycle's
+    shape without n and m."""
+    B, T = 7, 5
+    Tm = T * m
+    cost = kernel_cost("propagate", B=B, T=T, n=n, m=m)
+    assert cost.bytes == 4 * B * (T * n * n + T * n * Tm + T * n + Tm + n)
+    assert cost.ops == B * sum(2 * n * n * ((k + 1) * m + n + 1) for k in range(T))
+    assert cost.op_type == "f32"
+    if (n, m) == (3, 2):
+        assert kernel_cost("propagate", B=B, T=T) == cost
 
 
 def test_reduce_counts_the_live_triangle():

@@ -1335,7 +1335,7 @@ def quad_condensed(cuda, request):
 
     csqp = DeviceConstrainedSQP(DeviceSQP(model=pt.PlanarQuadrotor(), sqp_iters=1,
                                           device=cuda, **QUAD_KW), **QUAD_CON)
-    assert csqp.forms == dict(chain="torch", reduce="kernel",
+    assert csqp.forms == dict(chain="fused", reduce="kernel",
                               condense="lipq", constraints="pen", inner="alm")
     B = request.param
     rng = np.random.default_rng(90)

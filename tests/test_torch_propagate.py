@@ -50,12 +50,61 @@ def test_forms_choose_the_fused_chain_for_the_unicycle(propagate):
     assert DeviceConstrainedSQP(sqp).forms["chain"] == "fused"
 
 
-@pytest.mark.parametrize("kw", [PEND, QUAD], ids=["pendulum", "quadrotor"])
+@pytest.mark.parametrize("propagate", PROPAGATE)
+def test_forms_choose_the_fused_chain_for_the_quadrotor(propagate):
+    """The quadrotor has a form of the chain kernel too, chosen as the
+    unicycle's."""
+    sqp = DeviceSQP(**QUAD, propagate=propagate, device="cpu")
+    assert sqp.forms["chain"] == ("torch" if propagate == "allpairs" else "fused")
+    assert DeviceConstrainedSQP(sqp, F=np.eye(6)[4:5]).forms["chain"] == "fused"
+
+
+class _QuadrotorOwnRollout(PlanarQuadrotor):
+    """A quadrotor whose f32 rollout is its own (here the same map)."""
+
+    def rollout_f32(self, state0_f, controls_f):
+        return super().rollout_f32(state0_f, controls_f)
+
+
+# the models with no chain kernel: the pendulum, and a quadrotor that
+# overrides the dynamics the kernel computes
+OTHER = {"pendulum": PEND, "quadrotor": dict(QUAD, model=_QuadrotorOwnRollout())}
+
+
+@pytest.mark.parametrize("kw", list(OTHER.values()), ids=list(OTHER))
 @pytest.mark.parametrize("propagate", PROPAGATE)
 def test_other_models_take_the_torch_chain(kw, propagate):
     sqp = DeviceSQP(**kw, propagate=propagate, device="cpu")
     assert sqp.forms["chain"] == "torch"
     assert DeviceConstrainedSQP(sqp, F=np.eye(kw["Q"].shape[0])[:1]).forms["chain"] == "torch"
+
+
+@pytest.mark.parametrize("base, method", [
+    (Unicycle, "rollout_f32"), (Unicycle, "linearize_f32"),
+    (PlanarQuadrotor, "rollout_f32"), (PlanarQuadrotor, "linearize_f32"),
+])
+def test_a_subclass_that_overrides_the_dynamics_takes_the_torch_chain(base, method):
+    """The kernel computes its class's own ``rollout_f32`` and
+    ``linearize_f32``; a subclass that overrides either, at any depth,
+    keeps the torch chain, which calls the model's own methods, and
+    ``chain_fused`` refuses it."""
+    mine = type("Mine", (base,), {method: lambda self, *a: getattr(base, method)(self, *a)})
+    deeper = type("Deeper", (mine,), {})
+    kw = dict(UNI) if base is Unicycle else dict(QUAD)
+    for cls in (mine, deeper):
+        sqp = DeviceSQP(**dict(kw, model=cls()), device="cpu")
+        assert sqp.forms["chain"] == "torch"
+        assert DeviceConstrainedSQP(sqp, F=np.eye(sqp.Q.shape[0])[:1]).forms["chain"] == "torch"
+        n = sqp.Q.shape[0]
+        with pytest.raises(ValueError, match="no chain kernel"):
+            chain_fused(sqp, torch.zeros((2, n)), torch.zeros((2, 8), dtype=torch.int32))
+
+
+def test_a_subclass_that_turns_fused_chain_off_takes_the_torch_chain():
+    class Mine(PlanarQuadrotor):
+        fused_chain = False
+
+    assert DeviceSQP(**dict(QUAD, model=Mine()), device="cpu").forms["chain"] == "torch"
 
 
 @pytest.mark.parametrize("B, T", [(5, 1), (7, 5), (3, 32), (2, 33)])
@@ -75,6 +124,33 @@ def test_chain_fused_on_the_cpu_is_the_plain_chain(B, T):
     for g, w, o, shape in zip(got, want, old, shapes, strict=True):
         assert g.shape == shape and g.dtype == torch.float32
         assert torch.equal(_bits(g), _bits(w)) and torch.equal(_bits(g), _bits(o))
+
+
+def _quad_operands(B, T, seed):
+    rng = np.random.default_rng(seed)
+    lanes = rng.integers(-128, 128, (B, 2 * T), dtype=np.int32)
+    x0 = rng.uniform(-2, 2, (B, 6)).astype(np.float32)
+    x0[:, 2] = rng.uniform(-3, 3, B)
+    x0[: 4, 2] = (0.5, -0.25, 0.0, -1.0)[: min(4, B)]
+    return torch.as_tensor(lanes), torch.as_tensor(x0)
+
+
+@pytest.mark.parametrize("B, T", [(5, 1), (7, 5), (4, 16), (2, 33)])
+def test_chain_fused_on_the_cpu_is_the_plain_chain_for_the_quadrotor(B, T):
+    """As for the unicycle: on the CPU ``chain_fused`` is ``chain_plain``
+    bit for bit, at n 6, and launches nothing."""
+    sqp = DeviceSQP(**QUAD, device="cpu")
+    lanes, x0 = _quad_operands(B, T, 20 + T)
+    before = propagate.launch_count()
+    got = chain_fused(sqp, x0, lanes)
+    assert propagate.launch_count() == before
+    want = chain_plain(sqp, x0, lanes)
+    shapes = [(B, T, 6, 6), (B, T, 6, 2 * T), (B, T, 6)]
+    for g, w, shape in zip(got, want, shapes, strict=True):
+        assert g.shape == shape and g.dtype == torch.float32
+        assert torch.equal(_bits(g), _bits(w))
+    with pytest.raises(ValueError, match="x0_f"):
+        chain_fused(sqp, x0[:, :3], lanes)
 
 
 @pytest.mark.parametrize("kind", ["rti", "crti"])

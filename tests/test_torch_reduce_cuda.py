@@ -112,10 +112,14 @@ MODELS = [
 
 @pytest.mark.parametrize("name, kw, B", MODELS, ids=lambda v: str(v)[:12])
 def test_kernel_equals_plain_other_models(cuda, name, kw, B):
-    """The other models' stacks come from the torch chain, whose dead
-    columns are +0.0 as the kernel's are."""
+    """The other models' stacks from the torch chain (the quadrotor's, which
+    has a chain kernel too, from both), whose dead columns are +0.0 as the
+    chain kernel's are."""
     sqp = DeviceSQP(**kw, device=cuda)
-    assert sqp.forms["reduce"] == "kernel" and sqp.forms["chain"] == "torch"
+    assert sqp.forms["reduce"] == "kernel"
+    assert sqp.forms["chain"] == ("fused" if name == "quadrotor" else "torch")
+    if name == "quadrotor":
+        _same(sqp, _stacks(sqp, cuda, B, 12))
     _same(sqp, _stacks(sqp, cuda, B, 11, fused=False))
 
 

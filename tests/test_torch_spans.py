@@ -1,7 +1,8 @@
 """The port's own trace spans (``utils.profiling.span``) and the serving
 layer's host/wait counters, on the CPU.
 
-A tick of ``RTIService`` and of ``ConstrainedRTIService`` under
+A tick of ``RTIService`` and of ``ConstrainedRTIService`` (on the unicycle
+and on the planar quadrotor) under
 ``torch.profiler`` records each ``pint.*`` span the expected number of
 times, every span inside the tick's ``pint.serve.solve`` and no phase
 inside another; the spans are host ranges only; ``ServiceStats`` splits
@@ -37,45 +38,52 @@ PER_TICK = {
              "pint.crti.stack": SQP_ITERS, "pint.crti.pen": SQP_ITERS,
              "pint.crti.scale": 2 * SQP_ITERS},
 }
+PER_TICK["cquad"] = PER_TICK["crti"]
 METRICS = ("serve_enqueue_ms", "serve_wait_ms", "linearize_host_ms", "propagate_host_ms",
            "reduce_host_ms", "quantize_host_ms", "inner_host_ms", "constrain_host_ms")
 # the sizes of tests/test_torch_serving.py, at two SQP iterations a tick
 SIZES = {"rti": (8, dict(horizon=32, pgd_iters=30)),
-         "crti": (6, dict(horizon=8, pgd_iters=6))}
+         "crti": (6, dict(horizon=8, pgd_iters=6)),
+         "cquad": (6, dict(horizon=8, pgd_iters=6))}
+CONFIGS = {"rti": "rti_t32", "crti": "crti_t32", "cquad": "cquad_t16"}
 
 
 def _service(kind_name):
     kind = importlib.import_module(f"portbench.kinds.{kind_name}")
-    config = json.loads((ROOT / f"portbench/configs/{kind_name}_t32.json").read_text())
+    config = json.loads((ROOT / f"portbench/configs/{CONFIGS[kind_name]}.json").read_text())
     batch, solver = SIZES[kind_name]
     config["solver"] = dict(config["solver"], sqp_iters=SQP_ITERS, **solver)
-    if kind_name == "crti":
+    if kind_name != "rti":
         config["constraints"] = dict(config["constraints"], alm_outer=2)
     return kind, config, batch, kind.build(config, batch, "cpu")
 
 
 def _states(config, batch, seed):
     init = config["initial_states"]
-    return np.random.default_rng(seed).uniform(init["low"], init["high"], (batch, 3))
+    return np.random.default_rng(seed).uniform(init["low"], init["high"],
+                                               (batch, len(init["low"])))
 
 
 def _pint(events):
     return [e for e in events if e.name().startswith("pint.")]
 
 
-@pytest.fixture(scope="module", params=["rti", "crti"])
+@pytest.fixture(scope="module", params=["rti", "crti", "cquad"])
 def profiled(request):
     """One warm tick, then ``TICKS`` ticks under the profiler, each inside
     the benchmark's ``portbench.tick`` and its solver inside
-    ``portbench.solver``, as ``portbench/run.py`` traces them."""
+    ``portbench.solver``, as ``portbench/run.py`` traces them: the states
+    are drawn before the tick's range opens, so that it holds the call
+    alone."""
     kind, config, batch, svc = _service(request.param)
     svc.solve(_states(config, batch, 0))
     probe = run.Probe(kind, svc, spans=True)
+    states = [_states(config, batch, 1 + t) for t in range(TICKS)]
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
-        for t in range(TICKS):
+        for x in states:
             with torch.profiler.record_function("portbench.tick"):
-                svc.solve(_states(config, batch, 1 + t))
+                svc.solve(x)
     probe.restore()
     events = list(prof.profiler.kineto_results.events())
     return request.param, events, trace.summarize(events, [])
@@ -134,7 +142,7 @@ def test_span_falls_back_to_a_null_context(monkeypatch):
     assert "pint.test.fallback" not in {e.name() for e in prof.profiler.kineto_results.events()}
 
 
-@pytest.mark.parametrize("kind_name", ["mpc", "rti", "crti"])
+@pytest.mark.parametrize("kind_name", ["mpc", "rti", "crti", "cquad"])
 def test_service_stats_split_the_latencies(kind_name):
     if kind_name == "mpc":
         from pint_tpu_torch import MPCService, condense_double_integrator, quantize
