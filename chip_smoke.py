@@ -165,7 +165,12 @@ Phases (any failure raises and the script exits non-zero):
 30. the reduce kernel (phase_reduce, ``mpc/reduce.py``: the condensed
     Hessian and linear term from the chain's stacks in one launch) at the
     same shapes: Ht and g equal (int32 bits) to its plain version on the
-    card, and timed beside the torch ``_reduce_sym`` it replaces.
+    card, and timed beside the torch ``_reduce_sym`` it replaces;
+31. the stacking kernel (phase_stack, ``mpc/stack.py``: the constraint rows
+    S_t, P_t and r_t from the chain's stacks in one launch) at the
+    constrained cells' shapes (the unicycle's three and the quadrotor's T =
+    16, B = 4096) and one-hot F: equal (int32 bits) to its plain version on
+    the card, and timed beside the einsums it replaces.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
@@ -176,10 +181,13 @@ phase 18 the wide forms of K2, K2p and K7, phase 20 K7 once a tick,
 phase 21 K3 and K4 (K3, K6 and K5) in each solve, phase 24 K2 once a
 tick in both fused LTI loops (K2's launches in the kernels line add the
 MPCService ticks and these), phases 9-10 the chain and the reduce kernels
-once a tick, phase 17 both once an SQP iteration (their counts,
-``propagate.launch_count()`` and ``reduce.launch_count()``, are kept
-beside ``launch_counts()``), and phase 28 K2 in each resumed solve and K3
-(and K4 for fused=None) in each flagship solve.
+once a tick and phase 10 the stacking kernel, phase 17 each once an SQP
+iteration, the stacking in the constrained solves alone, phase 21 the
+stacking once an SQP iteration of the quadrotor's constrained solve (the
+counts ``propagate.launch_count()``, ``reduce.launch_count()`` and
+``stack.launch_count()`` are kept beside ``launch_counts()``), and phase
+28 K2 in each resumed solve and K3 (and K4 for fused=None) in each
+flagship solve.
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
@@ -214,7 +222,7 @@ N_HEADLINE, N_U64, ACCUM_STEPS = 1 << 24, 1 << 23, 4
 SPEED_OF_LIGHT_MIN = 0.9      # K1's word rate over the raw int32 add's
 NO_SPILL_SOURCES = ("fused_pgd.cu", "lipq.cu", "pgd_hqt.cu", "alm.cu",  # operands in
                     "pen.cu", "matvec_cols.cu",                # registers: K2-K7, K10
-                    "propagate.cu")                            # and the chain kernel
+                    "propagate.cu", "stack.cu")                # the chain, the stacking
 SQP_KW = dict(
     horizon=32, pgd_iters=30,
     Q=np.diag([1.0, 1.0, 0.005]), R=np.diag([0.005, 0.005]),
@@ -999,9 +1007,10 @@ def phase_crti(torch, P, K):
     svc = P.ConstrainedRTIService(csqp, batch=CON_BATCH)
     x0 = con_states(np.random.default_rng(0), CON_BATCH)
     box = 127 * np.asarray(csqp.dev.model.lane_scales) + 1e-12
-    from pint_tpu_torch.mpc import propagate, reduce
+    from pint_tpu_torch.mpc import propagate, reduce, stack
 
     before, chain, red = K.launch_counts(), propagate.launch_count(), reduce.launch_count()
+    rows = stack.launch_count()
     for _ in range(TICKS):
         u = svc.solve(x0)
         if u.shape != (CON_BATCH, 2) or not np.isfinite(u).all():
@@ -1009,18 +1018,18 @@ def phase_crti(torch, P, K):
         if (np.abs(u) > box).any():
             raise AssertionError("ConstrainedRTIService: controls outside the box")
     after, chain = K.launch_counts(), propagate.launch_count() - chain
-    red = reduce.launch_count() - red
+    red, rows = reduce.launch_count() - red, stack.launch_count() - rows
     for k in ("lipq", "pen", "alm"):
         if after[k] - before[k] != TICKS:
             raise AssertionError(f"ConstrainedRTIService: {k} +{after[k] - before[k]}")
-    if chain != TICKS or red != TICKS:
+    if chain != TICKS or red != TICKS or rows != TICKS:
         raise AssertionError(f"ConstrainedRTIService: the chain kernel +{chain}, the "
-                             f"reduce's +{red}")
+                             f"reduce's +{red}, the stacking's +{rows}")
     if int(svc._warm[1].abs().max()) == 0:
         raise AssertionError("ConstrainedRTIService: the corridor never bound")
     say(f"ConstrainedRTIService B={CON_BATCH} T=32 1x(3x30)/tick: {TICKS} ticks; chain, "
-        f"reduce, K3, K6, K5 +{TICKS} each; the corridor bound")
-    return dict(ticks=TICKS, chain_launches=chain, reduce_launches=red)
+        f"reduce, stacking, K3, K6, K5 +{TICKS} each; the corridor bound")
+    return dict(ticks=TICKS, chain_launches=chain, reduce_launches=red, stack_launches=rows)
 
 
 def phase_con_flagship(torch, P, timing):
@@ -1208,9 +1217,10 @@ def phase_long(torch, P, K):
     solve launched (counts set to 0 before it, read after) and no other
     condensation kernel, words and multipliers bit-identical to the plain
     versions', cost (and violation) parity, the chain's and the reduce's
-    kernels once an SQP iteration."""
+    kernels once an SQP iteration, and the stacking's in the constrained
+    solves."""
     from pint_tpu_torch.models.dynamics import unpack_controls
-    from pint_tpu_torch.mpc import propagate, reduce
+    from pint_tpu_torch.mpc import propagate, reduce, stack
 
     rec = {}
 
@@ -1253,6 +1263,7 @@ def phase_long(torch, P, K):
             if which == "kernels":
                 counts = K.launch_counts()      # and ends here
                 chain, red = propagate.launch_count(), reduce.launch_count()
+                rows = stack.launch_count()
             words = res[0] if isinstance(res, tuple) else res
             if isinstance(res, tuple):
                 outs_lam[which] = res[1]
@@ -1269,6 +1280,8 @@ def phase_long(torch, P, K):
         if chain != LONG_SQP or red != LONG_SQP:
             raise AssertionError(f"long horizon {name}: the chain kernel +{chain}, the "
                                  f"reduce's +{red}, not once an SQP iteration")
+        if rows != (LONG_SQP if name == "device_constrained" else 0):
+            raise AssertionError(f"long horizon {name}: the stacking kernel +{rows}")
         (wk, ck, msk, vk), (wp, cp, msp, vp) = out["kernels"], out["plain"]
         if not np.isfinite(ck).all():
             raise AssertionError(f"long horizon {name}: costs not finite")
@@ -1299,15 +1312,15 @@ def phase_long(torch, P, K):
         rec[key] = dict(
             forms=kern.forms, batch=B, horizon=T, sqp_iters=LONG_SQP,
             launches={k: counts[k] for k in launched}, chain_launches=chain,
-            reduce_launches=red,
+            reduce_launches=red, stack_launches=rows,
             kernels_ms=msk, plain_ms=msp,
             device_ms_per_iteration=dev_ms / LONG_SQP, kernels_per_iteration=len(kernels)
             / LONG_SQP, transpose_kernels=transposes, ht_copies=ht_copies,
             max_rel_cost_diff=float(np.max(np.abs(ck - cp) / np.maximum(np.abs(cp), 1e-12))),
             problems_differing=differ, mean_cost=float(ck.mean()))
         say(f"long horizon {name} T={T} B={B} {LONG_SQP} SQP: forms {kern.forms}; "
-            f"launches {rec[key]['launches']}, chain +{chain}, reduce +{red}; cost parity "
-            f"with the plain versions (max "
+            f"launches {rec[key]['launches']}, chain +{chain}, reduce +{red}, stack +{rows}; "
+            f"cost parity with the plain versions (max "
             f"rel diff {rec[key]['max_rel_cost_diff']:.3e}"
             f"{', violation parity' if vk is not None else ''}), {differ} problems differ "
             f"in bits; first solve {msk:.1f} ms, plain {msp:.1f} ms; "
@@ -1506,6 +1519,69 @@ def phase_reduce(torch, P, timing):
         say(f"reduce kernel T={T} B={B}: Ht, g equal to the plain version; "
             f"{rec[key]['queued_ms']:.4f} ms queued, {rec[key]['ms']:.4f} ms one call, "
             f"plain {rec[key]['plain_ms']:.2f} ms, _reduce_sym {rec[key]['sym_ms']:.3f} ms")
+    return rec
+
+
+STACK_SHAPES = ((3, 32, 4096), (3, 32, 16384), (3, 128, 4096), (6, 16, 4096))
+"""(n, T, B) of the constrained cells: crti_t32 (both fleets), crti_t128,
+cquad_t16."""
+
+
+def phase_stack(torch, P, timing):
+    """The stacking kernel at the constrained cells' shapes, on the chain
+    kernel's stacks and the cells' one-hot F: ``stack_fused`` against
+    ``stack_plain`` on the card, S_t, P_t and r_t ``torch.equal`` as int32
+    bits (and to the einsums', zeros' signs aside); one call between CUDA
+    events, queued calls, the plain version and the einsums it replaces
+    (``DeviceConstrainedSQP._stack_einsum``) timed."""
+    from pint_tpu_torch.mpc.propagate import chain_fused
+    from pint_tpu_torch.mpc.stack import stack_fused, stack_plain
+
+    rec = {}
+    for n, T, B in STACK_SHAPES:
+        if n == 6:
+            kw, con, states = dict(QUAD_KW, horizon=T, model=P.PlanarQuadrotor()), QUAD_CON, (
+                lambda rng, b: model_states("quadrotor", rng, b))
+        else:
+            kw, con, states = dict(CON_SQP_KW, horizon=T), CON_KW, con_states
+        csqp = P.DeviceConstrainedSQP(P.DeviceSQP(device=DEVICE, **dict(kw, sqp_iters=1)),
+                                      **con)
+        F = csqp._F
+        rng = np.random.default_rng(T + B + 2)
+        x0 = torch.as_tensor(states(rng, B), dtype=torch.float32, device=DEVICE)
+        lanes = torch.as_tensor(rng.integers(-128, 128, (B, 2 * T), dtype=np.int32),
+                                device=DEVICE)
+        args = chain_fused(csqp.dev, x0, lanes)
+
+        def fused(F=F, args=args):
+            return stack_fused(F, *args)
+
+        def plain(F=F, args=args):
+            return stack_plain(F, *args)
+
+        def einsum(csqp=csqp, args=args):
+            return csqp._stack_einsum(*args)
+
+        got, ref, ein = fused(), plain(), einsum()
+        for name, g, r, e in zip(("S_t", "P_t", "r_t"), got, ref, ein, strict=True):
+            if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+                raise AssertionError(f"stacking kernel n={n} T={T} B={B}: {name} differs "
+                                     "from the plain version")
+            if not torch.equal(g + 0.0, e + 0.0):
+                raise AssertionError(f"stacking kernel n={n} T={T} B={B}: {name} differs "
+                                     "from the einsums' on a one-hot F")
+        del got, ref, ein
+        key = f"n={n} T={T} B={B}"
+        rec[key] = dict(B=B, T=T, n=n, Tm=2 * T, Cs=1, max_abs_err=0.0,
+                        ms=median(timing.cuda_ms(fused, reps=5)),
+                        queued_ms=median(timing.queued_ms(fused, calls=3, reps=3)),
+                        plain_ms=median(timing.cuda_ms(plain, reps=3, warmup=1)),
+                        einsum_ms=median(timing.cuda_ms(einsum, reps=3, warmup=1)))
+        say(f"stacking kernel n={n} T={T} B={B}: S_t, P_t, r_t equal to the plain version "
+            f"and to the einsums'; {rec[key]['queued_ms']:.4f} ms queued, "
+            f"{rec[key]['ms']:.4f} ms one call, plain {rec[key]['plain_ms']:.2f} ms, "
+            f"einsums {rec[key]['einsum_ms']:.3f} ms")
+        del args
     return rec
 
 
@@ -1756,9 +1832,11 @@ def phase_models(torch, P, K, timing):
     through DeviceSQP and DeviceConstrainedSQP at B = 4096, kernels against
     use_kernels=False: 0 problems differing in bits, cost parity (rtol 0.01,
     atol 1e-4), violation parity (atol 5e-3); K3, K4 (and K6, K5) launched
-    in each solve (counts set to 0 before it, read after); solves/s by the
+    in each solve (counts set to 0 before it, read after), and the stacking
+    kernel once an SQP iteration of each constrained solve; solves/s by the
     host clock and the device time (torch.profiler)."""
     from pint_tpu_torch.models.dynamics import unpack_controls
+    from pint_tpu_torch.mpc import stack
 
     rec = {}
     for name in ("quadrotor", "pendulum"):
@@ -1775,9 +1853,12 @@ def phase_models(torch, P, K, timing):
             out = kern.solve_words(kern.init_words(MODEL_BATCH), x_d)
             torch.cuda.synchronize()
             counts = K.launch_counts()           # and ends here
+            rows = stack.launch_count()
             for k in need:
                 if counts[k] < 1:
                     raise AssertionError(f"{name} {kind}: kernel {k} never launched")
+            if rows != (d.sqp_iters if con else 0):
+                raise AssertionError(f"{name} {kind}: the stacking kernel +{rows}")
             ref = plain.solve_words(plain.init_words(MODEL_BATCH), x_d)
             w, wp = (out[0], ref[0]) if con else (out, ref)
             differ = (w != wp).any(-1)
@@ -1788,7 +1869,7 @@ def phase_models(torch, P, K, timing):
             ck, cp = d.true_cost(x0, lk), d.true_cost(x0, lp)
             np.testing.assert_allclose(ck, cp, rtol=0.01, atol=1e-4)
             r = dict(forms=kern.forms, launches={k: counts[k] for k in need},
-                     problems_differing=int(differ.sum().item()),
+                     stack_launches=rows, problems_differing=int(differ.sum().item()),
                      max_rel_cost_diff=float(np.max(np.abs(ck - cp) /
                                                     np.maximum(np.abs(cp), 1e-12))),
                      mean_cost=float(ck.mean()))
@@ -2772,6 +2853,7 @@ def main():
     t6 = time.perf_counter()
     chain = phase_chain(torch, P, timing)
     reduce = phase_reduce(torch, P, timing)
+    rows = phase_stack(torch, P, timing)
     phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
                      swingup=t4 - t3, native=t5 - t4, checkpoint=t6 - t5)
     say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
@@ -2806,6 +2888,8 @@ def main():
                  "propagator recursion",
         "reduce": "none: no PyTorch call sums a product over a triangle's live steps; "
                   "sym_ms is the torch _reduce_sym it replaces",
+        "stack": "none: no PyTorch call writes a product batch-last in one pass; "
+                 "einsum_ms is the two einsums it replaces",
     }
     kernels = []
 
@@ -2939,6 +3023,25 @@ def main():
               launches, r, kernel_cost("reduce", B=r["B"], T=r["T"], n=3, m=2), "reduce")
         kernels[-1]["launches_by_path"] = {paths: launches}
         kernels[-1]["sym_ms"] = r["sym_ms"]
+    long_rows = long[f"device_constrained_T{LONG_T}"]["stack_launches"]
+    for key, launches, paths in (
+            ("n=3 T=32 B=4096", crti["stack_launches"], "serving (ConstrainedRTIService "
+             "ticks)"),
+            ("n=3 T=32 B=16384", crti["stack_launches"], "serving at T=32 (the B=4096 "
+             "ticks: the kernel and its main path are the same at T=32, only the timed "
+             "batch differs)"),
+            (f"n=3 T={LONG_T} B={LONG_BATCH}", long_rows, f"long horizon T={LONG_T} "
+             "constrained solve (phase 17)"),
+            ("n=6 T=16 B=4096", models["quadrotor_device_constrained_T16"]["stack_launches"],
+             "the quadrotor's DeviceConstrainedSQP solve (phase 21)")):
+        r = rows[key]
+        entry(f"stack (constraint rows, {key})", "pint_tpu_torch/csrc/stack.cu",
+              "none: the reference's stacking is XLA jnp "
+              "(pint_tpu/mpc/device_constrained.py)", launches, r,
+              kernel_cost("stack", B=r["B"], T=r["T"], n=r["n"], Tm=r["Tm"], Cs=r["Cs"]),
+              "stack")
+        kernels[-1]["launches_by_path"] = {paths: launches}
+        kernels[-1]["einsum_ms"] = r["einsum_ms"]
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
@@ -2950,7 +3053,7 @@ def main():
                     "models": models, "forms": forms}))
     say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
                     "swingup": swingup, "native": native, "checkpoint": ckpt, "chain": chain,
-                    "reduce": reduce, "phase_sec": phase_sec}))
+                    "reduce": reduce, "stack": rows, "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

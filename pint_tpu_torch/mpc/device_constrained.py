@@ -10,7 +10,10 @@ of problems at once:
   ``dev.propagate`` form, for the unicycle all three in one kernel, then
   the contraction ``dev.reduce`` names);
 * constraint-row stacking S = F Bbar, P = F Abar, r = F Cbar from the same
-  propagator stacks, batch-last;
+  propagator stacks, batch-last, in one kernel
+  (:func:`~pint_tpu_torch.mpc.stack.stack_fused`) where
+  :func:`~pint_tpu_torch.mpc.stack.stack_fits` takes the shape, else in two
+  einsums;
 * K3 (:func:`~pint_tpu_torch.mpc.condense_fused.lipq_fused`) on the
   Hessian where ``lipq`` is not False and
   :func:`~pint_tpu_torch.mpc.condense_fused.lipq_fits` takes Tm, and K6
@@ -87,6 +90,7 @@ from pint_tpu_torch.mpc.device_sqp import (
 from pint_tpu_torch.mpc.fused_alm import alm_fits, alm_fused_words_pre, alm_hqt_plain
 from pint_tpu_torch.mpc.propagate import chain_form
 from pint_tpu_torch.mpc.reduce import reduce_form
+from pint_tpu_torch.mpc.stack import stack_fits, stack_fused, stack_plain
 from pint_tpu_torch.mpc.sqp_constrained import (
     _Y_SHIFT,
     _alm_batched,
@@ -182,7 +186,10 @@ class DeviceConstrainedSQP:
         :func:`~pint_tpu_torch.mpc.reduce.reduce_fused`, or its plain
         version) where ``dev``'s ``reduce`` is "sym" and
         :func:`~pint_tpu_torch.mpc.reduce.reduce_fits` takes the shape, for
-        the same reason, else "torch"; ``condense`` is "lipq" (K3, or its
+        the same reason, else "torch"; ``stack`` is "kernel" (one kernel,
+        :func:`~pint_tpu_torch.mpc.stack.stack_fused`, or its plain version)
+        where :func:`~pint_tpu_torch.mpc.stack.stack_fits` takes (n, Cs, T,
+        Tm), else "torch" (two einsums); ``condense`` is "lipq" (K3, or its
         plain version) where ``lipq`` is not False and :func:`lipq_fits`
         takes Tm, else
         "torch"; ``constraints`` is "pen" (K6, or its plain version) where
@@ -195,9 +202,11 @@ class DeviceConstrainedSQP:
         ``_alm_batched``)."""
         Tm, C, Cp = self.dev.n_dec, self.n_rows, self.padded_rows
         lipq = self.lipq is not False and lipq_fits(Tm)
+        Cs, n = self._F.shape
         return dict(
             chain=chain_form(self.dev.model, True),
             reduce=reduce_form(self.dev, True),
+            stack="kernel" if stack_fits(n, Cs, self.dev.horizon, Tm) else "torch",
             condense="lipq" if lipq else "torch",
             constraints="pen" if lipq and pen_fits(C, Tm) else "torch",
             inner="alm" if self.fused is not False and alm_fits(Tm, Cp)
@@ -257,7 +266,18 @@ class DeviceConstrainedSQP:
         """Constraint stacks from the batch-first propagators Abar
         (B,T,n,n), Bbar (B,T,n,Tm), Cbar (B,T,n): row k*Cs+c is constraint
         c at step k+1.  Returns S_t (C,Tm,B) contiguous (K6's input), P_t
-        (C,n,B) and r_t (C,B), batch-last as in the reference."""
+        (C,n,B) and r_t (C,B), batch-last as in the reference; in the form
+        ``forms["stack"]`` names: the kernel where ``use_kernels`` holds,
+        else its plain version, or the torch form's two einsums."""
+        if self.forms["stack"] == "kernel":
+            stack = stack_fused if self.dev.use_kernels else stack_plain
+            return stack(self._F, Abar, Bbar, Cbar)
+        return self._stack_einsum(Abar, Bbar, Cbar)
+
+    def _stack_einsum(self, Abar, Bbar, Cbar):
+        """The torch form of :meth:`_stack_constraints`, past
+        :func:`~pint_tpu_torch.mpc.stack.stack_fits`: two einsums and their
+        batch-last copies."""
         Tm, C = self.dev.n_dec, self.n_rows
         Fj = self._consts["F"]                                    # (Cs, n)
         S_t = torch.einsum("ci,bkit->kctb", Fj, Bbar).reshape(C, Tm, -1)

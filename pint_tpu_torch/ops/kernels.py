@@ -96,6 +96,8 @@ _SIGNATURES = {
     # abar, bbar, cbar, x0, L, dq, rk, xref, ht, g, B, T, n, m,
     # problem_major, stream
     "pint_reduce": [_P] * 10 + [_I] * 5 + [_P],
+    # abar, bbar, cbar, f (host), st, pt, rt, B, T, n, Tm, cs, stream
+    "pint_stack": [_P] * 7 + [_I] * 5 + [_P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -129,8 +131,9 @@ K3 and K6 (``mpc/condense_fused.py``) and the SWAR kernels."""
 _counts = dict.fromkeys(KERNELS, 0)
 """Launches since the last :func:`reset_launch_counts`, by name: those of
 :data:`KERNELS`, and of any other port kernel whose wrapper reads its own
-count (``mpc/propagate.py``'s chain kernel, "propagate", and
-``mpc/reduce.py``'s reduce kernel, "reduce")."""
+count (``mpc/propagate.py``'s chain kernel, "propagate",
+``mpc/reduce.py``'s reduce kernel, "reduce", and ``mpc/stack.py``'s
+constraint stacking, "stack")."""
 _lib = None
 _lib_lock = threading.Lock()
 

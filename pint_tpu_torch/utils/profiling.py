@@ -178,8 +178,10 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
     (K7): B, Tp, Cp, outer, inners.  ``pen`` (K6): B, C, Tm, power_iters.
     ``pgd_matvec_cols`` (K10): B, K, rows.  ``propagate`` (an SQP
     iteration's chain, ``mpc/propagate.py``): B, T, n (3), m (2).  ``reduce`` (an SQP
-    iteration's reduce, ``mpc/reduce.py``): B, T, n, m.  ``swar``: layout, kind
-    ("binop", "shift", "sat_accum"), n, op, steps, pair."""
+    iteration's reduce, ``mpc/reduce.py``): B, T, n, m.  ``stack`` (an SQP
+    iteration's constraint stacking, ``mpc/stack.py``): B, T, n, Tm, Cs.
+    ``swar``: layout, kind ("binop", "shift", "sat_accum"), n, op, steps,
+    pair."""
     s = shape
     if kernel == "swar":
         return _swar_cost(**s)
@@ -240,6 +242,15 @@ def kernel_cost(kernel: str, **shape) -> KernelCost:
                   + (2 * n + 1) * Tm * (Tm + 1) // 2)
         return KernelCost(4 * B * (live + T * n * (n + 1) + n + Tm * Tm + Tm),
                           2 * rounds * B, "f32")
+    if kernel == "stack":
+        # Bbar, Abar and Cbar read, S_t, P_t and r_t written, every column,
+        # the dead ones too; each of the T Cs (Tm + n + 1) outputs a dot over
+        # n, 2n - 1 roundings, one f32 instruction and no FMA each, so two of
+        # the "f32" peak's operations
+        B, T, n, Tm, Cs = s["B"], s["T"], s["n"], s["Tm"], s["Cs"]
+        outputs = T * Cs * (Tm + n + 1)
+        return KernelCost(4 * B * (T * n * (Tm + n + 1) + outputs),
+                          2 * (2 * n - 1) * outputs * B, "f32")
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

@@ -65,7 +65,7 @@ def test_the_cell_loads_by_name():
     assert {m["name"] for m in cell.per_layer} == {
         "serve_launches_per_tick", "solver_launches_per_tick", "device_idle_share",
         "serve_enqueue_ms", "serve_wait_ms", "solver_replay_share", "propagate_device_ms",
-        "reduce_device_ms", "chain_roofline"}
+        "reduce_device_ms", "chain_roofline", "stack_device_ms"}
     for m in cell.per_layer:
         assert callable(run.reader(ROOT, m["name"]))
         assert m["moves"] in {e["name"] for e in cell.end_to_end}
@@ -168,7 +168,7 @@ def test_the_work_is_the_shapes_the_solver_launches():
         assert (mine.bytes, mine.ops, mine.op_type) == (theirs.bytes, theirs.ops, theirs.op_type)
     csqp = cell.kind.solver(cell.kind.build(cell.config, 8, "cpu"))
     assert (csqp.dev.n_dec, csqp.n_rows, csqp.padded_rows) == (32, 16, 64)
-    assert csqp.forms == dict(chain="fused", reduce="kernel",
+    assert csqp.forms == dict(chain="fused", reduce="kernel", stack="kernel",
                               condense="lipq", constraints="pen", inner="alm")
 
 

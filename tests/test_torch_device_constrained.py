@@ -261,7 +261,7 @@ def test_lipq_false_solve_parity(small_pair):
     ref, _ = small_pair
     ref_x = JDeviceConstrainedSQP(ref.dev, alm_outer=2, lipq=False, fused=False, **CON)
     port = device_constrained_config(ref_x, fused=None, device="cpu")
-    assert port.forms == dict(chain="fused", reduce="kernel",
+    assert port.forms == dict(chain="fused", reduce="kernel", stack="kernel",
                               condense="torch", constraints="torch", inner="alm")
     x0 = np.concatenate([X0, _x0(4, 83)])
     w_j, _ = ref_x.solve_words(ref_x.init_words(6), x0)
@@ -302,7 +302,7 @@ def test_long_horizon_solves_in_the_torch_form():
     """T = 144 (Tm = 288, past K3's fit; C = 144 rows, Cp = 192) takes the
     torch form of both, as the reference's _use_lipq does, and K5 (its plain
     version here)."""
-    _long_horizon_parity(144, dict(chain="fused", reduce="kernel",
+    _long_horizon_parity(144, dict(chain="fused", reduce="kernel", stack="kernel",
                                    condense="torch", constraints="torch", inner="alm"),
                          192)
 
@@ -310,7 +310,7 @@ def test_long_horizon_solves_in_the_torch_form():
 def test_t128_solves_through_k3_k6_and_k5():
     """T = 128 (Tm = 256; C = 128 rows, Cp = 128) takes K3, K6 and K5, as
     the reference does on its chip."""
-    _long_horizon_parity(128, dict(chain="fused", reduce="kernel",
+    _long_horizon_parity(128, dict(chain="fused", reduce="kernel", stack="kernel",
                                    condense="lipq", constraints="pen", inner="alm"), 128)
 
 

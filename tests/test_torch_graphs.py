@@ -351,13 +351,14 @@ STATES = {"rti": (0.0, 1.0), "crti": (-np.pi, np.pi), "crti_t128": (-np.pi, np.p
 KINDS = ["rti", "crti", "crti_t128"]
 PORT_KERNELS = {"rti": {"propagate_kernel", "reduce_kernel", "lipq_reg_kernel",
                         "pgd_hqt_kernel"},
-                "crti": {"propagate_kernel", "reduce_kernel", "lipq_reg_kernel",
-                         "pen_reg_kernel", "alm_reg_kernel"},
-                "crti_t128": {"propagate_kernel", "reduce_kernel", "lipq_long_kernel",
-                              "pen_wide_kernel", "alm_wide_kernel"}}
+                "crti": {"propagate_kernel", "reduce_kernel", "stack_rows_kernel",
+                         "lipq_reg_kernel", "pen_reg_kernel", "alm_reg_kernel"},
+                "crti_t128": {"propagate_kernel", "reduce_kernel", "stack_rows_kernel",
+                              "lipq_long_kernel", "pen_wide_kernel", "alm_wide_kernel"}}
 """The port's kernels a tick of each configuration runs: the unicycle's
-chain (rollout, linearization and recursion), the reduce, then the register
-designs at T 32, the long designs past 64 lanes."""
+chain (rollout, linearization and recursion), the reduce, in the
+constrained ones the constraint stacking, then the register designs at T
+32, the long designs past 64 lanes."""
 B_CARD = 4096
 TICKS = 6
 

@@ -228,7 +228,7 @@ def test_device_constrained_past_64_lanes_at_parity(horizon):
     ref = JDeviceConstrainedSQP(JDeviceSQP(horizon=horizon, **CON_SQP), **CON)
     port = device_constrained_config(ref, device="cpu")
     d = port.dev
-    assert port.forms == dict(chain="fused", reduce="kernel",
+    assert port.forms == dict(chain="fused", reduce="kernel", stack="kernel",
                               condense="lipq", constraints="pen", inner="alm")
     x0 = np.stack([np.linspace(-0.1, 0.1, 3), np.linspace(-0.02, 0.02, 3),
                    np.linspace(-1, 1, 3)], -1).astype(np.float32)

@@ -27,6 +27,10 @@ MAIN_PATH = [
     ("reduce", dict(B=4096, T=32, n=3, m=2), 126.4, 1.6072, 0.03773, "bytes"),
     ("reduce", dict(B=16384, T=32, n=3, m=2), 505.6, 6.4288, 0.1509, "bytes"),
     ("reduce", dict(B=4096, T=128, n=3, m=2), 1914.7, 77.094, 1.1507, "operations"),
+    ("stack", dict(B=4096, T=32, n=3, Tm=64, Cs=1), 142.61, 0.08913, 0.04257, "bytes"),
+    ("stack", dict(B=16384, T=32, n=3, Tm=64, Cs=1), 570.43, 0.35652, 0.17028, "bytes"),
+    ("stack", dict(B=4096, T=128, n=3, Tm=256, Cs=1), 2181.0, 1.3631, 0.65106, "bytes"),
+    ("stack", dict(B=4096, T=16, n=6, Tm=32, Cs=1), 71.565, 0.05623, 0.021363, "bytes"),
 ]
 
 
@@ -81,6 +85,24 @@ def test_reduce_counts_the_live_triangle():
     cost = kernel_cost("reduce", B=B, T=T, n=n, m=m)
     assert cost.ops == 2 * rounds * B and cost.op_type == "f32"
     assert cost.bytes == 4 * B * (live + T * n * (n + 1) + n + Tm * Tm + Tm)
+
+
+@pytest.mark.parametrize("B, T, n, Tm, Cs", [(4096, 32, 3, 64, 1), (16384, 32, 3, 64, 1),
+                                             (4096, 128, 3, 256, 1), (4096, 16, 6, 32, 1),
+                                             (7, 5, 3, 12, 3)])
+def test_stack_counts_every_column(B, T, n, Tm, Cs):
+    """The four constrained cells' shapes (crti_t32 at both fleets,
+    crti_t128, cquad_t16) and three rows a step: Bbar (T, n, Tm), Abar
+    (T, n, n) and Cbar (T, n) read, the dead columns too; S_t (T Cs, Tm),
+    P_t (T Cs, n) and r_t (T Cs) written; 4 bytes a value.  Each output a
+    dot over n: n products and n - 1 sums, each rounding two of the f32
+    peak's operations (no FMA)."""
+    cost = kernel_cost("stack", B=B, T=T, n=n, Tm=Tm, Cs=Cs)
+    read = T * n * Tm + T * n * n + T * n
+    written = T * Cs * Tm + T * Cs * n + T * Cs
+    assert cost.bytes == 4 * B * (read + written)
+    assert cost.ops == 2 * (2 * n - 1) * written * B and cost.op_type == "f32"
+    assert bound_ms(cost)[1] == "bytes"
 
 
 def test_k4_words_entry_moves_a_quarter_of_the_lanes():

@@ -856,9 +856,11 @@ def test_long_horizon_device_sqp_cost_parity(cuda, horizon, forms):
 
 
 @pytest.mark.parametrize("horizon, forms", [
-    (128, dict(chain="fused", reduce="kernel", condense="lipq", constraints="pen", inner="alm")),
-    (136, dict(chain="fused", reduce="kernel", condense="lipq", constraints="pen", inner="alm")),
-    (144, dict(chain="fused", reduce="kernel",
+    (128, dict(chain="fused", reduce="kernel", stack="kernel", condense="lipq",
+               constraints="pen", inner="alm")),
+    (136, dict(chain="fused", reduce="kernel", stack="kernel", condense="lipq",
+               constraints="pen", inner="alm")),
+    (144, dict(chain="fused", reduce="kernel", stack="kernel",
                condense="torch", constraints="torch", inner="alm")),
 ])
 def test_long_horizon_device_constrained_cost_parity(cuda, horizon, forms):
@@ -1335,7 +1337,7 @@ def quad_condensed(cuda, request):
 
     csqp = DeviceConstrainedSQP(DeviceSQP(model=pt.PlanarQuadrotor(), sqp_iters=1,
                                           device=cuda, **QUAD_KW), **QUAD_CON)
-    assert csqp.forms == dict(chain="fused", reduce="kernel",
+    assert csqp.forms == dict(chain="fused", reduce="kernel", stack="kernel",
                               condense="lipq", constraints="pen", inner="alm")
     B = request.param
     rng = np.random.default_rng(90)
