@@ -10,8 +10,9 @@ the host SQP tier (``QuantizedSQP``, ``SQPController``, ``ConstrainedSQP``),
 the sampling and gradient planners (``QuantizedMPPI``,
 ``QuantizedNonlinearPGD``) with their costs, the on-device SQP with every
 propagation and contraction form, the state-constrained tier (the LTI ``ConstrainedPGD`` and its closed loop
-``ConstrainedController``, and the on-device ``DeviceConstrainedSQP``), the three
-serving endpoints and the multi-device tier (:mod:`pint_tpu_torch.parallel`:
+``ConstrainedController``, and the on-device ``DeviceConstrainedSQP``), the four
+serving endpoints (``MPPIService`` serves the sampling planner) and the
+multi-device tier (:mod:`pint_tpu_torch.parallel`:
 a (dp, tp) process mesh under ``torch.distributed``, the sharded PGD and
 ALM solvers, and the sharded SQP solves), with hand-written CUDA kernels
 for the SWAR binops, shifts and saturating accumulate (K1, K9, K8,
@@ -82,6 +83,7 @@ from pint_tpu_torch.packed import (
 from pint_tpu_torch.serving import (
     ConstrainedRTIService,
     MPCService,
+    MPPIService,
     RTIService,
     ServiceStats,
 )
@@ -120,6 +122,7 @@ __all__ = [
     "FusedPGD",
     "LTIController",
     "MPCService",
+    "MPPIService",
     "QuantizedMPPI",
     "QuantizedNonlinearPGD",
     "QuantizedQP",

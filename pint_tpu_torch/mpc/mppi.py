@@ -14,12 +14,23 @@ int8 control plans.  One update:
 Random numbers come from a ``torch.Generator`` the caller passes where the
 reference takes a JAX key, and are drawn in :meth:`QuantizedMPPI.
 _sample_noise` alone, on the generator's device, then moved to the
-solver's.  A generator and a JAX key never draw the same noise, so the
-port's sampled plans differ from the reference's by design; given the same
+solver's.  :meth:`QuantizedMPPI.draw_noise` draws the noise of several
+updates ahead, as int8 lanes, and :meth:`QuantizedMPPI.solve_words` runs
+those updates on noise it is handed (the serving layer's
+:class:`~pint_tpu_torch.serving.MPPIService`); :meth:`~QuantizedMPPI.step`
+is a draw, then one such update.  A generator and a JAX key never draw
+the same noise, so the port's sampled plans differ from the reference's
+by design; given the same
 noise (a test hands in JAX's), an update is the reference's: candidates and
 rollouts bit-identical, costs and weights to f32 roundoff.  The median of
 the costs averages the two middle values for an even K, as ``jnp.median``
 does (``torch.median`` would return the lower one).
+
+Each draw is one ``pint.mppi.sample`` range in a ``torch.profiler`` trace
+and each update two, ``pint.mppi.rollout`` (the saturating add, the unpack
+and the fixed-point rollout) then ``pint.mppi.score`` (the costs, the
+median, the softmax, the weighted mean and the repack): host-only ranges
+(:func:`~pint_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from pint_tpu_torch.models.dynamics import (
 )
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.ops import word as W
+from pint_tpu_torch.utils.profiling import span
 
 __all__ = ["QuantizedMPPI", "unicycle_goal_cost"]
 
@@ -46,12 +58,15 @@ def unicycle_goal_cost(model: Unicycle, goal_xy):
     """Quadratic goal-reaching cost on fixed-point unicycle trajectories.
 
     states (..., T+1, 3) int32, controls (..., T, 2) lanes -> (...) float32:
-    running squared distance + 20 x terminal + 1e-4 x control effort."""
+    running squared distance + 20 x terminal + 1e-4 x control effort.  The
+    goal is converted to float32 once; one already on the trajectories'
+    device is used there with no copy a call."""
+    goal_t = torch.as_tensor(goal_xy if isinstance(goal_xy, torch.Tensor)
+                             else np.asarray(goal_xy), dtype=torch.float32)
 
     def cost(states, controls):
         xy = states[..., :2].to(torch.float32) * float(np.float32(2.0**-model.frac_bits))
-        goal = torch.as_tensor(np.asarray(goal_xy), dtype=torch.float32,
-                               device=xy.device)[..., None, :]
+        goal = goal_t.to(xy.device)[..., None, :]
         d2 = torch.sum((xy - goal) ** 2, dim=-1)
         run = torch.sum(d2[..., 1:], dim=-1)
         term = 20.0 * d2[..., -1]
@@ -105,6 +120,17 @@ class QuantizedMPPI:
         noise = torch.clamp(torch.round(z * self.noise_lanes), -127, 127)
         return noise.to(torch.int32).to(self.device)
 
+    def draw_noise(self, gen: torch.Generator, batch: int, updates: int) -> torch.Tensor:
+        """The noise of ``updates`` successive updates: (B, updates, K,
+        lanes) int8, update u the draw :meth:`step` would make u-th from
+        ``gen``."""
+        with span("pint.mppi.sample"):
+            out = torch.empty((batch, updates, self.samples, self.lanes_per_plan),
+                              dtype=torch.int8, device=self.device)
+            for u in range(updates):
+                out[:, u] = self._sample_noise(gen, batch)
+            return out
+
     def _rollouts(self, nominal_words, noise, state0):
         """The K candidates of every problem and their rollouts: (lanes
         (B, K, L), ctrl (B, K, T, 2), states (B, K, T+1, 3))."""
@@ -119,6 +145,23 @@ class QuantizedMPPI:
         )
         return lanes, ctrl, states
 
+    def _update(self, nominal_words, noise, state0, cost_fn):
+        """One MPPI update on the perturbations ``noise`` (B, K, lanes) of
+        any integer dtype; returns (new nominal words, best cost a
+        problem)."""
+        with span("pint.mppi.rollout"):
+            lanes, ctrl, states = self._rollouts(nominal_words, noise, state0)
+        with span("pint.mppi.score"):
+            costs = cost_fn(states, ctrl)                      # (B, K)
+            # self-normalized exponential weighting: the temperature is in
+            # units of (median - best), robust to heavy-tailed penalties
+            mu = torch.amin(costs, dim=-1, keepdim=True)
+            scale = (_median(costs) - mu) + 1e-6
+            w = torch.softmax(-(costs - mu) / (scale * self.temperature), dim=-1)
+            mean_lanes = torch.einsum("bk,bkl->bl", w, lanes.to(torch.float32))
+            new_lanes = torch.clamp(torch.round(mean_lanes), -127, 127).to(torch.int32)
+            return pack_controls(new_lanes), torch.amin(costs, dim=-1)
+
     def step(
         self,
         gen: torch.Generator,
@@ -127,17 +170,23 @@ class QuantizedMPPI:
         cost_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One MPPI update; returns (new nominal words, best cost a problem)."""
-        noise = self._sample_noise(gen, nominal_words.shape[0])   # (B, K, L)
-        lanes, ctrl, states = self._rollouts(nominal_words, noise, state0)
-        costs = cost_fn(states, ctrl)                          # (B, K)
-        # self-normalized exponential weighting: the temperature is in units
-        # of (median - best), robust to heavy-tailed penalties
-        mu = torch.amin(costs, dim=-1, keepdim=True)
-        scale = (_median(costs) - mu) + 1e-6
-        w = torch.softmax(-(costs - mu) / (scale * self.temperature), dim=-1)
-        mean_lanes = torch.einsum("bk,bkl->bl", w, lanes.to(torch.float32))
-        new_lanes = torch.clamp(torch.round(mean_lanes), -127, 127).to(torch.int32)
-        return pack_controls(new_lanes), torch.amin(costs, dim=-1)
+        with span("pint.mppi.sample"):
+            noise = self._sample_noise(gen, nominal_words.shape[0])   # (B, K, L)
+        return self._update(nominal_words, noise, state0, cost_fn)
+
+    def solve_words(
+        self,
+        words: torch.Tensor,           # (B, words_per_plan) int32 warm words
+        state0: torch.Tensor,          # (B, 3) int32
+        noise: torch.Tensor,           # (B, U, K, lanes) int8, as draw_noise gives
+        cost_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    ) -> torch.Tensor:
+        """``noise.shape[1]`` MPPI updates from ``words``, update u on
+        ``noise[:, u]``; returns the last update's words, bit for bit those
+        of as many :meth:`step` calls that drew the same noise."""
+        for u in range(noise.shape[1]):
+            words, _ = self._update(words, noise[:, u], state0, cost_fn)
+        return words
 
     # -- closed loop ---------------------------------------------------------
 

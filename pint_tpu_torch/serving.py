@@ -20,7 +20,8 @@ the K2 kernel (:class:`~pint_tpu_torch.mpc.fused.FusedPGD`) and computes the
 linear term on the device; on the CPU it runs the word-space
 :class:`~pint_tpu_torch.mpc.solver.FixedPointPGD` with the float64 host
 linear term.  The nonlinear services (:class:`RTIService`,
-:class:`ConstrainedRTIService`) run their solver on its own device.
+:class:`ConstrainedRTIService`) and the sampling-based
+:class:`MPPIService` run their solver on its own device.
 """
 
 from __future__ import annotations
@@ -35,12 +36,14 @@ import torch
 from pint_tpu_torch.models.dynamics import pack_controls, unpack_controls
 from pint_tpu_torch.mpc.condensed import QuantizedQP
 from pint_tpu_torch.mpc.fused import FusedPGD
+from pint_tpu_torch.mpc.mppi import QuantizedMPPI, unicycle_goal_cost
 from pint_tpu_torch.mpc.solver import FixedPointPGD
 from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.utils.profiling import span
 
-__all__ = ["ConstrainedRTIService", "MPCService", "RTIService", "ServiceStats",
-           "CRTI_BUDGET_S", "LTI_BUDGET_S", "RTI_BUDGET_S"]
+__all__ = ["ConstrainedRTIService", "MPCService", "MPPIService", "RTIService",
+           "ServiceStats", "CRTI_BUDGET_S", "LTI_BUDGET_S", "MPPI_BUDGET_S",
+           "RTI_BUDGET_S"]
 
 LTI_BUDGET_S = 0.010
 """Real-time budget (SLO) of the LTI endpoint (:class:`MPCService`): a
@@ -53,6 +56,11 @@ RTI_BUDGET_S = 0.020
 CRTI_BUDGET_S = 0.020
 """Real-time budget (SLO) of the state-constrained RTI endpoint
 (:class:`ConstrainedRTIService`): a 50 Hz control loop."""
+
+MPPI_BUDGET_S = 0.03125
+"""Real-time budget (SLO) of the sampling-based endpoint
+(:class:`MPPIService`): one step of the default unicycle, dt = 2**-5 s, a
+plan replanned every step."""
 
 
 @dataclasses.dataclass
@@ -109,7 +117,7 @@ def _shift_plan(lanes: torch.Tensor, m: int, n_dec: int) -> torch.Tensor:
 
 
 class _Service:
-    """The tick the three services share.  A service passes its batch, its
+    """The tick the four services share.  A service passes its batch, its
     deadline, its zero warm state (a tuple of tensors on its device, the
     plan words first) and the scale of its output lanes, and supplies
     ``_tick(*warm, inputs)``, which returns the next warm state and, last,
@@ -154,8 +162,9 @@ class _Service:
                 bad = self._bad_rows(x0, lanes_np)
                 if bad.any():
                     self.stats.resets += int(bad.sum())
-                    keep = torch.as_tensor(~bad, device=self._zero[0].device)[:, None]
-                    warm = [torch.where(keep, w, z) for w, z in zip(warm, self._zero)]
+                    keep = torch.as_tensor(~bad, device=self._zero[0].device)
+                    warm = [torch.where(keep.view(-1, *(1,) * (w.dim() - 1)), w, z)
+                            for w, z in zip(warm, self._zero)]
                     lanes_np = np.where(bad[:, None], 0, lanes_np)
                 self._warm = tuple(warm)
                 return lanes_np.astype(np.float64) * self._scale
@@ -301,3 +310,54 @@ class ConstrainedRTIService(_Service):
             warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
             return (warm, _shift_lam(lam, csqp._F.shape[0], csqp.n_rows),
                     lanes[:, : self.m])
+
+
+class MPPIService(_Service):
+    """Persistent sampling-based MPC endpoint: ``updates_per_tick``
+    warm-started :class:`~pint_tpu_torch.mpc.mppi.QuantizedMPPI` updates a
+    tick towards ``goal`` (:func:`~pint_tpu_torch.mpc.mppi.
+    unicycle_goal_cost`), as ``QuantizedMPPI.run_closed_loop`` runs them.
+    Each tick takes physical states, returns the first (v, w) of every
+    refined plan, and shifts the plans one step.
+
+    The warm state is the packed plan and the noise of the next tick's
+    updates, (B, U, K, lanes) int8, drawn after each tick's updates from a
+    generator on the service's device seeded by ``noise_seed + 1`` (on the
+    CPU, one seeded by ``noise_seed`` would draw the table again).  The zero
+    warm state is zero words and a cold-row table: one (U, K, lanes) draw
+    from a CPU generator seeded by ``noise_seed``, the same for every row.
+    So a row's first tick, and the tick after it was reset, samples from
+    numbers that the seed alone fixes.  Non-finite input rows get their
+    warm state reset and a zero control back."""
+
+    def __init__(self, mppi: QuantizedMPPI, batch: int, goal=(0.0, 0.0),
+                 updates_per_tick: int = 2, noise_seed: int = 0,
+                 deadline_s: Optional[float] = MPPI_BUDGET_S):
+        """``mppi``: the planner (its device is the service's)."""
+        self.mppi = mppi
+        self.updates = updates_per_tick
+        self.device = dev = mppi.device
+        self._cost = unicycle_goal_cost(mppi.model,
+                                        torch.tensor(goal, dtype=torch.float32, device=dev))
+        # x, y in Q frac_bits, theta in Q16 turns, as Unicycle.to_fixed
+        self._q = torch.tensor([2.0**mppi.model.frac_bits] * 2 + [2.0**16], device=dev)
+        self._gen = torch.Generator(device=dev).manual_seed(noise_seed + 1)
+        table = mppi.draw_noise(torch.Generator().manual_seed(noise_seed), 1,
+                                updates_per_tick)
+        zero = (mppi.init_words(batch), table.expand(batch, *table.shape[1:]))
+        super().__init__(batch, deadline_s, zero, mppi.model.lane_scales)
+
+    def _tick(self, words, noise, x0_f):
+        """Returns (next warm words, next noise, first controls (B, 2) int32
+        lanes)."""
+        mppi = self.mppi
+        # rounded half to even as Unicycle.to_fixed rounds; a component that
+        # is not finite reads 0 (its row is reset in any case), one past
+        # int32's range its end (2**31 - 128 is float32's last below 2**31)
+        q = torch.round(torch.nan_to_num(x0_f, nan=0.0, posinf=0.0, neginf=0.0) * self._q)
+        state = torch.clamp(q, -(2.0**31), 2.0**31 - 128).to(torch.int32)
+        words = mppi.solve_words(words, state, noise, self._cost)
+        with span("pint.serve.shift"):
+            lanes = unpack_controls(words)
+            warm = _shift_plan(lanes, 2, mppi.lanes_per_plan)
+        return warm, mppi.draw_noise(self._gen, self.batch, self.updates), lanes[:, :2]

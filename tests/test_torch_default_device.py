@@ -94,6 +94,7 @@ ENTRY_POINTS = {
     "RecedingHorizonController": lambda **kw: RecedingHorizonController.build(
         pt.DoubleIntegrator(u_shift=10), horizon=8, iters_per_tick=2, **kw),
     "QuantizedMPPI": lambda **kw: QuantizedMPPI(horizon=8, samples=4, **kw),
+    "MPPIService": lambda **kw: pt.MPPIService(QuantizedMPPI(horizon=8, samples=4, **kw), 2),
     "QuantizedNonlinearPGD": lambda **kw: QuantizedNonlinearPGD(horizon=8, iters=2, **kw),
     "PackedArray.zeros": lambda **kw: pt.PackedArray.zeros(
         pt.PackedLayout(8, 8, 8, 8), (3,), **kw),
