@@ -170,7 +170,14 @@ Phases (any failure raises and the script exits non-zero):
     S_t, P_t and r_t from the chain's stacks in one launch) at the
     constrained cells' shapes (the unicycle's three and the quadrotor's T =
     16, B = 4096) and one-hot F: equal (int32 bits) to its plain version on
-    the card, and timed beside the einsums it replaces.
+    the card, and timed beside the einsums it replaces;
+32. the MPPI update's kernel (phase_mppi, ``mpc/mppi.py``: the saturating
+    add, the Q16 rollout, the score, the median, the softmax and the
+    weighted mean of a problem's K candidates in one block) at the
+    ``mppi_t50-fleet4096`` cell's shape, B = 4096, K = 512, H = 50: new
+    words and best costs equal (int32 bits) to its plain version on the
+    card, one launch an update through ``solve_words``, and timed beside
+    the plain version and the torch update it replaces.
 
 Launch counts are set to 0 before each main path and read after it: the
 PackedArray flow must launch every SWAR kernel, the LTI constrained solve
@@ -187,7 +194,8 @@ stacking once an SQP iteration of the quadrotor's constrained solve (the
 counts ``propagate.launch_count()``, ``reduce.launch_count()`` and
 ``stack.launch_count()`` are kept beside ``launch_counts()``), and phase
 28 K2 in each resumed solve and K3 (and K4 for fused=None) in each
-flagship solve.
+flagship solve, and phase 32 the MPPI update's kernel once an update
+(``mppi.launch_count()``).
 The line before the last is the kernels' JSON
 record: for each kernel its launches, its error, one call between CUDA events
 (``ms``), calls queued behind a device sleep (``queued_ms``), the plain
@@ -277,6 +285,7 @@ HOVER_BATCH, HOVER_TICKS, HOVER_T, HOVER_ITERS, HOVER_CHECK_STRIDE = 4096, 160, 
 # phase 25, the planners: BASELINE's 8192 rollouts of H = 50 an MPPI update
 # (B 16 x K 512), tests/test_nonlinear.py's planner at B 4096
 MPPI_BATCH, MPPI_H, MPPI_K, MPPI_UPDATES, MPPI_TICKS = 16, 50, 512, 8, 40
+MPPI_CELL = (4096, 512, 50)                     # phase 32: mppi_t50-fleet4096's B, K, H
 NL_BATCH, NL_H, NL_ITERS, NL_CHECK_STRIDE, NL_PROFILE_ITERS = 4096, 48, 60, 16, 5
 # phase 26, examples/swingup.py's flow
 SWING_TICKS = 192
@@ -1585,6 +1594,60 @@ def phase_stack(torch, P, timing):
     return rec
 
 
+def phase_mppi(torch, P, timing):
+    """The MPPI update's kernel at the cell's shape on seeded warm words,
+    start states in the cell's box and one draw of noise: ``mppi_update_fused``
+    against ``mppi_update_plain`` on the card, words and best costs
+    ``torch.equal`` as int32 bits; ``solve_words`` over two updates launching
+    it twice; one call between CUDA events, queued calls, the plain version
+    and the torch update it replaces (``QuantizedMPPI._update`` on the
+    closure's form of the cost, which the kernel path does not take) timed."""
+    from pint_tpu_torch.mpc import mppi as M
+
+    B, K, H = MPPI_CELL
+    mppi = P.QuantizedMPPI(horizon=H, samples=K, device=DEVICE)
+    rng = np.random.default_rng(3200)
+    x = rng.uniform([-0.2, -0.2, 0.0], [0.2, 0.2, 1.0], (B, 3)).astype(np.float32)
+    state = torch.as_tensor(P.Unicycle().to_fixed(x), device=DEVICE)
+    lanes = torch.as_tensor(rng.integers(-60, 61, (B, 2 * H)), dtype=torch.int32)
+    words = P.pack_controls(lanes).to(DEVICE)
+    noise = mppi.draw_noise(torch.Generator(device=DEVICE).manual_seed(3201), B, 2)
+    cost = P.unicycle_goal_cost(mppi.model, (0.2, 0.1))
+
+    def fused():
+        return M.mppi_update_fused(mppi, words, noise[:, 0], state, cost)
+
+    def plain():
+        return M.mppi_update_plain(mppi, words, noise[:, 0], state, cost)
+
+    def torch_update():
+        return mppi._update(words, noise[:, 0], state, lambda s, c: cost(s, c))
+
+    got, ref = fused(), plain()
+    if not (torch.equal(got[0], ref[0])
+            and torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))):
+        raise AssertionError(f"mppi kernel B={B} K={K} H={H}: words or best costs differ "
+                             "from the plain version")
+    off = int((P.unpack_controls(got[0]) != P.unpack_controls(torch_update()[0])).sum())
+    M.K.reset_launch_counts()
+    mppi.solve_words(words, state, noise, cost)
+    launches = M.launch_count()
+    if launches != 2:
+        raise AssertionError(f"mppi: {launches} kernel launches in two updates")
+    del got, ref
+    rec = dict(B=B, K=K, H=H, max_abs_err=0.0, launches=launches,
+               lanes_off_torch_update=off, lanes=B * 2 * H,
+               ms=median(timing.cuda_ms(fused, reps=5)),
+               queued_ms=median(timing.queued_ms(fused, calls=3, reps=3)),
+               plain_ms=median(timing.cuda_ms(plain, reps=3, warmup=1)),
+               torch_ms=median(timing.cuda_ms(torch_update, reps=3, warmup=1)))
+    say(f"mppi kernel B={B} K={K} H={H}: words and best costs equal to the plain version "
+        f"({off} of {B * 2 * H} lanes off the torch update's); {rec['queued_ms']:.4f} ms "
+        f"queued, {rec['ms']:.4f} ms one call, plain {rec['plain_ms']:.2f} ms, torch "
+        f"update {rec['torch_ms']:.2f} ms")
+    return rec
+
+
 def wide_operands(torch, B, Tp, seed):
     """Random warm lanes (-128 occurs), g within 2^20 of 0 and of int32's
     extremes, and a symmetric int8 Hessian with a strong diagonal, on the
@@ -2854,6 +2917,7 @@ def main():
     chain = phase_chain(torch, P, timing)
     reduce = phase_reduce(torch, P, timing)
     rows = phase_stack(torch, P, timing)
+    mppi_rec = phase_mppi(torch, P, timing)
     phase_sec = dict(sqp_host=t1 - t0, lti_controllers=t2 - t1, planners=t3 - t2,
                      swingup=t4 - t3, native=t5 - t4, checkpoint=t6 - t5)
     say(f"phases 23-26: {phase_sec['sqp_host']:.1f} s, {phase_sec['lti_controllers']:.1f} s, "
@@ -2890,6 +2954,8 @@ def main():
                   "sym_ms is the torch _reduce_sym it replaces",
         "stack": "none: no PyTorch call writes a product batch-last in one pass; "
                  "einsum_ms is the two einsums it replaces",
+        "mppi": "none: no saturating packed rollout and score; torch_ms is the torch "
+                "update it replaces",
     }
     kernels = []
 
@@ -3042,6 +3108,19 @@ def main():
               "stack")
         kernels[-1]["launches_by_path"] = {paths: launches}
         kernels[-1]["einsum_ms"] = r["einsum_ms"]
+    from portbench.mppi_bound import update_bound_ms
+
+    b_ms = update_bound_ms(mppi_rec["B"], 1, mppi_rec["K"], mppi_rec["H"])
+    kernels.append(dict(
+        name="mppi_update (B=4096 K=512 H=50)", route="cuda",
+        source="pint_tpu_torch/csrc/mppi.cu",
+        replaces="none: the reference's MPPI is XLA jnp (pint_tpu/mpc/mppi.py)",
+        launches=mppi_rec["launches"], max_abs_err=0.0, ms=mppi_rec["ms"],
+        queued_ms=mppi_rec["queued_ms"], plain_ms=mppi_rec["plain_ms"], bound_ms=b_ms,
+        bound_by="int32 issue (portbench/mppi_bound.py)",
+        share_of_bound=b_ms / mppi_rec["queued_ms"], library_ms=None,
+        library=no_library["mppi"], torch_ms=mppi_rec["torch_ms"],
+        launches_by_path={"solve_words, two updates (phase 32)": mppi_rec["launches"]}))
     name = torch.cuda.get_device_name(0)
     say(json.dumps({"headline": headline}))
     say(json.dumps({"serving": {"mpc": mpc, "rti": rti, "crti": crti},
@@ -3053,7 +3132,8 @@ def main():
                     "models": models, "forms": forms}))
     say(json.dumps({"sqp_host": sqp_host, "lti_controllers": lti, "planners": planners,
                     "swingup": swingup, "native": native, "checkpoint": ckpt, "chain": chain,
-                    "reduce": reduce, "stack": rows, "phase_sec": phase_sec}))
+                    "reduce": reduce, "stack": rows, "mppi": mppi_rec,
+                    "phase_sec": phase_sec}))
     say(json.dumps({"ptxas_registers": ptxas_registers}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

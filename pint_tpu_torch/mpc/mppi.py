@@ -26,11 +26,25 @@ rollouts bit-identical, costs and weights to f32 roundoff.  The median of
 the costs averages the two middle values for an even K, as ``jnp.median``
 does (``torch.median`` would return the lower one).
 
+On the card, for the model :class:`Unicycle` itself and the goal cost of
+:func:`unicycle_goal_cost` with one goal, an update is one kernel launch
+(:func:`mppi_update_fused`, ``csrc/mppi.cu``): one block a problem, one
+thread a candidate, the noise read once and nothing of a candidate written
+out.  It is bit for bit :func:`mppi_update_plain`, which repeats its order
+of roundings; against the torch update, candidates and rollouts are
+bit-identical and costs, weights and means agree to float32 roundoff.  The
+solver decides at construction whether the model, K and the horizon fit
+(:func:`update_fits`) and at each call from the words' device and the cost;
+everything else (CPU tensors, any other cost or model) runs the torch
+update.  Its launches count under "mppi" (:func:`launch_count`), beside and
+not among :func:`~pint_tpu_torch.ops.kernels.launch_counts`.
+
 Each draw is one ``pint.mppi.sample`` range in a ``torch.profiler`` trace
 and each update two, ``pint.mppi.rollout`` (the saturating add, the unpack
-and the fixed-point rollout) then ``pint.mppi.score`` (the costs, the
-median, the softmax, the weighted mean and the repack): host-only ranges
-(:func:`~pint_tpu_torch.utils.profiling.span`).
+and the fixed-point rollout; on the kernel path the launch) then
+``pint.mppi.score`` (the costs, the median, the softmax, the weighted mean
+and the repack; on the kernel path nothing is left for it): host-only
+ranges (:func:`~pint_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import torch
 from pint_tpu_torch.models.dynamics import (
     CONTROL_LAYOUT,
     Unicycle,
+    _sin_turns_q14,
     pack_controls,
     unpack_controls,
 )
@@ -51,29 +66,42 @@ from pint_tpu_torch.ops import kernels as K
 from pint_tpu_torch.ops import word as W
 from pint_tpu_torch.utils.profiling import span
 
-__all__ = ["QuantizedMPPI", "unicycle_goal_cost"]
+__all__ = ["QuantizedMPPI", "UnicycleGoalCost", "launch_count", "merged_shifts",
+           "mppi_update_fused", "mppi_update_plain", "unicycle_goal_cost", "update_fits"]
 
 
-def unicycle_goal_cost(model: Unicycle, goal_xy):
+class UnicycleGoalCost:
     """Quadratic goal-reaching cost on fixed-point unicycle trajectories.
 
     states (..., T+1, 3) int32, controls (..., T, 2) lanes -> (...) float32:
-    running squared distance + 20 x terminal + 1e-4 x control effort.  The
-    goal is converted to float32 once; one already on the trajectories'
-    device is used there with no copy a call."""
-    goal_t = torch.as_tensor(goal_xy if isinstance(goal_xy, torch.Tensor)
-                             else np.asarray(goal_xy), dtype=torch.float32)
+    running squared distance + 20 x terminal + 1e-4 x control effort.  It
+    carries what an update's kernel reads of it: ``goal`` (float32, on the
+    device it was given on; one already on the trajectories' device is used
+    there with no copy a call), ``frac_bits`` (the x, y scale), and
+    ``shared_goal``, the goal's two values on the host where one goal serves
+    every problem (shape (2,) or one of size 1 in front), else None."""
 
-    def cost(states, controls):
-        xy = states[..., :2].to(torch.float32) * float(np.float32(2.0**-model.frac_bits))
-        goal = goal_t.to(xy.device)[..., None, :]
+    def __init__(self, model: Unicycle, goal_xy):
+        self.frac_bits = model.frac_bits
+        self.goal = torch.as_tensor(goal_xy if isinstance(goal_xy, torch.Tensor)
+                                    else np.asarray(goal_xy), dtype=torch.float32)
+        self.shared_goal = (tuple(self.goal.reshape(2).tolist())
+                            if self.goal.numel() == 2 and self.goal.shape[-1] == 2 else None)
+
+    def __call__(self, states, controls):
+        xy = states[..., :2].to(torch.float32) * float(np.float32(2.0**-self.frac_bits))
+        goal = self.goal.to(xy.device)[..., None, :]
         d2 = torch.sum((xy - goal) ** 2, dim=-1)
         run = torch.sum(d2[..., 1:], dim=-1)
         term = 20.0 * d2[..., -1]
         effort = 1e-4 * torch.sum(controls.to(torch.float32) ** 2, dim=(-2, -1))
         return run + term + effort
 
-    return cost
+
+def unicycle_goal_cost(model: Unicycle, goal_xy) -> UnicycleGoalCost:
+    """The goal-reaching cost of :class:`UnicycleGoalCost`; the goal is
+    converted to float32 once."""
+    return UnicycleGoalCost(model, goal_xy)
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -82,6 +110,175 @@ def _median(x: torch.Tensor) -> torch.Tensor:
     s = torch.sort(x, dim=-1).values
     n = x.shape[-1]
     return ((s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5)[..., None]
+
+
+# -- the update in one kernel ----------------------------------------------------
+
+MIN_SAMPLES, MAX_SAMPLES = 32, 1024
+"""The kernel's K: a power of two from a warp to a block of threads, one
+thread a candidate."""
+
+_MAX_SMEM = 232448
+"""Shared memory a block may use on sm_90: the kernel's is the noise slab, K
+x lanes bytes, and 8 K + K / 8 + 2 lanes bytes beside it (``csrc/mppi.cu``)."""
+
+
+def launch_count() -> int:
+    """Launches of the update kernel since the last
+    :func:`~pint_tpu_torch.ops.kernels.reset_launch_counts`."""
+    return K._counts.get("mppi", 0)
+
+
+def merged_shifts(model) -> Tuple[int, int] | None:
+    """(xs, ws) where the unicycle's fixed-point map may run with its shifts
+    merged, ``x += (v c) >> xs`` and ``th += w << ws``, bit for bit the
+    model's map on lanes |v|, |w| <= 128: ``2 <= v_shift <= 14 + dt_shift``
+    and ``w_shift >= dt_shift``; else None."""
+    if not (2 <= model.v_shift <= 14 + model.dt_shift and model.w_shift >= model.dt_shift):
+        return None
+    return 12 + model.dt_shift - (model.v_shift - 2), model.w_shift - model.dt_shift
+
+
+def update_fits(model, samples: int, horizon: int) -> bool:
+    """Whether the update kernel takes the model, K and the horizon: the
+    model exactly :class:`Unicycle` (a subclass may change its map), its
+    shifts mergeable (:func:`merged_shifts`), K a power of two in
+    [:data:`MIN_SAMPLES`, :data:`MAX_SAMPLES`], an even horizon (whole
+    words of two steps), and the K x lanes noise slab in shared memory."""
+    lanes = 2 * horizon
+    return (type(model) is Unicycle and merged_shifts(model) is not None
+            and MIN_SAMPLES <= samples <= MAX_SAMPLES and samples & (samples - 1) == 0
+            and horizon > 0 and horizon % 2 == 0
+            and samples * lanes + 8 * samples + samples // 8 + 2 * lanes <= _MAX_SMEM)
+
+
+def _merged_step(x, y, th, v, w, xs: int, ws: int):
+    """The unicycle's fixed-point step with merged shifts (int32 tensors,
+    every sum wrapping)."""
+    c = _sin_turns_q14(th + (1 << 14))
+    s = _sin_turns_q14(th)
+    return x + ((v * c) >> xs), y + ((v * s) >> xs), th + (w << ws)
+
+
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power of two long) as a tree: the first half plus
+    the second, until one is left; the dim is kept."""
+    while x.shape[dim] > 1:
+        a, b = x.split(x.shape[dim] // 2, dim=dim)
+        x = a + b
+    return x
+
+
+def _costs_plain(model, cost: UnicycleGoalCost, state0: torch.Tensor,
+                 lanes: torch.Tensor) -> torch.Tensor:
+    """The candidates' costs (B, K) float32 in the kernel's order: the
+    merged map step by step; each step's squared distance to the goal
+    (x, y scaled, less the goal, squared, summed), the running sum from step
+    1 in step order, plus 20 x the last, plus 1e-4 x the summed squared
+    lanes (an exact int32 sum, exact in float32 below 2**24)."""
+    B, Kc, L = lanes.shape
+    xs, ws = merged_shifts(model)
+    sc = float(np.float32(2.0**-cost.frac_bits))
+    gx, gy = cost.shared_goal
+    x, y, th = (state0[:, i, None].expand(B, Kc) for i in range(3))
+    run = d2 = None
+    for k in range(L // 2):
+        x, y, th = _merged_step(x, y, th, lanes[..., 2 * k], lanes[..., 2 * k + 1], xs, ws)
+        dx = x.to(torch.float32) * sc - gx
+        dy = y.to(torch.float32) * sc - gy
+        d2 = dx * dx + dy * dy
+        run = d2 if run is None else run + d2
+    effort = torch.sum(lanes * lanes, dim=-1).to(torch.float32)
+    return (run + 20.0 * d2) + 1e-4 * effort
+
+
+def _check_update(mppi, nominal_words, noise, state0, cost):
+    """(B, K, lanes); raises on what the update kernel does not take."""
+    if noise.dim() != 3:
+        raise ValueError(f"noise must be (B, K, lanes), got {tuple(noise.shape)}")
+    B, Kc, L = noise.shape
+    if ((Kc, L) != (mppi.samples, mppi.lanes_per_plan) or tuple(nominal_words.shape) != (B, L // 4)
+            or tuple(state0.shape) != (B, 3)):
+        raise ValueError(f"mppi update: words {tuple(nominal_words.shape)}, noise "
+                         f"{tuple(noise.shape)}, states {tuple(state0.shape)} for K "
+                         f"{mppi.samples} and {mppi.lanes_per_plan} lanes")
+    if noise.dtype.is_floating_point or noise.dtype == torch.bool:
+        raise ValueError(f"mppi update: noise must be integers, got {noise.dtype}")
+    if nominal_words.dtype != torch.int32 or state0.dtype != torch.int32:
+        raise ValueError("mppi update: words and states must be int32")
+    if not update_fits(mppi.model, Kc, L // 2):
+        raise ValueError(f"mppi update: model {mppi.model}, K {Kc}, horizon {L // 2} past "
+                         "the kernel's fit (update_fits)")
+    if type(cost) is not UnicycleGoalCost or cost.shared_goal is None:
+        raise ValueError("mppi update: the kernel scores the goal cost of "
+                         "unicycle_goal_cost with one goal for every problem")
+    return B, Kc, L
+
+
+def mppi_update_plain(mppi, nominal_words: torch.Tensor, noise: torch.Tensor,
+                      state0: torch.Tensor, cost: UnicycleGoalCost
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mppi_update_fused`, on any device: the
+    kernel's order of roundings, one elementwise operation a rounding.  The
+    candidates and their rollouts are :meth:`QuantizedMPPI._update`'s bit for
+    bit; the costs (:func:`_costs_plain`), the softmax's sum (a tree over K)
+    and the weighted mean (a sum over k = t + 32 j in j order for each t <
+    32, then a tree over t) are summed in the kernel's order, so they agree
+    with the torch update to float32 roundoff.  Returns (new words (B,
+    lanes / 4), best cost (B,))."""
+    B, Kc, L = _check_update(mppi, nominal_words, noise, state0, cost)
+    cand = W.add_signed_saturate(CONTROL_LAYOUT, nominal_words[:, None, :],
+                                 pack_controls(noise))
+    lanes = unpack_controls(cand)                                  # (B, K, L)
+    costs = _costs_plain(mppi.model, cost, state0, lanes)
+    mu = torch.amin(costs, dim=-1, keepdim=True)
+    scale = (_median(costs) - mu) + 1e-6
+    a = -(costs - mu) / (scale * mppi.temperature)
+    e = torch.exp(a - torch.amax(a, dim=-1, keepdim=True))
+    w = e / _tree_sum(e, -1)
+    p = (w[..., None] * lanes.to(torch.float32)).reshape(B, Kc // 32, 32, L)
+    acc = p[:, 0]
+    for j in range(1, Kc // 32):
+        acc = acc + p[:, j]
+    mean = _tree_sum(acc, 1)[:, 0]
+    new_lanes = torch.clamp(torch.round(mean), -127, 127).to(torch.int32)
+    return pack_controls(new_lanes), mu[:, 0]
+
+
+def mppi_update_fused(mppi, nominal_words: torch.Tensor, noise: torch.Tensor,
+                      state0: torch.Tensor, cost: UnicycleGoalCost
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MPPI update in one kernel launch (``csrc/mppi.cu``): from the
+    nominal words (B, lanes / 4) int32, the noise (B, K, lanes) of any
+    integer dtype (int8 read in place where each problem's slab is
+    contiguous and 16-byte aligned) and the start states (B, 3) int32, the
+    new words and the best cost a problem, bit for bit
+    :func:`mppi_update_plain`.  Kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    B, Kc, L = _check_update(mppi, nominal_words, noise, state0, cost)
+    if nominal_words.device.type == "cpu":
+        return mppi_update_plain(mppi, nominal_words, noise, state0, cost)
+    if noise.dtype != torch.int8:
+        noise = noise.to(torch.int8)
+    if (noise.stride(2) != 1 or noise.stride(1) != L or noise.stride(0) % 16
+            or noise.data_ptr() % 16):
+        noise = noise.clone(memory_format=torch.contiguous_format)
+    words, state0 = nominal_words.contiguous(), state0.contiguous()
+    dev = K.require_cuda("mppi_update_fused", words, state0, slabs=(noise,))
+    out = torch.empty((B, L // 4), dtype=torch.int32, device=dev)
+    best = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B:
+        xs, ws = merged_shifts(mppi.model)
+        gx, gy = cost.shared_goal
+        with torch.cuda.device(dev):
+            err = K.library().pint_mppi_update(
+                words.data_ptr(), noise.data_ptr(), state0.data_ptr(), out.data_ptr(),
+                best.data_ptr(), B, Kc, L, noise.stride(0), xs, ws,
+                float(np.float32(2.0**-cost.frac_bits)), gx, gy,
+                float(np.float32(mppi.temperature)), K.stream_of(words))
+        K.check(err, "mppi_update_fused")
+        K.count_launch("mppi")
+    return out, best
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +296,7 @@ class QuantizedMPPI:
 
     def __post_init__(self):
         object.__setattr__(self, "device", K.resolve_device(self.device))
+        object.__setattr__(self, "_fits", update_fits(self.model, self.samples, self.horizon))
 
     @property
     def lanes_per_plan(self) -> int:
@@ -145,10 +343,24 @@ class QuantizedMPPI:
         )
         return lanes, ctrl, states
 
+    def _fused(self, nominal_words, cost_fn) -> bool:
+        """Whether an update runs as one kernel launch
+        (:func:`mppi_update_fused`): the words on the card, the model, K and
+        horizon within :func:`update_fits` (decided at construction), and
+        ``cost_fn`` a :class:`UnicycleGoalCost` with one goal for every
+        problem.  Any other call runs the torch update."""
+        return (self._fits and nominal_words.device.type == "cuda"
+                and type(cost_fn) is UnicycleGoalCost and cost_fn.shared_goal is not None)
+
     def _update(self, nominal_words, noise, state0, cost_fn):
         """One MPPI update on the perturbations ``noise`` (B, K, lanes) of
         any integer dtype; returns (new nominal words, best cost a
         problem)."""
+        if self._fused(nominal_words, cost_fn):
+            with span("pint.mppi.rollout"):
+                out = mppi_update_fused(self, nominal_words, noise, state0, cost_fn)
+            with span("pint.mppi.score"):      # scored, weighed and packed in the launch
+                return out
         with span("pint.mppi.rollout"):
             lanes, ctrl, states = self._rollouts(nominal_words, noise, state0)
         with span("pint.mppi.score"):

@@ -98,6 +98,9 @@ _SIGNATURES = {
     "pint_reduce": [_P] * 10 + [_I] * 5 + [_P],
     # abar, bbar, cbar, f (host), st, pt, rt, B, T, n, Tm, cs, stream
     "pint_stack": [_P] * 7 + [_I] * 5 + [_P],
+    # words, noise, state0, out, best, B, K, L, noise_stride, xs, ws, scale,
+    # goal x, goal y, temperature, stream
+    "pint_mppi_update": [_P] * 5 + [_I] * 3 + [_L, _I, _I] + [_F] * 4 + [_P],
     # word_bits, pair, op, a, b, out, n, layout*, stream
     "pint_swar_binop": [_I, _I, _I, _P, _P, _P, _L, _P, _P],
     # word_bits, pair, left, v, out, n, amount_dev (or null), amount,
@@ -132,8 +135,8 @@ _counts = dict.fromkeys(KERNELS, 0)
 """Launches since the last :func:`reset_launch_counts`, by name: those of
 :data:`KERNELS`, and of any other port kernel whose wrapper reads its own
 count (``mpc/propagate.py``'s chain kernel, "propagate",
-``mpc/reduce.py``'s reduce kernel, "reduce", and ``mpc/stack.py``'s
-constraint stacking, "stack")."""
+``mpc/reduce.py``'s reduce kernel, "reduce", ``mpc/stack.py``'s
+constraint stacking, "stack", and ``mpc/mppi.py``'s update, "mppi")."""
 _lib = None
 _lib_lock = threading.Lock()
 

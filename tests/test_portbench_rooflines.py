@@ -221,3 +221,50 @@ def test_reduce_device_ms_reads_nothing_for_a_program_without_the_file(monkeypat
     monkeypatch.setattr(entries, "csrc", lambda: tmp_path)
     cell = run.load_cell(ROOT, "rti_t32-fleet4096")
     assert run.reader(ROOT, "reduce_device_ms")(_chain_slice(name=REDUCE), cell) is None
+
+
+# -- mppi_kernel_share: the updates that ran as the update's kernel -------------------
+
+MPPI = "void (anonymous namespace)::mppi_update_kernel<512>((anonymous namespace)::Args)"
+
+
+def _mppi_slice(per_tick=2, where="solver", port=True, name=MPPI):
+    """Two ticks, each with ``per_tick`` launches of ``name`` and a torch
+    operation beside them."""
+    ops = []
+    for a, _ in TICKS:
+        ops.append(trace.DeviceOp("void at::native::elementwise_kernel<128, 2>()", a, a + 90,
+                                  "solver", False))
+        for i in range(per_tick):
+            ops.append(trace.DeviceOp(name, a + 100 + 300 * i, a + 350 + 300 * i, where, port))
+    return trace.Summary(TICKS, 0, TICKS[-1][1], ops, [], 0, 0)
+
+
+@pytest.mark.parametrize("per_tick,share", [(2, 100.0), (1, 50.0), (3, 150.0)])
+def test_mppi_kernel_share_counts_the_kernels_launches_an_update(per_tick, share):
+    cell = run.load_cell(ROOT, "mppi_t50-fleet4096")
+    assert cell.config["solver"]["updates_per_tick"] == 2
+    assert "mppi_kernel_share" in {m["name"] for m in cell.per_layer}
+    assert entries.kernel_files(CSRC)["mppi_update_kernel"] == "mppi.cu"
+    got = run.reader(ROOT, "mppi_kernel_share")(_mppi_slice(per_tick), cell)
+    assert got == pytest.approx(share)
+
+
+@pytest.mark.parametrize("kw", [dict(per_tick=0), dict(where="serve"), dict(port=False),
+                                dict(name=REDUCE)],
+                         ids=["none", "outside-the-solver", "not-the-ports", "another-kernel"])
+def test_mppi_kernel_share_reads_nothing_without_the_kernel(kw):
+    cell = run.load_cell(ROOT, "mppi_t50-fleet4096")
+    assert run.reader(ROOT, "mppi_kernel_share")(_mppi_slice(**kw), cell) is None
+
+
+def test_mppi_kernel_share_reads_nothing_for_a_program_without_the_file(monkeypatch,
+                                                                       tmp_path):
+    """A program with no ``csrc/mppi.cu``, as the parent of the kernel is,
+    reads None rather than raising."""
+    for p in CSRC.glob("*.cu"):
+        if p.name != "mppi.cu":
+            (tmp_path / p.name).write_text(p.read_text())
+    monkeypatch.setattr(entries, "csrc", lambda: tmp_path)
+    cell = run.load_cell(ROOT, "mppi_t50-fleet4096")
+    assert run.reader(ROOT, "mppi_kernel_share")(_mppi_slice(), cell) is None
