@@ -9,11 +9,13 @@ state reset instead of poisoning later ticks.
 
 Each public ``solve`` is one ``pint.serve.solve`` range in a
 ``torch.profiler`` trace, cut into ``pint.serve.in`` (states onto the
-device), the solver's own phases (``pint.sqp.*``, ``pint.crti.*``),
-``pint.serve.shift`` (the next warm state), ``pint.serve.wait`` (blocked
-until the device has drained and copied the controls back) and
-``pint.serve.out`` (validation and scaling); :class:`ServiceStats` keeps
-the host/wait split of every tick without a profiler.
+device), the solver's own phases (``pint.sqp.*``, ``pint.crti.*``,
+``pint.mppi.*``), ``pint.serve.shift`` (the next warm state),
+``pint.serve.wait`` (blocked until the device has drained and copied the
+controls back) and ``pint.serve.out`` (validation and scaling).
+:class:`ServiceStats` is each service's phase clock: the host time of each
+phase of every tick without a profiler, and, while its device clock is on,
+the device time of every span.
 
 Route selection follows the device: on a CUDA device the LTI service runs
 the K2 kernel (:class:`~pint_tpu_torch.mpc.fused.FusedPGD`) and computes the
@@ -26,9 +28,9 @@ linear term.  The nonlinear services (:class:`RTIService`,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,7 +41,9 @@ from pint_tpu_torch.mpc.fused import FusedPGD
 from pint_tpu_torch.mpc.mppi import QuantizedMPPI, unicycle_goal_cost
 from pint_tpu_torch.mpc.solver import FixedPointPGD
 from pint_tpu_torch.ops import kernels as K
-from pint_tpu_torch.utils.profiling import span
+from pint_tpu_torch.utils import graphs, profiling
+from pint_tpu_torch.utils.graphs import launch_ns
+from pint_tpu_torch.utils.profiling import span, stamp
 
 __all__ = ["ConstrainedRTIService", "MPCService", "MPPIService", "RTIService",
            "ServiceStats", "CRTI_BUDGET_S", "LTI_BUDGET_S", "MPPI_BUDGET_S",
@@ -63,38 +67,139 @@ MPPI_BUDGET_S = 0.03125
 plan replanned every step."""
 
 
-@dataclasses.dataclass
+_profiler_on = profiling.profiling
+
+RING = 1024
+"""Ticks each of a service's rings of phase rows keeps, the last ones."""
+
+PHASES = ("in", "call", "launch", "shift", "wait", "out")
+"""The host phases of a tick: states onto the device (``in``); the solver's
+``solve_words`` call (``call``), of which ``launch`` is the part in CUDA
+graph launches; from the call's return to the copy back (``shift``: the
+next warm state, at MPPI also the draw's launches); the wait for the
+controls (``wait``); validation and scaling (``out``).  ``in``, ``call``,
+``shift``, ``wait`` and ``out`` add up to the tick."""
+
+
+@dataclasses.dataclass(eq=False, slots=True)
 class ServiceStats:
-    """Per-service counters.  ``deadline_misses`` counts ticks whose
-    end-to-end ``solve()`` latency exceeded ``deadline_s``; a miss is an
-    SLO violation, not an error.
+    """Per-service counters and the service's phase clock.
+    ``deadline_misses`` counts ticks whose end-to-end ``solve()`` latency
+    (entry to the controls' return from the device, as ``last_latency_s``)
+    exceeded ``deadline_s``; a miss is an SLO violation, not an error.
 
-    ``enqueue_s`` and ``wait_s`` split the summed latencies of all ticks:
-    the host's time from each call's entry to the start of the controls'
-    copy back (validation, states onto the device, issuing the solver's
-    device work), and the time blocked in that copy, until the device has
-    drained.  A host-bound service has ``wait_s`` small beside
-    ``enqueue_s``; a device-bound one the reverse."""
+    ``enqueue_s`` and ``wait_s`` (``enqueue_ns``, ``wait_ns``) split the
+    summed latencies of all ticks: the host's time from each call's entry
+    to the start of the controls' copy back (validation, states onto the
+    device, issuing the solver's device work), and the time blocked in that
+    copy, until the device has drained.  A host-bound service has
+    ``wait_s`` small beside ``enqueue_s``; a device-bound one the reverse.
 
-    ticks: int = 0
+    The host phase clock is always on: each tick (``_Service.solve``)
+    stamps its phase boundaries (:data:`PHASES`) and keeps them as one row
+    (entry, the end of each of ``in``, ``call``, ``shift``, ``wait`` and
+    ``out``, then the graph launches' nanoseconds) of a ring of the
+    last :data:`RING` ticks, or of a second ring for the instrumented
+    ticks, those during which a ``torch.profiler`` session records or the
+    device clock is on, so their cost stays out of the first
+    (:meth:`phase_rows`, :meth:`phase_ms`).  ``enqueue_s`` and ``wait_s``
+    come from the same stamps.
+
+    The device clock (:class:`~pint_tpu_torch.utils.profiling.DeviceClock`)
+    is on in the ticks of a service on a CUDA device during which a
+    profiler records, and in every ``device_every``-th tick (0, the
+    default: never).  A shape's first clocked tick captures the clocked
+    variant of its CUDA graph inside that tick, a slow tick.  Its
+    readings: ``device_ms`` (for unprofiled, then profiled ticks: span
+    name -> device ms summed over the ticks), ``device_ticks`` (the ticks
+    read), ``device_spans`` (the last such tick's spans placed on the
+    profiler's clock) and ``offsets_ns`` (each tick's anchor offset,
+    :meth:`offset_us`).  ``ticks`` counts the rows of both rings.  Only the
+    counters and ``device_every`` are arguments of the constructor."""
+
     resets: int = 0
-    last_latency_s: float = 0.0
     deadline_misses: int = 0
-    enqueue_s: float = 0.0
-    wait_s: float = 0.0
+    enqueue_ns: int = 0
+    wait_ns: int = 0
+    device_every: int = 0
+    rings: tuple = dataclasses.field(
+        init=False, default_factory=lambda: ([None] * RING, [None] * RING), repr=False)
+    rows: list = dataclasses.field(init=False, default_factory=lambda: [0, 0])
+    device_ms: tuple = dataclasses.field(
+        init=False, default_factory=lambda: ({}, {}), repr=False)
+    device_ticks: list = dataclasses.field(init=False, default_factory=lambda: [0, 0])
+    device_spans: list = dataclasses.field(init=False, default_factory=list, repr=False)
+    offsets_ns: collections.deque = dataclasses.field(
+        init=False, default_factory=lambda: collections.deque(maxlen=RING), repr=False)
 
-    def record_latency(self, seconds: float, deadline_s) -> None:
-        self.last_latency_s = seconds
-        self.ticks += 1
-        if deadline_s is not None and seconds > deadline_s:
-            self.deadline_misses += 1
+    @property
+    def ticks(self) -> int:
+        return self.rows[0] + self.rows[1]
 
-    def record_tick(self, t0: float, t1: float, t2: float, deadline_s) -> None:
-        """A tick that entered at ``t0``, began the copy back at ``t1`` and
-        had the controls at ``t2`` (``time.perf_counter()``)."""
-        self.enqueue_s += t1 - t0
-        self.wait_s += t2 - t1
-        self.record_latency(t2 - t0, deadline_s)
+    @property
+    def enqueue_s(self) -> float:
+        return self.enqueue_ns * 1e-9
+
+    @property
+    def wait_s(self) -> float:
+        return self.wait_ns * 1e-9
+
+    @property
+    def last_latency_s(self) -> float:
+        newest = [self.rings[p][(n - 1) % RING] for p, n in enumerate(self.rows) if n]
+        if not newest:
+            return 0.0
+        row = max(newest)                     # the later entry
+        return (row[4] - row[0]) * 1e-9
+
+    def record_device(self, readings, profiled: bool) -> None:
+        """A clocked tick's :meth:`DeviceClock.read`."""
+        ms, self.device_spans, offset = readings
+        total = self.device_ms[profiled]
+        for name, v in ms.items():
+            total[name] = total.get(name, 0.0) + v
+        self.device_ticks[profiled] += 1
+        self.offsets_ns.append(offset)
+
+    def phase_rows(self, profiled: bool = False) -> np.ndarray:
+        """The ring's rows (``profiled``: the instrumented ticks'), oldest
+        first, as (ticks, 7) int64 nanoseconds: the entry on the profiler's
+        clock, then :data:`PHASES`."""
+        n = self.rows[profiled]
+        ring = self.rings[profiled]
+        raw = np.asarray([ring[i % RING] for i in range(max(0, n - RING), n)],
+                         np.int64).reshape(-1, 7)
+        out = np.empty_like(raw)
+        out[:, 0] = raw[:, 0] + profiling.PROFILER_CLOCK_NS
+        out[:, 1] = raw[:, 1] - raw[:, 0]
+        out[:, 2] = raw[:, 2] - raw[:, 1]
+        out[:, 3] = raw[:, 6]
+        out[:, 4:] = np.diff(raw[:, 2:6], axis=1)
+        return out
+
+    def phase_ms(self, q: float = 50, profiled: bool = False) -> Optional[Dict[str, float]]:
+        """Each phase's ``q``-th percentile over a ring, in milliseconds;
+        None while the ring is empty."""
+        rows = self.phase_rows(profiled)
+        if not len(rows):
+            return None
+        return dict(zip(PHASES, np.percentile(rows[:, 1:], q, axis=0) / 1e6))
+
+    def device_phase_ms(self, name: str, profiled: bool = True) -> Optional[float]:
+        """The device clock's milliseconds a tick in the spans ``name``,
+        over the profiled (or the other) clocked ticks; None where none of
+        them held such a span."""
+        ticks = self.device_ticks[profiled]
+        v = self.device_ms[profiled].get(name)
+        return None if v is None or not ticks else v / ticks
+
+    def offset_us(self) -> Optional[tuple]:
+        """The anchor offset of the clocked ticks in the ring, microseconds:
+        (median, the distance between its quartiles)."""
+        if not self.offsets_ns:
+            return None
+        q1, q2, q3 = np.percentile(np.asarray(self.offsets_ns) / 1e3, [25, 50, 75])
+        return float(q2), float(q3 - q1)
 
 
 def _states(x0_phys, batch: int) -> np.ndarray:
@@ -120,17 +225,20 @@ class _Service:
     """The tick the four services share.  A service passes its batch, its
     deadline, its zero warm state (a tuple of tensors on its device, the
     plan words first) and the scale of its output lanes, and supplies
-    ``_tick(*warm, inputs)``, which returns the next warm state and, last,
-    the output lanes; :meth:`_inputs` and :meth:`_bad_rows` where they
-    differ."""
+    ``_call(*warm, inputs)``, the solver's call, which returns a tuple,
+    and ``_shift(*that tuple)``, which returns the next warm state and,
+    last, the output lanes (``_tick`` is the two in turn);
+    :meth:`_inputs` and :meth:`_bad_rows` where they differ."""
 
     def __init__(self, batch: int, deadline_s, zero: tuple, scale):
         self.batch = batch
         self.deadline_s = deadline_s
         self.stats = ServiceStats()
+        profiling.register(self)
         self._zero = zero
         self._warm = zero
         self._scale = scale
+        self._on_card = zero[0].is_cuda
 
     def _inputs(self, x0: np.ndarray):
         """The tick's input from the validated states: f32 on the device."""
@@ -141,33 +249,70 @@ class _Service:
         non-finite state."""
         return ~np.isfinite(x0).all(axis=-1)
 
+    def _tick(self, *args):
+        return self._shift(*self._call(*args))
+
     def solve(self, x0_phys: np.ndarray) -> np.ndarray:
         """One service tick: (batch, n) physical states -> physical
         controls, the (batch, T) plans of :class:`MPCService`, the (batch,
         m) first controls of the RTI services.  Validates and self-heals
-        the warm state."""
-        with span("pint.serve.solve"):
-            t0 = time.perf_counter()
-            with span("pint.serve.in"):
-                x0 = _states(x0_phys, self.batch)
-                inputs = self._inputs(x0)
-            *out, lanes = self._tick(*self._warm, inputs)
-            warm = out[len(out) - len(self._zero):]   # MPCService's words come first
-            t1 = time.perf_counter()
-            with span("pint.serve.wait"):
-                lanes_np = lanes.cpu().numpy()
-            self.stats.record_tick(t0, t1, time.perf_counter(), self.deadline_s)
-
-            with span("pint.serve.out"):
-                bad = self._bad_rows(x0, lanes_np)
-                if bad.any():
-                    self.stats.resets += int(bad.sum())
-                    keep = torch.as_tensor(~bad, device=self._zero[0].device)
-                    warm = [torch.where(keep.view(-1, *(1,) * (w.dim() - 1)), w, z)
-                            for w, z in zip(warm, self._zero)]
-                    lanes_np = np.where(bad[:, None], 0, lanes_np)
-                self._warm = tuple(warm)
-                return lanes_np.astype(np.float64) * self._scale
+        the warm state.  Its phases are stamped; with the device clock on,
+        its spans are timed on the device too."""
+        st = self.stats
+        ring = profiled = _profiler_on()     # the second ring: an instrumented tick
+        clock = None
+        if self._on_card and (profiled or (
+                st.device_every and st.ticks % st.device_every == 0)):
+            clock = profiling.DEVICE_CLOCK.start(
+                torch.cuda.current_stream(self._zero[0].device))
+            ring = True
+        launch = launch_ns[0]
+        try:
+            with span("pint.serve.solve"):
+                t0 = stamp()
+                with span("pint.serve.in"):
+                    x0 = _states(x0_phys, self.batch)
+                    inputs = self._inputs(x0)
+                t1 = stamp()
+                res = self._call(*self._warm, inputs)
+                t2 = stamp()
+                *out, lanes = self._shift(*res)
+                warm = out[len(out) - len(self._zero):]   # MPCService's words come first
+                t3 = stamp()
+                with span("pint.serve.wait"):
+                    if clock is None:
+                        lanes_np = lanes.cpu().numpy()
+                    else:
+                        lanes_np, anchor = clock.fetch(lanes)
+                t4 = stamp()
+                with span("pint.serve.out"):
+                    bad = self._bad_rows(x0, lanes_np)
+                    if bad.any():
+                        st.resets += int(bad.sum())
+                        keep = torch.as_tensor(~bad, device=self._zero[0].device)
+                        warm = [torch.where(keep.view(-1, *(1,) * (w.dim() - 1)), w, z)
+                                for w, z in zip(warm, self._zero)]
+                        lanes_np = np.where(bad[:, None], 0, lanes_np)
+                    self._warm = tuple(warm)
+                    result = lanes_np.astype(np.float64) * self._scale
+                # the tick's row, written here and not by a method of the
+                # stats: a call would cost a sixth of the clock's budget
+                n = st.rows[ring]
+                st.rings[ring][n % RING] = (t0, t1, t2, t3, t4, stamp(), launch_ns[0] - launch)
+                st.rows[ring] = n + 1
+                st.enqueue_ns += t3 - t0
+                st.wait_ns += t4 - t3
+                if self.deadline_s is not None and t4 - t0 > self.deadline_s * 1e9:
+                    st.deadline_misses += 1
+        except BaseException:
+            if clock is not None:
+                clock.stop()
+                clock.discard()
+            raise
+        if clock is not None:
+            clock.stop()
+            st.record_device(clock.read(anchor, t4), profiled)
+        return result
 
     def reset(self) -> None:
         self._warm = self._zero
@@ -210,10 +355,11 @@ class MPCService(_Service):
             np.asarray(qqp.qp.g_ref, np.float32), device=self.device
         )
 
-    def _tick(self, words, g_pre):
-        """Solve from the warm words; returns (words, next warm words,
-        lanes (B, T))."""
-        words = self._solver.solve_words(words, g_pre)
+    def _call(self, words, g_pre):
+        return (self._solver.solve_words(words, g_pre),)
+
+    def _shift(self, words):
+        """Returns (words, next warm words, lanes (B, T))."""
         with span("pint.serve.shift"):
             all_lanes = unpack_controls(words)
             warm = _shift_plan(all_lanes, self.m, all_lanes.shape[-1])
@@ -262,9 +408,11 @@ class RTIService(_Service):
         super().__init__(batch, deadline_s, (sqp.init_words(batch),),
                          np.asarray(sqp._lane_scales))
 
-    def _tick(self, words, x0_f):
+    def _call(self, words, x0_f):
+        return (self.sqp.solve_words(words, x0_f),)
+
+    def _shift(self, words):
         """Returns (next warm words, first controls (B, m) int32 lanes)."""
-        words = self.sqp.solve_words(words, x0_f)
         with span("pint.serve.shift"):
             lanes = unpack_controls(words)
             return _shift_plan(lanes, self.m, self.sqp.n_dec), lanes[:, : self.m]
@@ -300,11 +448,13 @@ class ConstrainedRTIService(_Service):
                          (csqp.init_words(batch), csqp.init_lam(batch)),
                          np.asarray(csqp.dev._lane_scales))
 
-    def _tick(self, words, lam, x0_f):
+    def _call(self, words, lam, x0_f):
+        return self.csqp.solve_words(words, x0_f, lam)
+
+    def _shift(self, words, lam):
         """Returns (next warm words, next warm lam, first controls (B, m)
         int32 lanes)."""
         csqp = self.csqp
-        words, lam = csqp.solve_words(words, x0_f, lam)
         with span("pint.serve.shift"):
             lanes = unpack_controls(words)
             warm = _shift_plan(lanes, self.m, csqp.dev.n_dec)
@@ -347,16 +497,19 @@ class MPPIService(_Service):
         zero = (mppi.init_words(batch), table.expand(batch, *table.shape[1:]))
         super().__init__(batch, deadline_s, zero, mppi.model.lane_scales)
 
-    def _tick(self, words, noise, x0_f):
-        """Returns (next warm words, next noise, first controls (B, 2) int32
-        lanes)."""
+    def _call(self, words, noise, x0_f):
         mppi = self.mppi
         # rounded half to even as Unicycle.to_fixed rounds; a component that
         # is not finite reads 0 (its row is reset in any case), one past
         # int32's range its end (2**31 - 128 is float32's last below 2**31)
         q = torch.round(torch.nan_to_num(x0_f, nan=0.0, posinf=0.0, neginf=0.0) * self._q)
         state = torch.clamp(q, -(2.0**31), 2.0**31 - 128).to(torch.int32)
-        words = mppi.solve_words(words, state, noise, self._cost)
+        return (mppi.solve_words(words, state, noise, self._cost),)
+
+    def _shift(self, words):
+        """Returns (next warm words, next noise, first controls (B, 2) int32
+        lanes): the plan shifted, then the next tick's draw."""
+        mppi = self.mppi
         with span("pint.serve.shift"):
             lanes = unpack_controls(words)
             warm = _shift_plan(lanes, 2, mppi.lanes_per_plan)

@@ -3,7 +3,11 @@
 * :func:`trace` -- context manager around ``torch.profiler``, writing a
   Chrome trace of the enclosed block (kernel names, device time, launches).
 * :func:`span` -- a named host range of the program's own (``pint.*``),
-  recorded whenever a ``torch.profiler`` session records.
+  recorded whenever a ``torch.profiler`` session records; while the device
+  clock (:class:`DeviceClock`) is on, also a pair of timing events on the
+  CUDA stream.
+* :func:`clocks` -- the phase clocks of the live services
+  (``serving.ServiceStats``), where an exporter reads them.
 * :func:`op_word_costs` -- whole-word integer op counts of each packed op.
 * :func:`roofline_report` -- measured op rates against the memory and
   integer-ALU bounds.  Callers pass the card's own calibration (a raw-add
@@ -19,18 +23,32 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Dict, Iterator, Tuple
+import time
+import weakref
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from pint_tpu_torch.layout import PackedLayout
 
-__all__ = ["H100_SXM", "KernelCost", "bound_ms", "kernel_cost", "op_word_costs",
-           "roofline_report", "span", "trace"]
+__all__ = ["DEVICE_CLOCK", "H100_SXM", "PROFILER_CLOCK_NS", "DeviceClock", "KernelCost",
+           "bound_ms", "clocks", "device_clock", "kernel_cost", "op_word_costs", "profiling",
+           "register", "roofline_report", "span", "stamp", "trace"]
 
 _RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 _NULL = contextlib.nullcontext()
 
+stamp = time.perf_counter_ns
+"""The phase clocks' host stamp: ``CLOCK_MONOTONIC`` in nanoseconds."""
+
+PROFILER_CLOCK_NS = time.time_ns() - time.perf_counter_ns()
+"""Added to a :data:`stamp`, the same instant on the clock ``torch.profiler``
+stamps host events with: Unix time in nanoseconds (its approximate clock,
+converted to the wall clock when a session ends).  Taken once: the two
+clocks are slewed alike and differ only where the wall clock is stepped."""
+
+profiling = torch._C._autograd._profiler_enabled
+"""Whether a ``torch.profiler`` session records: the flag it sets."""
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[torch.profiler.profile]:
@@ -45,6 +63,158 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+_SERVICES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register(service) -> None:
+    """Add a service (it has ``stats``) to those :func:`clocks` reads; it
+    leaves them when it is freed."""
+    _SERVICES.add(service)
+
+
+def clocks() -> list:
+    """The phase clocks (``serving.ServiceStats``) of the live services,
+    each of which registered itself when it was built."""
+    return [s.stats for s in list(_SERVICES)]
+
+
+class DeviceClock:
+    """The device's phase clock: while it is on (:meth:`start` to
+    :meth:`stop`, one service tick), each :func:`span` also records a
+    timing event on the tick's CUDA stream at its entry and one at its
+    exit, and keeps the pair in :attr:`pairs`.  Under a CUDA graph's
+    capture the events are ``external``, so they become event-record nodes
+    of the graph; the capture (``utils.graphs``) takes those pairs for its
+    graph and hands them back at each replay.  :meth:`read` gives each
+    span's device milliseconds once the stream has passed the last event,
+    and places every pair on the host's clock by an anchor: an event the
+    service records after the controls' copy back, whose host time is the
+    stamp of the wait's return.  One clock a process, on for one tick at a
+    time."""
+
+    def __init__(self):
+        self.pairs: List[tuple] = []      # (name, start event, end event)
+        self._made: List[torch.cuda.Event] = []
+        self._free: List[torch.cuda.Event] = []
+        self._last = None
+        self.stream = None
+        self.external = False
+        self.entry = None
+        self.entry_ns = 0
+
+    def record(self) -> "torch.cuda.Event":
+        """A timing event recorded on the tick's stream (under a capture, a
+        graph node owned by the graph)."""
+        if self.external:
+            ev = torch.cuda.Event(enable_timing=True, external=True)
+        else:
+            ev = self._free.pop() if self._free else torch.cuda.Event(enable_timing=True)
+            self._made.append(ev)
+        ev.record(self.stream)
+        self._last = ev
+        return ev
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator[None]:
+        """Inside a CUDA graph's capture: record on the capturing stream,
+        as the graph's event-record nodes."""
+        stream, self.stream, self.external = self.stream, torch.cuda.current_stream(), True
+        try:
+            yield
+        finally:
+            self.stream, self.external = stream, False
+
+    def start(self, stream) -> "DeviceClock":
+        """Turn the clock on for a tick whose device work runs on
+        ``stream`` (the service's device's current stream, which need not
+        be the current device's), and record the tick's entry event there,
+        stamped right after its record."""
+        global _ACTIVE
+        if self.stream is not None and self.stream.device != stream.device:
+            self._free.clear()             # an event records on its own device alone
+        _ACTIVE = self
+        self.stream = stream
+        self.entry = self.record()
+        self.entry_ns = stamp()
+        return self
+
+    def stop(self) -> None:
+        global _ACTIVE
+        _ACTIVE = None
+
+    def fetch(self, lanes: torch.Tensor):
+        """The controls' copy back while the clock is on: into pinned host
+        memory without blocking, on the tick's stream, then the anchor
+        event after it there, waited for.  Returns (the lanes as numpy,
+        the anchor)."""
+        host = torch.empty(lanes.shape, dtype=lanes.dtype, pin_memory=True)
+        with torch.cuda.stream(self.stream):
+            host.copy_(lanes, non_blocking=True)
+        anchor = self.record()
+        anchor.synchronize()
+        return host.numpy(), anchor
+
+    def read(self, anchor, anchor_ns: int):
+        """The tick's readings, once :meth:`stop` has turned the clock
+        off: ({span name: device ms, summed over the tick}, [(name, start,
+        end) on the profiler's clock, ns], the anchor's offset in ns).  The
+        anchor event was recorded right after the controls' copy back and
+        waited for; ``anchor_ns`` is the stamp of the wait's return.  The
+        offset is the wait's return less the copy's end as the entry event
+        places it (the entry event at the stamp ``entry_ns``): the time the
+        host's stamps and the device's events do not account for, the
+        launch of the entry event and the wake from the wait."""
+        self._last.synchronize()
+        ms: Dict[str, float] = {}
+        placed = []
+        at = anchor_ns + PROFILER_CLOCK_NS
+        for name, a, b in self.pairs:
+            ta, tb = a.elapsed_time(anchor), b.elapsed_time(anchor)
+            ms[name] = ms.get(name, 0.0) + (ta - tb)
+            placed.append((name, at - int(ta * 1e6), at - int(tb * 1e6)))
+        offset = anchor_ns - self.entry_ns - int(self.entry.elapsed_time(anchor) * 1e6)
+        self.discard()
+        return ms, placed, offset
+
+    def discard(self) -> None:
+        """Drop the tick's pairs (read, or unread after a tick that raised)
+        and keep the events the clock made for the next tick."""
+        self.pairs.clear()
+        self._free += self._made
+        self._made.clear()
+
+
+_ACTIVE: Optional[DeviceClock] = None
+DEVICE_CLOCK = DeviceClock()
+"""The process's device clock (off until a service starts it)."""
+
+
+def device_clock() -> Optional[DeviceClock]:
+    """The device clock while it is on, else None."""
+    return _ACTIVE
+
+
+class _TimedSpan:
+    """:func:`span` while the device clock is on: the same host range,
+    and a pair of timing events around it."""
+
+    __slots__ = ("name", "clock", "range", "start")
+
+    def __init__(self, name: str, clock: DeviceClock):
+        self.name = name
+        self.clock = clock
+        self.range = _NULL if _RecordFunctionFast is None else _RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.start = self.clock.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.clock.pairs.append((self.name, self.start, self.clock.record()))
+        return self.range.__exit__(*exc)
+
+
 def span(name: str):
     """A context manager that marks the enclosed host work as ``name`` in
     a ``torch.profiler`` trace: a host-only range on the profiler's clock,
@@ -56,7 +226,11 @@ def span(name: str):
     profiler does not draw again on the device; never ``record_function``,
     whose user-scope range the device trace repeats as an annotation over
     the whole span, which a reader of the device's busy time would count
-    as work.  Where torch lacks it, a shared null context."""
+    as work.  Where torch lacks it, a shared null context.  While the
+    device clock is on (:class:`DeviceClock`), the range also times the
+    enclosed device work."""
+    if _ACTIVE is not None:
+        return _TimedSpan(name, _ACTIVE)
     return _NULL if _RecordFunctionFast is None else _RecordFunctionFast(name)
 
 

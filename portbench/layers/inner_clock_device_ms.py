@@ -1,0 +1,9 @@
+"""Solver: K4 / K5, device time (the device clock): milliseconds a tick
+between the timing events of the ``pint.sqp.inner`` spans, inside the
+solve's CUDA graph, over the traced slice's ticks."""
+
+from portbench import clocks
+
+
+def read(summary, cell):
+    return clocks.device_ms("pint.sqp.inner")

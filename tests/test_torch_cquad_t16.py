@@ -65,7 +65,10 @@ def test_the_cell_loads_by_name():
     assert {m["name"] for m in cell.per_layer} == {
         "serve_launches_per_tick", "solver_launches_per_tick", "device_idle_share",
         "serve_enqueue_ms", "serve_wait_ms", "solver_replay_share", "propagate_device_ms",
-        "reduce_device_ms", "chain_roofline", "stack_device_ms"}
+        "reduce_device_ms", "chain_roofline", "stack_device_ms", "serve_in_clock_ms",
+        "solver_call_clock_ms", "graph_launch_clock_ms", "serve_shift_clock_ms",
+        "serve_wait_clock_ms", "serve_out_clock_ms", "device_idle_clock_share",
+        "quantize_clock_device_ms", "inner_clock_device_ms", "scale_clock_device_ms"}
     for m in cell.per_layer:
         assert callable(run.reader(ROOT, m["name"]))
         assert m["moves"] in {e["name"] for e in cell.end_to_end}
